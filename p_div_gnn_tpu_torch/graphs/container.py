@@ -1,0 +1,130 @@
+"""Static-shape padded graph batch — the device-facing data structure.
+
+The jax-free counterpart of ``p_div_gnn_tpu/graphs/container.py``: the same
+fields with the same layout contract, held as numpy arrays on the host
+(``pack_batch``'s output) and as torch tensors after ``.to(device)``.
+
+- nodes of graph g occupy a contiguous range; padding nodes carry
+  ``node_gid == n_graphs``;
+- edges are sorted by receiver in a block-aligned CSR layout: every
+  ``tile``-node range's edge run is padded to a whole number of edge blocks,
+  and ``edge_block_tile`` names the node tile of each block (the fused
+  edge-step kernel reads both sizes from the batch);
+- padding edges carry ``edge_gid == n_graphs`` and contribute nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+Array = Any  # np.ndarray on the host, torch.Tensor on the device
+
+# Layout constants of the JAX package's defaults (graphs/container.py:43,
+# 49, 58): edge-stream block, node tile of the block-aligned CSR layout,
+# sender-view block.
+EDGE_BLOCK = 768
+NODE_TILE = 256
+SND_BLOCK = EDGE_BLOCK
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    # --- nodes (capacity Np; graphs contiguous; >=1 trailing padding node)
+    pos: Array  # (Np, 2) f32
+    mean_stress: Array  # (Np, 3) f32 (macroscopic stress broadcast per node)
+    node_type: Array  # (Np, 1) f32 in {-1, 0, 1}
+    local_stress: Array  # (Np, 3) f32 (target field; zeros at inference)
+    node_gid: Array  # (Np,) i32 graph id; == n_graphs for padding
+
+    # --- edges (capacity Ep; block-aligned CSR by receiver)
+    senders: Array  # (Ep,) i32
+    receivers: Array  # (Ep,) i32
+    edge_weight: Array  # (Ep, 1) f32 (0 on periodic + padding edges)
+    edge_gid: Array  # (Ep,) i32 == n_graphs for padding
+    tile_ptr: Array  # (Np // tile + 1,) i32 CSR offsets per node tile
+    edge_block_tile: Array  # (Ep // block,) i32 node tile per edge block
+
+    # --- divergence operator, padded COO (capacity Kp)
+    div_data: Array  # (Kp,) f32
+    div_row: Array  # (Kp,) i32
+    div_col_node: Array  # (Kp,) i32
+    div_col_is_y: Array  # (Kp,) i32
+
+    # --- per-graph metadata (capacity G = n_graphs)
+    graph_node_count: Array  # (G,) i32 (0 for padding graphs)
+    graph_node_offset: Array  # (G,) i32
+
+    # --- optional sender-major edge view (batching.build_sender_view)
+    snd_perm: Array | None = None  # (Ep2,) i32
+    snd_sorted: Array | None = None  # (Ep2,) i32
+    snd_block_tile: Array | None = None  # (Ep2 / block,) i32
+
+    # --- optional gather-only (ELL) divergence views (batching.build_div_ell)
+    div_src: Array | None = None  # (Np, W) i32
+    div_val: Array | None = None  # (Np, W) f32
+    div_isy: Array | None = None  # (Np, W) i8
+    divT_row: Array | None = None  # (Np, Wt) i32
+    divT_val: Array | None = None  # (Np, Wt) f32
+    divT_isy: Array | None = None  # (Np, Wt) i8
+
+    # --- optional node-reordering record (pack_batch(reorder="rcm")):
+    # node_order[off+i] = original local index of the node at packed row
+    # off+i; unpack_predictions inverts it.
+    node_order: Array | None = None  # (Np,) i32
+
+    # --- static
+    n_graphs: int = 1
+    tile: int = NODE_TILE
+
+    def array_fields(self) -> list[str]:
+        return [
+            f.name for f in dataclasses.fields(self)
+            if f.name not in ("n_graphs", "tile")
+        ]
+
+    def to(self, device: str | torch.device) -> "GraphBatch":
+        """A copy with every array as a torch tensor on ``device``."""
+        moved = {
+            name: None if (v := getattr(self, name)) is None
+            else torch.as_tensor(v).to(device)
+            for name in self.array_fields()
+        }
+        return dataclasses.replace(self, **moved)
+
+    @property
+    def node_mask(self) -> Array:
+        return self.node_gid < self.n_graphs
+
+    @property
+    def edge_mask(self) -> Array:
+        return self.edge_gid < self.n_graphs
+
+    @property
+    def num_nodes_padded(self) -> int:
+        return int(self.pos.shape[0])
+
+    @property
+    def num_edges_padded(self) -> int:
+        return int(self.senders.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class NormStats:
+    """The 8 scalar normalization statistics the reference model carries and
+    checkpoints (`models.py:98-179,44-63`)."""
+
+    mean_pos: float
+    std_pos: float
+    mean_mean_stress: float
+    std_mean_stress: float
+    mean_local_stress: float
+    std_local_stress: float
+    mean_edge_weight: float
+    std_edge_weight: float
+
+    @classmethod
+    def from_dict(cls, d: dict[str, float]) -> "NormStats":
+        return cls(**{f.name: float(d[f.name]) for f in dataclasses.fields(cls)})

@@ -1,0 +1,48 @@
+"""The port stands alone: no file of p_div_gnn_tpu_torch/, nor
+chip_smoke.py, nor the card-side test file, imports JAX, flax, msgpack,
+yaml, pandas or anything of the JAX package (the machine with the card has
+none of them). Module names are matched whole, so the port's own name,
+which begins with the JAX package's, is allowed."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "pandas", "p_div_gnn_tpu"}
+FILES = sorted((ROOT / "p_div_gnn_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_port_cuda.py"]
+
+
+def imported_modules(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
+def test_forbidden_matches_whole_module_names():
+    assert forbidden("p_div_gnn_tpu") and forbidden("p_div_gnn_tpu.graphs.batching")
+    assert forbidden("jax.numpy") and forbidden("yaml")
+    assert not forbidden("p_div_gnn_tpu_torch.ops.fused_edge3")
+    assert not forbidden("jaxtyping") and not forbidden("torch")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_side_module(path):
+    bad = sorted(m for m in imported_modules(path) if forbidden(m))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_sources_are_found():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"chip_smoke.py", "p_div_gnn_tpu_torch/ops/fused_edge3.py",
+            "p_div_gnn_tpu_torch/models/epd.py", "tests/test_torch_port_cuda.py"} <= names
