@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``p_div_gnn_tpu_torch``) serves
-P-DivGNN on an NVIDIA GPU. Run from the root of a checkout:
+and trains P-DivGNN on an NVIDIA GPU. Run from the root of a checkout:
 
     python3 chip_smoke.py
 
 It needs one CUDA card and nvcc; it imports nothing of JAX or of the JAX
 package. Phases, in order (any failure exits nonzero and prints no result):
 
-1. the card's name and power limit (nvidia-smi), then the kernel build: nvcc
-   compiles ``p_div_gnn_tpu_torch/csrc/fused_edge3_fwd.cu`` into
-   ``build/p_div_gnn_tpu_torch/`` and ctypes loads it;
-2. kernel: at the flagship serving shapes (16 RCM-ordered plate-with-hole
-   meshes of the benchmark generator, latent 128) the fused edge-step kernel
-   is held against its plain PyTorch version on the card, in fp32 and bf16
-   streams, and both are timed with CUDA events;
+1. the card's name and power limit (nvidia-smi), then the kernel builds:
+   nvcc compiles ``p_div_gnn_tpu_torch/csrc/{fused_edge3_fwd,fused_edge3_bwd,
+   segment_sum_csr}.cu`` in parallel into ``build/p_div_gnn_tpu_torch/`` and
+   ctypes loads them; ptxas' registers and spills are printed;
+2. kernels: at the flagship shapes (16 RCM-ordered plate-with-hole meshes of
+   the benchmark generator, latent 128) each kernel is held against its
+   plain PyTorch version on the card, in fp32 and bf16 streams, and both
+   are timed with CUDA events (the segment sum also beside ``index_add_``):
+   the fused edge step's forward on a serving request's batch, its backward
+   and the block-CSR segment sum on the training batch;
 3. serve: the committed checkpoint answers 3 requests of 16 meshes each
-   through ``Predictor`` (fused3, fp32 streams); the kernel's launch count
-   over those requests must be exactly 10 per request, every field finite,
-   and each request must match the plain ``xla`` path on the card;
-4. a ``{"kernels": [...]}`` line with each ported kernel's numbers, then the
+   through ``Predictor`` (fused3, fp32 streams); the forward kernel's
+   launch count over those requests must be exactly 10 per request, every
+   field finite, and each request must match the plain ``xla`` path;
+4. train: ``Trainer.train_step`` takes 5 Adam steps of the benchmark's
+   training step (``bench.py``: latent 128, 10 message-passing steps, no
+   remat, NMSE + 10 x divergence, lr 1e-3) from one seeded random init,
+   with fused3 fp32, xla fp32 and fused3 bf16 streams; losses and
+   gradients must be finite, fused3 must match xla on the step-1 loss and
+   gradients, the loss must fall, and each fused3 step must launch each of
+   the three kernels exactly 10 times (xla steps none);
+5. a ``{"kernels": [...]}`` line with each ported kernel's numbers, then the
    last line ``{"ok": true, "device": {...}}``.
 
 Everything it builds goes to ``build/``.
@@ -27,9 +37,11 @@ Everything it builds goes to ``build/``.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -49,6 +61,22 @@ KERNEL_TOL = {
 }
 # fused3 vs xla model outputs in standardized units (tests/test_fused.py:34)
 SERVE_RTOL, SERVE_ATOL = 2e-4, 2e-5
+# backward kernel vs plain: the JAX package's fused3 gradient tolerance
+# (tests/test_fused3_op.py:87-95) in fp32, its bf16 tolerance (:128)
+BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# segment sum vs plain (tests/test_fused3_op.py:128-131)
+CSR_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# the training step of bench.py:166-178
+TRAIN_STEPS, LEARNING_RATE, DIV_PENALTY = 5, 1e-3, 10.0
+LOSS_RTOL = 1e-5  # fused3 vs xla step-1 loss, fp32
+BF16_LOSS_RTOL = 3e-2  # fused3 bf16 vs fp32 step-1 loss
+# fused3 vs xla step-1 gradients, fp32: for each parameter tensor
+# ||g_fused3 - g_xla|| / ||g_xla|| must stay below GRAD_RTOL. Derived from
+# scripts/port_fp32_noise.py --grad on the card at this size (PERF.md): the
+# fp32 xla and fused3 gradients are at most 2.3e-5 and 2.8e-5 from the fp64
+# one over all parameters, so they can be at most 5.1e-5 apart; 2e-4 leaves
+# a margin of ~4x over that bound for other seeds and cards.
+GRAD_RTOL = 2e-4
 
 
 class SmokeFailure(Exception):
@@ -68,39 +96,9 @@ def build_request(seed: int) -> list:
     """16 periodic plate-with-hole meshes as the benchmark generates them
     (bench.py:95-138); the divergence operator is left out, serving does
     not read it."""
-    import numpy as np
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples
 
-    from p_div_gnn_tpu_torch.datagen.mesher import hole_plate_mesh
-    from p_div_gnn_tpu_torch.graphs.batching import GraphSample
-    from p_div_gnn_tpu_torch.graphs.build import mesh_to_graph
-    from p_div_gnn_tpu_torch.graphs.labels import compute_node_labels
-    from p_div_gnn_tpu_torch.graphs.periodic import compute_periodic_graph
-
-    rng = np.random.default_rng(seed)
-    samples = []
-    for i in range(N_MESHES):
-        mesh = hole_plate_mesh(
-            100.0, 100.0,
-            radius=float(rng.uniform(15, 30)),
-            hole_center=(50.0, 50.0),
-            hole_refinement_factor=8.0,
-            global_mesh_refinement_size=2.5,
-            seed=seed + i,
-        )
-        g = compute_periodic_graph(mesh_to_graph(mesh))
-        n = g.num_nodes
-        samples.append(
-            GraphSample(
-                graph=g,
-                mean_stress=rng.normal(size=3).astype(np.float32),
-                local_stress=rng.normal(size=(n, 3)).astype(np.float32),
-                node_labels=compute_node_labels(mesh),
-                div_data=np.zeros(0, np.float32),
-                div_row=np.zeros(0, np.int64),
-                div_col=np.zeros(0, np.int64),
-            )
-        )
-    return samples
+    return build_samples(N_MESHES, seed, div_operator=False)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -120,6 +118,55 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(flops: float, n_bytes: float, sd_name: str) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the peak rate of their type, in ms."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[sd_name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def held(name: str, got, want, tol: float) -> tuple[float, float]:
+    """Max abs error of ``got`` against ``want`` and the largest share of
+    the allowance it uses; fails outside rtol = atol = tol (elementwise,
+    |got - want| <= tol·(1 + |want|))."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
+    a, b = got.float(), want.float()
+    check(bool(torch.isfinite(a).all()), f"{name}: non-finite kernel output")
+    err = (a - b).abs()
+    worst = float(err.max())
+    share = float((err / (tol * (1.0 + b.abs()))).max())
+    check(share <= 1.0,
+          f"{name}: kernel vs plain max abs err {worst:.3e} outside rtol=atol={tol:g} "
+          f"({share:.2f} of the allowance)")
+    return worst, share
+
+
+def edge_step_inputs(batch, gen):
+    """Random inputs of the fused edge step at the batch's shapes: x and e
+    ~ N(0, 1), g_x = x[senders], weights ~ N(0, 1/L), biases ~ N(0, 1)."""
+    import torch
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+
+    def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = randn(Np, L)
+    return {
+        "x": x,
+        "g_x": x.index_select(0, batch.senders),
+        "e": randn(Ep, L),
+        "w_u": randn(L, L, scale=L**-0.5), "w_v": randn(L, L, scale=L**-0.5),
+        "w_e": randn(L, L, scale=L**-0.5), "b0": randn(L),
+        "w2": randn(L, L, scale=L**-0.5), "b2": randn(L),
+    }
+
+
 def kernel_phase(batch) -> dict:
     """Hold fused_edge_step3's kernel against its plain version on the card
     at the batch's shapes, in both stream dtypes; time both."""
@@ -134,20 +181,7 @@ def kernel_phase(batch) -> dict:
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
     e_real = int(batch.edge_mask.sum())
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    x = randn(Np, L)
-    base = {
-        "x": x,
-        "g_x": x.index_select(0, batch.senders),
-        "e": randn(Ep, L),
-        "w_u": randn(L, L, scale=L**-0.5), "w_v": randn(L, L, scale=L**-0.5),
-        "w_e": randn(L, L, scale=L**-0.5), "b0": randn(L),
-        "w2": randn(L, L, scale=L**-0.5), "b2": randn(L),
-    }
+    base = edge_step_inputs(batch, torch.Generator(device=dev).manual_seed(0))
     aux = (batch.edge_gid, batch.edge_block_tile)
     results = {}
     for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -160,30 +194,18 @@ def kernel_phase(batch) -> dict:
         )
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        errs = {}
-        for name, a, b in zip(("z_upd", "R", "M"), got, want):
-            check(a.shape == b.shape and a.dtype == b.dtype,
-                  f"{sd_name} {name}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
-            a, b = a.float(), b.float()
-            check(bool(torch.isfinite(a).all()), f"{sd_name} {name}: non-finite kernel output")
-            tol = KERNEL_TOL[sd_name][name]
-            err = (a - b).abs()
-            excess = float((err - tol * (1.0 + b.abs())).max())
-            errs[name] = float(err.max())
-            check(excess <= 0.0,
-                  f"{sd_name} {name}: kernel vs plain max abs err {errs[name]:.3e} "
-                  f"outside rtol=atol={tol:g}")
+        errs = {name: held(f"fused_edge3_fwd {sd_name} {name}", a, b,
+                           KERNEL_TOL[sd_name][name])[0]
+                for name, a, b in zip(("z_upd", "R", "M"), got, want)}
         s = torch.finfo(sd).bits // 8
         n_bytes = (s * (Np * L + 3 * Ep * L + 4 * L * L + 2 * L)
                    + 4 * (2 * Ep + NB) + 4 * (Np * L + 8 * L))
         flops = 2 * 7 * L * L * e_real
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[sd_name] * 1e3
+        b_ms, b_by = bound(flops, n_bytes, sd_name)
         res = {
             "max_abs_err": max(errs.values()), "errs": errs,
             "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 10),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flops": flops, "bytes": n_bytes,
+            "bound_ms": b_ms, "bound_by": b_by,
         }
         results[sd_name] = res
         say(f"kernel fused_edge3_fwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
@@ -257,6 +279,244 @@ def serve_phase(requests: list) -> dict:
     return {"launches": launches, "latencies": latencies, "forward_ms": fwd}
 
 
+def backward_kernel_phase(batch) -> dict:
+    """Hold fused_edge_step3's backward kernel against its plain version at
+    the training batch's shapes, with random inputs and nonzero cotangents
+    on z_upd, R and M, in both stream dtypes; time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge3 import (
+        fused_edge_step3_backward,
+        fused_edge_step3_backward_reference,
+        fused_edge_step3_reference,
+    )
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    NB = int(batch.edge_block_tile.shape[0])
+    e_real = int(batch.edge_mask.sum())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    base = edge_step_inputs(batch, gen)
+    dz, dr, dm = (torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((Ep, L), (Np, L), (8, L)))
+    names = ("dx", "dg", "de", "dWu", "dWv", "dWe", "db0", "dW2", "db2")
+    aux = (batch.edge_gid, batch.edge_block_tile)
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        z_upd, _, _ = fused_edge_step3_reference(*args, batch.receivers, batch.edge_gid,
+                                                 batch.n_graphs)
+        dz_sd = dz.to(sd)
+        kern = lambda: fused_edge_step3_backward(  # noqa: E731
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile, z_upd, dz_sd, dr, dm)
+        plain = lambda: fused_edge_step3_backward_reference(  # noqa: E731
+            *args, batch.receivers, batch.edge_gid, batch.n_graphs, z_upd, dz_sd, dr, dm)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        checked = {n: held(f"fused_edge3_bwd {sd_name} {n}", a, b, BWD_TOL[sd_name])
+                 for n, a, b in zip(names, got, want)}
+        errs = {n: v[0] for n, v in checked.items()}
+        del got, want
+        s = torch.finfo(sd).bits // 8
+        # reads x, g_x, e, z_upd, dz_upd, the weights (stream dtype), dR, dM
+        # (fp32) and the indices; writes dg, de (stream dtype), dx and the
+        # weight grads (fp32)
+        n_bytes = (s * (Np * L + 6 * Ep * L + 4 * L * L + 2 * L)
+                   + 4 * (2 * Np * L + 8 * L + (4 * L + 2) * L) + 4 * (2 * Ep + NB))
+        flops = 2 * 20 * L * L * e_real
+        b_ms, b_by = bound(flops, n_bytes, sd_name)
+        res = {"max_abs_err": max(errs.values()), "ms": cuda_ms(kern, 5),
+               "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by}
+        results[sd_name] = res
+        say(f"kernel fused_edge3_bwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
+            f"real_edges={e_real} max_abs_err "
+            + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + " share of the allowance "
+            + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
+            + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+        torch.cuda.empty_cache()
+    return results
+
+
+def segment_sum_kernel_phase(batch) -> dict:
+    """Hold the block-CSR segment sum against its plain version on the
+    training batch's sender view, as the sender gather's backward calls it
+    (rows read through snd_perm); time both and ``index_add_``, the one
+    PyTorch call that computes the same sums."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_reference
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    Ep2 = int(batch.snd_perm.shape[0])
+    NB2 = int(batch.snd_block_tile.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    g = torch.randn((Ep, L), generator=gen, device=dev)
+    snd = batch.senders.long()
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        rows = g.to(sd)
+        kern = lambda: csr_segment_sum(  # noqa: E731
+            rows, batch.snd_sorted, batch.snd_block_tile, Np, batch.tile, perm=batch.snd_perm)
+        plain = lambda: csr_segment_sum_reference(  # noqa: E731
+            rows, batch.snd_sorted, Np, batch.snd_perm)
+        library = lambda: torch.zeros((Np, L), device=dev).index_add_(  # noqa: E731
+            0, snd, rows.float())
+        err = held(f"segment_sum_csr {sd_name}", kern(), plain(), CSR_TOL[sd_name])[0]
+        s = torch.finfo(sd).bits // 8
+        # reads each source row once and the view's indices; writes the sums
+        n_bytes = s * Ep * L + 4 * (2 * Ep2 + NB2) + 4 * Np * L
+        b_ms, b_by = bound(Ep * L, n_bytes, sd_name)
+        res = {"max_abs_err": err, "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 10),
+               "library_ms": cuda_ms(library, 20), "bound_ms": b_ms, "bound_by": b_by}
+        results[sd_name] = res
+        say(f"kernel segment_sum_csr {sd_name}: Np={Np} Ep2={Ep2} L={L} blocks={NB2} "
+            f"max_abs_err={err:.3e} kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"index_add_ms={res['library_ms']:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by}: {n_bytes / 1e9:.3f} GB)")
+    return results
+
+
+def launch_counts() -> dict:
+    from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_backward
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum
+
+    return {"fused_edge3_fwd": fused_edge_step3.launches,
+            "fused_edge3_bwd": fused_edge_step3_backward.launches,
+            "segment_sum_csr": csr_segment_sum.launches}
+
+
+def reset_launch_counts() -> None:
+    from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_backward
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum
+
+    fused_edge_step3.launches = 0
+    fused_edge_step3_backward.launches = 0
+    csr_segment_sum.launches = 0
+
+
+def make_trainer(impl: str, stream_dtype: str, device):
+    """The benchmark's model and trainer (bench.py:166-178) from a seeded
+    random init, on ``device``: the same weights for every impl and dtype."""
+    import torch
+
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    model = EncodeProcessDecode(
+        latent_size=LATENT, message_passing_steps=STEPS, scatter_impl=impl,
+        stream_dtype=stream_dtype, generator=torch.Generator().manual_seed(0),
+        remat_steps=False,
+    )
+    trainer = Trainer(model, NormStats.ones(), learning_rate=LEARNING_RATE,
+                      divergence_penalty=DIV_PENALTY, optimize_divergence=True, device=device)
+    trainer.init()
+    return trainer
+
+
+def train_run(impl: str, stream_dtype: str, batch, n_real_edges: int) -> dict:
+    """TRAIN_STEPS calls of Trainer.train_step; each step timed with CUDA
+    events and its kernel launches counted. Returns the losses, the step-1
+    gradients and the times."""
+    import torch
+
+    trainer = make_trainer(impl, stream_dtype, batch.receivers.device)
+    want = STEPS if impl == "fused3" else 0
+    losses, step_ms, grads = [], [], None
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for step in range(TRAIN_STEPS):
+        before = launch_counts()
+        start.record()
+        aux = trainer.train_step(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        check(all(v == want for v in delta.values()),
+              f"train {impl} {stream_dtype} step {step + 1}: kernel launches {delta}, "
+              f"expected {want} of each")
+        loss = float(aux["total"])
+        check(all(bool(torch.isfinite(v)) for v in aux.values()),
+              f"train {impl} {stream_dtype} step {step + 1}: non-finite loss {loss}")
+        if step == 0:
+            # train_step leaves the step's gradients in .grad (Adam reads them)
+            grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+            bad = [n for n, gr in grads.items() if not bool(torch.isfinite(gr).all())]
+            check(not bad, f"train {impl} {stream_dtype}: non-finite gradients in {bad}")
+        losses.append(loss)
+    steady = statistics.median(step_ms[1:])
+    say(f"train {impl} {stream_dtype}: losses "
+        + " ".join(f"{v:.6f}" for v in losses)
+        + f", step ms " + " ".join(f"{v:.1f}" for v in step_ms)
+        + f", median steps 2-{TRAIN_STEPS} {steady:.3f} ms, {n_real_edges / steady * 1e3:.0f} "
+        f"edges/s, launches per step {want} of each kernel")
+    return {"trainer": trainer, "losses": losses, "grads": grads, "step_ms": steady}
+
+
+def train_phase(batch, n_real_edges: int, card: str) -> dict:
+    """5 Adam steps each of fused3 fp32, xla fp32 and fused3 bf16 from the
+    same init; fused3 is held against xla at step 1, and the counts of
+    kernel launches over the whole phase are returned. ``card`` is
+    nvidia-smi's name and power limit, printed beside the step times."""
+    import torch
+
+    reset_launch_counts()
+    f32 = train_run("fused3", "float32", batch, n_real_edges)
+    x32 = train_run("xla", "float32", batch, n_real_edges)
+    b16 = train_run("fused3", "bfloat16", batch, n_real_edges)
+    launches = launch_counts()
+
+    l_f, l_x = f32["losses"][0], x32["losses"][0]
+    check(abs(l_f - l_x) <= LOSS_RTOL * abs(l_x),
+          f"train step 1: fused3 loss {l_f!r} vs xla {l_x!r} outside rtol {LOSS_RTOL}")
+    rel = {}
+    for n, g_x in x32["grads"].items():
+        d = torch.linalg.vector_norm(f32["grads"][n].double() - g_x.double())
+        rel[n] = float(d / torch.linalg.vector_norm(g_x.double()).clamp_min(1e-300))
+    worst = max(rel, key=rel.get)
+    say(f"train step 1: loss fused3 {l_f!r} xla {l_x!r} (rel {abs(l_f - l_x) / abs(l_x):.3e}); "
+        f"gradients ||fused3 - xla|| / ||xla|| max {rel[worst]:.3e} ({worst}), "
+        f"median {statistics.median(rel.values()):.3e}, tolerance {GRAD_RTOL:g}")
+    check(rel[worst] <= GRAD_RTOL,
+          f"train step 1: gradient of {worst} fused3 vs xla {rel[worst]:.3e} > {GRAD_RTOL:g}")
+    for run, name in ((f32, "fused3 fp32"), (x32, "xla fp32")):
+        check(run["losses"][-1] < run["losses"][0],
+              f"train {name}: step-{TRAIN_STEPS} loss {run['losses'][-1]} is not below "
+              f"step-1 loss {run['losses'][0]}")
+    l_b = b16["losses"][0]
+    check(abs(l_b - l_f) <= BF16_LOSS_RTOL * abs(l_f),
+          f"train step 1: fused3 bf16 loss {l_b!r} vs fp32 {l_f!r} outside rtol {BF16_LOSS_RTOL}")
+    say(f"train: kernel launches over the phase {launches}")
+    say(f"train step time on {card}: " + "; ".join(
+        f"{name} {run['step_ms']:.3f} ms, {n_real_edges / run['step_ms'] * 1e3:.0f} edges/s"
+        for name, run in (("fused3 float32", f32), ("xla float32", x32),
+                          ("fused3 bfloat16", b16))))
+
+    # where the time of one fused3 fp32 step goes: forward + loss, backward,
+    # Adam (one more step of the same trainer, outside the counted runs)
+    trainer = f32["trainer"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    trainer.model.zero_grad(set_to_none=True)
+    ev[0].record()
+    total, _ = trainer.loss(batch)
+    ev[1].record()
+    total.backward()
+    ev[2].record()
+    trainer.optimizer.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    parts = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    say(f"train fused3 float32 step breakdown: forward+loss {parts[0]:.3f} ms, "
+        f"backward {parts[1]:.3f} ms, Adam {parts[2]:.3f} ms")
+    return {"launches": launches, "step_ms": {
+        "fused3 float32": f32["step_ms"], "xla float32": x32["step_ms"],
+        "fused3 bfloat16": b16["step_ms"]}, "breakdown_ms": parts}
+
+
 def main() -> int:
     import torch
 
@@ -280,38 +540,63 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
     from p_div_gnn_tpu_torch.graphs.batching import pack_batch
-    from p_div_gnn_tpu_torch.ops.fused_edge3 import _library
+    from p_div_gnn_tpu_torch.ops import fused_edge3, scatter_csr
 
-    built = _library()
-    say(f"build: {built.path.relative_to(ROOT)} in {built.build_seconds:.1f} s")
-    for line in built.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"build: {line.strip()}")
+    # one nvcc per source, all started together
+    loaders = {"fused_edge3_fwd": fused_edge3._library,
+               "fused_edge3_bwd": fused_edge3._bwd_library,
+               "segment_sum_csr": scatter_csr._library}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {name: pool.submit(load) for name, load in loaders.items()}
+        libs = {name: f.result() for name, f in futures.items()}
+    say(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s wall")
+    for built in libs.values():
+        say(f"build: {built.path.relative_to(ROOT)} in {built.build_seconds:.1f} s")
+        for line in built.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                say(f"build: {line.strip()}")
 
     t0 = time.perf_counter()
     requests = [build_request(seed) for seed in REQUEST_SEEDS]
     say(f"requests: {len(requests)} x {N_MESHES} meshes built in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    host_train, n_real_edges, n_real_nodes = build_workload(N_MESHES, seed=0)
+    train_batch = host_train.to("cuda")
+    say(f"train batch: {N_MESHES} meshes with divergence operators, {n_real_nodes} nodes, "
+        f"{n_real_edges} edges, Np={host_train.num_nodes_padded} "
+        f"Ep={host_train.num_edges_padded} Ep2={host_train.snd_perm.shape[0]}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     batch = pack_batch(requests[0], reorder="rcm", sender_view=False,
                        div_ell=False).to("cuda")
     kern = kernel_phase(batch)
+    bwd = backward_kernel_phase(train_batch)
+    csr = segment_sum_kernel_phase(train_batch)
     serve = serve_phase(requests)
+    train = train_phase(train_batch, n_real_edges, smi)
 
-    k32 = kern["float32"]
-    say(json.dumps({"kernels": [{
-        "name": "fused_edge3_fwd",
-        "route": "cuda",
-        "source": "p_div_gnn_tpu_torch/csrc/fused_edge3_fwd.cu",
-        "replaces": "p_div_gnn_tpu/ops/fused_edge3.py:94",
-        "launches": serve["launches"],
-        "max_abs_err": k32["max_abs_err"],
-        "ms": k32["ms"],
-        "plain_ms": k32["plain_ms"],
-        "bound_ms": k32["bound_ms"],
-        "bound_by": k32["bound_by"],
-        "library_ms": None,
-    }]}))
+    def row(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
+
+    # launches: the serve path's and the train path's runs, each counted
+    # from 0 (serve launches only the forward)
+    tl = train["launches"]
+    say(json.dumps({"kernels": [
+        row("fused_edge3_fwd", "p_div_gnn_tpu_torch/csrc/fused_edge3_fwd.cu",
+            "p_div_gnn_tpu/ops/fused_edge3.py:94",
+            serve["launches"] + tl["fused_edge3_fwd"], kern["float32"]),
+        row("fused_edge3_bwd", "p_div_gnn_tpu_torch/csrc/fused_edge3_bwd.cu",
+            "p_div_gnn_tpu/ops/fused_edge3.py:245", tl["fused_edge3_bwd"], bwd["float32"]),
+        row("segment_sum_csr", "p_div_gnn_tpu_torch/csrc/segment_sum_csr.cu",
+            "p_div_gnn_tpu/ops/scatter_pallas.py:56", tl["segment_sum_csr"], csr["float32"]),
+    ]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,1 +1,2 @@
-"""Synthetic plate-with-hole meshes."""
+"""Synthetic plate-with-hole meshes, the divergence operator and the
+flagship training workload."""

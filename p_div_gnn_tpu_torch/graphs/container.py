@@ -103,6 +103,15 @@ class GraphBatch:
         return self.edge_gid < self.n_graphs
 
     @property
+    def graph_mask(self) -> Array:
+        """(G,) True for graphs that hold nodes (padding graphs are empty)."""
+        return self.graph_node_count > 0
+
+    @property
+    def n_real_graphs(self) -> int:
+        return int((self.graph_node_count > 0).sum())
+
+    @property
     def num_nodes_padded(self) -> int:
         return int(self.pos.shape[0])
 
@@ -128,3 +137,11 @@ class NormStats:
     @classmethod
     def from_dict(cls, d: dict[str, float]) -> "NormStats":
         return cls(**{f.name: float(d[f.name]) for f in dataclasses.fields(cls)})
+
+    @classmethod
+    def ones(cls) -> "NormStats":
+        """Identity statistics: every mean 0, every std 1."""
+        return cls(0.0, 1.0, 0.0, 1.0, 0.0, 1.0, 0.0, 1.0)
+
+    def to_dict(self) -> dict[str, float]:
+        return dataclasses.asdict(self)

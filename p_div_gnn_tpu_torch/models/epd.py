@@ -1,6 +1,6 @@
 """EncodeProcessDecode — the P-DivGNN model, in torch.nn.
 
-Counterpart of ``p_div_gnn_tpu/models/epd.py:99-526`` for serving
+Counterpart of ``p_div_gnn_tpu/models/epd.py:99-526``
 (reference `models.py:98-326`): node features
 ``[σ̄xx, σ̄yy, σ̄xy, pos_x, pos_y, node_type]`` with scalar standardisation,
 encoders 6→L and 1→L, ONE Processor shared across all message-passing steps,
@@ -14,9 +14,17 @@ Two implementations of the step:
 - ``"xla"``: the plain path (`epd.py:346-392`) — node projections, gathers,
   two edge-MLP tails with graph-LN, ``segment_sum`` over receivers;
 - ``"fused3"``: the fused path (`epd.py:182-237`) — one sender gather of x in
-  the stream dtype, the fused edge-step kernel (``ops/fused_edge3.py``), and
-  the graph-LN folded lazily into its consumers:
-  ``aggr = R·α1 + deg·β1``, ``new_e = (z_upd·α2 + β2)·mask``.
+  the stream dtype (``ops/gather.py``, whose backward is the block-CSR
+  scatter over the batch's sender view), the fused edge-step kernels
+  (``ops/fused_edge3.py``), and the graph-LN folded lazily into its
+  consumers: ``aggr = R·α1 + deg·β1``, ``new_e = (z_upd·α2 + β2)·mask``.
+  Training it needs the sender view (``pack_batch(sender_view=True)``);
+  without it the step raises rather than accumulate the gather's gradient
+  in the stream dtype.
+
+With ``remat_steps`` (the JAX default) each message-passing step is
+rematerialized in the backward (``torch.utils.checkpoint``): only the
+(x, e) carries are kept per step.
 
 The JAX package runs fp32 at HIGHEST precision, so importing this module
 turns TF32 off for matmuls and convolutions.
@@ -28,6 +36,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE, GraphBatch, NormStats
 from p_div_gnn_tpu_torch.models.blocks import (
@@ -104,7 +113,10 @@ class Processor(nn.Module):
                 )
             sd = self.stream_dtype
             x_sd = x.to(sd)
-            g_x = sender_gather_one(x_sd, snd)
+            view = None
+            if batch.snd_perm is not None:
+                view = (batch.snd_perm, batch.snd_sorted, batch.snd_block_tile)
+            g_x = sender_gather_one(x_sd, snd, view, batch.tile)
             z_upd, r_raw, m = fused_edge_step3(
                 x_sd, g_x, e.to(sd),
                 self.edge_w_u.to(sd), self.edge_w_v.to(sd), self.edge_w_e.to(sd),
@@ -153,12 +165,14 @@ class EncodeProcessDecode(nn.Module):
         scatter_impl: str = "xla",
         stream_dtype: str = "float32",
         generator: torch.Generator | None = None,
+        remat_steps: bool = True,
     ):
         super().__init__()
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         L = latent_size
         self.message_passing_steps = message_passing_steps
+        self.remat_steps = remat_steps
         self.scatter_impl = scatter_impl
         self.node_encoder = MLPBlock(NODE_FEATURES, L, generator)
         self.edge_encoder = MLPBlock(EDGE_FEATURES, L, generator)
@@ -168,21 +182,32 @@ class EncodeProcessDecode(nn.Module):
         )
 
     def forward(
-        self, batch: GraphBatch, stats: NormStats, scale_output: bool = True
+        self,
+        batch: GraphBatch,
+        stats: NormStats,
+        scale_input: bool = True,
+        scale_output: bool = True,
     ) -> torch.Tensor:
-        """(Np, 3) stress field; standardized when ``scale_output`` is False."""
-        mean_stress = (batch.mean_stress - stats.mean_mean_stress) / stats.std_mean_stress
-        pos = (batch.pos - stats.mean_pos) / stats.std_pos
+        """(Np, 3) stress field; standardized when ``scale_output`` is False.
+        ``scale_input`` standardizes the node and edge features."""
+        mean_stress, pos, e_in = batch.mean_stress, batch.pos, batch.edge_weight
+        if scale_input:
+            mean_stress = (mean_stress - stats.mean_mean_stress) / stats.std_mean_stress
+            pos = (pos - stats.mean_pos) / stats.std_pos
+            e_in = (e_in - stats.mean_edge_weight) / stats.std_edge_weight
         x_in = torch.cat([mean_stress, pos, batch.node_type], dim=-1)
-        e_in = (batch.edge_weight - stats.mean_edge_weight) / stats.std_edge_weight
         x = self.node_encoder(x_in, batch.node_mask)
         e = self.edge_encoder(e_in, batch.edge_mask)
         # the lazy-LN fold's per-node real in-degree is the same every step
         deg = None
         if self.scatter_impl == "fused3":
             deg = segment_sum(batch.edge_mask.float()[:, None], batch.receivers, x.shape[0])
+        remat = self.remat_steps and torch.is_grad_enabled()
         for _ in range(self.message_passing_steps):
-            x, e = self.processor(x, e, batch, deg)
+            if remat:
+                x, e = checkpoint(self.processor, x, e, batch, deg, use_reentrant=False)
+            else:
+                x, e = self.processor(x, e, batch, deg)
         decoded = self.node_decoder(x)
         if scale_output:
             decoded = decoded * stats.std_local_stress + stats.mean_local_stress

@@ -48,7 +48,8 @@ def find_nvcc() -> str | None:
 
 def load_cuda_library(name: str) -> CudaLibrary:
     """Build (if needed) and load ``csrc/<name>.cu``; raises RuntimeError when
-    nvcc is missing or the build fails."""
+    nvcc is missing or the build fails. Every source exports
+    ``pdg_cuda_error_string``, which ``check_launch`` reads."""
     source = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
@@ -75,4 +76,14 @@ def load_cuda_library(name: str) -> CudaLibrary:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed on {source.name}:\n{log}")
         os.replace(tmp, out)
-    return CudaLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+    lib = ctypes.CDLL(str(out))
+    lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pdg_cuda_error_string.restype = ctypes.c_char_p
+    return CudaLibrary(lib, out, seconds, log)
+
+
+def check_launch(built: CudaLibrary, err: int, kernel: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        msg = built.lib.pdg_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")

@@ -1,6 +1,7 @@
-"""Fused edge-step v3 forward: the raw-x message-passing step of the fused3
-path — the counterpart of ``p_div_gnn_tpu/ops/fused_edge3.py``
-(``fused_edge_step3``, whose forward is the Pallas kernel ``_step3_kernel``).
+"""Fused edge-step v3: the raw-x message-passing step of the fused3 path —
+the counterpart of ``p_div_gnn_tpu/ops/fused_edge3.py`` (``fused_edge_step3``,
+whose forward is the Pallas kernel ``_step3_kernel`` and whose VJP is the
+Pallas kernel ``_step3_bwd_kernel``).
 
 For each edge slot i with receiver r (the reference Processor,
 `models.py:182-243`: the message puts the receiver in the first concat slot,
@@ -16,12 +17,17 @@ R[r] = Σ z_msg over the edges into r, and M (8, L) fp32 holding
 Σz_msg, Σz_msg², Σz_upd, Σz_upd² and four zero rows. A slot is padding
 (mask 0) where ``edge_gid >= n_graphs``.
 
-``fused_edge_step3`` runs the hand-written CUDA kernel
-(``csrc/fused_edge3_fwd.cu``) for CUDA tensors and the plain PyTorch version
-``fused_edge_step3_reference`` for CPU tensors; there is no fallback from one
-to the other. In bf16 stream mode both round where the JAX package rounds:
-bf16 operands with fp32 accumulation, ``relu(pre)`` rounded to bf16 before
-``·W2``, R summing the bf16-rounded z_msg and M the fp32 z.
+``fused_edge_step3`` is an ``autograd.Function``. Its forward runs the
+hand-written CUDA kernel (``csrc/fused_edge3_fwd.cu``) for CUDA tensors and
+the plain PyTorch version ``fused_edge_step3_reference`` for CPU tensors;
+its backward, ``fused_edge_step3_backward``, runs the CUDA kernel
+``csrc/fused_edge3_bwd.cu`` or the plain ``fused_edge_step3_backward_reference``
+the same way. There is no fallback from a kernel to a plain version. In bf16
+stream mode all of them round where the JAX package rounds (``_mms``): bf16
+operands with fp32 accumulation in every contraction, ``relu(pre)`` rounded
+to bf16 before ``·W2``, R and dx summing bf16-rounded rows, M the fp32 z.
+The receiver-side cotangent dR is gathered unrounded, as the JAX op does on
+the CPU.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import functools
 
 import torch
 
-from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, load_cuda_library
+from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.segment import segment_sum
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -75,8 +81,6 @@ def _library() -> CudaLibrary:
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
-    built.lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
-    built.lib.pdg_cuda_error_string.restype = ctypes.c_char_p
     return built
 
 
@@ -127,11 +131,213 @@ def _fused_edge_step3_cuda(
                                      w_u, w_v, w_e, w2, b0, b2, z_upd, r, mpart, m)),
             Np, Ep, L, tile, n_blocks, int(n_graphs), stream,
         )
-    if err != 0:
-        msg = built.lib.pdg_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_edge3_fwd launch failed: {msg} ({err})")
+    check_launch(built, err, "fused_edge3_fwd")
     fused_edge_step3.launches += 1
     return z_upd, r, m
+
+
+def fused_edge_step3_backward_reference(
+    x: torch.Tensor, g_x: torch.Tensor, e: torch.Tensor,
+    w_u: torch.Tensor, w_v: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, edge_gid: torch.Tensor, n_graphs: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward (``_step3_bwd_kernel``): the
+    forward is recomputed (z_msg re-masked), then the data cotangents and
+    the weight grads are formed with matmuls. Returns fp32
+    (dx (Np, L), dg, de, dWu, dWv, dWe, db0, dW2, db2), dg and de in the
+    stream dtype. The weight grads sum over every slot in fp64 and round
+    once: the exact sums of the products, which the kernel's fp32 products
+    (summed in fp32 over 8 slots, then in fp64) approach to their rounding."""
+    sd = g_x.dtype
+    Np = x.shape[0]
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:  # round through the stream dtype
+        return t.to(sd).float()
+
+    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return rnd(a) @ rnd(b)
+
+    def wsum(*pairs: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        return sum(rnd(a).double().T @ rnd(b).double() for a, b in pairs).float()
+
+    wu, wv, we, w2f = (t.float() for t in (w_u, w_v, w_e, w2))
+    # the cotangent products read contiguous transposes, as the kernel does
+    wuT, wvT, weT, w2T = (t.T.contiguous() for t in (wu, wv, we, w2f))
+    b0f, b2f = b0.float(), b2.float()
+    mask = (edge_gid < n_graphs).float()[:, None]
+    x_rows = x.float().index_select(0, receivers)
+    gf, ef = g_x.float(), e.float()
+    e_proj = mm(ef, we)
+    pre1 = mm(x_rows, wu) + mm(gf, wv) + e_proj + b0f
+    pre2 = mm(x_rows, wv) + mm(gf, wu) + e_proj + b0f
+    h1, h2 = torch.relu(pre1), torch.relu(pre2)
+    z_msg = torch.relu(mm(h1, w2f) + b2f) * mask
+    z_u = z_upd.float()
+    dmf = dm.float()
+
+    dz_msg = dr.float().index_select(0, receivers) + dmf[0] + 2.0 * dmf[1] * z_msg
+    dy1 = dz_msg * (z_msg > 0)
+    dz_u = dz_upd.float() + dmf[2] + 2.0 * dmf[3] * z_u
+    dy2 = dz_u * (z_u > 0)
+    dpre1 = mm(dy1, w2T) * (h1 > 0)
+    dpre2 = mm(dy2, w2T) * (h2 > 0)
+    dps = dpre1 + dpre2
+
+    dg = (mm(dpre1, wvT) + mm(dpre2, wuT)).to(sd)
+    de = mm(dps, weT).to(sd)
+    dx = segment_sum(rnd(mm(dpre1, wuT) + mm(dpre2, wvT)), receivers, Np)
+    dw2 = wsum((h1, dy1), (h2, dy2))
+    dwe = wsum((ef, dps))
+    dwu = wsum((x_rows, dpre1), (gf, dpre2))
+    dwv = wsum((x_rows, dpre2), (gf, dpre1))
+    db2 = (dy1 + dy2).double().sum(0).float()
+    db0 = dps.double().sum(0).float()
+    return dx, dg, de, dwu, dwv, dwe, db0, dw2, db2
+
+
+@functools.cache
+def _bwd_library() -> CudaLibrary:
+    built = load_cuda_library("fused_edge3_bwd")
+    fn = built.lib.pdg_fused_edge3_bwd
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return built
+
+
+# weight-grad partial sums per launch of the backward: slots are cut into
+# this many chunks (~2 waves of weight-grad CTAs on 132 SMs at L=128)
+BWD_CHUNKS = 64
+
+
+def _fused_edge_step3_backward_cuda(
+    x: torch.Tensor, g_x: torch.Tensor, e: torch.Tensor,
+    w_u: torch.Tensor, w_v: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
+    n_graphs: int, tile: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    built = _bwd_library()
+    Np, L = x.shape
+    Ep = g_x.shape[0]
+    sd = g_x.dtype
+    floats = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, z_upd, dz_upd)
+    ints = (receivers, edge_gid, block_tile)
+    f32 = (dr, dm)
+    _check(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
+    _check(all(t.dtype == sd for t in floats),
+           "x, g_x, e, the weights, z_upd and dz_upd must share a dtype")
+    _check(all(t.dtype == torch.float32 for t in f32), "dR and dM must be float32")
+    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
+    _check(len({t.device for t in floats + ints + f32}) == 1, "tensors on several devices")
+    _check(all(t.is_contiguous() for t in floats + ints + f32), "tensors must be contiguous")
+    _check(all(t.shape == (Ep, L) for t in (g_x, e, z_upd, dz_upd)),
+           "g_x, e, z_upd and dz_upd must be (Ep, L)")
+    _check(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
+    _check(all(w.shape == (L, L) for w in (w_u, w_v, w_e, w2)), "weights must be (L, L)")
+    _check(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
+    _check(receivers.shape == (Ep,) and edge_gid.shape == (Ep,), "index arrays must be (Ep,)")
+    n_blocks = block_tile.shape[0]
+    _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
+           "edge slots must split into whole blocks")
+    _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
+    _check(L % 64 == 0 and 64 <= L <= 256, f"L={L} must be a multiple of 64 in [64, 256]")
+    _check(7 * Ep * L < 2**31 and Np * L < 2**31, "arrays too large")
+
+    dev = x.device
+    transposed = [w.t().contiguous() for w in (w_u, w_v, w_e, w2)]
+    dg = torch.empty((Ep, L), dtype=sd, device=dev)
+    de = torch.empty((Ep, L), dtype=sd, device=dev)
+    dx = torch.zeros((Np, L), dtype=torch.float32, device=dev)
+    scratch = torch.empty((7, Ep, L), dtype=sd, device=dev)
+    bpart = torch.empty((Np // tile, 2, L), dtype=torch.float64, device=dev)
+    wpart = torch.empty((BWD_CHUNKS, 4, L, L), dtype=torch.float64, device=dev)
+    wb = torch.empty((4 * L + 2, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_fused_edge3_bwd(
+            int(sd == torch.bfloat16),
+            *(t.data_ptr() for t in (x, g_x, e, z_upd, dz_upd, dr, dm, receivers, edge_gid,
+                                     block_tile, w_u, w_v, w_e, w2, *transposed, b0, b2,
+                                     dg, de, dx, scratch, bpart, wpart, wb)),
+            Np, Ep, L, tile, n_blocks, int(n_graphs), BWD_CHUNKS, stream,
+        )
+    check_launch(built, err, "fused_edge3_bwd")
+    fused_edge_step3_backward.launches += 1
+    dw2, dwe, dwu, dwv = wb[:4 * L].view(4, L, L).unbind(0)
+    return dx, dg, de, dwu, dwv, dwe, wb[4 * L + 1], dw2, wb[4 * L]
+
+
+def fused_edge_step3_backward(
+    x: torch.Tensor, g_x: torch.Tensor, e: torch.Tensor,
+    w_u: torch.Tensor, w_v: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, aux: tuple[torch.Tensor, torch.Tensor], n_graphs: int,
+    tile: int,
+    z_upd: torch.Tensor,  # (Ep, L) the forward's output, stream dtype
+    dz_upd: torch.Tensor,  # (Ep, L) cotangents, stream dtype
+    dr: torch.Tensor,  # (Np, L) fp32
+    dm: torch.Tensor,  # (8, L) fp32
+) -> tuple[torch.Tensor, ...]:
+    """The fused3 edge step's VJP: fp32 (dx, dg, de, dWu, dWv, dWe, db0,
+    dW2, db2), dg and de in the stream dtype. CUDA tensors go to the kernel
+    (``fused_edge_step3_backward.launches`` counts its launches), CPU
+    tensors to the plain version; anything else raises."""
+    edge_gid, block_tile = aux
+    args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
+    cots = (z_upd, dz_upd, dr, dm)
+    kinds = {t.device.type for t in args + cots + (edge_gid, block_tile)}
+    if kinds == {"cuda"}:
+        return _fused_edge_step3_backward_cuda(
+            *args, edge_gid, block_tile, n_graphs, tile, *cots)
+    if kinds == {"cpu"}:
+        return fused_edge_step3_backward_reference(*args, edge_gid, n_graphs, *cots)
+    raise ValueError(
+        f"fused_edge_step3_backward runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+fused_edge_step3_backward.launches = 0  # type: ignore[attr-defined]
+
+
+def _fused_edge_step3_forward(
+    x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid, block_tile, n_graphs, tile
+):
+    args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
+    kinds = {t.device.type for t in args + (edge_gid, block_tile)}
+    if kinds == {"cuda"}:
+        return _fused_edge_step3_cuda(*args, edge_gid, block_tile, n_graphs, tile)
+    if kinds == {"cpu"}:
+        return fused_edge_step3_reference(*args, edge_gid, n_graphs)
+    raise ValueError(f"fused_edge_step3 runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+class _FusedEdgeStep3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+                n_graphs, tile):
+        z_upd, r, m = _fused_edge_step3_forward(
+            x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+            n_graphs, tile)
+        # what the JAX VJP saves (`_step3_fwd`): the inputs and z_upd
+        ctx.save_for_backward(x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid,
+                              block_tile, z_upd)
+        ctx.n_graphs, ctx.tile = n_graphs, tile
+        return z_upd, r, m
+
+    @staticmethod
+    def backward(ctx, dz_upd, dr, dm):
+        (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+         z_upd) = ctx.saved_tensors
+        grads = fused_edge_step3_backward(
+            x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, (edge_gid, block_tile),
+            ctx.n_graphs, ctx.tile, z_upd, dz_upd.contiguous(), dr.contiguous(),
+            dm.contiguous())
+        inputs = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2)
+        return (*(gr.to(t.dtype) for gr, t in zip(grads, inputs)),) + (None,) * 5
 
 
 def fused_edge_step3(
@@ -149,17 +355,14 @@ def fused_edge_step3(
     n_graphs: int,
     tile: int,  # node tile of the layout (GraphBatch.tile)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fused3 edge step: (z_upd, R, M). CUDA tensors go to the kernel
-    (``fused_edge_step3.launches`` counts its launches), CPU tensors to the
-    plain version; anything else raises."""
+    """The fused3 edge step: (z_upd, R, M), differentiable in x, g_x, e and
+    the weights. CUDA tensors go to the kernels (``fused_edge_step3.launches``
+    counts the forward's launches, ``fused_edge_step3_backward.launches``
+    the backward's), CPU tensors to the plain versions; anything else
+    raises."""
     edge_gid, block_tile = aux
-    args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
-    kinds = {t.device.type for t in args + (edge_gid, block_tile)}
-    if kinds == {"cuda"}:
-        return _fused_edge_step3_cuda(*args, edge_gid, block_tile, n_graphs, tile)
-    if kinds == {"cpu"}:
-        return fused_edge_step3_reference(*args, edge_gid, n_graphs)
-    raise ValueError(f"fused_edge_step3 runs on cuda or cpu tensors, got {sorted(kinds)}")
+    return _FusedEdgeStep3.apply(x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid,
+                                 block_tile, n_graphs, tile)
 
 
 fused_edge_step3.launches = 0  # type: ignore[attr-defined]

@@ -1,0 +1,144 @@
+"""Block-CSR segment sum into node tiles — the counterpart of
+``p_div_gnn_tpu/ops/scatter_pallas.py``'s ``pallas_segment_sum`` (whose
+forward is the Pallas kernel ``_kernel``).
+
+The rows (Ep2, L) are grouped into blocks of ``Ep2 / len(block_tile)``
+slots; block b feeds node tile ``block_tile[b]``, and
+``out[n] = Σ rows[s]`` over the slots s with ``receivers[s] == n``,
+accumulated in fp32 and returned as (num_nodes, L) fp32. Slots with
+receiver −1 add nothing. With ``perm``, slot s reads ``rows[perm[s]]``: the
+sender gather's backward (``ops/gather.py``) permutes its cotangent into
+the sender-major view this way.
+
+``csr_segment_sum`` runs the hand-written CUDA kernel
+(``csrc/segment_sum_csr.cu``) for CUDA tensors and the plain PyTorch version
+``csr_segment_sum_reference`` for CPU tensors; there is no fallback from one
+to the other. Its backward is a plain gather, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
+from p_div_gnn_tpu_torch.ops.segment import segment_sum
+
+ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def csr_segment_sum_reference(
+    rows: torch.Tensor, receivers: torch.Tensor, num_nodes: int,
+    perm: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version: (permute,) mask the −1 slots, ``segment_sum``
+    (fp64 accumulation, rounded once to fp32)."""
+    if perm is not None:
+        rows = rows.index_select(0, perm)
+    valid = receivers >= 0
+    data = torch.where(valid[:, None], rows.float(), 0.0)
+    return segment_sum(data, torch.where(valid, receivers, 0), num_nodes)
+
+
+@functools.cache
+def _library() -> CudaLibrary:
+    built = load_cuda_library("segment_sum_csr")
+    fn = built.lib.pdg_segment_sum_csr
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"csr_segment_sum: {msg}")
+
+
+def _csr_segment_sum_cuda(
+    rows: torch.Tensor, receivers: torch.Tensor, block_tile: torch.Tensor,
+    num_nodes: int, tile: int, perm: torch.Tensor | None,
+) -> torch.Tensor:
+    built = _library()
+    n_src, L = rows.shape
+    n_slots = receivers.shape[0]
+    ints = (receivers, block_tile) + (() if perm is None else (perm,))
+    _check(rows.dtype in ROW_DTYPES, f"row dtype {rows.dtype} is not float32 or bfloat16")
+    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
+    _check(len({t.device for t in (rows,) + ints}) == 1, "tensors on several devices")
+    _check(all(t.is_contiguous() for t in (rows,) + ints), "tensors must be contiguous")
+    _check(receivers.dim() == 1 and (perm is None or perm.shape == receivers.shape),
+           "receivers (and perm) must be (Ep2,)")
+    _check(perm is not None or n_src == n_slots, "rows must be (Ep2, L) without perm")
+    n_blocks = block_tile.shape[0]
+    _check(block_tile.dim() == 1 and n_blocks > 0 and n_slots % n_blocks == 0,
+           "slots must split into whole blocks")
+    _check(tile > 0 and num_nodes % tile == 0, f"num_nodes={num_nodes} is not a multiple of tile={tile}")
+    _check(1 <= L <= 1024, f"L={L} must be in [1, 1024]")
+    _check(n_src * L < 2**31 and num_nodes * L < 2**31 and n_blocks * tile * L < 2**31,
+           "arrays too large")
+
+    dev = rows.device
+    partial = torch.empty((n_blocks, tile, L), dtype=torch.float32, device=dev)
+    out = torch.empty((num_nodes, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_segment_sum_csr(
+            int(rows.dtype == torch.bfloat16), rows.data_ptr(),
+            None if perm is None else perm.data_ptr(), receivers.data_ptr(),
+            block_tile.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            n_src, n_slots, L, num_nodes, tile, n_blocks, stream,
+        )
+    check_launch(built, err, "segment_sum_csr")
+    csr_segment_sum.launches += 1
+    return out
+
+
+def _segment_sum_dispatch(rows, receivers, block_tile, num_nodes, tile, perm):
+    tensors = (rows, receivers, block_tile) + (() if perm is None else (perm,))
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return _csr_segment_sum_cuda(rows, receivers, block_tile, num_nodes, tile, perm)
+    if kinds == {"cpu"}:
+        return csr_segment_sum_reference(rows, receivers, num_nodes, perm)
+    raise ValueError(f"csr_segment_sum runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+class _CsrSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, receivers, block_tile, num_nodes, tile, perm):
+        ctx.save_for_backward(receivers, perm)
+        ctx.n_src = rows.shape[0]
+        ctx.row_dtype = rows.dtype
+        return _segment_sum_dispatch(rows, receivers, block_tile, num_nodes, tile, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        # transpose of a scatter-add is a gather; −1 slots get 0
+        receivers, perm = ctx.saved_tensors
+        valid = (receivers >= 0)[:, None]
+        d = torch.where(valid, g.index_select(0, receivers.clamp(min=0)), 0.0)
+        if perm is not None:
+            # undo the permutation; each source row appears once among the
+            # valid slots, padding slots add a zero
+            d = torch.zeros((ctx.n_src, g.shape[1]), dtype=g.dtype,
+                            device=g.device).index_add_(0, perm, d)
+        return d.to(ctx.row_dtype), None, None, None, None, None
+
+
+def csr_segment_sum(
+    rows: torch.Tensor,  # (Ep2, L) f32 or bf16; (n_src, L) with perm
+    receivers: torch.Tensor,  # (Ep2,) i32 node id per slot, −1 for padding
+    block_tile: torch.Tensor,  # (Ep2 / block,) i32 node tile per block, sorted
+    num_nodes: int,
+    tile: int,  # node tile of the layout (GraphBatch.tile)
+    perm: torch.Tensor | None = None,  # (Ep2,) i32 source row of each slot
+) -> torch.Tensor:
+    """(num_nodes, L) fp32 segment sum over the block-CSR layout. CUDA
+    tensors go to the kernel (``csr_segment_sum.launches`` counts its
+    launches), CPU tensors to the plain version; anything else raises."""
+    return _CsrSegmentSum.apply(rows, receivers, block_tile, num_nodes, tile, perm)
+
+
+csr_segment_sum.launches = 0  # type: ignore[attr-defined]

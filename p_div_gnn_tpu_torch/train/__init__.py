@@ -1,1 +1,1 @@
-"""Checkpoint reading (the training loop is not ported yet)."""
+"""Checkpoint reading and the training step."""

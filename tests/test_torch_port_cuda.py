@@ -1,20 +1,21 @@
-"""The fused edge-step CUDA kernel against its plain PyTorch version on the
-card. It imports neither JAX nor the JAX package, so it runs where the card
+"""The port's CUDA kernels against their plain PyTorch versions on the card:
+the fused edge step's forward and backward, and the block-CSR segment sum. It imports neither JAX nor the JAX package, so it runs where the card
 is (that machine has no JAX; skip the repo's conftest there):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
-Without a card the tests skip. chip_smoke.py makes the same check at the
+Without a card the tests skip. chip_smoke.py makes the same checks at the
 flagship shapes. Tolerances: the JAX package's fused3 op tolerances
-(tests/test_fused3_op.py:65-70 fp32, :128 bf16)."""
+(tests/test_fused3_op.py:65-70 forward and :87-95 gradients in fp32,
+:128-131 the segment sum and bf16), as rtol = atol."""
 
 import numpy as np
 import pytest
 import torch
 
-from p_div_gnn_tpu_torch.graphs.batching import blockify_edges
+from p_div_gnn_tpu_torch.graphs.batching import blockify_edges, build_sender_view
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE
-from p_div_gnn_tpu_torch.ops import fused_edge3
+from p_div_gnn_tpu_torch.ops import fused_edge3, scatter_csr
 
 T = torch.from_numpy
 
@@ -60,3 +61,77 @@ def test_kernel_matches_reference_on_cuda(dtype):
     tols = (1e-5, 1e-4, 1e-3) if dtype == torch.float32 else (3e-2,) * 3
     for a, b, tol in zip(got, want, tols):
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_reference_on_cuda(dtype):
+    """Three node tiles, L = 128, nonzero cotangents on z_upd, R and M; the
+    launch count rises by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arrays, idx = _edge_problem(6, 3, L=128)
+    args = [T(a).to("cuda", dtype) for a in arrays.values()]
+    rcv, gid, bt = (T(idx[k]).cuda() for k in ("receivers", "edge_gid", "block_tile"))
+    z_upd, _, _ = fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1)
+    rng = np.random.default_rng(7)
+    Np, L = arrays["x"].shape
+    dz = T(rng.normal(size=z_upd.shape).astype(np.float32)).to("cuda", dtype)
+    dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
+    before = fused_edge3.fused_edge_step3_backward.launches
+    got = fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
+                                                z_upd, dz, dr, dm)
+    assert fused_edge3.fused_edge_step3_backward.launches == before + 1
+    want = fused_edge3.fused_edge_step3_backward_reference(*args, rcv, gid, 1,
+                                                           z_upd, dz, dr, dm)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_matches_reference_on_cuda(dtype):
+    """The sender view of three node tiles, L = 128, rows read through the
+    permutation; the launch count rises by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(8)
+    num_nodes = 3 * NODE_TILE
+    E = 6 * num_nodes
+    perm, srt, sbt = (T(v).cuda() for v in build_sender_view(
+        rng.integers(0, num_nodes, size=E), num_nodes))
+    rows = T(rng.normal(size=(E, 128)).astype(np.float32)).to("cuda", dtype)
+    before = scatter_csr.csr_segment_sum.launches
+    got = scatter_csr.csr_segment_sum(rows, srt, sbt, num_nodes, NODE_TILE, perm=perm)
+    assert scatter_csr.csr_segment_sum.launches == before + 1
+    want = scatter_csr.csr_segment_sum_reference(rows, srt, num_nodes, perm)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_remat_steps_give_the_same_gradients_on_cuda():
+    """The fused3 training step through the kernels, with and without
+    per-step rematerialization (torch.utils.checkpoint re-runs the forward
+    kernel in the backward): the kernels are deterministic, so the
+    gradients are bit-equal. Two meshes, L = 128, two message-passing
+    steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    batch = build_workload(n_graphs=2, seed=0)[0].to("cuda")
+    grads = []
+    for remat in (False, True):
+        model = EncodeProcessDecode(128, 2, scatter_impl="fused3", remat_steps=remat,
+                                    generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
+        before = fused_edge3.fused_edge_step3.launches
+        _, g = trainer.loss_and_grads(batch)
+        assert fused_edge3.fused_edge_step3.launches - before == (4 if remat else 2)
+        grads.append(g)
+    for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name

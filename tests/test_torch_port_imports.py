@@ -45,4 +45,6 @@ def test_port_imports_no_jax_side_module(path):
 def test_port_sources_are_found():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"chip_smoke.py", "p_div_gnn_tpu_torch/ops/fused_edge3.py",
-            "p_div_gnn_tpu_torch/models/epd.py", "tests/test_torch_port_cuda.py"} <= names
+            "p_div_gnn_tpu_torch/ops/scatter_csr.py", "p_div_gnn_tpu_torch/losses.py",
+            "p_div_gnn_tpu_torch/train/loop.py", "p_div_gnn_tpu_torch/models/epd.py",
+            "tests/test_torch_port_cuda.py"} <= names
