@@ -9,25 +9,32 @@ package. Phases, in order (any failure exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi), then the kernel builds:
    nvcc compiles ``p_div_gnn_tpu_torch/csrc/{fused_edge3_fwd,fused_edge3_bwd,
-   segment_sum_csr}.cu`` in parallel into ``build/p_div_gnn_tpu_torch/`` and
-   ctypes loads them; ptxas' registers and spills are printed;
+   segment_sum_csr,fused_edge_fwd,fused_edge_bwd}.cu`` in parallel into
+   ``build/p_div_gnn_tpu_torch/`` and ctypes loads them; ptxas' registers
+   and spills are printed;
 2. kernels: at the flagship shapes (16 RCM-ordered plate-with-hole meshes of
    the benchmark generator, latent 128) each kernel is held against its
-   plain PyTorch version on the card, in fp32 and bf16 streams, and both
-   are timed with CUDA events (the segment sum also beside ``index_add_``):
-   the fused edge step's forward on a serving request's batch, its backward
-   and the block-CSR segment sum on the training batch;
+   plain PyTorch version on the card and both are timed with CUDA events
+   (the segment sums also beside ``index_add_``): the fused3 and the v2
+   ("fused") edge steps' forwards on a serving request's batch, in fp32 and
+   bf16 streams; their backwards, the block-CSR segment sum (fp32, bf16)
+   and the pair segment sum (fp32) on the training batch;
 3. serve: the committed checkpoint answers 3 requests of 16 meshes each
-   through ``Predictor`` (fused3, fp32 streams); the forward kernel's
-   launch count over those requests must be exactly 10 per request, every
-   field finite, and each request must match the plain ``xla`` path;
+   through ``Predictor`` with fused3 and with fused (fp32 streams); each
+   path's forward kernel must launch exactly 10 times per request and no
+   other kernel at all, every field must be finite, and each request must
+   match the plain ``xla`` path;
 4. train: ``Trainer.train_step`` takes 5 Adam steps of the benchmark's
    training step (``bench.py``: latent 128, 10 message-passing steps, no
    remat, NMSE + 10 x divergence, lr 1e-3) from one seeded random init,
-   with fused3 fp32, xla fp32 and fused3 bf16 streams; losses and
-   gradients must be finite, fused3 must match xla on the step-1 loss and
-   gradients, the loss must fall, and each fused3 step must launch each of
-   the three kernels exactly 10 times (xla steps none);
+   with fused3 fp32, xla fp32, fused3 bf16, fused fp32 and fused bf16
+   streams, and 3 steps each of pallas and hybrid (fp32); losses and
+   gradients must be finite, each fp32 impl must match xla on the step-1
+   loss and gradients, the loss must fall, bf16's step-1 loss must be near
+   fp32's, and each step must launch exactly the kernels of its path: 10
+   of each of its three kernels per fused3 or fused step, 10 block-CSR
+   segment sums per pallas step and 19 per hybrid step (the last step's
+   edge update gets no gradient), none per xla step;
 5. a ``{"kernels": [...]}`` line with each ported kernel's numbers, then the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -54,7 +61,8 @@ REQUEST_SEEDS = (0, 1, 2)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 FMA, bf16 tensor
 # kernel vs plain version: the JAX package's own fused3 op tolerances
-# (tests/test_fused3_op.py:65-70 fp32, :128 bf16), as rtol = atol
+# (tests/test_fused3_op.py:65-70 fp32, :128 bf16), as rtol = atol; the v2
+# op's are the same numbers (tests/test_fused_op.py:86-91)
 KERNEL_TOL = {
     "float32": {"z_upd": 1e-5, "R": 1e-4, "M": 1e-3},
     "bfloat16": {"z_upd": 3e-2, "R": 3e-2, "M": 3e-2},
@@ -62,21 +70,40 @@ KERNEL_TOL = {
 # fused3 vs xla model outputs in standardized units (tests/test_fused.py:34)
 SERVE_RTOL, SERVE_ATOL = 2e-4, 2e-5
 # backward kernel vs plain: the JAX package's fused3 gradient tolerance
-# (tests/test_fused3_op.py:87-95) in fp32, its bf16 tolerance (:128)
+# (tests/test_fused3_op.py:87-95) in fp32, its bf16 tolerance (:128); the v2
+# gradient tolerance is the same (tests/test_fused_op.py:116-120)
 BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # segment sum vs plain (tests/test_fused3_op.py:128-131)
 CSR_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the training step of bench.py:166-178
 TRAIN_STEPS, LEARNING_RATE, DIV_PENALTY = 5, 1e-3, 10.0
-LOSS_RTOL = 1e-5  # fused3 vs xla step-1 loss, fp32
+LOSS_RTOL = 1e-5  # each impl vs xla step-1 loss, fp32
 BF16_LOSS_RTOL = 3e-2  # fused3 bf16 vs fp32 step-1 loss
-# fused3 vs xla step-1 gradients, fp32: for each parameter tensor
-# ||g_fused3 - g_xla|| / ||g_xla|| must stay below GRAD_RTOL. Derived from
+# each impl vs xla step-1 gradients, fp32: for each parameter tensor
+# ||g_impl - g_xla|| / ||g_xla|| must stay below GRAD_RTOL. Derived from
 # scripts/port_fp32_noise.py --grad on the card at this size (PERF.md): the
 # fp32 xla and fused3 gradients are at most 2.3e-5 and 2.8e-5 from the fp64
 # one over all parameters, so they can be at most 5.1e-5 apart; 2e-4 leaves
 # a margin of ~4x over that bound for other seeds and cards.
 GRAD_RTOL = 2e-4
+# kernel launches per training step of each path (counters of
+# launch_counts(); every other counter must stay put)
+def step_launches(impl: str) -> dict:
+    return {
+        "fused3": {"fused_edge3_fwd": STEPS, "fused_edge3_bwd": STEPS, "segment_sum_csr": STEPS},
+        "fused": {"fused_edge_fwd": STEPS, "fused_edge_bwd": STEPS,
+                  "segment_sum_csr_pair": STEPS},
+        "pallas": {"segment_sum_csr": STEPS},  # the receiver scatter's forward
+        # the two sender gathers' backwards of every step but the last
+        # step's edge update: the decoder reads only x, so no gradient
+        # reaches that gather and autograd never runs its backward
+        "hybrid": {"segment_sum_csr": 2 * STEPS - 1},
+        "xla": {},
+    }[impl]
+
+
+# the serving forward launches only the edge step's forward kernel
+SERVE_LAUNCHES = {"fused3": {"fused_edge3_fwd": 1}, "fused": {"fused_edge_fwd": 1}}
 
 
 class SmokeFailure(Exception):
@@ -218,65 +245,67 @@ def kernel_phase(batch) -> dict:
 
 
 def serve_phase(requests: list) -> dict:
-    """Answer the requests with the fused3 Predictor, count the kernel's
-    launches over exactly those requests, then hold every answer against
-    the plain xla path."""
+    """Answer the requests with the fused3 and the fused Predictors, count
+    each path's kernel launches over exactly those requests (from 0), then
+    hold every answer against the plain xla path."""
     import numpy as np
     import torch
 
     from p_div_gnn_tpu_torch.graphs.batching import pack_batch
     from p_div_gnn_tpu_torch.inference import Predictor
-    from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3
 
-    fused = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device="cuda")
     plain = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="xla", device="cuda")
-    stats = fused.stats
-    say(f"serve: checkpoint {CHECKPOINT.relative_to(ROOT)} (epoch {fused.epoch})")
+    stats = plain.stats
+    say(f"serve: checkpoint {CHECKPOINT.relative_to(ROOT)} (epoch {plain.epoch})")
+    want = [plain.predict(samples) for samples in requests]
+    models = {"xla": plain.model}
+    results = {}
+    for impl, per_step in SERVE_LAUNCHES.items():
+        fused = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl=impl, device="cuda")
+        models[impl] = fused.model
+        reset_launch_counts()
+        answers, latencies = [], []
+        for samples in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers.append(fused.predict(samples))  # ends in a device→host copy
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+        launches = launch_counts()
+        expect = {k: STEPS * len(requests) * per_step.get(k, 0) for k in launches}
+        check(launches == expect, f"serve {impl}: kernel launches {launches} over "
+              f"{len(requests)} requests, expected {expect}")
+        say(f"serve {impl}: kernel launches over {len(requests)} requests {launches}")
 
-    fused_edge_step3.launches = 0
-    answers, latencies = [], []
-    for samples in requests:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        answers.append(fused.predict(samples))  # ends in a device→host copy
-        torch.cuda.synchronize()
-        latencies.append(time.perf_counter() - t0)
-    launches = fused_edge_step3.launches
-    check(launches == STEPS * len(requests),
-          f"fused_edge3_fwd launched {launches} times over {len(requests)} requests, "
-          f"expected {STEPS * len(requests)}")
-    say(f"serve: fused_edge3_fwd launched {launches} times over {len(requests)} requests")
-
-    for r, (samples, answer) in enumerate(zip(requests, answers)):
-        worst = ratio = 0.0
-        check(len(answer) == len(samples), f"request {r}: {len(answer)} fields")
-        want = plain.predict(samples)
-        for s, got, ref in zip(samples, answer, want):
-            check(got.shape == (s.num_nodes, 3), f"request {r}: field shape {got.shape}")
-            check(bool(np.isfinite(got).all()), f"request {r}: non-finite field")
-            z_got = (got - stats.mean_local_stress) / stats.std_local_stress
-            z_ref = (ref - stats.mean_local_stress) / stats.std_local_stress
-            err = np.abs(z_got - z_ref)
-            share = float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(z_ref))).max())
-            worst, ratio = max(worst, float(err.max())), max(ratio, share)
-            check(share <= 1.0, f"request {r}: fused3 vs xla max abs err "
-                  f"{float(err.max()):.3e} (standardized) outside rtol={SERVE_RTOL} "
-                  f"atol={SERVE_ATOL} ({share:.2f} of the allowance)")
-        n_nodes = sum(s.num_nodes for s in samples)
-        say(f"serve request {r}: {len(samples)} meshes, {n_nodes} nodes, latency "
-            f"{latencies[r] * 1e3:.1f} ms (pack + forward + copy back), "
-            f"{n_nodes / latencies[r]:.0f} nodes/s, fused3 vs xla max abs err "
-            f"(standardized) {worst:.3e}, {ratio:.2f} of the allowance")
+        for r, (samples, answer) in enumerate(zip(requests, answers)):
+            worst = ratio = 0.0
+            check(len(answer) == len(samples), f"{impl} request {r}: {len(answer)} fields")
+            for s, got, ref in zip(samples, answer, want[r]):
+                check(got.shape == (s.num_nodes, 3), f"{impl} request {r}: shape {got.shape}")
+                check(bool(np.isfinite(got).all()), f"{impl} request {r}: non-finite field")
+                z_got = (got - stats.mean_local_stress) / stats.std_local_stress
+                z_ref = (ref - stats.mean_local_stress) / stats.std_local_stress
+                err = np.abs(z_got - z_ref)
+                share = float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(z_ref))).max())
+                worst, ratio = max(worst, float(err.max())), max(ratio, share)
+                check(share <= 1.0, f"{impl} request {r}: {impl} vs xla max abs err "
+                      f"{float(err.max()):.3e} (standardized) outside rtol={SERVE_RTOL} "
+                      f"atol={SERVE_ATOL} ({share:.2f} of the allowance)")
+            n_nodes = sum(s.num_nodes for s in samples)
+            say(f"serve {impl} request {r}: {len(samples)} meshes, {n_nodes} nodes, latency "
+                f"{latencies[r] * 1e3:.1f} ms (pack + forward + copy back), "
+                f"{n_nodes / latencies[r]:.0f} nodes/s, {impl} vs xla max abs err "
+                f"(standardized) {worst:.3e}, {ratio:.2f} of the allowance")
+        results[impl] = {"launches": launches, "latencies": latencies}
 
     # device time of the model forward alone on request 0's batch
     batch = pack_batch(requests[0], reorder="rcm", sender_view=False,
                        div_ell=False).to("cuda")
     with torch.no_grad():
-        fwd = {name: cuda_ms(lambda m=p.model: m(batch, stats), 5)
-               for name, p in (("fused3", fused), ("xla", plain))}
-    say(f"serve forward device time (request 0 batch): fused3 {fwd['fused3']:.3f} ms, "
-        f"xla {fwd['xla']:.3f} ms")
-    return {"launches": launches, "latencies": latencies, "forward_ms": fwd}
+        fwd = {name: cuda_ms(lambda m=m: m(batch, stats), 5) for name, m in models.items()}
+    say("serve forward device time (request 0 batch): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in fwd.items()))
+    return {"impls": results, "forward_ms": fwd}
 
 
 def backward_kernel_phase(batch) -> dict:
@@ -379,22 +408,199 @@ def segment_sum_kernel_phase(batch) -> dict:
     return results
 
 
+def v2_step_inputs(batch, gen):
+    """Random inputs of the v2 edge step at the batch's shapes: node
+    projections a_u, a_v ~ N(0, 1) and their sender gathers g_v =
+    a_v[senders], g_u = a_u[senders], e ~ N(0, 1), weights ~ N(0, 1/L),
+    biases ~ N(0, 1); in the order of fused_edge_step's arguments."""
+    import torch
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+
+    def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    a_u, a_v = randn(Np, L), randn(Np, L)
+    return {
+        "a_u": a_u, "a_v": a_v,
+        "g_v": a_v.index_select(0, batch.senders), "g_u": a_u.index_select(0, batch.senders),
+        "e": randn(Ep, L), "w_e": randn(L, L, scale=L**-0.5), "b0": randn(L),
+        "w2": randn(L, L, scale=L**-0.5), "b2": randn(L),
+    }
+
+
+def v2_kernel_phase(batch) -> dict:
+    """Hold the v2 edge step's forward kernel (fused_edge_fwd) against its
+    plain version on the card at the batch's shapes, in both stream dtypes;
+    time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step, fused_edge_step_reference
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    NB = int(batch.edge_block_tile.shape[0])
+    e_real = int(batch.edge_mask.sum())
+    base = v2_step_inputs(batch, torch.Generator(device=dev).manual_seed(3))
+    aux = (batch.edge_gid, batch.edge_block_tile)
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        kern = lambda: fused_edge_step(  # noqa: E731
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile)
+        plain = lambda: fused_edge_step_reference(  # noqa: E731
+            *args, batch.receivers, batch.edge_gid, batch.n_graphs)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        checked = {name: held(f"fused_edge_fwd {sd_name} {name}", a, b,
+                              KERNEL_TOL[sd_name][name])
+                   for name, a, b in zip(("z_upd", "R", "M"), got, want)}
+        s = torch.finfo(sd).bits // 8
+        # reads a_u, a_v, g_v, g_u, e, the weights (stream dtype) and the
+        # indices; writes z_upd (stream dtype), R and M (fp32)
+        n_bytes = (s * (2 * Np * L + 4 * Ep * L + 2 * L * L + 2 * L)
+                   + 4 * (2 * Ep + NB) + 4 * (Np * L + 8 * L))
+        flops = 2 * 3 * L * L * e_real
+        b_ms, b_by = bound(flops, n_bytes, sd_name)
+        res = {"max_abs_err": max(v[0] for v in checked.values()),
+               "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 10),
+               "bound_ms": b_ms, "bound_by": b_by}
+        results[sd_name] = res
+        say(f"kernel fused_edge_fwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
+            f"real_edges={e_real} max_abs_err "
+            + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
+            + " share of the allowance "
+            + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
+            + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+    return results
+
+
+def v2_backward_kernel_phase(batch) -> dict:
+    """Hold the v2 edge step's backward kernel (fused_edge_bwd) against its
+    plain version at the training batch's shapes, with random inputs and
+    nonzero cotangents on z_upd, R and M, in both stream dtypes; time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge import (
+        fused_edge_step_backward,
+        fused_edge_step_backward_reference,
+        fused_edge_step_reference,
+    )
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    NB = int(batch.edge_block_tile.shape[0])
+    e_real = int(batch.edge_mask.sum())
+    gen = torch.Generator(device=dev).manual_seed(4)
+    base = v2_step_inputs(batch, gen)
+    dz, dr, dm = (torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((Ep, L), (Np, L), (8, L)))
+    names = ("da_u", "da_v", "dg_v", "dg_u", "de", "dWe", "db0", "dW2", "db2")
+    aux = (batch.edge_gid, batch.edge_block_tile)
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        z_upd, _, _ = fused_edge_step_reference(*args, batch.receivers, batch.edge_gid,
+                                                batch.n_graphs)
+        dz_sd = dz.to(sd)
+        kern = lambda: fused_edge_step_backward(  # noqa: E731
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile, z_upd, dz_sd, dr, dm)
+        plain = lambda: fused_edge_step_backward_reference(  # noqa: E731
+            *args, batch.receivers, batch.edge_gid, batch.n_graphs, z_upd, dz_sd, dr, dm)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        checked = {n: held(f"fused_edge_bwd {sd_name} {n}", a, b, BWD_TOL[sd_name])
+                   for n, a, b in zip(names, got, want)}
+        del got, want
+        s = torch.finfo(sd).bits // 8
+        # reads a_u, a_v, g_v, g_u, e, z_upd, dz_upd, the weights (stream
+        # dtype), dR, dM (fp32) and the indices; writes dg_v, dg_u, de
+        # (stream dtype), da_u, da_v and the weight grads (fp32)
+        n_bytes = (s * (2 * Np * L + 8 * Ep * L + 2 * L * L + 2 * L)
+                   + 4 * (3 * Np * L + 8 * L + (2 * L + 2) * L) + 4 * (2 * Ep + NB))
+        flops = 2 * 8 * L * L * e_real
+        b_ms, b_by = bound(flops, n_bytes, sd_name)
+        res = {"max_abs_err": max(v[0] for v in checked.values()), "ms": cuda_ms(kern, 5),
+               "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by}
+        results[sd_name] = res
+        say(f"kernel fused_edge_bwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
+            f"real_edges={e_real} max_abs_err "
+            + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
+            + " share of the allowance "
+            + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
+            + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+        torch.cuda.empty_cache()
+    return results
+
+
+def pair_kernel_phase(batch) -> dict:
+    """Hold the pair segment sum against its plain version on the training
+    batch's sender view, as the pair sender gather's backward calls it (two
+    fp32 streams read through snd_perm); time both and two ``index_add_``
+    calls, the PyTorch calls that compute the same sums."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.scatter_csr import (
+        csr_segment_sum_pair,
+        csr_segment_sum_pair_reference,
+    )
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    Ep2 = int(batch.snd_perm.shape[0])
+    NB2 = int(batch.snd_block_tile.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g_v, g_u = (torch.randn((Ep, L), generator=gen, device=dev) for _ in range(2))
+    snd = batch.senders.long()
+    kern = lambda: csr_segment_sum_pair(  # noqa: E731
+        g_v, g_u, batch.snd_sorted, batch.snd_block_tile, Np, batch.tile, perm=batch.snd_perm)
+    plain = lambda: csr_segment_sum_pair_reference(  # noqa: E731
+        g_v, g_u, batch.snd_sorted, Np, batch.snd_perm)
+    library = lambda: tuple(  # noqa: E731
+        torch.zeros((Np, L), device=dev).index_add_(0, snd, g) for g in (g_v, g_u))
+    got, want = kern(), plain()
+    checked = [held(f"segment_sum_csr_pair float32 {n}", a, b, CSR_TOL["float32"])
+               for n, a, b in zip(("out_v", "out_u"), got, want)]
+    # reads each source row of both streams once and the view's indices;
+    # writes both sums
+    n_bytes = 2 * 4 * Ep * L + 4 * (2 * Ep2 + NB2) + 2 * 4 * Np * L
+    b_ms, b_by = bound(2 * Ep * L, n_bytes, "float32")
+    res = {"max_abs_err": max(c[0] for c in checked), "ms": cuda_ms(kern, 20),
+           "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 20),
+           "bound_ms": b_ms, "bound_by": b_by}
+    say(f"kernel segment_sum_csr_pair float32: Np={Np} Ep2={Ep2} L={L} blocks={NB2} "
+        f"max_abs_err={res['max_abs_err']:.3e} share of the allowance "
+        + " ".join(f"{c[1]:.3f}" for c in checked)
+        + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+        f"two_index_add_ms={res['library_ms']:.4f} bound_ms={b_ms:.4f} "
+        f"({b_by}: {n_bytes / 1e9:.3f} GB)")
+    return {"float32": res}
+
+
 def launch_counts() -> dict:
+    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step, fused_edge_step_backward
     from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_backward
-    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_pair
 
     return {"fused_edge3_fwd": fused_edge_step3.launches,
             "fused_edge3_bwd": fused_edge_step3_backward.launches,
-            "segment_sum_csr": csr_segment_sum.launches}
+            "segment_sum_csr": csr_segment_sum.launches,
+            "fused_edge_fwd": fused_edge_step.launches,
+            "fused_edge_bwd": fused_edge_step_backward.launches,
+            "segment_sum_csr_pair": csr_segment_sum_pair.launches}
 
 
 def reset_launch_counts() -> None:
+    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step, fused_edge_step_backward
     from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_backward
-    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_pair
 
-    fused_edge_step3.launches = 0
-    fused_edge_step3_backward.launches = 0
-    csr_segment_sum.launches = 0
+    for counted in (fused_edge_step3, fused_edge_step3_backward, csr_segment_sum,
+                    fused_edge_step, fused_edge_step_backward, csr_segment_sum_pair):
+        counted.launches = 0
 
 
 def make_trainer(impl: str, stream_dtype: str, device):
@@ -417,18 +623,22 @@ def make_trainer(impl: str, stream_dtype: str, device):
     return trainer
 
 
-def train_run(impl: str, stream_dtype: str, batch, n_real_edges: int) -> dict:
-    """TRAIN_STEPS calls of Trainer.train_step; each step timed with CUDA
-    events and its kernel launches counted. Returns the losses, the step-1
-    gradients and the times."""
+def train_run(impl: str, stream_dtype: str, batch, n_real_edges: int,
+              n_steps: int = TRAIN_STEPS) -> dict:
+    """``n_steps`` calls of Trainer.train_step, with the launch counts set to
+    0 just before and read just after; each step timed with CUDA events and
+    its kernel launches held to its path's. Returns the losses, the step-1
+    gradients, the times and the run's launches."""
     import torch
 
     trainer = make_trainer(impl, stream_dtype, batch.receivers.device)
-    want = STEPS if impl == "fused3" else 0
+    name = f"train {impl} {stream_dtype}"
+    reset_launch_counts()
+    per_step = {k: step_launches(impl).get(k, 0) for k in launch_counts()}
     losses, step_ms, grads = [], [], None
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    for step in range(TRAIN_STEPS):
+    for step in range(n_steps):
         before = launch_counts()
         start.record()
         aux = trainer.train_step(batch)
@@ -436,69 +646,33 @@ def train_run(impl: str, stream_dtype: str, batch, n_real_edges: int) -> dict:
         torch.cuda.synchronize()
         step_ms.append(start.elapsed_time(stop))
         delta = {k: v - before[k] for k, v in launch_counts().items()}
-        check(all(v == want for v in delta.values()),
-              f"train {impl} {stream_dtype} step {step + 1}: kernel launches {delta}, "
-              f"expected {want} of each")
+        check(delta == per_step,
+              f"{name} step {step + 1}: kernel launches {delta}, expected {per_step}")
         loss = float(aux["total"])
         check(all(bool(torch.isfinite(v)) for v in aux.values()),
-              f"train {impl} {stream_dtype} step {step + 1}: non-finite loss {loss}")
+              f"{name} step {step + 1}: non-finite loss {loss}")
         if step == 0:
             # train_step leaves the step's gradients in .grad (Adam reads them)
             grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
             bad = [n for n, gr in grads.items() if not bool(torch.isfinite(gr).all())]
-            check(not bad, f"train {impl} {stream_dtype}: non-finite gradients in {bad}")
+            check(not bad, f"{name}: non-finite gradients in {bad}")
         losses.append(loss)
-    steady = statistics.median(step_ms[1:])
-    say(f"train {impl} {stream_dtype}: losses "
-        + " ".join(f"{v:.6f}" for v in losses)
-        + f", step ms " + " ".join(f"{v:.1f}" for v in step_ms)
-        + f", median steps 2-{TRAIN_STEPS} {steady:.3f} ms, {n_real_edges / steady * 1e3:.0f} "
-        f"edges/s, launches per step {want} of each kernel")
-    return {"trainer": trainer, "losses": losses, "grads": grads, "step_ms": steady}
+    launches = launch_counts()
+    steady = statistics.median(step_ms[1:] or step_ms)
+    say(f"{name}: losses " + " ".join(f"{v:.6f}" for v in losses)
+        + ", step ms " + " ".join(f"{v:.1f}" for v in step_ms)
+        + f", median of steps {min(2, n_steps)}-{n_steps} {steady:.3f} ms, "
+        f"{n_real_edges / steady * 1e3:.0f} edges/s, launches per step "
+        + (", ".join(f"{k} {v}" for k, v in per_step.items() if v) or "none"))
+    return {"trainer": trainer, "losses": losses, "grads": grads, "step_ms": steady,
+            "launches": launches}
 
 
-def train_phase(batch, n_real_edges: int, card: str) -> dict:
-    """5 Adam steps each of fused3 fp32, xla fp32 and fused3 bf16 from the
-    same init; fused3 is held against xla at step 1, and the counts of
-    kernel launches over the whole phase are returned. ``card`` is
-    nvidia-smi's name and power limit, printed beside the step times."""
+def step_breakdown(trainer, batch, name: str) -> list[float]:
+    """Where the time of one step goes: forward + loss, backward, Adam (one
+    more step of the trainer, outside the counted runs)."""
     import torch
 
-    reset_launch_counts()
-    f32 = train_run("fused3", "float32", batch, n_real_edges)
-    x32 = train_run("xla", "float32", batch, n_real_edges)
-    b16 = train_run("fused3", "bfloat16", batch, n_real_edges)
-    launches = launch_counts()
-
-    l_f, l_x = f32["losses"][0], x32["losses"][0]
-    check(abs(l_f - l_x) <= LOSS_RTOL * abs(l_x),
-          f"train step 1: fused3 loss {l_f!r} vs xla {l_x!r} outside rtol {LOSS_RTOL}")
-    rel = {}
-    for n, g_x in x32["grads"].items():
-        d = torch.linalg.vector_norm(f32["grads"][n].double() - g_x.double())
-        rel[n] = float(d / torch.linalg.vector_norm(g_x.double()).clamp_min(1e-300))
-    worst = max(rel, key=rel.get)
-    say(f"train step 1: loss fused3 {l_f!r} xla {l_x!r} (rel {abs(l_f - l_x) / abs(l_x):.3e}); "
-        f"gradients ||fused3 - xla|| / ||xla|| max {rel[worst]:.3e} ({worst}), "
-        f"median {statistics.median(rel.values()):.3e}, tolerance {GRAD_RTOL:g}")
-    check(rel[worst] <= GRAD_RTOL,
-          f"train step 1: gradient of {worst} fused3 vs xla {rel[worst]:.3e} > {GRAD_RTOL:g}")
-    for run, name in ((f32, "fused3 fp32"), (x32, "xla fp32")):
-        check(run["losses"][-1] < run["losses"][0],
-              f"train {name}: step-{TRAIN_STEPS} loss {run['losses'][-1]} is not below "
-              f"step-1 loss {run['losses'][0]}")
-    l_b = b16["losses"][0]
-    check(abs(l_b - l_f) <= BF16_LOSS_RTOL * abs(l_f),
-          f"train step 1: fused3 bf16 loss {l_b!r} vs fp32 {l_f!r} outside rtol {BF16_LOSS_RTOL}")
-    say(f"train: kernel launches over the phase {launches}")
-    say(f"train step time on {card}: " + "; ".join(
-        f"{name} {run['step_ms']:.3f} ms, {n_real_edges / run['step_ms'] * 1e3:.0f} edges/s"
-        for name, run in (("fused3 float32", f32), ("xla float32", x32),
-                          ("fused3 bfloat16", b16))))
-
-    # where the time of one fused3 fp32 step goes: forward + loss, backward,
-    # Adam (one more step of the same trainer, outside the counted runs)
-    trainer = f32["trainer"]
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     trainer.model.zero_grad(set_to_none=True)
     ev[0].record()
@@ -510,11 +684,75 @@ def train_phase(batch, n_real_edges: int, card: str) -> dict:
     ev[3].record()
     torch.cuda.synchronize()
     parts = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
-    say(f"train fused3 float32 step breakdown: forward+loss {parts[0]:.3f} ms, "
+    say(f"train {name} step breakdown: forward+loss {parts[0]:.3f} ms, "
         f"backward {parts[1]:.3f} ms, Adam {parts[2]:.3f} ms")
-    return {"launches": launches, "step_ms": {
-        "fused3 float32": f32["step_ms"], "xla float32": x32["step_ms"],
-        "fused3 bfloat16": b16["step_ms"]}, "breakdown_ms": parts}
+    return parts
+
+
+# (impl, stream dtype, steps) of the train phase, in order; xla fp32 is the
+# reference of every other fp32 impl
+TRAIN_RUNS = (
+    ("fused3", "float32", TRAIN_STEPS), ("xla", "float32", TRAIN_STEPS),
+    ("fused3", "bfloat16", TRAIN_STEPS), ("fused", "float32", TRAIN_STEPS),
+    ("fused", "bfloat16", TRAIN_STEPS), ("pallas", "float32", 3), ("hybrid", "float32", 3),
+)
+
+
+def train_phase(batch, n_real_edges: int, card: str) -> dict:
+    """The TRAIN_RUNS from the same init; each fp32 impl is held against xla
+    at step 1, each bf16 run against its fp32 run, and the kernel launches
+    of each run are returned. ``card`` is nvidia-smi's name and power
+    limit, printed beside the step times."""
+    import torch
+
+    runs, breakdown = {}, {}
+    for impl, sd, n_steps in TRAIN_RUNS:
+        run = train_run(impl, sd, batch, n_real_edges, n_steps)
+        if sd == "float32" and impl in ("fused3", "fused"):
+            breakdown[impl] = step_breakdown(run["trainer"], batch, f"{impl} {sd}")
+        del run["trainer"]
+        runs[(impl, sd)] = run
+        torch.cuda.empty_cache()
+
+    x32 = runs[("xla", "float32")]
+    l_x = x32["losses"][0]
+    for (impl, sd), run in runs.items():
+        if impl == "xla" or sd != "float32":
+            continue
+        l_f = run["losses"][0]
+        check(abs(l_f - l_x) <= LOSS_RTOL * abs(l_x),
+              f"train step 1: {impl} loss {l_f!r} vs xla {l_x!r} outside rtol {LOSS_RTOL}")
+        rel = {}
+        for n, g_x in x32["grads"].items():
+            d = torch.linalg.vector_norm(run["grads"][n].double() - g_x.double())
+            rel[n] = float(d / torch.linalg.vector_norm(g_x.double()).clamp_min(1e-300))
+        worst = max(rel, key=rel.get)
+        say(f"train step 1: loss {impl} {l_f!r} xla {l_x!r} (rel {abs(l_f - l_x) / abs(l_x):.3e}); "
+            f"gradients ||{impl} - xla|| / ||xla|| max {rel[worst]:.3e} ({worst}), "
+            f"median {statistics.median(rel.values()):.3e}, tolerance {GRAD_RTOL:g}")
+        check(rel[worst] <= GRAD_RTOL,
+              f"train step 1: gradient of {worst} {impl} vs xla {rel[worst]:.3e} > {GRAD_RTOL:g}")
+    for key in (("fused3", "float32"), ("xla", "float32"), ("fused", "float32"),
+                ("fused", "bfloat16")):
+        run = runs[key]
+        check(run["losses"][-1] < run["losses"][0],
+              f"train {' '.join(key)}: step-{TRAIN_STEPS} loss {run['losses'][-1]} is not "
+              f"below step-1 loss {run['losses'][0]}")
+    for impl in ("fused3", "fused"):
+        l_b, l_f = runs[(impl, "bfloat16")]["losses"][0], runs[(impl, "float32")]["losses"][0]
+        check(abs(l_b - l_f) <= BF16_LOSS_RTOL * abs(l_f),
+              f"train step 1: {impl} bf16 loss {l_b!r} vs fp32 {l_f!r} outside rtol "
+              f"{BF16_LOSS_RTOL}")
+        say(f"train step 1: {impl} bf16 loss {l_b!r} vs fp32 {l_f!r} "
+            f"(rel {abs(l_b - l_f) / abs(l_f):.3e}, tolerance {BF16_LOSS_RTOL:g})")
+    say(f"train step time on {card}: " + "; ".join(
+        f"{impl} {sd} {run['step_ms']:.3f} ms, {n_real_edges / run['step_ms'] * 1e3:.0f} edges/s"
+        for (impl, sd), run in runs.items()))
+    launches = {k: sum(run["launches"][k] for run in runs.values()) for k in launch_counts()}
+    say(f"train: kernel launches over the phase {launches}")
+    return {"launches": launches,
+            "step_ms": {f"{impl} {sd}": run["step_ms"] for (impl, sd), run in runs.items()},
+            "breakdown_ms": breakdown}
 
 
 def main() -> int:
@@ -542,12 +780,14 @@ def main() -> int:
 
     from p_div_gnn_tpu_torch.datagen.workload import build_workload
     from p_div_gnn_tpu_torch.graphs.batching import pack_batch
-    from p_div_gnn_tpu_torch.ops import fused_edge3, scatter_csr
+    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
 
     # one nvcc per source, all started together
     loaders = {"fused_edge3_fwd": fused_edge3._library,
                "fused_edge3_bwd": fused_edge3._bwd_library,
-               "segment_sum_csr": scatter_csr._library}
+               "segment_sum_csr": scatter_csr._library,
+               "fused_edge_fwd": fused_edge._library,
+               "fused_edge_bwd": fused_edge._bwd_library}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(load) for name, load in loaders.items()}
@@ -574,8 +814,11 @@ def main() -> int:
     batch = pack_batch(requests[0], reorder="rcm", sender_view=False,
                        div_ell=False).to("cuda")
     kern = kernel_phase(batch)
+    v2 = v2_kernel_phase(batch)
     bwd = backward_kernel_phase(train_batch)
+    v2_bwd = v2_backward_kernel_phase(train_batch)
     csr = segment_sum_kernel_phase(train_batch)
+    pair = pair_kernel_phase(train_batch)
     serve = serve_phase(requests)
     train = train_phase(train_batch, n_real_edges, smi)
 
@@ -585,18 +828,24 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
-    # launches: the serve path's and the train path's runs, each counted
-    # from 0 (serve launches only the forward)
-    tl = train["launches"]
+    # launches: the serve paths' and the train paths' runs, each counted
+    # from 0 (serving launches only the forwards)
+    launches = dict(train["launches"])
+    for impl in serve["impls"].values():
+        for k, v in impl["launches"].items():
+            launches[k] += v
+    rows = (
+        ("fused_edge3_fwd", "fused_edge3_fwd.cu", "p_div_gnn_tpu/ops/fused_edge3.py:94", kern),
+        ("fused_edge3_bwd", "fused_edge3_bwd.cu", "p_div_gnn_tpu/ops/fused_edge3.py:245", bwd),
+        ("segment_sum_csr", "segment_sum_csr.cu", "p_div_gnn_tpu/ops/scatter_pallas.py:56", csr),
+        ("segment_sum_csr_pair", "segment_sum_csr.cu",
+         "p_div_gnn_tpu/ops/scatter_pallas.py:170", pair),
+        ("fused_edge_fwd", "fused_edge_fwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:157", v2),
+        ("fused_edge_bwd", "fused_edge_bwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:333", v2_bwd),
+    )
     say(json.dumps({"kernels": [
-        row("fused_edge3_fwd", "p_div_gnn_tpu_torch/csrc/fused_edge3_fwd.cu",
-            "p_div_gnn_tpu/ops/fused_edge3.py:94",
-            serve["launches"] + tl["fused_edge3_fwd"], kern["float32"]),
-        row("fused_edge3_bwd", "p_div_gnn_tpu_torch/csrc/fused_edge3_bwd.cu",
-            "p_div_gnn_tpu/ops/fused_edge3.py:245", tl["fused_edge3_bwd"], bwd["float32"]),
-        row("segment_sum_csr", "p_div_gnn_tpu_torch/csrc/segment_sum_csr.cu",
-            "p_div_gnn_tpu/ops/scatter_pallas.py:56", tl["segment_sum_csr"], csr["float32"]),
-    ]}))
+        row(name, f"p_div_gnn_tpu_torch/csrc/{src}", replaces, launches[name], res["float32"])
+        for name, src, replaces, res in rows]}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,18 +9,30 @@ zero.
 
 The Processor's edge MLP first layer over the concat ``[u, v, e]`` is split
 per slot (``edge_w_u``, ``edge_w_v``, ``edge_w_e``), as in the JAX package.
-Two implementations of the step:
+Implementations of the step (``scatter_impl``), each the counterpart of the
+JAX package's impl of the same name:
 
 - ``"xla"``: the plain path (`epd.py:346-392`) — node projections, gathers,
   two edge-MLP tails with graph-LN, ``segment_sum`` over receivers;
+- ``"pallas"``: the plain path with the receiver scatter on the block-CSR
+  segment sum (``ops/scatter.py``; kernel ``csrc/segment_sum_csr.cu``);
+- ``"hybrid"``: the plain path whose two sender gathers take the
+  sender-view backward of ``ops/gather.py`` (block-CSR segment sum) when the
+  batch has the sender view;
+- ``"fused"``: the v2 fused path (`epd.py:282-344`) — node projections
+  x·Wu and x·Wv, both sender gathers in one pair (``sender_gather_pair``,
+  whose backward is the pair segment sum over the sender view), the v2
+  fused edge-step kernels (``ops/fused_edge.py``), and the graph-LN folded
+  lazily into its consumers;
 - ``"fused3"``: the fused path (`epd.py:182-237`) — one sender gather of x in
   the stream dtype (``ops/gather.py``, whose backward is the block-CSR
   scatter over the batch's sender view), the fused edge-step kernels
   (``ops/fused_edge3.py``), and the graph-LN folded lazily into its
   consumers: ``aggr = R·α1 + deg·β1``, ``new_e = (z_upd·α2 + β2)·mask``.
-  Training it needs the sender view (``pack_batch(sender_view=True)``);
-  without it the step raises rather than accumulate the gather's gradient
-  in the stream dtype.
+
+Training the fused paths needs the sender view
+(``pack_batch(sender_view=True)``); without it the step raises rather than
+accumulate the gathers' gradient in the stream dtype.
 
 With ``remat_steps`` (the JAX default) each message-passing step is
 rematerialized in the backward (``torch.utils.checkpoint``): only the
@@ -45,16 +57,22 @@ from p_div_gnn_tpu_torch.models.blocks import (
     TorchDense,
     uniform_param,
 )
-from p_div_gnn_tpu_torch.ops.fused_edge import lazy_layernorm_affine, moments_from_partials
+from p_div_gnn_tpu_torch.ops.fused_edge import (
+    fused_edge_step,
+    lazy_layernorm_affine,
+    moments_from_partials,
+)
 from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3
-from p_div_gnn_tpu_torch.ops.gather import sender_gather_one
+from p_div_gnn_tpu_torch.ops.gather import sender_gather_one, sender_gather_pair
 from p_div_gnn_tpu_torch.ops.layernorm import masked_graph_layernorm
+from p_div_gnn_tpu_torch.ops.scatter import scatter_add
 from p_div_gnn_tpu_torch.ops.segment import segment_sum
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-SCATTER_IMPLS = ("xla", "fused3")
+SCATTER_IMPLS = ("xla", "pallas", "hybrid", "fused", "fused3")
+FUSED_IMPLS = ("fused", "fused3")
 # node features [σ̄xx, σ̄yy, σ̄xy, pos_x, pos_y, node_type], edge feature
 # [distance], output [σxx, σyy, σxy]
 NODE_FEATURES, EDGE_FEATURES, OUT_FEATURES = 6, 1, 3
@@ -104,27 +122,35 @@ class Processor(nn.Module):
         edge_mask = batch.edge_mask
         ln_w, ln_b = self.edge_ln.weight, self.edge_ln.bias
         Np = x.shape[0]
-        if self.scatter_impl == "fused3":
-            # the kernel addresses node tiles of the batch's layout
+        view = None
+        if batch.snd_perm is not None:
+            view = (batch.snd_perm, batch.snd_sorted, batch.snd_block_tile)
+        if self.scatter_impl in FUSED_IMPLS:
+            # the kernels address node tiles of the batch's layout
             if batch.tile != NODE_TILE:
                 raise ValueError(
-                    f"batch packed with tile={batch.tile}, the fused3 path "
+                    f"batch packed with tile={batch.tile}, the {self.scatter_impl} path "
                     f"runs the layout's NODE_TILE={NODE_TILE}; repack the batch"
                 )
             sd = self.stream_dtype
-            x_sd = x.to(sd)
-            view = None
-            if batch.snd_perm is not None:
-                view = (batch.snd_perm, batch.snd_sorted, batch.snd_block_tile)
-            g_x = sender_gather_one(x_sd, snd, view, batch.tile)
-            z_upd, r_raw, m = fused_edge_step3(
-                x_sd, g_x, e.to(sd),
-                self.edge_w_u.to(sd), self.edge_w_v.to(sd), self.edge_w_e.to(sd),
-                self.edge_b0.to(sd), self.edge_lin1.kernel.to(sd),
-                self.edge_lin1.bias.to(sd),
-                rcv, (batch.edge_gid, batch.edge_block_tile), batch.n_graphs,
-                batch.tile,
-            )
+            aux = (batch.edge_gid, batch.edge_block_tile)
+            w_e, b0 = self.edge_w_e.to(sd), self.edge_b0.to(sd)
+            lin_w, lin_b = self.edge_lin1.kernel.to(sd), self.edge_lin1.bias.to(sd)
+            if self.scatter_impl == "fused3":
+                x_sd = x.to(sd)
+                g_x = sender_gather_one(x_sd, snd, view, batch.tile)
+                z_upd, r_raw, m = fused_edge_step3(
+                    x_sd, g_x, e.to(sd), self.edge_w_u.to(sd), self.edge_w_v.to(sd), w_e, b0,
+                    lin_w, lin_b, rcv, aux, batch.n_graphs, batch.tile,
+                )
+            else:
+                proj_u = x @ self.edge_w_u  # FIRST slot
+                proj_v = x @ self.edge_w_v  # SECOND slot
+                g_v, g_u = sender_gather_pair(proj_u, proj_v, snd, view, batch.tile)
+                z_upd, r_raw, m = fused_edge_step(
+                    proj_u.to(sd), proj_v.to(sd), g_v.to(sd), g_u.to(sd), e.to(sd), w_e, b0,
+                    lin_w, lin_b, rcv, aux, batch.n_graphs, batch.tile,
+                )
             a1, b1 = lazy_layernorm_affine(
                 *moments_from_partials(m[0], m[1], edge_mask), ln_w, ln_b
             )
@@ -144,11 +170,19 @@ class Processor(nn.Module):
                 y = torch.relu(self.edge_lin1(torch.relu(pre)))
                 return masked_graph_layernorm(y, edge_mask, ln_w, ln_b)
 
+            def gather_snd(p: torch.Tensor) -> torch.Tensor:
+                if self.scatter_impl == "hybrid" and view is not None:
+                    return sender_gather_one(p, snd, view, batch.tile)
+                return p[snd]
+
             # message: edge_net([x_i, x_j, e]) with i = target, j = source
-            messages = edge_net_tail(proj_u[rcv] + proj_v[snd] + e_proj + self.edge_b0)
+            messages = edge_net_tail(proj_u[rcv] + gather_snd(proj_v) + e_proj + self.edge_b0)
             # edge update: edge_net([x_source, x_target, e])
-            new_e = edge_net_tail(proj_u[snd] + proj_v[rcv] + e_proj + self.edge_b0)
-            aggr = segment_sum(messages, rcv, Np)
+            new_e = edge_net_tail(gather_snd(proj_u) + proj_v[rcv] + e_proj + self.edge_b0)
+            aggr = scatter_add(
+                messages, rcv, Np, batch.edge_block_tile,
+                impl="pallas" if self.scatter_impl == "pallas" else "xla", tile=batch.tile,
+            )
         node_pre = aggr @ self.node_w_a + x @ self.node_w_x + self.node_b0
         node_h = torch.relu(node_pre)
         new_x = self.node_ln(torch.relu(self.node_lin1(node_h)), batch.node_mask)
@@ -200,7 +234,7 @@ class EncodeProcessDecode(nn.Module):
         e = self.edge_encoder(e_in, batch.edge_mask)
         # the lazy-LN fold's per-node real in-degree is the same every step
         deg = None
-        if self.scatter_impl == "fused3":
+        if self.scatter_impl in FUSED_IMPLS:
             deg = segment_sum(batch.edge_mask.float()[:, None], batch.receivers, x.shape[0])
         remat = self.remat_steps and torch.is_grad_enabled()
         for _ in range(self.message_passing_steps):

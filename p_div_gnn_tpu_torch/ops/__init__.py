@@ -1,3 +1,3 @@
 """Tensor ops of the message-passing step and the wrappers of the
-hand-written kernels (fused edge step forward and backward, block-CSR
-segment sum)."""
+hand-written kernels (the fused3 and v2 fused edge steps' forwards and
+backwards, the block-CSR segment sum and its two-stream pair)."""

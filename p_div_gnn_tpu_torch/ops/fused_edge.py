@@ -1,16 +1,52 @@
-"""Lazy graph-LN helpers of the fused edge step — the counterparts of
-``moments_from_partials`` and ``lazy_layernorm_affine`` in
-``p_div_gnn_tpu/ops/fused_edge.py:547-597``.
+"""Fused edge-step v2 and the lazy graph-LN helpers — the counterparts of
+``p_div_gnn_tpu/ops/fused_edge.py``: ``fused_edge_step`` (whose forward is
+the Pallas kernel ``_step_kernel`` and whose VJP is the Pallas kernel
+``_step_bwd_kernel``), ``moments_from_partials`` and
+``lazy_layernorm_affine`` (`:547-597`).
 
-The fused kernel returns per-lane partial sums M of the pre-masked z; the
-graph-LN that follows in the reference (`models.py:199,207`) is then folded
-into its consumers as a per-lane affine, ``LN(z) = z·alpha + beta`` on real
-rows.
+For each edge slot i with receiver r, given the hoisted node projections
+a_u = x·Wu, a_v = x·Wv and their sender gathers g_v = a_v[snd],
+g_u = a_u[snd] (the reference Processor, `models.py:182-243`):
+
+    ep      = e[i]·We                       (shared by both evaluations)
+    z_msg   = relu(relu(((a_u[r] + g_v[i]) + ep) + b0)·W2 + b2) · mask_i
+    z_upd   = relu(relu(((a_v[r] + g_u[i]) + ep) + b0)·W2 + b2) · mask_i
+
+Returns z_upd (Ep, L) in the stream dtype, R (Np, L) fp32 with
+R[r] = Σ z_msg over the edges into r, and M (8, L) fp32 holding
+Σz_msg, Σz_msg², Σz_upd, Σz_upd² and four zero rows. A slot is padding
+(mask 0) where ``edge_gid >= n_graphs``. The first-layer sum is grouped as
+the plain ``"xla"`` Processor groups it (the JAX kernel adds ``ep + b0``
+first); both agree to one rounding.
+
+``fused_edge_step`` is an ``autograd.Function``. Its forward runs the
+hand-written CUDA kernel (``csrc/fused_edge_fwd.cu``) for CUDA tensors and
+the plain PyTorch version ``fused_edge_step_reference`` for CPU tensors; its
+backward, ``fused_edge_step_backward``, runs ``csrc/fused_edge_bwd.cu`` or
+the plain ``fused_edge_step_backward_reference`` the same way. There is no
+fallback from a kernel to a plain version. In bf16 stream mode all of them
+round where the JAX package rounds: bf16 operands with fp32 accumulation in
+every contraction, ``relu(pre)`` rounded to bf16 before ``·W2``, R and
+dA summing bf16-rounded rows, M the fp32 z. The receiver-side cotangent dR
+is gathered unrounded, as the JAX op does on the CPU. Each gradient is
+returned in its input's dtype, as the JAX VJP (``_step_bwd``) returns it.
+
+The fused graph-LN that follows in the reference (`models.py:199,207`) is
+folded into its consumers as a per-lane affine, ``LN(z) = z·alpha + beta``
+on real rows, from the moment partials M.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
+from p_div_gnn_tpu_torch.ops.segment import segment_sum
+
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def moments_from_partials(
@@ -37,3 +73,313 @@ def lazy_layernorm_affine(
     """Fold graph-LN into per-lane (alpha, beta)."""
     alpha = weight / (std + eps)
     return alpha, bias - mean * alpha
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"fused_edge_step: {msg}")
+
+
+def fused_edge_step_reference(
+    a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
+    e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, edge_gid: torch.Tensor, n_graphs: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: gathers, matmuls and ``segment_sum``."""
+    sd = g_v.dtype
+    we, b0f, w2f, b2f = (t.float() for t in (w_e, b0, w2, b2))
+    ep = e.float() @ we
+    mask = (edge_gid < n_graphs).float()[:, None]
+
+    def edge_mlp(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        pre = ((a.float().index_select(0, receivers) + g.float()) + ep) + b0f
+        h = torch.relu(pre).to(sd).float()
+        return torch.relu(h @ w2f + b2f) * mask
+
+    z_msg = edge_mlp(a_u, g_v)
+    z_upd = edge_mlp(a_v, g_u)
+    r = segment_sum(z_msg.to(sd).float(), receivers, a_u.shape[0])
+    # moment sums in fp64, rounded once, as the kernel takes them
+    zm, zu = z_msg.double(), z_upd.double()
+    m = torch.zeros((8, a_u.shape[1]), dtype=torch.float64, device=a_u.device)
+    m[0], m[1], m[2], m[3] = zm.sum(0), (zm * zm).sum(0), zu.sum(0), (zu * zu).sum(0)
+    return z_upd.to(sd), r, m.float()
+
+
+def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+                  tile, extra_sd=(), extra_f32=()):
+    """Shapes, dtypes, devices and layout of a kernel call; returns
+    (Np, Ep, L, n_blocks)."""
+    Np, L = a_u.shape
+    Ep = g_v.shape[0]
+    sd = g_v.dtype
+    floats = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2) + tuple(extra_sd)
+    ints = (receivers, edge_gid, block_tile)
+    every = floats + ints + tuple(extra_f32)
+    _check(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
+    _check(all(t.dtype == sd for t in floats),
+           "the node projections, streams and weights must share a dtype")
+    _check(all(t.dtype == torch.float32 for t in extra_f32), "dR and dM must be float32")
+    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
+    _check(len({t.device for t in every}) == 1, "tensors on several devices")
+    _check(all(t.is_contiguous() for t in every), "tensors must be contiguous")
+    _check(a_v.shape == (Np, L), "a_u and a_v must be (Np, L)")
+    _check(all(t.shape == (Ep, L) for t in (g_v, g_u, e) + tuple(extra_sd)),
+           "g_v, g_u, e (and z_upd, dz_upd) must be (Ep, L)")
+    _check(w_e.shape == (L, L) and w2.shape == (L, L), "weights must be (L, L)")
+    _check(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
+    _check(receivers.shape == (Ep,) and edge_gid.shape == (Ep,), "index arrays must be (Ep,)")
+    n_blocks = block_tile.shape[0]
+    _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
+           "edge slots must split into whole blocks")
+    _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
+    _check(L % 4 == 0 and 4 <= L <= 256, f"L={L} must be a multiple of 4 in [4, 256]")
+    _check(5 * Ep * L < 2**31 and 2 * Np * L < 2**31, "arrays too large")
+    return Np, Ep, L, n_blocks
+
+
+@functools.cache
+def _library() -> CudaLibrary:
+    built = load_cuda_library("fused_edge_fwd")
+    fn = built.lib.pdg_fused_edge_fwd
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _fused_edge_step_cuda(
+    a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
+    e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
+    n_graphs: int, tile: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    built = _library()
+    Np, Ep, L, n_blocks = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers,
+                                        edge_gid, block_tile, tile)
+    sd = g_v.dtype
+    dev = a_u.device
+    z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
+    r = torch.zeros((Np, L), dtype=torch.float32, device=dev)
+    mpart = torch.empty((Np // tile, 4, L), dtype=torch.float64, device=dev)
+    m = torch.empty((8, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_fused_edge_fwd(
+            int(sd == torch.bfloat16),
+            *(t.data_ptr() for t in (a_u, a_v, g_v, g_u, e, receivers, edge_gid, block_tile,
+                                     w_e, w2, b0, b2, z_upd, r, mpart, m)),
+            Np, Ep, L, tile, n_blocks, int(n_graphs), stream,
+        )
+    check_launch(built, err, "fused_edge_fwd")
+    fused_edge_step.launches += 1
+    return z_upd, r, m
+
+
+def fused_edge_step_backward_reference(
+    a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
+    e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, edge_gid: torch.Tensor, n_graphs: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward (``_step_bwd_kernel``): z_msg
+    is recomputed (re-masked before its gate), z_upd is the forward's.
+    Returns (da_u, da_v, dg_v, dg_u, de, dWe, db0, dW2, db2): dg_v = dpre1,
+    dg_u = dpre2 and de in the stream dtype, the rest fp32. The weight
+    grads sum over every slot in fp64 and round once: the exact sums of the
+    products, which the kernel's fp32 products (summed in fp32 over 8
+    slots, then in fp64) approach to their rounding."""
+    sd = g_v.dtype
+    Np = a_u.shape[0]
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:  # round through the stream dtype
+        return t.to(sd).float()
+
+    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return rnd(a) @ rnd(b)
+
+    def wsum(*pairs: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        return sum(rnd(a).double().T @ rnd(b).double() for a, b in pairs).float()
+
+    we, w2f = w_e.float(), w2.float()
+    # the cotangent products read contiguous transposes, as the kernel does
+    weT, w2T = we.T.contiguous(), w2f.T.contiguous()
+    b0f, b2f = b0.float(), b2.float()
+    mask = (edge_gid < n_graphs).float()[:, None]
+    ef = e.float()
+    ep = mm(ef, we)
+    pre1 = ((a_u.float().index_select(0, receivers) + g_v.float()) + ep) + b0f
+    pre2 = ((a_v.float().index_select(0, receivers) + g_u.float()) + ep) + b0f
+    h1, h2 = torch.relu(pre1), torch.relu(pre2)
+    z_msg = torch.relu(mm(h1, w2f) + b2f) * mask
+    z_u = z_upd.float()
+    dmf = dm.float()
+
+    dz_msg = dr.float().index_select(0, receivers) + dmf[0] + 2.0 * dmf[1] * z_msg
+    dy1 = dz_msg * (z_msg > 0)
+    dz_u = dz_upd.float() + dmf[2] + 2.0 * dmf[3] * z_u
+    dy2 = dz_u * (z_u > 0)
+    dpre1 = mm(dy1, w2T) * (h1 > 0)
+    dpre2 = mm(dy2, w2T) * (h2 > 0)
+    dps = dpre1 + dpre2
+
+    de = mm(dps, weT).to(sd)
+    da_u = segment_sum(rnd(dpre1), receivers, Np)
+    da_v = segment_sum(rnd(dpre2), receivers, Np)
+    dw2 = wsum((h1, dy1), (h2, dy2))
+    dwe = wsum((ef, dps))
+    db2 = (dy1 + dy2).double().sum(0).float()
+    db0 = dps.double().sum(0).float()
+    return da_u, da_v, dpre1.to(sd), dpre2.to(sd), de, dwe, db0, dw2, db2
+
+
+@functools.cache
+def _bwd_library() -> CudaLibrary:
+    built = load_cuda_library("fused_edge_bwd")
+    fn = built.lib.pdg_fused_edge_bwd
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 26 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return built
+
+
+# weight-grad partial sums per launch of the backward: slots are cut into
+# this many chunks (with 2 weight grads of 2 slabs each at L=128, ~2 waves
+# of weight-grad CTAs on 132 SMs)
+BWD_CHUNKS = 128
+
+
+def _fused_edge_step_backward_cuda(
+    a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
+    e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
+    n_graphs: int, tile: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    built = _bwd_library()
+    Np, Ep, L, n_blocks = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers,
+                                        edge_gid, block_tile, tile, (z_upd, dz_upd), (dr, dm))
+    _check(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
+    _check(L % 64 == 0 and 64 <= L <= 256, f"L={L} must be a multiple of 64 in [64, 256]")
+    sd = g_v.dtype
+    dev = a_u.device
+    weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
+    dg_v = torch.empty((Ep, L), dtype=sd, device=dev)
+    dg_u = torch.empty((Ep, L), dtype=sd, device=dev)
+    de = torch.empty((Ep, L), dtype=sd, device=dev)
+    da = torch.zeros((2, Np, L), dtype=torch.float32, device=dev)
+    scratch = torch.empty((5, Ep, L), dtype=sd, device=dev)
+    bpart = torch.empty((Np // tile, 3, L), dtype=torch.float64, device=dev)
+    wpart = torch.empty((BWD_CHUNKS, 2, L, L), dtype=torch.float64, device=dev)
+    wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_fused_edge_bwd(
+            int(sd == torch.bfloat16),
+            *(t.data_ptr() for t in (a_u, a_v, g_v, g_u, e, z_upd, dz_upd, dr, dm, receivers,
+                                     edge_gid, block_tile, w_e, w2, weT, w2T, b0, b2,
+                                     dg_v, dg_u, de, da, scratch, bpart, wpart, wb)),
+            Np, Ep, L, tile, n_blocks, int(n_graphs), BWD_CHUNKS, stream,
+        )
+    check_launch(built, err, "fused_edge_bwd")
+    fused_edge_step_backward.launches += 1
+    dw2, dwe = wb[:2 * L].view(2, L, L).unbind(0)
+    return da[0], da[1], dg_v, dg_u, de, dwe, wb[2 * L + 1], dw2, wb[2 * L]
+
+
+def fused_edge_step_backward(
+    a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
+    e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+    receivers: torch.Tensor, aux: tuple[torch.Tensor, torch.Tensor], n_graphs: int,
+    tile: int,
+    z_upd: torch.Tensor,  # (Ep, L) the forward's output, stream dtype
+    dz_upd: torch.Tensor,  # (Ep, L) cotangents, stream dtype
+    dr: torch.Tensor,  # (Np, L) fp32
+    dm: torch.Tensor,  # (8, L) fp32
+) -> tuple[torch.Tensor, ...]:
+    """The v2 edge step's VJP: (da_u, da_v, dg_v, dg_u, de, dWe, db0, dW2,
+    db2), dg_v, dg_u and de in the stream dtype, the rest fp32. CUDA
+    tensors go to the kernel (``fused_edge_step_backward.launches`` counts
+    its launches), CPU tensors to the plain version; anything else
+    raises."""
+    edge_gid, block_tile = aux
+    args = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers)
+    cots = (z_upd, dz_upd, dr, dm)
+    kinds = {t.device.type for t in args + cots + (edge_gid, block_tile)}
+    if kinds == {"cuda"}:
+        return _fused_edge_step_backward_cuda(
+            *args, edge_gid, block_tile, n_graphs, tile, *cots)
+    if kinds == {"cpu"}:
+        return fused_edge_step_backward_reference(*args, edge_gid, n_graphs, *cots)
+    raise ValueError(
+        f"fused_edge_step_backward runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+fused_edge_step_backward.launches = 0  # type: ignore[attr-defined]
+
+
+def _fused_edge_step_forward(
+    a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile, n_graphs, tile
+):
+    args = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers)
+    kinds = {t.device.type for t in args + (edge_gid, block_tile)}
+    if kinds == {"cuda"}:
+        return _fused_edge_step_cuda(*args, edge_gid, block_tile, n_graphs, tile)
+    if kinds == {"cpu"}:
+        return fused_edge_step_reference(*args, edge_gid, n_graphs)
+    raise ValueError(f"fused_edge_step runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+class _FusedEdgeStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+                n_graphs, tile):
+        z_upd, r, m = _fused_edge_step_forward(
+            a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+            n_graphs, tile)
+        # what the JAX VJP saves (`_step_fwd`): the inputs and z_upd
+        ctx.save_for_backward(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid,
+                              block_tile, z_upd)
+        ctx.n_graphs, ctx.tile = n_graphs, tile
+        return z_upd, r, m
+
+    @staticmethod
+    def backward(ctx, dz_upd, dr, dm):
+        (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
+         z_upd) = ctx.saved_tensors
+        grads = fused_edge_step_backward(
+            a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, (edge_gid, block_tile),
+            ctx.n_graphs, ctx.tile, z_upd, dz_upd.contiguous(), dr.contiguous(),
+            dm.contiguous())
+        inputs = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2)
+        return (*(gr.to(t.dtype) for gr, t in zip(grads, inputs)),) + (None,) * 5
+
+
+def fused_edge_step(
+    a_u: torch.Tensor,  # (Np, L) receiver-slot projection for the messages, x·Wu
+    a_v: torch.Tensor,  # (Np, L) receiver-slot projection for the edge update, x·Wv
+    g_v: torch.Tensor,  # (Ep, L) sender gather of x·Wv (message path)
+    g_u: torch.Tensor,  # (Ep, L) sender gather of x·Wu (edge-update path)
+    e: torch.Tensor,  # (Ep, L) raw edge latents (projected in the kernel)
+    w_e: torch.Tensor,  # (L, L) edge-slot first-layer weight
+    b0: torch.Tensor,  # (L,)
+    w2: torch.Tensor,  # (L, L)
+    b2: torch.Tensor,  # (L,)
+    receivers: torch.Tensor,  # (Ep,) i32, block-aligned CSR
+    aux: tuple[torch.Tensor, torch.Tensor],  # (edge_gid (Ep,), block_tile (NB,))
+    n_graphs: int,
+    tile: int,  # node tile of the layout (GraphBatch.tile)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The v2 edge step: (z_upd, R, M), differentiable in a_u, a_v, g_v,
+    g_u, e and the weights. CUDA tensors go to the kernels
+    (``fused_edge_step.launches`` counts the forward's launches,
+    ``fused_edge_step_backward.launches`` the backward's), CPU tensors to
+    the plain versions; anything else raises."""
+    edge_gid, block_tile = aux
+    return _FusedEdgeStep.apply(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid,
+                                block_tile, n_graphs, tile)
+
+
+fused_edge_step.launches = 0  # type: ignore[attr-defined]

@@ -1,6 +1,7 @@
 """Block-CSR segment sum into node tiles — the counterpart of
 ``p_div_gnn_tpu/ops/scatter_pallas.py``'s ``pallas_segment_sum`` (whose
-forward is the Pallas kernel ``_kernel``).
+forward is the Pallas kernel ``_kernel``) and ``pallas_segment_sum_pair``
+(the Pallas kernel ``_kernel_pair``).
 
 The rows (Ep2, L) are grouped into blocks of ``Ep2 / len(block_tile)``
 slots; block b feeds node tile ``block_tile[b]``, and
@@ -14,6 +15,10 @@ the sender-major view this way.
 (``csrc/segment_sum_csr.cu``) for CUDA tensors and the plain PyTorch version
 ``csr_segment_sum_reference`` for CPU tensors; there is no fallback from one
 to the other. Its backward is a plain gather, as in the JAX package.
+``csr_segment_sum_pair`` sums two fp32 streams over one layout in one launch
+of its own kernel (same source), or ``csr_segment_sum_pair_reference`` on
+the CPU; it runs inside the pair sender gather's backward and has no
+backward of its own.
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ def _library() -> CudaLibrary:
     fn = built.lib.pdg_segment_sum_csr
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    pair = built.lib.pdg_segment_sum_csr_pair
+    pair.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    pair.restype = ctypes.c_int
     return built
 
 
@@ -142,3 +150,79 @@ def csr_segment_sum(
 
 
 csr_segment_sum.launches = 0  # type: ignore[attr-defined]
+
+
+def csr_segment_sum_pair_reference(
+    a: torch.Tensor, b: torch.Tensor, receivers: torch.Tensor, num_nodes: int,
+    perm: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the pair sum: two ``csr_segment_sum_reference``."""
+    return (csr_segment_sum_reference(a, receivers, num_nodes, perm),
+            csr_segment_sum_reference(b, receivers, num_nodes, perm))
+
+
+def _csr_segment_sum_pair_cuda(
+    a: torch.Tensor, b: torch.Tensor, receivers: torch.Tensor, block_tile: torch.Tensor,
+    num_nodes: int, tile: int, perm: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    built = _library()
+    n_src, L = a.shape
+    n_slots = receivers.shape[0]
+    ints = (receivers, block_tile) + (() if perm is None else (perm,))
+    _check(a.dtype == b.dtype == torch.float32, "the pair sum takes two float32 streams")
+    _check(a.shape == b.shape, "the two streams must have one shape")
+    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
+    _check(len({t.device for t in (a, b) + ints}) == 1, "tensors on several devices")
+    _check(all(t.is_contiguous() for t in (a, b) + ints), "tensors must be contiguous")
+    _check(receivers.dim() == 1 and (perm is None or perm.shape == receivers.shape),
+           "receivers (and perm) must be (Ep2,)")
+    _check(perm is not None or n_src == n_slots, "rows must be (Ep2, L) without perm")
+    n_blocks = block_tile.shape[0]
+    _check(block_tile.dim() == 1 and n_blocks > 0 and n_slots % n_blocks == 0,
+           "slots must split into whole blocks")
+    _check(tile > 0 and num_nodes % tile == 0, f"num_nodes={num_nodes} is not a multiple of tile={tile}")
+    _check(1 <= L <= 512, f"L={L} must be in [1, 512]")
+    _check(n_src * L < 2**31 and 2 * n_blocks * tile * L < 2**31, "arrays too large")
+
+    dev = a.device
+    partial = torch.empty((2, n_blocks, tile, L), dtype=torch.float32, device=dev)
+    out = torch.empty((2, num_nodes, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_segment_sum_csr_pair(
+            a.data_ptr(), b.data_ptr(), None if perm is None else perm.data_ptr(),
+            receivers.data_ptr(), block_tile.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            n_src, n_slots, L, num_nodes, tile, n_blocks, stream,
+        )
+    check_launch(built, err, "segment_sum_csr_pair")
+    csr_segment_sum_pair.launches += 1
+    return out[0], out[1]
+
+
+def csr_segment_sum_pair(
+    a: torch.Tensor,  # (Ep2, L) f32; (n_src, L) with perm
+    b: torch.Tensor,  # the second stream, shaped as a
+    receivers: torch.Tensor,  # (Ep2,) i32 node id per slot, −1 for padding
+    block_tile: torch.Tensor,  # (Ep2 / block,) i32 node tile per block, sorted
+    num_nodes: int,
+    tile: int,  # node tile of the layout (GraphBatch.tile)
+    perm: torch.Tensor | None = None,  # (Ep2,) i32 source row of each slot
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two (num_nodes, L) fp32 segment sums of two fp32 streams over one
+    block-CSR layout, in one pass. CUDA tensors go to the kernel
+    (``csr_segment_sum_pair.launches`` counts its launches), CPU tensors to
+    the plain version; anything else raises. It has no backward: it raises
+    where a gradient would be needed."""
+    tensors = (a, b, receivers, block_tile) + (() if perm is None else (perm,))
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise ValueError("csr_segment_sum_pair has no backward; call it where no "
+                         "gradient is taken (a backward, or torch.no_grad)")
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return _csr_segment_sum_pair_cuda(a, b, receivers, block_tile, num_nodes, tile, perm)
+    if kinds == {"cpu"}:
+        return csr_segment_sum_pair_reference(a, b, receivers, num_nodes, perm)
+    raise ValueError(f"csr_segment_sum_pair runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+csr_segment_sum_pair.launches = 0  # type: ignore[attr-defined]

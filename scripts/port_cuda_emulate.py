@@ -1,0 +1,287 @@
+"""Run the port's CUDA kernels on the CPU, without a card or nvcc.
+
+    PYTHONPATH=. python scripts/port_cuda_emulate.py [--tiles 2] [--L 16] [--L-bwd 64]
+
+Each ``p_div_gnn_tpu_torch/csrc/*.cu`` is compiled by the host C++ compiler
+(g++, C++20) against a small emulation of the CUDA runtime: a CTA's threads
+are host threads, ``__syncthreads`` is a barrier, dynamic shared memory is
+a per-CTA buffer filled with garbage, launches run one CTA at a time. The
+port's own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py``,
+``ops/scatter_csr.py``) then run on CPU tensors against the emulated
+libraries, and each kernel is held against its plain version at small
+shapes, with ``chip_smoke.py``'s tolerances; the script exits 1 if one
+disagrees.
+
+It checks what a kernel computes (indexing, synchronization, the order of
+its sums, the wrapper's argument list), not its speed, and not whether
+nvcc accepts it: g++ takes what nvcc may refuse, and runs with
+``-ffp-contract=off``, where nvcc contracts ``a*b + c`` into FMAs. The
+libraries go to ``build/port_cuda_emulate/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
+
+import chip_smoke  # noqa: E402
+from p_div_gnn_tpu_torch.graphs.batching import build_sender_view  # noqa: E402
+from p_div_gnn_tpu_torch.graphs.container import NODE_TILE  # noqa: E402
+from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3, scatter_csr  # noqa: E402
+from test_torch_port_cuda import _edge_problem, _v2_problem  # noqa: E402
+
+OUT = ROOT / "build" / "port_cuda_emulate"
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <stdint.h>
+#include <stddef.h>
+#include <math.h>
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __shared__
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct uint2 { unsigned x, y; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline thread_local float4* emu_smem = nullptr;
+inline thread_local std::barrier<>* emu_bar = nullptr;
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline float fmaf(float a, float b, float c) { return std::fma(a, b, c); }
+inline float fmaxf(float a, float b) { return std::fmax(a, b); }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+struct EmuCfg { dim3 grid, block; size_t smem; };
+inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t s = 0, cudaStream_t = nullptr) {
+  return {g, b, s};
+}
+template <typename K, typename... A>
+void emu_launch(EmuCfg cfg, K kernel, A... args) {
+  const unsigned nt = cfg.block.x * cfg.block.y * cfg.block.z;
+  std::vector<float4> smem(cfg.smem / sizeof(float4) + 1);
+  for (unsigned bz = 0; bz < cfg.grid.z; ++bz)
+    for (unsigned by = 0; by < cfg.grid.y; ++by)
+      for (unsigned bx = 0; bx < cfg.grid.x; ++bx) {
+        std::memset(smem.data(), 0xff, smem.size() * sizeof(float4));
+        std::barrier<> bar(nt);
+        std::vector<std::thread> threads;
+        for (unsigned t = 0; t < nt; ++t)
+          threads.emplace_back([&, t] {
+            threadIdx = dim3(t % cfg.block.x, (t / cfg.block.x) % cfg.block.y,
+                             t / (cfg.block.x * cfg.block.y));
+            blockIdx = dim3(bx, by, bz);
+            blockDim = cfg.block;
+            gridDim = cfg.grid;
+            emu_smem = smem.data();
+            emu_bar = &bar;
+            kernel(args...);
+            bar.arrive_and_drop();
+          });
+        for (auto& th : threads) th.join();
+      }
+}
+"""
+
+CUDA_BF16_H = r"""
+#pragma once
+#include "cuda_runtime.h"
+struct __nv_bfloat16 { unsigned short v; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = uint32_t(b.v) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {  // round to nearest even
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if (std::isnan(f)) return {0x7fc0};
+  u += 0x7fff + ((u >> 16) & 1);
+  return {static_cast<unsigned short>(u >> 16)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 p) {
+  return {__bfloat162float(p.x), __bfloat162float(p.y)};
+}
+"""
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu against the emulation; returns the library."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (OUT / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    src = re.sub(r"extern __shared__ float4 (\w+)\[\];", r"float4* \1 = emu_smem;", src)
+    src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"emu_launch(emu_cfg(\2), \1, ", src,
+                 flags=re.S)
+    cpp = OUT / f"{name}.cpp"
+    cpp.write_text(src)
+    lib = OUT / f"{name}.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+                    "-pthread", "-Wno-unknown-pragmas", f"-I{OUT}", "-o", str(lib), str(cpp)],
+                   check=True)
+    return lib
+
+
+def load_emulated(name: str) -> cuda_build.CudaLibrary:
+    lib = ctypes.CDLL(str(build(name)))
+    lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pdg_cuda_error_string.restype = ctypes.c_char_p
+    return cuda_build.CudaLibrary(lib, OUT / f"{name}.so", 0.0, "")
+
+
+@contextlib.contextmanager
+def emulated_kernels():
+    """The wrappers' CUDA paths on CPU tensors, against emulated libraries."""
+    mods = (fused_edge, fused_edge3, scatter_csr)
+    saved = [(m, m.load_cuda_library) for m in mods]
+    stream = type("Stream", (), {"cuda_stream": 0})()
+    saved_cuda = (torch.cuda.device, torch.cuda.current_stream)
+    torch.cuda.device = lambda dev: contextlib.nullcontext()
+    torch.cuda.current_stream = lambda dev=None: stream
+
+    def clear():
+        for m in mods:
+            for f in ("_library", "_bwd_library"):
+                if hasattr(m, f):
+                    getattr(m, f).cache_clear()
+
+    for m in mods:
+        m.load_cuda_library = load_emulated
+    clear()
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.load_cuda_library = f
+        torch.cuda.device, torch.cuda.current_stream = saved_cuda
+        clear()
+
+
+T = torch.from_numpy
+FWD_NAMES = ("z_upd", "R", "M")
+
+
+def report(name: str, got, want, tol: float) -> float:
+    a, b = got.float(), want.float()
+    assert got.shape == want.shape and got.dtype == want.dtype, (name, got.dtype, want.dtype)
+    share = float(((a - b).abs() / (tol * (1.0 + b.abs()))).max())
+    print(f"{name}: max abs err {float((a - b).abs().max()):.3e}, "
+          f"{share:.3f} of the allowance (rtol = atol = {tol:g})", flush=True)
+    return share
+
+
+def cotangents(seed: int, Ep: int, Np: int, L: int, dtype: torch.dtype):
+    rng = np.random.default_rng(seed)
+    dz = T(rng.normal(size=(Ep, L)).astype(np.float32)).to(dtype)
+    return dz, T(rng.normal(size=(Np, L)).astype(np.float32)), T(
+        rng.normal(size=(8, L)).astype(np.float32))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
+    ap.add_argument("--L", type=int, default=16, help="width of the forwards")
+    ap.add_argument("--L-bwd", type=int, default=64, help="width of the backwards (64k)")
+    args = ap.parse_args()
+    shares = []
+    with emulated_kernels():
+        for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            ftol, btol = chip_smoke.KERNEL_TOL[sd_name], chip_smoke.BWD_TOL[sd_name]
+            arrays, idx = _edge_problem(5, args.tiles, args.L)
+            a = [T(v).to(sd) for v in arrays.values()]
+            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+            got = fused_edge3._fused_edge_step3_cuda(*a, rcv, gid, bt, 1, NODE_TILE)
+            want = fused_edge3.fused_edge_step3_reference(*a, rcv, gid, 1)
+            shares += [report(f"fused_edge3_fwd {sd_name} {n}", x, y, ftol[n])
+                       for n, x, y in zip(FWD_NAMES, got, want)]
+
+            arrays, idx = _edge_problem(6, args.tiles, args.L_bwd)
+            a = [T(v).to(sd) for v in arrays.values()]
+            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+            z, _, _ = fused_edge3.fused_edge_step3_reference(*a, rcv, gid, 1)
+            cot = cotangents(7, z.shape[0], a[0].shape[0], args.L_bwd, sd)
+            got = fused_edge3._fused_edge_step3_backward_cuda(*a, rcv, gid, bt, 1, NODE_TILE,
+                                                              z, *cot)
+            want = fused_edge3.fused_edge_step3_backward_reference(*a, rcv, gid, 1, z, *cot)
+            shares += [report(f"fused_edge3_bwd {sd_name} #{i}", x, y, btol)
+                       for i, (x, y) in enumerate(zip(got, want))]
+
+            arrays, idx = _v2_problem(5, args.tiles, args.L)
+            a = [T(v).to(sd) for v in arrays.values()]
+            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+            got = fused_edge._fused_edge_step_cuda(*a, rcv, gid, bt, 1, NODE_TILE)
+            want = fused_edge.fused_edge_step_reference(*a, rcv, gid, 1)
+            shares += [report(f"fused_edge_fwd {sd_name} {n}", x, y, ftol[n])
+                       for n, x, y in zip(FWD_NAMES, got, want)]
+
+            arrays, idx = _v2_problem(6, args.tiles, args.L_bwd)
+            a = [T(v).to(sd) for v in arrays.values()]
+            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+            z, _, _ = fused_edge.fused_edge_step_reference(*a, rcv, gid, 1)
+            cot = cotangents(7, z.shape[0], a[0].shape[0], args.L_bwd, sd)
+            got = fused_edge._fused_edge_step_backward_cuda(*a, rcv, gid, bt, 1, NODE_TILE,
+                                                            z, *cot)
+            want = fused_edge.fused_edge_step_backward_reference(*a, rcv, gid, 1, z, *cot)
+            shares += [report(f"fused_edge_bwd {sd_name} #{i}", x, y, btol)
+                       for i, (x, y) in enumerate(zip(got, want))]
+
+            rng = np.random.default_rng(8)
+            n_nodes = args.tiles * NODE_TILE
+            perm, srt, sbt = (T(v) for v in build_sender_view(
+                rng.integers(0, n_nodes, size=6 * n_nodes), n_nodes))
+            rows = T(rng.normal(size=(6 * n_nodes, args.L)).astype(np.float32))
+            tol = chip_smoke.CSR_TOL[sd_name]
+            got = scatter_csr._csr_segment_sum_cuda(rows.to(sd), srt, sbt, n_nodes, NODE_TILE,
+                                                    perm)
+            want = scatter_csr.csr_segment_sum_reference(rows.to(sd), srt, n_nodes, perm)
+            shares.append(report(f"segment_sum_csr {sd_name}", got, want, tol))
+            if sd == torch.float32:
+                other = T(rng.normal(size=rows.shape).astype(np.float32))
+                got = scatter_csr._csr_segment_sum_pair_cuda(rows, other, srt, sbt, n_nodes,
+                                                             NODE_TILE, perm)
+                want = scatter_csr.csr_segment_sum_pair_reference(rows, other, srt, n_nodes,
+                                                                  perm)
+                shares += [report(f"segment_sum_csr_pair {i}", x, y, tol)
+                           for i, (x, y) in enumerate(zip(got, want))]
+    worst = max(shares)
+    print(f"largest share of an allowance: {worst:.3f}", flush=True)
+    return 0 if worst <= 1.0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,7 @@ the same model in fp64, at the flagship size.
 
     PYTHONPATH=. python scripts/port_fp32_noise.py [--device cpu|cuda] [--seed 0]
     PYTHONPATH=. python scripts/port_fp32_noise.py --grad [--device cpu|cuda]
-        [--ref-device cpu|cuda] [--n-graphs 16]
+        [--ref-device cpu|cuda] [--n-graphs 16] [--impls fused3,fused,pallas,hybrid]
 
 Forward mode (default): builds one serving request as ``chip_smoke.py`` does
 (16 meshes, RCM packing, the committed checkpoint), then prints, in
@@ -19,10 +19,11 @@ training phase (the benchmark's model from ``torch.Generator`` seed 0,
 batch). It computes the gradient of the fp64 ``xla`` model on
 ``--ref-device`` (per-step remat keeps its memory small) and, on
 ``--device``, of fp32 ``xla`` (twice: its gathers' backward adds with
-atomics on the card) and fp32 ``fused3``; it prints, for each parameter
-tensor, ``||g - g_ref|| / ||g_ref||`` of each fp32 path against fp64 and of
-fused3 against xla, and the largest of each over the parameters. Those are
-what the training phase's gradient tolerance is derived from.
+atomics on the card) and of each fp32 impl of ``--impls`` (default
+fused3); it prints, for each parameter tensor, ``||g - g_ref|| / ||g_ref||``
+of each fp32 path against fp64 and of each impl against xla, and the
+largest of each over the parameters. Those are what the training phase's
+gradient tolerance is derived from.
 """
 
 from __future__ import annotations
@@ -78,15 +79,18 @@ def grad_noise(args: argparse.Namespace) -> None:
         return total, out
 
     l64, ref = grads("xla", args.ref_device, torch.float64, remat=True)
+    impls = args.impls.split(",")
     runs = {"xla fp32": grads("xla", args.device, torch.float32, remat=False),
-            "xla fp32 (again)": grads("xla", args.device, torch.float32, remat=False),
-            "fused3 fp32": grads("fused3", args.device, torch.float32, remat=False)}
+            "xla fp32 (again)": grads("xla", args.device, torch.float32, remat=False)}
+    for impl in impls:
+        runs[f"{impl} fp32"] = grads(impl, args.device, torch.float32, remat=False)
 
     def rel(a: dict, b: dict) -> dict:
         return {n: float((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-300)) for n in b}
 
     table = {f"{name} vs fp64": rel(g, ref) for name, (_, g) in runs.items()}
-    table["fused3 fp32 vs xla fp32"] = rel(runs["fused3 fp32"][1], runs["xla fp32"][1])
+    for impl in impls:
+        table[f"{impl} fp32 vs xla fp32"] = rel(runs[f"{impl} fp32"][1], runs["xla fp32"][1])
     table["xla fp32 vs xla fp32 (again)"] = rel(runs["xla fp32 (again)"][1],
                                                 runs["xla fp32"][1])
     print(f"loss fp64 {l64!r}; " + "; ".join(
@@ -107,6 +111,8 @@ def main() -> None:
     ap.add_argument("--grad", action="store_true", help="gradient mode")
     ap.add_argument("--ref-device", default="cpu", help="device of the fp64 gradient")
     ap.add_argument("--n-graphs", type=int, default=16, help="meshes (gradient mode)")
+    ap.add_argument("--impls", default="fused3",
+                    help="comma-separated impls held against xla (gradient mode)")
     args = ap.parse_args()
     if args.grad:
         grad_noise(args)

@@ -1,14 +1,15 @@
 """Where the time of one training step of the port goes on the card.
 
-    PYTHONPATH=. python scripts/port_profile_step.py [--impl fused3|xla]
-        [--stream-dtype float32|bfloat16] [--trace build/step_trace.json]
+    PYTHONPATH=. python scripts/port_profile_step.py
+        [--impl fused3|fused|hybrid|pallas|xla] [--stream-dtype float32|bfloat16]
+        [--trace build/step_trace.json]
 
 Builds ``chip_smoke.py``'s training batch and model (the benchmark's step:
 latent 128, 10 message-passing steps, no remat, NMSE + 10 x divergence,
 Adam), takes two warm-up ``Trainer.train_step``s, then traces a third with
 ``torch.profiler`` (CPU and CUDA activity). It prints the step's wall time,
-the device time of each kernel group (the port's three kernels, each with
-its launches and sub-kernels, then the rest by name), the device's busy time
+the device time of each kernel group (the port's kernels, each with its
+launches and sub-kernels, then the rest by name), the device's busy time
 (the union of all kernel, copy and set intervals) and its idle share over
 the step's window (from the step's start on the host to the end of its last
 device interval). Needs a CUDA card.
@@ -31,6 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
+from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
 
 # sub-kernel names of each ported kernel's library (csrc/*.cu)
 GROUPS = {
@@ -38,6 +40,10 @@ GROUPS = {
     "fused_edge3_bwd (#2)": ("step3_bwd_tile_kernel", "step3_bwd_wgrad_kernel",
                              "step3_bwd_reduce_kernel"),
     "segment_sum_csr (#3)": ("block_partial_kernel", "tile_merge_kernel"),
+    "segment_sum_csr_pair (#4)": ("pair_partial_kernel", "pair_merge_kernel"),
+    "fused_edge_fwd (#5)": ("v2_fwd_tile_kernel", "v2_fwd_moments_kernel"),
+    "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel", "v2_bwd_wgrad_kernel",
+                            "v2_bwd_reduce_kernel"),
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -51,8 +57,8 @@ def group_of(name: str) -> str | None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--impl", default="fused3")
-    ap.add_argument("--stream-dtype", default="float32")
+    ap.add_argument("--impl", default="fused3", choices=SCATTER_IMPLS)
+    ap.add_argument("--stream-dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--trace", default=None, help="also write the chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -1,13 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the fused edge step's forward and backward, and the block-CSR segment sum. It imports neither JAX nor the JAX package, so it runs where the card
-is (that machine has no JAX; skip the repo's conftest there):
+the fused3 edge step's forward and backward, the block-CSR segment sum, the
+v2 ("fused") edge step's forward and backward and the pair segment sum. It
+imports neither JAX nor the JAX package, so it runs where the card is (that
+machine has no JAX; skip the repo's conftest there):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
 Without a card the tests skip. chip_smoke.py makes the same checks at the
 flagship shapes. Tolerances: the JAX package's fused3 op tolerances
 (tests/test_fused3_op.py:65-70 forward and :87-95 gradients in fp32,
-:128-131 the segment sum and bf16), as rtol = atol."""
+:128-131 the segment sum and bf16), and for the v2 step the JAX package's
+v2 op tolerances (tests/test_fused_op.py:86-91 forward, :116-120
+gradients), as rtol = atol."""
 
 import numpy as np
 import pytest
@@ -15,7 +19,7 @@ import torch
 
 from p_div_gnn_tpu_torch.graphs.batching import blockify_edges, build_sender_view
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE
-from p_div_gnn_tpu_torch.ops import fused_edge3, scatter_csr
+from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
 
 T = torch.from_numpy
 
@@ -44,6 +48,21 @@ def _edge_problem(seed: int, n_tiles: int, L: int):
     idx = {"receivers": rcv_b.astype(np.int32), "edge_gid": gid_b.astype(np.int32),
            "block_tile": block_tile.astype(np.int32)}
     return arrays, idx
+
+
+def _v2_problem(seed: int, n_tiles: int, L: int):
+    """The inputs of the v2 edge step on ``_edge_problem``'s layout: node
+    projections a_u, a_v ~ N(0, 1) and their sender gathers g_v = a_v[snd],
+    g_u = a_u[snd]; numpy arrays for both packages."""
+    arrays, idx = _edge_problem(seed, n_tiles, L)
+    rng = np.random.default_rng(seed + 1000)
+    Np, Ep = arrays["x"].shape[0], arrays["g_x"].shape[0]
+    a_u = rng.normal(size=(Np, L)).astype(np.float32)
+    a_v = rng.normal(size=(Np, L)).astype(np.float32)
+    snd = rng.integers(0, Np, size=Ep)
+    v2 = {"a_u": a_u, "a_v": a_v, "g_v": a_v[snd], "g_u": a_u[snd]}
+    v2.update({k: arrays[k] for k in ("e", "w_e", "b0", "w2", "b2")})
+    return v2, idx
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -134,4 +153,98 @@ def test_remat_steps_give_the_same_gradients_on_cuda():
         assert fused_edge3.fused_edge_step3.launches - before == (4 if remat else 2)
         grads.append(g)
     for name, g in grads[0].items():
+        assert torch.equal(g, grads[1][name]), name
+
+
+def _on_cuda(arrays, idx, dtype):
+    args = [T(a).to("cuda", dtype) for a in arrays.values()]
+    return args, tuple(T(idx[k]).cuda() for k in ("receivers", "edge_gid", "block_tile"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_kernel_matches_reference_on_cuda(dtype):
+    """The v2 forward over three node tiles, L = 128; the launch count rises
+    by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, (rcv, gid, bt) = _on_cuda(*_v2_problem(5, 3, L=128), dtype)
+    before = fused_edge.fused_edge_step.launches
+    got = fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE)
+    assert fused_edge.fused_edge_step.launches == before + 1
+    want = fused_edge.fused_edge_step_reference(*args, rcv, gid, 1)
+    tols = (1e-5, 1e-4, 1e-3) if dtype == torch.float32 else (3e-2,) * 3
+    for a, b, tol in zip(got, want, tols):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_backward_kernel_matches_reference_on_cuda(dtype):
+    """The v2 backward over three node tiles, L = 128, nonzero cotangents on
+    z_upd, R and M; the launch count rises by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, (rcv, gid, bt) = _on_cuda(*_v2_problem(6, 3, L=128), dtype)
+    z_upd, _, _ = fused_edge.fused_edge_step_reference(*args, rcv, gid, 1)
+    rng = np.random.default_rng(7)
+    Np, L = args[0].shape
+    dz = T(rng.normal(size=z_upd.shape).astype(np.float32)).to("cuda", dtype)
+    dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
+    before = fused_edge.fused_edge_step_backward.launches
+    got = fused_edge.fused_edge_step_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
+                                              z_upd, dz, dr, dm)
+    assert fused_edge.fused_edge_step_backward.launches == before + 1
+    want = fused_edge.fused_edge_step_backward_reference(*args, rcv, gid, 1, z_upd, dz, dr, dm)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_pair_segment_sum_kernel_matches_reference_on_cuda():
+    """Two fp32 streams over the sender view of three node tiles, L = 128,
+    read through the permutation; the launch count rises by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(9)
+    num_nodes = 3 * NODE_TILE
+    E = 6 * num_nodes
+    perm, srt, sbt = (T(v).cuda() for v in build_sender_view(
+        rng.integers(0, num_nodes, size=E), num_nodes))
+    a, b = (T(rng.normal(size=(E, 128)).astype(np.float32)).cuda() for _ in range(2))
+    before = scatter_csr.csr_segment_sum_pair.launches
+    got = scatter_csr.csr_segment_sum_pair(a, b, srt, sbt, num_nodes, NODE_TILE, perm=perm)
+    assert scatter_csr.csr_segment_sum_pair.launches == before + 1
+    want = scatter_csr.csr_segment_sum_pair_reference(a, b, srt, num_nodes, perm)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_v2_training_step_is_deterministic_on_cuda():
+    """The "fused" training step through its three kernels, twice from the
+    same weights: every kernel sums in a fixed order, so the gradients are
+    bit-equal; each step launches each kernel once per message-passing
+    step. Two meshes, L = 128, two message-passing steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    batch = build_workload(n_graphs=2, seed=0)[0].to("cuda")
+    counters = (fused_edge.fused_edge_step, fused_edge.fused_edge_step_backward,
+                scatter_csr.csr_segment_sum_pair)
+    grads = []
+    for _ in range(2):
+        model = EncodeProcessDecode(128, 2, scatter_impl="fused", remat_steps=False,
+                                    generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
+        before = [f.launches for f in counters]
+        _, g = trainer.loss_and_grads(batch)
+        assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
+        grads.append(g)
+    for name, g in grads[0].items():
+        assert torch.isfinite(g).all(), name
         assert torch.equal(g, grads[1][name]), name

@@ -2,9 +2,12 @@
 chip_smoke.py, nor the card-side test file, imports JAX, flax, msgpack,
 yaml, pandas or anything of the JAX package (the machine with the card has
 none of them). Module names are matched whole, so the port's own name,
-which begins with the JAX package's, is allowed."""
+which begins with the JAX package's, is allowed. The kernel sources
+(csrc/*.cu) include no PyTorch header and export the plain C interface
+that ops/cuda_build.py loads with ctypes."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -13,6 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "pandas", "p_div_gnn_tpu"}
 FILES = sorted((ROOT / "p_div_gnn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_port_cuda.py"]
+SOURCES = sorted((ROOT / "p_div_gnn_tpu_torch" / "csrc").glob("*.cu"))
 
 
 def imported_modules(path: Path) -> set[str]:
@@ -47,4 +51,17 @@ def test_port_sources_are_found():
     assert {"chip_smoke.py", "p_div_gnn_tpu_torch/ops/fused_edge3.py",
             "p_div_gnn_tpu_torch/ops/scatter_csr.py", "p_div_gnn_tpu_torch/losses.py",
             "p_div_gnn_tpu_torch/train/loop.py", "p_div_gnn_tpu_torch/models/epd.py",
-            "tests/test_torch_port_cuda.py"} <= names
+            "p_div_gnn_tpu_torch/ops/fused_edge.py", "p_div_gnn_tpu_torch/ops/scatter.py",
+            "p_div_gnn_tpu_torch/ops/gather.py", "tests/test_torch_port_cuda.py"} <= names
+    assert {p.name for p in SOURCES} >= {
+        "fused_edge3_fwd.cu", "fused_edge3_bwd.cu", "segment_sum_csr.cu",
+        "fused_edge_fwd.cu", "fused_edge_bwd.cu"}
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_kernel_sources_include_no_pytorch_header(path):
+    text = path.read_text()
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", text, flags=re.M)
+    assert includes and not [h for h in includes if h.split("/")[0] in (
+        "torch", "ATen", "c10", "pybind11")], includes
+    assert 'extern "C"' in text and "pdg_cuda_error_string" in text
