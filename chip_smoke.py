@@ -9,34 +9,40 @@ package. Phases, in order (any failure exits nonzero and prints no result):
 
 1. the card's name and power limit (nvidia-smi), then the kernel builds:
    nvcc compiles ``p_div_gnn_tpu_torch/csrc/{fused_edge3_fwd,fused_edge3_bwd,
-   segment_sum_csr,fused_edge_fwd,fused_edge_bwd}.cu`` in parallel into
-   ``build/p_div_gnn_tpu_torch/`` and ctypes loads them; ptxas' registers
-   and spills are printed;
+   segment_sum_csr,fused_edge_fwd,fused_edge_bwd,fused_edge2_fwd,
+   fused_edge2_bwd}.cu`` in parallel into ``build/p_div_gnn_tpu_torch/`` and
+   ctypes loads them; ptxas' registers and spills are printed;
 2. kernels: at the flagship shapes (16 RCM-ordered plate-with-hole meshes of
-   the benchmark generator, latent 128) each kernel is held against its
-   plain PyTorch version on the card and both are timed with CUDA events
-   (the segment sums also beside ``index_add_``): the fused3 and the v2
-   ("fused") edge steps' forwards on a serving request's batch, in fp32 and
-   bf16 streams; their backwards, the block-CSR segment sum (fp32, bf16)
-   and the pair segment sum (fp32) on the training batch;
+   the benchmark generator, drawn once and packed twice: receiver-major and
+   pair-blocked; latent 128) each kernel is held against its plain PyTorch
+   version on the card and both are timed with CUDA events (the segment
+   sums also beside ``index_add_``): the fused3 and the v2 ("fused") edge
+   steps' forwards on a serving request's batch, in fp32 and bf16 streams;
+   their backwards and the block-CSR segment sum (fp32, bf16) on the
+   training batch; the pair segment sum (fp32) on both training batches'
+   sender views, as fused and fused2 call it; the pair-blocked ("fused2")
+   edge step's forward and backward on the pair-blocked training batch, in
+   fp32 and bf16 streams;
 3. serve: the committed checkpoint answers 3 requests of 16 meshes each
-   through ``Predictor`` with fused3 and with fused (fp32 streams); each
+   through ``Predictor`` with fused3, fused and fused2 (fp32 streams); each
    path's forward kernel must launch exactly 10 times per request and no
    other kernel at all, every field must be finite, and each request must
    match the plain ``xla`` path;
 4. train: ``Trainer.train_step`` takes 5 Adam steps of the benchmark's
    training step (``bench.py``: latent 128, 10 message-passing steps, no
    remat, NMSE + 10 x divergence, lr 1e-3) from one seeded random init,
-   with fused3 fp32, xla fp32, fused3 bf16, fused fp32 and fused bf16
-   streams, and 3 steps each of pallas and hybrid (fp32); losses and
-   gradients must be finite, each fp32 impl must match xla on the step-1
-   loss and gradients, the loss must fall, bf16's step-1 loss must be near
-   fp32's, and each step must launch exactly the kernels of its path: 10
-   of each of its three kernels per fused3 or fused step, 10 block-CSR
-   segment sums per pallas step and 19 per hybrid step (the last step's
-   edge update gets no gradient), none per xla step;
-5. a ``{"kernels": [...]}`` line with each ported kernel's numbers, then the
-   last line ``{"ok": true, "device": {...}}``.
+   with fused3 fp32, xla fp32, fused3 bf16, fused fp32, fused bf16, fused2
+   fp32 and fused2 bf16 streams (fused2 on the pair-blocked batch), and 3
+   steps each of pallas and hybrid (fp32); losses and gradients must be
+   finite, each fp32 impl must match xla on the step-1 loss and gradients,
+   the loss must fall, bf16's step-1 loss must be near fp32's, and each
+   step must launch exactly the kernels of its path: 10 of each of its
+   three kernels per fused3, fused or fused2 step, 10 block-CSR segment
+   sums per pallas step and 19 per hybrid step (the last step's edge
+   update gets no gradient), none per xla step;
+5. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
+   pair segment sum's row also has each sender view's numbers and launches
+   under ``views``), then the last line ``{"ok": true, "device": {...}}``.
 
 Everything it builds goes to ``build/``.
 """
@@ -93,6 +99,10 @@ def step_launches(impl: str) -> dict:
         "fused3": {"fused_edge3_fwd": STEPS, "fused_edge3_bwd": STEPS, "segment_sum_csr": STEPS},
         "fused": {"fused_edge_fwd": STEPS, "fused_edge_bwd": STEPS,
                   "segment_sum_csr_pair": STEPS},
+        # the last step's z_upd gets zero cotangents, and its backward still
+        # runs the kernel and the sender-side pair sum
+        "fused2": {"fused_edge2_fwd": STEPS, "fused_edge2_bwd": STEPS,
+                   "segment_sum_csr_pair": STEPS},
         "pallas": {"segment_sum_csr": STEPS},  # the receiver scatter's forward
         # the two sender gathers' backwards of every step but the last
         # step's edge update: the decoder reads only x, so no gradient
@@ -103,7 +113,8 @@ def step_launches(impl: str) -> dict:
 
 
 # the serving forward launches only the edge step's forward kernel
-SERVE_LAUNCHES = {"fused3": {"fused_edge3_fwd": 1}, "fused": {"fused_edge_fwd": 1}}
+SERVE_LAUNCHES = {"fused3": {"fused_edge3_fwd": 1}, "fused": {"fused_edge_fwd": 1},
+                  "fused2": {"fused_edge2_fwd": 1}}
 
 
 class SmokeFailure(Exception):
@@ -298,11 +309,13 @@ def serve_phase(requests: list) -> dict:
                 f"(standardized) {worst:.3e}, {ratio:.2f} of the allowance")
         results[impl] = {"launches": launches, "latencies": latencies}
 
-    # device time of the model forward alone on request 0's batch
-    batch = pack_batch(requests[0], reorder="rcm", sender_view=False,
-                       div_ell=False).to("cuda")
+    # device time of the model forward alone on request 0's batch, packed as
+    # each path's Predictor packs it
+    batches = {pair: pack_batch(requests[0], reorder="rcm", sender_view=False, div_ell=False,
+                                pair_blocks=pair).to("cuda") for pair in (False, True)}
     with torch.no_grad():
-        fwd = {name: cuda_ms(lambda m=m: m(batch, stats), 5) for name, m in models.items()}
+        fwd = {name: cuda_ms(lambda m=m: m(batches[name == "fused2"], stats), 5)
+               for name, m in models.items()}
     say("serve forward device time (request 0 batch): "
         + ", ".join(f"{name} {ms:.3f} ms" for name, ms in fwd.items()))
     return {"impls": results, "forward_ms": fwd}
@@ -536,11 +549,14 @@ def v2_backward_kernel_phase(batch) -> dict:
     return results
 
 
-def pair_kernel_phase(batch) -> dict:
-    """Hold the pair segment sum against its plain version on the training
-    batch's sender view, as the pair sender gather's backward calls it (two
-    fp32 streams read through snd_perm); time both and two ``index_add_``
-    calls, the PyTorch calls that compute the same sums."""
+def pair_kernel_phase(batch, view: str) -> dict:
+    """Hold the pair segment sum against its plain version on ``batch``'s
+    sender view, as the path named ``view`` calls it with two fp32 streams
+    read through snd_perm: the pair sender gather's backward (fused) on the
+    receiver-major training batch, the sender-side adds of dpre1 / dpre2
+    (fused2, which casts them to fp32) on the pair-blocked one. Time both
+    and two ``index_add_`` calls, the PyTorch calls that compute the same
+    sums."""
     import torch
 
     from p_div_gnn_tpu_torch.ops.scatter_csr import (
@@ -562,7 +578,7 @@ def pair_kernel_phase(batch) -> dict:
     library = lambda: tuple(  # noqa: E731
         torch.zeros((Np, L), device=dev).index_add_(0, snd, g) for g in (g_v, g_u))
     got, want = kern(), plain()
-    checked = [held(f"segment_sum_csr_pair float32 {n}", a, b, CSR_TOL["float32"])
+    checked = [held(f"segment_sum_csr_pair float32 {view} {n}", a, b, CSR_TOL["float32"])
                for n, a, b in zip(("out_v", "out_u"), got, want)]
     # reads each source row of both streams once and the view's indices;
     # writes both sums
@@ -570,8 +586,8 @@ def pair_kernel_phase(batch) -> dict:
     b_ms, b_by = bound(2 * Ep * L, n_bytes, "float32")
     res = {"max_abs_err": max(c[0] for c in checked), "ms": cuda_ms(kern, 20),
            "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 20),
-           "bound_ms": b_ms, "bound_by": b_by}
-    say(f"kernel segment_sum_csr_pair float32: Np={Np} Ep2={Ep2} L={L} blocks={NB2} "
+           "bound_ms": b_ms, "bound_by": b_by, "Ep2": Ep2}
+    say(f"kernel segment_sum_csr_pair float32 {view}: Np={Np} Ep2={Ep2} L={L} blocks={NB2} "
         f"max_abs_err={res['max_abs_err']:.3e} share of the allowance "
         + " ".join(f"{c[1]:.3f}" for c in checked)
         + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
@@ -580,27 +596,161 @@ def pair_kernel_phase(batch) -> dict:
     return {"float32": res}
 
 
-def launch_counts() -> dict:
-    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step, fused_edge_step_backward
-    from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_backward
-    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_pair
+def pair_step_inputs(batch, gen):
+    """Random inputs of the fused2 edge step at the pair-blocked batch's
+    shapes: node projections proj_u, proj_v ~ N(0, 1), e ~ N(0, 1), weights
+    ~ N(0, 1/L), biases ~ N(0, 1); in the order of fused_edge_step2's
+    arguments."""
+    import torch
 
-    return {"fused_edge3_fwd": fused_edge_step3.launches,
-            "fused_edge3_bwd": fused_edge_step3_backward.launches,
-            "segment_sum_csr": csr_segment_sum.launches,
-            "fused_edge_fwd": fused_edge_step.launches,
-            "fused_edge_bwd": fused_edge_step_backward.launches,
-            "segment_sum_csr_pair": csr_segment_sum_pair.launches}
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+
+    def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return {
+        "proj_u": randn(Np, L), "proj_v": randn(Np, L), "e": randn(Ep, L),
+        "w_e": randn(L, L, scale=L**-0.5), "b0": randn(L),
+        "w2": randn(L, L, scale=L**-0.5), "b2": randn(L),
+    }
+
+
+def pair_aux(batch) -> tuple:
+    return (batch.edge_gid, batch.edge_block_tile, batch.edge_block_snd_tile,
+            batch.snd_perm, batch.snd_sorted, batch.snd_block_tile)
+
+
+def fused2_kernel_phase(batch) -> dict:
+    """Hold the fused2 edge step's forward kernel (fused_edge2_fwd) against
+    its plain version on the card at the pair-blocked batch's shapes, in
+    both stream dtypes; time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step2, fused_edge_step2_reference
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    NB = int(batch.edge_block_tile.shape[0])
+    e_real = int(batch.edge_mask.sum())
+    base = pair_step_inputs(batch, torch.Generator(device=dev).manual_seed(6))
+    aux = pair_aux(batch)
+    idx = (batch.receivers, batch.senders, aux, batch.n_graphs, batch.tile)
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        kern = lambda: fused_edge_step2(*args, *idx)  # noqa: E731
+        plain = lambda: fused_edge_step2_reference(*args, *idx)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        checked = {name: held(f"fused_edge2_fwd {sd_name} {name}", a, b,
+                              KERNEL_TOL[sd_name][name])
+                   for name, a, b in zip(("z_upd", "R", "M"), got, want)}
+        del got, want
+        s = torch.finfo(sd).bits // 8
+        # reads proj_u, proj_v, the weights (stream dtype), e of the real
+        # slots (a padding slot's row changes no output), the three index
+        # arrays and the two block-tile arrays; writes z_upd over all slots
+        # (stream dtype), R and M (fp32)
+        n_bytes = (s * (2 * Np * L + e_real * L + Ep * L + 2 * L * L + 2 * L)
+                   + 4 * (3 * Ep + 2 * NB) + 4 * (Np * L + 8 * L))
+        flops = 2 * 3 * L * L * e_real
+        b_ms, b_by = bound(flops, n_bytes, sd_name)
+        res = {"max_abs_err": max(v[0] for v in checked.values()),
+               "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        results[sd_name] = res
+        say(f"kernel fused_edge2_fwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
+            f"real_edges={e_real} max_abs_err "
+            + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
+            + " share of the allowance "
+            + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
+            + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+        torch.cuda.empty_cache()
+    return results
+
+
+def fused2_backward_kernel_phase(batch) -> dict:
+    """Hold the fused2 edge step's backward kernel (fused_edge2_bwd, before
+    the sender-side pair sum) against its plain version at the pair-blocked
+    training batch's shapes, with random inputs and nonzero cotangents on
+    z_upd, R and M, in both stream dtypes; time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge import (
+        fused_edge2_bwd,
+        fused_edge2_bwd_reference,
+        fused_edge_step2_reference,
+    )
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    NB = int(batch.edge_block_tile.shape[0])
+    e_real = int(batch.edge_mask.sum())
+    gen = torch.Generator(device=dev).manual_seed(7)
+    base = pair_step_inputs(batch, gen)
+    dz, dr, dm = (torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((Ep, L), (Np, L), (8, L)))
+    names = ("de", "dpre1", "dpre2", "du_r", "dv_r", "dWe", "db0", "dW2", "db2")
+    idx = (batch.receivers, batch.senders, pair_aux(batch), batch.n_graphs, batch.tile)
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        z_upd, _, _ = fused_edge_step2_reference(*args, *idx)
+        cots = (z_upd, dz.to(sd), dr, dm)
+        kern = lambda: fused_edge2_bwd(*args, *idx, *cots)  # noqa: E731
+        plain = lambda: fused_edge2_bwd_reference(*args, *idx, *cots)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        checked = {n: held(f"fused_edge2_bwd {sd_name} {n}", a, b, BWD_TOL[sd_name])
+                   for n, a, b in zip(names, got, want)}
+        del got, want
+        s = torch.finfo(sd).bits // 8
+        # reads proj_u, proj_v, the weights (stream dtype), e, z_upd and
+        # dz_upd of the real slots (a padding slot's rows change no output),
+        # dR, dM (fp32) and the indices; writes de, dpre1, dpre2 over all
+        # slots (stream dtype), du_r, dv_r and the weight grads (fp32)
+        n_bytes = (s * (2 * Np * L + 3 * e_real * L + 3 * Ep * L + 2 * L * L + 2 * L)
+                   + 4 * (3 * Np * L + 8 * L + (2 * L + 2) * L) + 4 * (3 * Ep + 2 * NB))
+        flops = 2 * 8 * L * L * e_real
+        b_ms, b_by = bound(flops, n_bytes, sd_name)
+        res = {"max_abs_err": max(v[0] for v in checked.values()), "ms": cuda_ms(kern, 5),
+               "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by}
+        results[sd_name] = res
+        say(f"kernel fused_edge2_bwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
+            f"real_edges={e_real} max_abs_err "
+            + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
+            + " share of the allowance "
+            + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
+            + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+        del z_upd, cots
+        torch.cuda.empty_cache()
+    return results
+
+
+def counted_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
+
+    return {"fused_edge3_fwd": fused_edge3.fused_edge_step3,
+            "fused_edge3_bwd": fused_edge3.fused_edge_step3_backward,
+            "segment_sum_csr": scatter_csr.csr_segment_sum,
+            "fused_edge_fwd": fused_edge.fused_edge_step,
+            "fused_edge_bwd": fused_edge.fused_edge_step_backward,
+            "segment_sum_csr_pair": scatter_csr.csr_segment_sum_pair,
+            "fused_edge2_fwd": fused_edge.fused_edge_step2,
+            "fused_edge2_bwd": fused_edge.fused_edge2_bwd}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step, fused_edge_step_backward
-    from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_backward
-    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_pair
-
-    for counted in (fused_edge_step3, fused_edge_step3_backward, csr_segment_sum,
-                    fused_edge_step, fused_edge_step_backward, csr_segment_sum_pair):
-        counted.launches = 0
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
 def make_trainer(impl: str, stream_dtype: str, device):
@@ -633,6 +783,7 @@ def train_run(impl: str, stream_dtype: str, batch, n_real_edges: int,
 
     trainer = make_trainer(impl, stream_dtype, batch.receivers.device)
     name = f"train {impl} {stream_dtype}"
+    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     per_step = {k: step_launches(impl).get(k, 0) for k in launch_counts()}
     losses, step_ms, grads = [], [], None
@@ -659,13 +810,15 @@ def train_run(impl: str, stream_dtype: str, batch, n_real_edges: int,
         losses.append(loss)
     launches = launch_counts()
     steady = statistics.median(step_ms[1:] or step_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     say(f"{name}: losses " + " ".join(f"{v:.6f}" for v in losses)
         + ", step ms " + " ".join(f"{v:.1f}" for v in step_ms)
         + f", median of steps {min(2, n_steps)}-{n_steps} {steady:.3f} ms, "
-        f"{n_real_edges / steady * 1e3:.0f} edges/s, launches per step "
+        f"{n_real_edges / steady * 1e3:.0f} edges/s, peak memory {peak_gb:.2f} GB, "
+        "launches per step "
         + (", ".join(f"{k} {v}" for k, v in per_step.items() if v) or "none"))
     return {"trainer": trainer, "losses": losses, "grads": grads, "step_ms": steady,
-            "launches": launches}
+            "launches": launches, "peak_gb": peak_gb}
 
 
 def step_breakdown(trainer, batch, name: str) -> list[float]:
@@ -694,22 +847,27 @@ def step_breakdown(trainer, batch, name: str) -> list[float]:
 TRAIN_RUNS = (
     ("fused3", "float32", TRAIN_STEPS), ("xla", "float32", TRAIN_STEPS),
     ("fused3", "bfloat16", TRAIN_STEPS), ("fused", "float32", TRAIN_STEPS),
-    ("fused", "bfloat16", TRAIN_STEPS), ("pallas", "float32", 3), ("hybrid", "float32", 3),
+    ("fused", "bfloat16", TRAIN_STEPS), ("fused2", "float32", TRAIN_STEPS),
+    ("fused2", "bfloat16", TRAIN_STEPS), ("pallas", "float32", 3), ("hybrid", "float32", 3),
 )
+# the impls whose bf16 run is held against their fp32 run
+BF16_IMPLS = ("fused3", "fused", "fused2")
 
 
-def train_phase(batch, n_real_edges: int, card: str) -> dict:
-    """The TRAIN_RUNS from the same init; each fp32 impl is held against xla
-    at step 1, each bf16 run against its fp32 run, and the kernel launches
-    of each run are returned. ``card`` is nvidia-smi's name and power
-    limit, printed beside the step times."""
+def train_phase(batch, pair_batch, n_real_edges: int, card: str) -> dict:
+    """The TRAIN_RUNS from the same init (fused2 on ``pair_batch``, the same
+    meshes packed pair-blocked); each fp32 impl is held against xla at step
+    1, each bf16 run against its fp32 run, and the kernel launches of each
+    run are returned. ``card`` is nvidia-smi's name and power limit, printed
+    beside the step times."""
     import torch
 
     runs, breakdown = {}, {}
     for impl, sd, n_steps in TRAIN_RUNS:
-        run = train_run(impl, sd, batch, n_real_edges, n_steps)
-        if sd == "float32" and impl in ("fused3", "fused"):
-            breakdown[impl] = step_breakdown(run["trainer"], batch, f"{impl} {sd}")
+        b = pair_batch if impl == "fused2" else batch
+        run = train_run(impl, sd, b, n_real_edges, n_steps)
+        if sd == "float32" and impl in BF16_IMPLS:
+            breakdown[impl] = step_breakdown(run["trainer"], b, f"{impl} {sd}")
         del run["trainer"]
         runs[(impl, sd)] = run
         torch.cuda.empty_cache()
@@ -733,12 +891,12 @@ def train_phase(batch, n_real_edges: int, card: str) -> dict:
         check(rel[worst] <= GRAD_RTOL,
               f"train step 1: gradient of {worst} {impl} vs xla {rel[worst]:.3e} > {GRAD_RTOL:g}")
     for key in (("fused3", "float32"), ("xla", "float32"), ("fused", "float32"),
-                ("fused", "bfloat16")):
+                ("fused", "bfloat16"), ("fused2", "float32"), ("fused2", "bfloat16")):
         run = runs[key]
         check(run["losses"][-1] < run["losses"][0],
               f"train {' '.join(key)}: step-{TRAIN_STEPS} loss {run['losses'][-1]} is not "
               f"below step-1 loss {run['losses'][0]}")
-    for impl in ("fused3", "fused"):
+    for impl in BF16_IMPLS:
         l_b, l_f = runs[(impl, "bfloat16")]["losses"][0], runs[(impl, "float32")]["losses"][0]
         check(abs(l_b - l_f) <= BF16_LOSS_RTOL * abs(l_f),
               f"train step 1: {impl} bf16 loss {l_b!r} vs fp32 {l_f!r} outside rtol "
@@ -749,9 +907,12 @@ def train_phase(batch, n_real_edges: int, card: str) -> dict:
         f"{impl} {sd} {run['step_ms']:.3f} ms, {n_real_edges / run['step_ms'] * 1e3:.0f} edges/s"
         for (impl, sd), run in runs.items()))
     launches = {k: sum(run["launches"][k] for run in runs.values()) for k in launch_counts()}
+    by_impl = {impl: {k: sum(run["launches"][k] for (i, _), run in runs.items() if i == impl)
+                      for k in launches} for impl, _, _ in TRAIN_RUNS}
     say(f"train: kernel launches over the phase {launches}")
-    return {"launches": launches,
+    return {"launches": launches, "launches_by_impl": by_impl,
             "step_ms": {f"{impl} {sd}": run["step_ms"] for (impl, sd), run in runs.items()},
+            "peak_gb": {f"{impl} {sd}": run["peak_gb"] for (impl, sd), run in runs.items()},
             "breakdown_ms": breakdown}
 
 
@@ -778,7 +939,7 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples, pack_workload
     from p_div_gnn_tpu_torch.graphs.batching import pack_batch
     from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
 
@@ -787,7 +948,9 @@ def main() -> int:
                "fused_edge3_bwd": fused_edge3._bwd_library,
                "segment_sum_csr": scatter_csr._library,
                "fused_edge_fwd": fused_edge._library,
-               "fused_edge_bwd": fused_edge._bwd_library}
+               "fused_edge_bwd": fused_edge._bwd_library,
+               "fused_edge2_fwd": fused_edge._library2,
+               "fused_edge2_bwd": fused_edge._bwd_library2}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(load) for name, load in loaders.items()}
@@ -804,12 +967,19 @@ def main() -> int:
     say(f"requests: {len(requests)} x {N_MESHES} meshes built in "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    host_train, n_real_edges, n_real_nodes = build_workload(N_MESHES, seed=0)
-    train_batch = host_train.to("cuda")
+    samples = build_samples(N_MESHES, seed=0)
+    t1 = time.perf_counter()
+    host_train, n_real_edges, n_real_nodes = pack_workload(samples)
+    t2 = time.perf_counter()
+    host_pair = pack_workload(samples, pair_blocks=True)[0]
+    t3 = time.perf_counter()
+    train_batch, pair_batch = host_train.to("cuda"), host_pair.to("cuda")
     say(f"train batch: {N_MESHES} meshes with divergence operators, {n_real_nodes} nodes, "
         f"{n_real_edges} edges, Np={host_train.num_nodes_padded} "
-        f"Ep={host_train.num_edges_padded} Ep2={host_train.snd_perm.shape[0]}, built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"Ep={host_train.num_edges_padded} Ep2={host_train.snd_perm.shape[0]}; pair-blocked "
+        f"Ep={host_pair.num_edges_padded} ({len(host_pair.edge_block_tile)} blocks) "
+        f"Ep2={host_pair.snd_perm.shape[0]}; meshes {t1 - t0:.1f} s, packed in "
+        f"{t2 - t1:.1f} s and {t3 - t2:.1f} s")
 
     batch = pack_batch(requests[0], reorder="rcm", sender_view=False,
                        div_ell=False).to("cuda")
@@ -818,9 +988,12 @@ def main() -> int:
     bwd = backward_kernel_phase(train_batch)
     v2_bwd = v2_backward_kernel_phase(train_batch)
     csr = segment_sum_kernel_phase(train_batch)
-    pair = pair_kernel_phase(train_batch)
+    pair = {view: pair_kernel_phase(b, view)["float32"]
+            for view, b in (("fused", train_batch), ("fused2", pair_batch))}
+    f2 = fused2_kernel_phase(pair_batch)
+    f2_bwd = fused2_backward_kernel_phase(pair_batch)
     serve = serve_phase(requests)
-    train = train_phase(train_batch, n_real_edges, smi)
+    train = train_phase(train_batch, pair_batch, n_real_edges, smi)
 
     def row(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -834,18 +1007,29 @@ def main() -> int:
     for impl in serve["impls"].values():
         for k, v in impl["launches"].items():
             launches[k] += v
+    # #4 runs on two sender views: its row gives the receiver-major one's
+    # numbers (the largest error of both), and each view's in "views"
+    by_impl = train["launches_by_impl"]
+    pair_row = dict(pair["fused"], max_abs_err=max(v["max_abs_err"] for v in pair.values()))
+    pair_views = [dict(res, view=view, launches=by_impl[view]["segment_sum_csr_pair"])
+                  for view, res in pair.items()]
     rows = (
         ("fused_edge3_fwd", "fused_edge3_fwd.cu", "p_div_gnn_tpu/ops/fused_edge3.py:94", kern),
         ("fused_edge3_bwd", "fused_edge3_bwd.cu", "p_div_gnn_tpu/ops/fused_edge3.py:245", bwd),
         ("segment_sum_csr", "segment_sum_csr.cu", "p_div_gnn_tpu/ops/scatter_pallas.py:56", csr),
         ("segment_sum_csr_pair", "segment_sum_csr.cu",
-         "p_div_gnn_tpu/ops/scatter_pallas.py:170", pair),
+         "p_div_gnn_tpu/ops/scatter_pallas.py:170", {"float32": pair_row}),
         ("fused_edge_fwd", "fused_edge_fwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:157", v2),
         ("fused_edge_bwd", "fused_edge_bwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:333", v2_bwd),
+        ("fused_edge2_fwd", "fused_edge2_fwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:600", f2),
+        ("fused_edge2_bwd", "fused_edge2_bwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:763",
+         f2_bwd),
     )
-    say(json.dumps({"kernels": [
+    kernel_rows = [
         row(name, f"p_div_gnn_tpu_torch/csrc/{src}", replaces, launches[name], res["float32"])
-        for name, src, replaces, res in rows]}))
+        for name, src, replaces, res in rows]
+    next(r for r in kernel_rows if r["name"] == "segment_sum_csr_pair")["views"] = pair_views
+    say(json.dumps({"kernels": kernel_rows}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -45,20 +45,14 @@
 //    per-tile fp64 partials. h1, h2, dy1, dy2 and dpre1 + dpre2, rounded to
 //    the stream dtype as the weight-grad contractions take them, go to a
 //    scratch stream.
-// 2. `v2_bwd_wgrad_kernel`: the weight grads Σ_i A[i]ᵀB[i] over all slots,
-//    which the TPU kernel sums into one (2L+8, L) block revisited by every
-//    grid step. The slots are cut into chunks; each CTA computes one 64-row
-//    slab of one weight grad over one chunk, an outer product per slot from
-//    shared memory with a 4×8 register tile per thread. The products are
-//    fp32 FMAs into a register that restarts every WG = 8 slots; each
-//    8-slot sum is added to an fp64 accumulator. (The fused3 backward's
-//    scheme: one fp32 chain per chunk would round at the size of the
-//    running sum, ~1e-3 absolute on the entries that cancel to near zero
-//    against a 2e-4 check; an 8-slot chain rounds at the size of a few
-//    products.)
-// 3. `v2_bwd_reduce_kernel`: sums the per-chunk and per-tile partials in a
-//    fixed order and rounds once to fp32, into one (2L+2, L) block
-//    [dW2; dWe; db2; db0]. The result does not change from run to run.
+// 2. and 3. `edge_bwd_wgrad_kernel` and `edge_bwd_reduce_kernel`
+//    (edge_common.cuh, shared with the pair-blocked backward): the weight
+//    grads Σ_i A[i]ᵀB[i] over all real slots, which the TPU kernel sums into
+//    one (2L+8, L) block revisited by every grid step, as fp32 FMAs summed
+//    over 8 slots and in fp64 across them, then one ordered reduce of the
+//    partials into one (2L+2, L) block [dW2; dWe; db2; db0], rounded once.
+//    The result does not change from run to run. Padding slots are skipped:
+//    their products are exact zeros (dy is masked).
 // - Each product is one FMA chain over k in order; the first-layer sum is
 //   grouped as the forward groups it, so the recomputed z_msg is the
 //   forward's bit for bit. (dR[r] + dM0) + (2·dM1)·z is rounded after each
@@ -73,72 +67,16 @@
 //   DEFAULT-precision one-hot gather may round it to bf16).
 // - Shared memory of kernel 1 is 5·16·L·4 bytes + 128 (41 KB at L 128);
 //   kernel 1 runs at most 128 registers a thread (launch bound 512), so
-//   two 256-thread CTAs share an SM. Kernel 2 (16·L/8 threads) has the
+//   two 256-thread CTAs share an SM. The weight-grad kernel (16·L/8 threads) has the
 //   same bound, so two of its CTAs share an SM at L 128: at 136 registers
 //   the bf16 instance ran one CTA per SM and took 1.8x the fp32 time.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_common.cuh"
 
 namespace {
 
-constexpr int EC = 16;   // edge slots staged per chunk in kernel 1
+constexpr int EC = 16;  // edge slots staged per chunk of the tile kernel
 constexpr int HALF = EC / 2;
-constexpr int EW = 32;   // edge slots staged per step in kernel 2
-constexpr int KB = 64;   // weight-grad rows per CTA in kernel 2
-constexpr int TK = 4;    // weight-grad rows per thread (one float4 of A)
-constexpr int TC = 8;    // weight-grad columns per thread
-constexpr int WG = 8;    // slots per fp32 weight-grad sum in kernel 2
-static_assert(EW % WG == 0, "a staged step holds whole fp32 sums");
-// scratch streams written by kernel 1, then the edge stream e
-enum { S_H1, S_H2, S_DY1, S_DY2, S_DPS, N_SCRATCH, SRC_E = N_SCRATCH };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an fp32 value through the stream dtype (identity in fp32).
-template <typename T> __device__ __forceinline__ float round_sd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// First index in the sorted array a[0, n) whose value is >= key.
-__device__ __forceinline__ int64_t first_not_less(const int32_t* a, int64_t n, int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) / 2;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// acc[i] = Σ_k rows[i·L + k]·w[k·L + c] for N staged rows, one FMA chain
-// per output over k in order (w is (L, L) row-major, read along column c).
-template <typename T, int N>
-__device__ __forceinline__ void rows_times_w(const float* rows, const T* __restrict__ w,
-                                             int64_t L, int c, float (&acc)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  for (int64_t k = 0; k < L; k += 4) {
-    float w_k[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) w_k[j] = to_f(w[(k + j) * L + c]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float4 r4 = *reinterpret_cast<const float4*>(rows + i * L + k);
-      acc[i] = fmaf(r4.x, w_k[0], acc[i]);
-      acc[i] = fmaf(r4.y, w_k[1], acc[i]);
-      acc[i] = fmaf(r4.z, w_k[2], acc[i]);
-      acc[i] = fmaf(r4.w, w_k[3], acc[i]);
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(512) v2_bwd_tile_kernel(
@@ -309,138 +247,6 @@ __global__ void __launch_bounds__(512) v2_bwd_tile_kernel(
   if (path == 1) bpart[(t * 3 + 2) * L + c] = s_dps;
 }
 
-// Four consecutive values of a stream as fp32 (p is 16-byte aligned for
-// fp32, 8-byte for bf16: rows are L values long and col0 + 4·j4 is a
-// multiple of 4).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// Loads the staged rows' values of one operand stream as fp32 into
-// dst[i * width + j] = src(base + i)[col0 + j] for i < EW, j < width; rows
-// past `end` are zero. Each warp loads whole rows, four values per lane
-// and load.
-template <typename T>
-__device__ __forceinline__ void stage_operand(float* dst, int src, int64_t col0, int width,
-                                              int64_t base, int64_t end,
-                                              const T* __restrict__ scratch,
-                                              const T* __restrict__ e, int64_t n_edges,
-                                              int64_t L) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int i = warp; i < EW; i += n_warps) {
-    const int64_t ei = base + i;
-    const T* row = nullptr;
-    if (ei < end) row = src == SRC_E ? e + ei * L : scratch + (src * n_edges + ei) * L;
-    for (int j4 = lane; j4 < width / 4; j4 += 32) {
-      const float4 v = row ? load4(row + col0 + 4 * j4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(dst + i * width + 4 * j4) = v;
-    }
-  }
-}
-
-// One 64-row slab of one weight grad over one chunk of slots:
-// wpart[chunk][mat][k][c] = Σ_{i in chunk} Σ_pairs A[i][k]·B[i][c], fp32 over
-// each WG slots, fp64 across them. mat 0 is dW2, mat 1 dWe.
-template <typename T>
-__global__ void __launch_bounds__(512) v2_bwd_wgrad_kernel(
-    const T* __restrict__ scratch, const T* __restrict__ e, double* __restrict__ wpart,
-    int64_t n_edges, int64_t L, int64_t chunk) {
-  extern __shared__ float4 wsmem4[];
-  float* a_s = reinterpret_cast<float*>(wsmem4);  // (EW, KB)
-  float* b_s = a_s + EW * KB;                     // (EW, L)
-
-  const int64_t ck = blockIdx.x;
-  const int n_kb = static_cast<int>(L / KB);
-  const int mat = blockIdx.y / n_kb;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.y % n_kb) * KB;
-  // thread (ty, tx) owns rows k0 + ty·TK + a and columns tx + b·(L/TC):
-  // neighbouring threads read neighbouring columns of the staged rows
-  const int n_tx = static_cast<int>(L / TC);
-  const int tx = threadIdx.x % n_tx;
-  const int ty = threadIdx.x / n_tx;
-  const int64_t lo = ck * chunk;
-  const int64_t hi = lo + chunk < n_edges ? lo + chunk : n_edges;
-
-  // (A, B) stream pairs of each weight grad: dW2, dWe
-  int pa[2], pb[2], n_pairs;
-  if (mat == 0) { pa[0] = S_H1; pb[0] = S_DY1; pa[1] = S_H2; pb[1] = S_DY2; n_pairs = 2; }
-  else { pa[0] = SRC_E; pb[0] = S_DPS; pa[1] = 0; pb[1] = 0; n_pairs = 1; }
-
-  double acc[TK][TC];
-#pragma unroll
-  for (int a = 0; a < TK; ++a)
-#pragma unroll
-    for (int b = 0; b < TC; ++b) acc[a][b] = 0.0;
-
-  for (int p = 0; p < n_pairs; ++p) {
-    for (int64_t base = lo; base < hi; base += EW) {
-      __syncthreads();  // the previous step's operands are consumed
-      stage_operand<T>(a_s, pa[p], k0, KB, base, hi, scratch, e, n_edges, L);
-      stage_operand<T>(b_s, pb[p], 0, static_cast<int>(L), base, hi, scratch, e, n_edges, L);
-      __syncthreads();
-      for (int i0 = 0; i0 < EW; i0 += WG) {
-        float part[TK][TC];
-#pragma unroll
-        for (int a = 0; a < TK; ++a)
-#pragma unroll
-          for (int b = 0; b < TC; ++b) part[a][b] = 0.f;
-#pragma unroll
-        for (int i = i0; i < i0 + WG; ++i) {
-          const float4 a4 = *reinterpret_cast<const float4*>(a_s + i * KB + ty * TK);
-          const float av[TK] = {a4.x, a4.y, a4.z, a4.w};
-          float bv[TC];
-#pragma unroll
-          for (int b = 0; b < TC; ++b) bv[b] = b_s[i * L + b * n_tx + tx];
-#pragma unroll
-          for (int a = 0; a < TK; ++a)
-#pragma unroll
-            for (int b = 0; b < TC; ++b) part[a][b] = fmaf(av[a], bv[b], part[a][b]);
-        }
-#pragma unroll
-        for (int a = 0; a < TK; ++a)
-#pragma unroll
-          for (int b = 0; b < TC; ++b) acc[a][b] += static_cast<double>(part[a][b]);
-      }
-    }
-  }
-  double* out = wpart + (ck * 2 + mat) * L * L;
-#pragma unroll
-  for (int a = 0; a < TK; ++a)
-#pragma unroll
-    for (int b = 0; b < TC; ++b) out[(k0 + ty * TK + a) * L + b * n_tx + tx] = acc[a][b];
-}
-
-// wb = [dW2; dWe; db2; db0] (2L+2, L) fp32: the per-chunk and per-tile
-// partials summed in order in fp64, rounded once.
-__global__ void v2_bwd_reduce_kernel(const double* __restrict__ wpart, int64_t n_chunks,
-                                     const double* __restrict__ bpart, int64_t n_tiles,
-                                     int64_t L, float* __restrict__ wb) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t n_w = 2 * L * L;
-  if (idx < n_w) {
-    double s = 0.0;
-    for (int64_t ck = 0; ck < n_chunks; ++ck) s += wpart[ck * n_w + idx];
-    wb[idx] = static_cast<float>(s);
-  } else if (idx < n_w + L) {  // db2 = Σ dy1 + Σ dy2
-    const int64_t c = idx - n_w;
-    double s = 0.0;
-    for (int64_t t = 0; t < n_tiles; ++t) s += bpart[(t * 3 + 0) * L + c] + bpart[(t * 3 + 1) * L + c];
-    wb[idx] = static_cast<float>(s);
-  } else if (idx < n_w + 2 * L) {  // db0 = Σ dps
-    const int64_t c = idx - n_w - L;
-    double s = 0.0;
-    for (int64_t t = 0; t < n_tiles; ++t) s += bpart[(t * 3 + 2) * L + c];
-    wb[idx] = static_cast<float>(s);
-  }
-}
-
 struct Args {
   const void *a_u, *a_v, *g_v, *g_u, *e, *z_upd, *dz_upd;
   const float *dR, *dM;
@@ -455,7 +261,7 @@ struct Args {
 };
 
 template <typename T>
-cudaError_t launch(const Args& a, size_t smem_tile, size_t smem_wgrad, cudaStream_t stream) {
+cudaError_t launch(const Args& a, size_t smem_tile, cudaStream_t stream) {
   const int64_t n_tiles = a.n_nodes / a.tile;
   const int64_t block = a.n_edges / a.n_blocks;
   cudaError_t err = cudaFuncSetAttribute(v2_bwd_tile_kernel<T>,
@@ -473,34 +279,19 @@ cudaError_t launch(const Args& a, size_t smem_tile, size_t smem_wgrad, cudaStrea
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(v2_bwd_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_wgrad));
-  if (err != cudaSuccess) return err;
-  const int64_t chunk = (a.n_edges + a.n_chunks - 1) / a.n_chunks;
-  const dim3 grid(static_cast<unsigned>(a.n_chunks), static_cast<unsigned>(2 * (a.L / KB)));
-  const unsigned threads = static_cast<unsigned>((KB / TK) * (a.L / TC));
-  v2_bwd_wgrad_kernel<T><<<grid, threads, smem_wgrad, stream>>>(
-      static_cast<const T*>(a.scratch), c(a.e), a.wpart, a.n_edges, a.L, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int64_t n_out = (2 * a.L + 2) * a.L;
-  v2_bwd_reduce_kernel<<<static_cast<unsigned>((n_out + 255) / 256), 256, 0, stream>>>(
-      a.wpart, a.n_chunks, a.bpart, n_tiles, a.L, a.wb);
-  return cudaGetLastError();
+  return launch_wgrad_reduce<T>(static_cast<const T*>(a.scratch), c(a.e), a.gid, a.wpart,
+                                a.bpart, a.wb, a.n_edges, a.L, n_tiles, a.n_chunks,
+                                a.n_graphs, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory of one CTA of the tile kernel and of the weight-grad kernel.
+// Shared memory of one CTA of the tile kernel.
 int64_t pdg_fused_edge_bwd_tile_smem_bytes(int64_t L) {
   return 5 * EC * L * static_cast<int64_t>(sizeof(float)) +
          EC * static_cast<int64_t>(sizeof(int) + sizeof(float));
-}
-int64_t pdg_fused_edge_bwd_wgrad_smem_bytes(int64_t L) {
-  return EW * (KB + L) * static_cast<int64_t>(sizeof(float));
 }
 
 // Launches the backward on `stream`. Pointers are device pointers. a_u,
@@ -532,10 +323,9 @@ int pdg_fused_edge_bwd(int bf16, const void* a_u, const void* a_v, const void* g
          static_cast<double*>(bpart), static_cast<double*>(wpart), static_cast<float*>(wb),
          n_nodes, n_edges, L, tile, n_blocks, n_graphs, n_chunks};
   const size_t smem_tile = static_cast<size_t>(pdg_fused_edge_bwd_tile_smem_bytes(L));
-  const size_t smem_wgrad = static_cast<size_t>(pdg_fused_edge_bwd_wgrad_smem_bytes(L));
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? launch<__nv_bfloat16>(a, smem_tile, smem_wgrad, s)
-                         : launch<float>(a, smem_tile, smem_wgrad, s);
+  cudaError_t err = bf16 ? launch<__nv_bfloat16>(a, smem_tile, s)
+                         : launch<float>(a, smem_tile, s);
   return static_cast<int>(err);
 }
 

@@ -6,8 +6,9 @@ not a module of the JAX package.
 hole refinement 8, radius drawn in [15, 30)), each with its divergence
 operator, random macroscopic and local stresses, packed with RCM node
 ordering, the sender-major view and the gather-only divergence views: the
-batch the benchmark's training step runs on. Everything comes from
-``numpy.random.default_rng(seed)``, in the benchmark's order.
+batch the benchmark's training step runs on (receiver-major, or
+pair-blocked for the ``fused2`` path, ``bench.py:95-96, :134``). Everything
+comes from ``numpy.random.default_rng(seed)``, in the benchmark's order.
 """
 
 from __future__ import annotations
@@ -62,11 +63,22 @@ def build_samples(
     return samples
 
 
-def build_workload(n_graphs: int = 16, seed: int = 0) -> tuple[GraphBatch, int, int]:
-    """(host batch, real edges, real nodes) of the benchmark's training
-    step: RCM-ordered, with the sender view and the divergence ELL views."""
-    samples = build_samples(n_graphs, seed)
-    batch = pack_batch(samples, n_graphs=n_graphs, reorder="rcm")
+def pack_workload(
+    samples: list[GraphSample], pair_blocks: bool = False
+) -> tuple[GraphBatch, int, int]:
+    """(host batch, real edges, real nodes) of the benchmark's training step
+    on ``samples``: RCM-ordered, with the sender view and the divergence ELL
+    views; pair-blocked with ``pair_blocks``."""
+    batch = pack_batch(samples, n_graphs=len(samples), pair_blocks=pair_blocks,
+                       reorder="rcm")
     n_real_edges = sum(s.num_edges for s in samples)
     n_real_nodes = sum(s.num_nodes for s in samples)
     return batch, n_real_edges, n_real_nodes
+
+
+def build_workload(
+    n_graphs: int = 16, seed: int = 0, pair_blocks: bool = False
+) -> tuple[GraphBatch, int, int]:
+    """(host batch, real edges, real nodes) of the benchmark's training
+    step (``bench.py::build_workload``)."""
+    return pack_workload(build_samples(n_graphs, seed), pair_blocks)

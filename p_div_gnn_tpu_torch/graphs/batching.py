@@ -1,8 +1,8 @@
 """Pack host mesh-graph samples into static-shape padded GraphBatches (numpy).
 
-Copy of ``p_div_gnn_tpu/graphs/batching.py`` for the receiver-major layout
-(the pair-blocked layout of the ``fused2`` path is not ported): RCM node
-reordering, the block-aligned CSR edge layout, the sender-major view and the
+Copy of ``p_div_gnn_tpu/graphs/batching.py``: RCM node reordering, the
+block-aligned CSR edge layout (receiver-major, or pair-blocked by (receiver
+tile, sender tile) for the ``fused2`` path), the sender-major view and the
 gather-only divergence views. The output holds numpy arrays and is
 array-equal to the JAX packer's; ``GraphBatch.to(device)`` moves it to torch.
 """
@@ -121,6 +121,90 @@ def blockify_edges(
         np.arange(n_tiles, dtype=np.int32), cap // edge_block
     )
     return o_snd, o_rcv, o_ew, o_eg, tile_ptr, edge_block_tile
+
+
+def blockify_edges_pair(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    edge_weight: np.ndarray,
+    edge_gid: np.ndarray,
+    num_nodes: int,
+    n_graphs: int,
+    tile: int = NODE_TILE,
+    edge_block: int = EDGE_BLOCK,
+    min_capacity: int = 0,
+) -> tuple[np.ndarray, ...]:
+    """Pair-blocked layout of the ``fused2`` edge step: edges grouped by
+    (receiver tile, sender tile), each group padded to a whole number of
+    ``edge_block`` slots, in receiver-tile-major order, so that both
+    endpoints of every slot of a block lie in one node tile each. Every
+    receiver tile gets at least one block. Receivers stay sorted within a
+    group (the input is receiver-sorted) and restart at the next group.
+
+    Padding slots point receiver and sender at the last node of their
+    group's tiles and carry ``edge_gid == n_graphs``.
+
+    Returns (senders, receivers, edge_weight, edge_gid, tile_ptr,
+    edge_block_tile (receiver tile per block), edge_block_snd_tile (sender
+    tile per block)).
+    """
+    if num_nodes % tile:
+        raise ValueError(f"num_nodes {num_nodes} is not a multiple of tile {tile}")
+    n_tiles = num_nodes // tile
+    rt = np.minimum(receivers // tile, n_tiles - 1).astype(np.int64)
+    st = np.minimum(senders // tile, n_tiles - 1).astype(np.int64)
+    key = rt * n_tiles + st
+    order = np.argsort(key, kind="stable")
+    pairs, counts = np.unique(key[order], return_counts=True)
+    # every receiver tile needs at least one block so R covers all tiles
+    missing_rt = np.setdiff1d(np.arange(n_tiles, dtype=np.int64), pairs // n_tiles)
+    pairs = np.concatenate([pairs, missing_rt * n_tiles + missing_rt])
+    counts = np.concatenate([counts, np.zeros(len(missing_rt), np.int64)])
+    resort = np.argsort(pairs, kind="stable")
+    pairs, counts = pairs[resort], counts[resort]
+
+    cap = np.maximum((counts + edge_block - 1) // edge_block, 1) * edge_block
+    total = int(cap.sum())
+    if min_capacity and total < min_capacity:
+        if (min_capacity - total) % edge_block:
+            raise ValueError(
+                f"min_capacity {min_capacity} not edge_block({edge_block})-"
+                f"aligned with pair layout total {total}"
+            )
+        cap[-1] += min_capacity - total
+        total = min_capacity
+    starts = np.concatenate([[0], np.cumsum(cap)])[:-1]
+
+    p_rt = (pairs // n_tiles).astype(np.int32)
+    p_st = (pairs % n_tiles).astype(np.int32)
+    o_snd = np.empty(total, senders.dtype)
+    o_rcv = np.empty(total, receivers.dtype)
+    o_ew = np.zeros((total,) + edge_weight.shape[1:], edge_weight.dtype)
+    o_eg = np.full(total, n_graphs, edge_gid.dtype)
+    for g in range(len(pairs)):
+        o_rcv[starts[g] : starts[g] + cap[g]] = p_rt[g] * tile + (tile - 1)
+        o_snd[starts[g] : starts[g] + cap[g]] = p_st[g] * tile + (tile - 1)
+    in_starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    for g in range(len(pairs)):
+        c = counts[g]
+        if c:
+            src = order[in_starts[g] : in_starts[g] + c]
+            o_snd[starts[g] : starts[g] + c] = senders[src]
+            o_rcv[starts[g] : starts[g] + c] = receivers[src]
+            o_ew[starts[g] : starts[g] + c] = edge_weight[src]
+            o_eg[starts[g] : starts[g] + c] = edge_gid[src]
+    edge_block_tile = np.repeat(p_rt, cap // edge_block)
+    edge_block_snd_tile = np.repeat(p_st, cap // edge_block)
+    # per-receiver-tile CSR offsets (the blocks of one receiver tile are
+    # contiguous)
+    tile_tot = np.zeros(n_tiles, np.int64)
+    np.add.at(tile_tot, p_rt, cap)
+    tile_ptr = np.concatenate([[0], np.cumsum(tile_tot)]).astype(np.int32)
+    return (
+        o_snd, o_rcv, o_ew, o_eg, tile_ptr,
+        edge_block_tile.astype(np.int32),
+        edge_block_snd_tile.astype(np.int32),
+    )
 
 
 def build_sender_view(
@@ -274,6 +358,7 @@ def pack_batch(
     samples: list[GraphSample],
     n_graphs: int | None = None,
     tile: int = NODE_TILE,
+    pair_blocks: bool = False,
     sender_view: bool = True,
     div_ell: bool = True,
     reorder: str | None = None,
@@ -281,10 +366,12 @@ def pack_batch(
     """Concatenate samples into one padded batch (host-side, numpy).
 
     Node layout: graphs contiguous in input order, then padding (at least
-    one padding node). Edges are globally sorted by receiver and re-laid
-    into the block-aligned CSR layout; padding edges are masked by
-    ``edge_gid == n_graphs``. ``sender_view`` and ``div_ell`` build the
-    views that only training reads.
+    one padding node). Edges are sorted by receiver and re-laid into the
+    block-aligned CSR layout, or with ``pair_blocks`` into the pair-blocked
+    layout of the ``fused2`` path (``blockify_edges_pair``, which sets
+    ``edge_block_snd_tile``); padding edges are masked by
+    ``edge_gid == n_graphs``. ``sender_view`` (built over the layout's
+    senders) and ``div_ell`` build the views that only training reads.
     """
     G = n_graphs if n_graphs is not None else len(samples)
     if len(samples) > G:
@@ -356,18 +443,18 @@ def pack_batch(
     # CSR-sort edges by receiver (stable keeps canonical (s, r) order within
     # a receiver), then re-lay into the block-aligned layout.
     order = np.argsort(receivers[:e_off], kind="stable")
-    senders, receivers, edge_weight, edge_gid, tile_ptr, edge_block_tile = (
-        blockify_edges(
-            senders[:e_off][order],
-            receivers[:e_off][order],
-            edge_weight[:e_off][order],
-            edge_gid[:e_off][order],
-            num_nodes=Np,
-            n_graphs=G,
-            tile=tile,
-            min_capacity=Ep,
+    sorted_edges = (senders[:e_off][order], receivers[:e_off][order],
+                    edge_weight[:e_off][order], edge_gid[:e_off][order])
+    edge_block_snd_tile = None
+    if pair_blocks:
+        (senders, receivers, edge_weight, edge_gid, tile_ptr, edge_block_tile,
+         edge_block_snd_tile) = blockify_edges_pair(
+            *sorted_edges, num_nodes=Np, n_graphs=G, tile=tile, min_capacity=Ep)
+    else:
+        senders, receivers, edge_weight, edge_gid, tile_ptr, edge_block_tile = (
+            blockify_edges(*sorted_edges, num_nodes=Np, n_graphs=G, tile=tile,
+                           min_capacity=Ep)
         )
-    )
 
     snd_perm = snd_sorted = snd_block_tile = None
     if sender_view:
@@ -401,6 +488,7 @@ def pack_batch(
         edge_gid=edge_gid,
         tile_ptr=tile_ptr,
         edge_block_tile=edge_block_tile,
+        edge_block_snd_tile=edge_block_snd_tile,
         snd_perm=snd_perm,
         snd_sorted=snd_sorted,
         snd_block_tile=snd_block_tile,

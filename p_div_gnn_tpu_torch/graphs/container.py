@@ -9,7 +9,10 @@ fields with the same layout contract, held as numpy arrays on the host
 - edges are sorted by receiver in a block-aligned CSR layout: every
   ``tile``-node range's edge run is padded to a whole number of edge blocks,
   and ``edge_block_tile`` names the node tile of each block (the fused
-  edge-step kernel reads both sizes from the batch);
+  edge-step kernel reads both sizes from the batch); a pair-blocked batch
+  (``pack_batch(pair_blocks=True)``, the ``fused2`` path) groups them by
+  (receiver tile, sender tile) instead and names each block's sender tile
+  in ``edge_block_snd_tile``: its receivers are not globally sorted;
 - padding edges carry ``edge_gid == n_graphs`` and contribute nothing.
 """
 
@@ -74,6 +77,10 @@ class GraphBatch:
     # node_order[off+i] = original local index of the node at packed row
     # off+i; unpack_predictions inverts it.
     node_order: Array | None = None  # (Np,) i32
+
+    # --- optional pair-blocked layout marker (batching.blockify_edges_pair,
+    # scatter_impl="fused2"): sender tile per edge block
+    edge_block_snd_tile: Array | None = None  # (Ep // block,) i32
 
     # --- static
     n_graphs: int = 1

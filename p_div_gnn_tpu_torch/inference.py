@@ -45,7 +45,9 @@ class Predictor:
     @torch.no_grad()
     def predict(self, samples: list[GraphSample]) -> list[np.ndarray]:
         """One (N_i, 3) stress field per sample, as the JAX inference path
-        computes it (RCM-ordered batch, fp32 model)."""
-        host = pack_batch(samples, reorder="rcm", sender_view=False, div_ell=False)
+        computes it (RCM-ordered batch, pair-blocked for ``"fused2"``, fp32
+        model)."""
+        host = pack_batch(samples, reorder="rcm", sender_view=False, div_ell=False,
+                          pair_blocks=self.model.scatter_impl == "fused2")
         out = self.model(host.to(self.device), self.stats)
         return unpack_predictions(host, out.cpu().numpy())

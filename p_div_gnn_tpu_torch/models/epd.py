@@ -24,6 +24,12 @@ JAX package's impl of the same name:
   whose backward is the pair segment sum over the sender view), the v2
   fused edge-step kernels (``ops/fused_edge.py``), and the graph-LN folded
   lazily into its consumers;
+- ``"fused2"``: the pair-blocked fused path (`epd.py:238-281`) — node
+  projections x·Wu and x·Wv as in ``"xla"``, then one edge-step kernel that
+  gathers both endpoints and projects e itself (``fused_edge_step2``, on a
+  batch packed with ``pair_blocks=True``), and the graph-LN folded lazily
+  into its consumers; its backward adds the sender-side cotangents with the
+  pair segment sum over the batch's sender view;
 - ``"fused3"``: the fused path (`epd.py:182-237`) — one sender gather of x in
   the stream dtype (``ops/gather.py``, whose backward is the block-CSR
   scatter over the batch's sender view), the fused edge-step kernels
@@ -59,6 +65,7 @@ from p_div_gnn_tpu_torch.models.blocks import (
 )
 from p_div_gnn_tpu_torch.ops.fused_edge import (
     fused_edge_step,
+    fused_edge_step2,
     lazy_layernorm_affine,
     moments_from_partials,
 )
@@ -71,8 +78,8 @@ from p_div_gnn_tpu_torch.ops.segment import segment_sum
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-SCATTER_IMPLS = ("xla", "pallas", "hybrid", "fused", "fused3")
-FUSED_IMPLS = ("fused", "fused3")
+SCATTER_IMPLS = ("xla", "pallas", "hybrid", "fused", "fused2", "fused3")
+FUSED_IMPLS = ("fused", "fused2", "fused3")
 # node features [σ̄xx, σ̄yy, σ̄xy, pos_x, pos_y, node_type], edge feature
 # [distance], output [σxx, σyy, σxy]
 NODE_FEATURES, EDGE_FEATURES, OUT_FEATURES = 6, 1, 3
@@ -142,6 +149,19 @@ class Processor(nn.Module):
                 z_upd, r_raw, m = fused_edge_step3(
                     x_sd, g_x, e.to(sd), self.edge_w_u.to(sd), self.edge_w_v.to(sd), w_e, b0,
                     lin_w, lin_b, rcv, aux, batch.n_graphs, batch.tile,
+                )
+            elif self.scatter_impl == "fused2":
+                if batch.edge_block_snd_tile is None:
+                    raise ValueError(
+                        "scatter_impl='fused2' needs pair-blocked batches "
+                        "(pack_batch(pair_blocks=True))"
+                    )
+                proj_u = x @ self.edge_w_u  # FIRST slot
+                proj_v = x @ self.edge_w_v  # SECOND slot
+                aux2 = aux + (batch.edge_block_snd_tile,) + (view or ())
+                z_upd, r_raw, m = fused_edge_step2(
+                    proj_u.to(sd), proj_v.to(sd), e.to(sd), w_e, b0, lin_w, lin_b, rcv, snd,
+                    aux2, batch.n_graphs, batch.tile,
                 )
             else:
                 proj_u = x @ self.edge_w_u  # FIRST slot

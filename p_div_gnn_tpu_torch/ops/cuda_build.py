@@ -4,8 +4,9 @@ ctypes.
 Each source exposes a plain ``extern "C"`` interface (raw pointers, sizes,
 the ``cudaStream_t``) and includes no PyTorch header, so nvcc builds it in
 seconds. The shared library goes to ``build/p_div_gnn_tpu_torch/`` at the
-checkout's root, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. The library is
+checkout's root, named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. The library is
 compiled under a temporary name and renamed into place: a run that is cut
 off leaves no half-built library behind and no lock to wait on.
 """
@@ -16,6 +17,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,15 +48,29 @@ def find_nvcc() -> str | None:
     return str(candidate) if candidate.is_file() else None
 
 
+def local_headers(source: Path) -> list[Path]:
+    """The ``csrc/`` headers a source includes with ``#include "..."``."""
+    names = re.findall(r'^\s*#\s*include\s*"([^"]+)"', source.read_text(), flags=re.M)
+    return [CSRC_DIR / n for n in names]
+
+
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, its ``csrc/`` headers and the flags."""
+    source = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
 def load_cuda_library(name: str) -> CudaLibrary:
     """Build (if needed) and load ``csrc/<name>.cu``; raises RuntimeError when
     nvcc is missing or the build fails. Every source exports
     ``pdg_cuda_error_string``, which ``check_launch`` reads."""
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    out = library_path(name)
     seconds, log = 0.0, ""
     if not out.is_file():
         nvcc = find_nvcc()

@@ -1,8 +1,9 @@
-"""Fused edge-step v2 and the lazy graph-LN helpers — the counterparts of
-``p_div_gnn_tpu/ops/fused_edge.py``: ``fused_edge_step`` (whose forward is
-the Pallas kernel ``_step_kernel`` and whose VJP is the Pallas kernel
-``_step_bwd_kernel``), ``moments_from_partials`` and
-``lazy_layernorm_affine`` (`:547-597`).
+"""Fused edge-step v2, the pair-blocked fused2 step and the lazy graph-LN
+helpers — the counterparts of ``p_div_gnn_tpu/ops/fused_edge.py``:
+``fused_edge_step`` (whose forward is the Pallas kernel ``_step_kernel`` and
+whose VJP is the Pallas kernel ``_step_bwd_kernel``), ``fused_edge_step2``
+(``_step2_kernel`` and ``_step2_bwd_kernel``, `:588-955`),
+``moments_from_partials`` and ``lazy_layernorm_affine`` (`:547-597`).
 
 For each edge slot i with receiver r, given the hoisted node projections
 a_u = x·Wu, a_v = x·Wv and their sender gathers g_v = a_v[snd],
@@ -31,6 +32,20 @@ dA summing bf16-rounded rows, M the fp32 z. The receiver-side cotangent dR
 is gathered unrounded, as the JAX op does on the CPU. Each gradient is
 returned in its input's dtype, as the JAX VJP (``_step_bwd``) returns it.
 
+``fused_edge_step2`` computes the same step on the pair-blocked layout
+(``graphs/batching.py::blockify_edges_pair``), where every block's slots
+have their receivers in one node tile and their senders in another: both
+endpoint rows are read from the node projections inside the kernel
+(``csrc/fused_edge2_fwd.cu``), so there are no streamed sender gathers. Its
+backward kernel (``csrc/fused_edge2_bwd.cu``) emits the dpre1 and dpre2
+streams, and one pair segment sum over the batch's sender view
+(``ops/scatter_csr.py::csr_segment_sum_pair``) adds them per sender, as the
+JAX VJP adds them outside its kernel. The same dispatch holds: CUDA
+tensors reach the kernels or an error, CPU tensors the plain versions. In
+bf16 mode the backward rounds as ``_step2_bwd_kernel`` does, which casts
+both operands of every contraction: unlike the v2 backward, the gathered dR
+row is rounded to bf16 too.
+
 The fused graph-LN that follows in the reference (`models.py:199,207`) is
 folded into its consumers as a per-lane affine, ``LN(z) = z·alpha + beta``
 on real rows, from the moment partials M.
@@ -44,6 +59,7 @@ import functools
 import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
+from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum_pair
 from p_div_gnn_tpu_torch.ops.segment import segment_sum
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -383,3 +399,404 @@ def fused_edge_step(
 
 
 fused_edge_step.launches = 0  # type: ignore[attr-defined]
+
+
+# ---------------------------------------------------------------------------
+# fused2: the pair-blocked edge step (`fused_edge.py:588-955` of the JAX
+# package)
+# ---------------------------------------------------------------------------
+
+PairAux = tuple  # (edge_gid, block_tile, block_snd_tile[, snd_perm, snd_sorted, snd_block_tile])
+
+
+def _check2(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"fused_edge_step2: {msg}")
+
+
+def _pair_in_tile(
+    receivers: torch.Tensor, senders: torch.Tensor, block_tile: torch.Tensor,
+    block_snd_tile: torch.Tensor, tile: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Ep, 1) masks: the slot's receiver lies in its block's receiver tile,
+    its sender in its block's sender tile. Outside, the TPU kernel's one-hot
+    contractions read zero."""
+    Ep = receivers.shape[0]
+    slot_block = torch.arange(Ep, device=receivers.device) // (Ep // block_tile.shape[0])
+    in_r = torch.div(receivers, tile, rounding_mode="floor") == block_tile[slot_block]
+    in_s = torch.div(senders, tile, rounding_mode="floor") == block_snd_tile[slot_block]
+    return in_r[:, None], in_s[:, None]
+
+
+def fused_edge_step2_reference(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, aux: PairAux, n_graphs: int, tile: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the pair-blocked forward (``_step2_kernel``):
+    gathers at both endpoints (zero outside the block's tiles), matmuls and
+    ``segment_sum``."""
+    edge_gid, block_tile, block_snd_tile = aux[:3]
+    sd = e.dtype
+    Np = proj_u.shape[0]
+    in_r, in_s = _pair_in_tile(receivers, senders, block_tile, block_snd_tile, tile)
+    we, b0f, w2f, b2f = (t.float() for t in (w_e, b0, w2, b2))
+    ep = e.float() @ we
+    mask = (edge_gid < n_graphs).float()[:, None]
+
+    def edge_mlp(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        a_r = torch.where(in_r, a.float().index_select(0, receivers), 0.0)
+        p_s = torch.where(in_s, p.float().index_select(0, senders), 0.0)
+        h = torch.relu(((a_r + p_s) + ep) + b0f).to(sd).float()
+        return torch.relu(h @ w2f + b2f) * mask
+
+    z_msg = edge_mlp(proj_u, proj_v)  # messages: u at the receiver, v at the sender
+    z_upd = edge_mlp(proj_v, proj_u)  # edge update: v at the receiver, u at the sender
+    r = segment_sum(torch.where(in_r, z_msg.to(sd).float(), 0.0), receivers, Np)
+    zm, zu = z_msg.double(), z_upd.double()
+    m = torch.zeros((8, proj_u.shape[1]), dtype=torch.float64, device=proj_u.device)
+    m[0], m[1], m[2], m[3] = zm.sum(0), (zm * zm).sum(0), zu.sum(0), (zu * zu).sum(0)
+    return z_upd.to(sd), r, m.float()
+
+
+def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid,
+                       block_tile, block_snd_tile, tile, extra_sd=(), extra_f32=()):
+    """Shapes, dtypes, devices and layout of a fused2 kernel call; returns
+    (Np, Ep, L, n_blocks)."""
+    Np, L = proj_u.shape
+    Ep = e.shape[0]
+    sd = e.dtype
+    floats = (proj_u, proj_v, e, w_e, b0, w2, b2) + tuple(extra_sd)
+    ints = (receivers, senders, edge_gid, block_tile, block_snd_tile)
+    every = floats + ints + tuple(extra_f32)
+    _check2(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
+    _check2(all(t.dtype == sd for t in floats),
+            "the node projections, streams and weights must share a dtype")
+    _check2(all(t.dtype == torch.float32 for t in extra_f32), "dR and dM must be float32")
+    _check2(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
+    _check2(len({t.device for t in every}) == 1, "tensors on several devices")
+    _check2(all(t.is_contiguous() for t in every), "tensors must be contiguous")
+    _check2(proj_v.shape == (Np, L), "proj_u and proj_v must be (Np, L)")
+    _check2(all(t.shape == (Ep, L) for t in (e,) + tuple(extra_sd)),
+            "e (and z_upd, dz_upd) must be (Ep, L)")
+    _check2(w_e.shape == (L, L) and w2.shape == (L, L), "weights must be (L, L)")
+    _check2(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
+    _check2(all(t.shape == (Ep,) for t in (receivers, senders, edge_gid)),
+            "index arrays must be (Ep,)")
+    n_blocks = block_tile.shape[0]
+    _check2(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0
+            and block_snd_tile.shape == block_tile.shape,
+            "edge slots must split into whole blocks, each with a receiver and a sender tile")
+    _check2(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
+    _check2(L % 4 == 0 and 4 <= L <= 256, f"L={L} must be a multiple of 4 in [4, 256]")
+    _check2(5 * Ep * L < 2**31 and 2 * Np * L < 2**31, "arrays too large")
+    return Np, Ep, L, n_blocks
+
+
+@functools.cache
+def _library2() -> CudaLibrary:
+    built = load_cuda_library("fused_edge2_fwd")
+    fn = built.lib.pdg_fused_edge2_fwd
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _fused_edge_step2_cuda(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
+    block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    built = _library2()
+    Np, Ep, L, n_blocks = _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers,
+                                             senders, edge_gid, block_tile, block_snd_tile,
+                                             tile)
+    sd = e.dtype
+    dev = e.device
+    z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
+    r = torch.empty((Np, L), dtype=torch.float32, device=dev)
+    r64 = torch.empty((Np, L), dtype=torch.float64, device=dev)
+    mpart = torch.empty((Np // tile, 4, L), dtype=torch.float64, device=dev)
+    m = torch.empty((8, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_fused_edge2_fwd(
+            int(sd == torch.bfloat16),
+            *(t.data_ptr() for t in (proj_u, proj_v, e, receivers, senders, edge_gid,
+                                     block_tile, block_snd_tile, w_e, w2, b0, b2, z_upd, r,
+                                     r64, mpart, m)),
+            Np, Ep, L, tile, n_blocks, int(n_graphs), stream,
+        )
+    check_launch(built, err, "fused_edge2_fwd")
+    fused_edge_step2.launches += 1
+    return z_upd, r, m
+
+
+def fused_edge2_bwd_reference(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, aux: PairAux, n_graphs: int, tile: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of ``_step2_bwd_kernel``: z_msg is recomputed,
+    z_upd is the forward's (zero on the padding slots). Returns (de, dpre1,
+    dpre2, du_r, dv_r, dWe, db0, dW2, db2): de, dpre1 and dpre2 in the
+    stream dtype, the rest fp32; du_r and dv_r are the receiver sums of
+    dpre1 and dpre2 (slots whose receiver lies in their block's tile). In
+    bf16 mode every contraction rounds both operands, as the JAX kernel's
+    ``mm`` does: the gathered dR, h, dy and dpre1 + dpre2 before the
+    products, dpre1 and dpre2 before the receiver sums. The weight grads
+    sum in fp64 and round once."""
+    edge_gid, block_tile, block_snd_tile = aux[:3]
+    sd = e.dtype
+    Np = proj_u.shape[0]
+    in_r, in_s = _pair_in_tile(receivers, senders, block_tile, block_snd_tile, tile)
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:  # round through the stream dtype
+        return t.to(sd).float()
+
+    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return rnd(a) @ rnd(b)
+
+    def wsum(*pairs: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        return sum(rnd(a).double().T @ rnd(b).double() for a, b in pairs).float()
+
+    def at(p: torch.Tensor, idx: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
+        return torch.where(inside, p.float().index_select(0, idx), 0.0)
+
+    we, w2f = w_e.float(), w2.float()
+    # the cotangent products read contiguous transposes, as the kernel does
+    weT, w2T = we.T.contiguous(), w2f.T.contiguous()
+    b0f, b2f = b0.float(), b2.float()
+    mask = (edge_gid < n_graphs).float()[:, None]
+    ef = e.float()
+    ep = mm(ef, we)
+    pre1 = ((at(proj_u, receivers, in_r) + at(proj_v, senders, in_s)) + ep) + b0f
+    pre2 = ((at(proj_v, receivers, in_r) + at(proj_u, senders, in_s)) + ep) + b0f
+    h1, h2 = torch.relu(pre1), torch.relu(pre2)
+    z_msg = torch.relu(mm(h1, w2f) + b2f) * mask
+    z_u = z_upd.float()
+    dmf = dm.float()
+
+    dz_msg = at(rnd(dr), receivers, in_r) + dmf[0] + 2.0 * dmf[1] * z_msg
+    dy1 = dz_msg * (z_msg > 0)
+    dz_u = dz_upd.float() + dmf[2] + 2.0 * dmf[3] * z_u
+    dy2 = dz_u * ((z_u > 0) & (mask > 0))
+    dpre1 = mm(dy1, w2T) * (h1 > 0)
+    dpre2 = mm(dy2, w2T) * (h2 > 0)
+    dps = dpre1 + dpre2
+
+    de = mm(dps, weT).to(sd)
+    du_r = segment_sum(torch.where(in_r, rnd(dpre1), 0.0), receivers, Np)
+    dv_r = segment_sum(torch.where(in_r, rnd(dpre2), 0.0), receivers, Np)
+    dw2 = wsum((h1, dy1), (h2, dy2))
+    dwe = wsum((ef, dps))
+    db2 = (dy1 + dy2).double().sum(0).float()
+    db0 = dps.double().sum(0).float()
+    return de, dpre1.to(sd), dpre2.to(sd), du_r, dv_r, dwe, db0, dw2, db2
+
+
+@functools.cache
+def _bwd_library2() -> CudaLibrary:
+    built = load_cuda_library("fused_edge2_bwd")
+    fn = built.lib.pdg_fused_edge2_bwd
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return built
+
+
+def _fused_edge2_bwd_cuda(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
+    block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    built = _bwd_library2()
+    Np, Ep, L, n_blocks = _check_pair_inputs(
+        proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
+        block_snd_tile, tile, (z_upd, dz_upd), (dr, dm))
+    _check2(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
+    _check2(L % 64 == 0 and 64 <= L <= 256, f"L={L} must be a multiple of 64 in [64, 256]")
+    sd = e.dtype
+    dev = e.device
+    weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
+    dpre1 = torch.empty((Ep, L), dtype=sd, device=dev)
+    dpre2 = torch.empty((Ep, L), dtype=sd, device=dev)
+    de = torch.empty((Ep, L), dtype=sd, device=dev)
+    dur = torch.empty((2, Np, L), dtype=torch.float32, device=dev)
+    d64 = torch.empty((2, Np, L), dtype=torch.float64, device=dev)
+    scratch = torch.empty((5, Ep, L), dtype=sd, device=dev)
+    bpart = torch.empty((Np // tile, 3, L), dtype=torch.float64, device=dev)
+    wpart = torch.empty((BWD_CHUNKS, 2, L, L), dtype=torch.float64, device=dev)
+    wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = built.lib.pdg_fused_edge2_bwd(
+            int(sd == torch.bfloat16),
+            *(t.data_ptr() for t in (proj_u, proj_v, e, z_upd, dz_upd, dr, dm, receivers,
+                                     senders, edge_gid, block_tile, block_snd_tile, w_e, w2,
+                                     weT, w2T, b0, b2, dpre1, dpre2, de, dur, d64, scratch,
+                                     bpart, wpart, wb)),
+            Np, Ep, L, tile, n_blocks, int(n_graphs), BWD_CHUNKS, stream,
+        )
+    check_launch(built, err, "fused_edge2_bwd")
+    fused_edge2_bwd.launches += 1
+    dw2, dwe = wb[:2 * L].view(2, L, L).unbind(0)
+    return de, dpre1, dpre2, dur[0], dur[1], dwe, wb[2 * L + 1], dw2, wb[2 * L]
+
+
+def fused_edge2_bwd(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, aux: PairAux, n_graphs: int, tile: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """The pair-blocked backward kernel's outputs (de, dpre1, dpre2, du_r,
+    dv_r, dWe, db0, dW2, db2), before the sender-side sums. CUDA tensors go
+    to the kernel (``fused_edge2_bwd.launches`` counts its launches), CPU
+    tensors to ``fused_edge2_bwd_reference``; anything else raises."""
+    edge_gid, block_tile, block_snd_tile = aux[:3]
+    args = (proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders)
+    cots = (z_upd, dz_upd, dr, dm)
+    kinds = {t.device.type for t in args + cots + (edge_gid, block_tile, block_snd_tile)}
+    if kinds == {"cuda"}:
+        return _fused_edge2_bwd_cuda(*args, edge_gid, block_tile, block_snd_tile, n_graphs,
+                                     tile, *cots)
+    if kinds == {"cpu"}:
+        return fused_edge2_bwd_reference(*args, aux, n_graphs, tile, *cots)
+    raise ValueError(f"fused_edge2_bwd runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+fused_edge2_bwd.launches = 0  # type: ignore[attr-defined]
+
+
+def fused_edge_step2_backward_reference(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, aux: PairAux, n_graphs: int, tile: int,
+    z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the whole VJP (``_step2_bwd``): (du, dv, de,
+    dWe, db0, dW2, db2) with du = du_r + S(dpre2) and dv = dv_r + S(dpre1),
+    S the fp32-cast streams summed per sender over every slot
+    (``segment_sum``), as the JAX VJP adds them."""
+    de, dpre1, dpre2, du_r, dv_r, dwe, db0, dw2, db2 = fused_edge2_bwd_reference(
+        proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, aux, n_graphs, tile,
+        z_upd, dz_upd, dr, dm)
+    Np = proj_u.shape[0]
+    du = du_r + segment_sum(dpre2.float(), senders, Np)
+    dv = dv_r + segment_sum(dpre1.float(), senders, Np)
+    return du, dv, de, dwe, db0, dw2, db2
+
+
+def fused_edge_step2_backward(
+    proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
+    b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
+    senders: torch.Tensor, aux: PairAux, n_graphs: int, tile: int,
+    z_upd: torch.Tensor,  # (Ep, L) the forward's output, stream dtype
+    dz_upd: torch.Tensor,  # (Ep, L) cotangents, stream dtype
+    dr: torch.Tensor,  # (Np, L) fp32
+    dm: torch.Tensor,  # (8, L) fp32
+) -> tuple[torch.Tensor, ...]:
+    """The fused2 edge step's VJP: (du, dv, de, dWe, db0, dW2, db2), de in
+    the stream dtype, the rest fp32. The backward kernel (or its plain
+    version, for CPU tensors) gives the receiver sums du_r, dv_r and the
+    dpre1, dpre2 streams; one pair segment sum over the batch's sender view
+    (``csr_segment_sum_pair``, kernel or plain version alike) adds them per
+    sender: du = du_r + S(dpre2), dv = dv_r + S(dpre1). Without the sender
+    view it raises."""
+    if len(aux) < 6 or aux[3] is None:
+        raise ValueError("fused_edge_step2_backward needs the batch's sender view "
+                         "(pack_batch(sender_view=True))")
+    de, dpre1, dpre2, du_r, dv_r, dwe, db0, dw2, db2 = fused_edge2_bwd(
+        proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, aux, n_graphs, tile,
+        z_upd, dz_upd, dr, dm)
+    snd_perm, snd_sorted, snd_block_tile = aux[3:6]
+    s_u, s_v = csr_segment_sum_pair(dpre2.float(), dpre1.float(), snd_sorted, snd_block_tile,
+                                    du_r.shape[0], tile, perm=snd_perm)
+    return du_r + s_u, dv_r + s_v, de, dwe, db0, dw2, db2
+
+
+def _fused_edge_step2_forward(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, aux,
+                              n_graphs, tile):
+    edge_gid, block_tile, block_snd_tile = aux[:3]
+    args = (proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders)
+    kinds = {t.device.type for t in args + (edge_gid, block_tile, block_snd_tile)}
+    if kinds == {"cuda"}:
+        return _fused_edge_step2_cuda(*args, edge_gid, block_tile, block_snd_tile, n_graphs,
+                                      tile)
+    if kinds == {"cpu"}:
+        return fused_edge_step2_reference(*args, aux, n_graphs, tile)
+    raise ValueError(f"fused_edge_step2 runs on cuda or cpu tensors, got {sorted(kinds)}")
+
+
+class _FusedEdgeStep2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, n_graphs, tile,
+                *aux):
+        z_upd, r, m = _fused_edge_step2_forward(proj_u, proj_v, e, w_e, b0, w2, b2,
+                                                receivers, senders, aux, n_graphs, tile)
+        # what the JAX VJP saves (`_step2_fwd`): the inputs and z_upd
+        ctx.save_for_backward(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, z_upd,
+                              *aux)
+        ctx.n_graphs, ctx.tile = n_graphs, tile
+        return z_upd, r, m
+
+    @staticmethod
+    def backward(ctx, dz_upd, dr, dm):
+        saved = ctx.saved_tensors
+        inputs, (receivers, senders, z_upd), aux = saved[:7], saved[7:10], saved[10:]
+        grads = fused_edge_step2_backward(
+            *inputs, receivers, senders, aux, ctx.n_graphs, ctx.tile, z_upd,
+            dz_upd.contiguous(), dr.contiguous(), dm.contiguous())
+        return (*(gr.to(t.dtype) for gr, t in zip(grads, inputs)),) + (None,) * (4 + len(aux))
+
+
+def fused_edge_step2(
+    proj_u: torch.Tensor,  # (Np, L) x·Wu, stream dtype
+    proj_v: torch.Tensor,  # (Np, L) x·Wv, stream dtype
+    e: torch.Tensor,  # (Ep, L) edge latents in the pair-blocked order
+    w_e: torch.Tensor,  # (L, L)
+    b0: torch.Tensor,  # (L,)
+    w2: torch.Tensor,  # (L, L)
+    b2: torch.Tensor,  # (L,)
+    receivers: torch.Tensor,  # (Ep,) i32
+    senders: torch.Tensor,  # (Ep,) i32
+    aux: PairAux,  # (edge_gid, block_tile, block_snd_tile, snd_perm, snd_sorted,
+    #               snd_block_tile); the sender view may be None when no
+    #               gradient is taken
+    n_graphs: int,
+    tile: int,  # node tile of the layout (GraphBatch.tile)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pair-blocked edge step (``scatter_impl="fused2"``): (z_upd, R, M)
+    as ``fused_edge_step`` returns them, with both endpoint gathers and the
+    e-projection inside. For every slot with receiver r and sender s, the
+    messages evaluate the edge MLP on u[r] + v[s] and the edge update on
+    v[r] + u[s] (u = proj_u, v = proj_v); an endpoint outside its block's
+    receiver or sender tile reads zero, as the TPU kernel's one-hot
+    contractions do (the layout never makes one). Differentiable in proj_u,
+    proj_v, e and the weights. CUDA tensors go to the kernels
+    (``fused_edge_step2.launches`` counts the forward's launches,
+    ``fused_edge2_bwd.launches`` the backward's, ``csr_segment_sum_pair``
+    its own), CPU tensors to the plain versions; anything else raises.
+    Without the sender view it is forward-only and raises if an input needs
+    a gradient."""
+    view = tuple(aux[3:6])
+    if not view or view[0] is None:
+        view = ()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (proj_u, proj_v, e, w_e, b0, w2, b2)):
+            raise ValueError(
+                "fused_edge_step2 needs the batch's sender view for its backward "
+                "(pack_batch(sender_view=True))")
+    return _FusedEdgeStep2.apply(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders,
+                                 n_graphs, tile, *aux[:3], *view)
+
+
+fused_edge_step2.launches = 0  # type: ignore[attr-defined]

@@ -6,8 +6,8 @@ Each ``p_div_gnn_tpu_torch/csrc/*.cu`` is compiled by the host C++ compiler
 (g++, C++20) against a small emulation of the CUDA runtime: a CTA's threads
 are host threads, ``__syncthreads`` is a barrier, dynamic shared memory is
 a per-CTA buffer filled with garbage, launches run one CTA at a time. The
-port's own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py``,
-``ops/scatter_csr.py``) then run on CPU tensors against the emulated
+port's own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py``
+with the v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on CPU tensors against the emulated
 libraries, and each kernel is held against its plain version at small
 shapes, with ``chip_smoke.py``'s tolerances; the script exits 1 if one
 disagrees.
@@ -40,7 +40,7 @@ import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.batching import build_sender_view  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE  # noqa: E402
 from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3, scatter_csr  # noqa: E402
-from test_torch_port_cuda import _edge_problem, _v2_problem  # noqa: E402
+from test_torch_port_cuda import _edge_problem, _pair_problem, _v2_problem  # noqa: E402
 
 OUT = ROOT / "build" / "port_cuda_emulate"
 
@@ -85,7 +85,11 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 struct EmuCfg { dim3 grid, block; size_t smem; };
-inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t s = 0, cudaStream_t = nullptr) {
+// the wrappers pass this stream; another value is an argument list that
+// ctypes cut (a pointer passed as a 32-bit int)
+#define EMU_STREAM reinterpret_cast<cudaStream_t>(0x5eed0000beefULL)
+inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t s = 0, cudaStream_t st = EMU_STREAM) {
+  if (st != EMU_STREAM) throw "launch on a stream the wrapper did not pass";
   return {g, b, s};
 }
 template <typename K, typename... A>
@@ -144,7 +148,11 @@ def build(name: str) -> Path:
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
     (OUT / "cuda_bf16.h").write_text(CUDA_BF16_H)
-    src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    source = cuda_build.CSRC_DIR / f"{name}.cu"
+    src = source.read_text()
+    for header in cuda_build.local_headers(source):  # inlined: it holds kernels too
+        src = src.replace(f'#include "{header.name}"',
+                          header.read_text().replace("#pragma once\n", ""))
     src = re.sub(r"extern __shared__ float4 (\w+)\[\];", r"float4* \1 = emu_smem;", src)
     src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"emu_launch(emu_cfg(\2), \1, ", src,
                  flags=re.S)
@@ -169,14 +177,14 @@ def emulated_kernels():
     """The wrappers' CUDA paths on CPU tensors, against emulated libraries."""
     mods = (fused_edge, fused_edge3, scatter_csr)
     saved = [(m, m.load_cuda_library) for m in mods]
-    stream = type("Stream", (), {"cuda_stream": 0})()
+    stream = type("Stream", (), {"cuda_stream": 0x5EED0000BEEF})()
     saved_cuda = (torch.cuda.device, torch.cuda.current_stream)
     torch.cuda.device = lambda dev: contextlib.nullcontext()
     torch.cuda.current_stream = lambda dev=None: stream
 
     def clear():
         for m in mods:
-            for f in ("_library", "_bwd_library"):
+            for f in ("_library", "_bwd_library", "_library2", "_bwd_library2"):
                 if hasattr(m, f):
                     getattr(m, f).cache_clear()
 
@@ -210,6 +218,13 @@ def cotangents(seed: int, Ep: int, Np: int, L: int, dtype: torch.dtype):
     dz = T(rng.normal(size=(Ep, L)).astype(np.float32)).to(dtype)
     return dz, T(rng.normal(size=(Np, L)).astype(np.float32)), T(
         rng.normal(size=(8, L)).astype(np.float32))
+
+
+def pair_indices(idx: dict) -> tuple:
+    """(receivers, senders, edge_gid, block_tile, block_snd_tile) of a
+    ``_pair_problem`` as tensors."""
+    return tuple(T(np.array(idx[k])) for k in ("receivers", "senders", "edge_gid",
+                                                "block_tile", "block_snd_tile"))
 
 
 def main() -> int:
@@ -258,6 +273,25 @@ def main() -> int:
                                                             z, *cot)
             want = fused_edge.fused_edge_step_backward_reference(*a, rcv, gid, 1, z, *cot)
             shares += [report(f"fused_edge_bwd {sd_name} #{i}", x, y, btol)
+                       for i, (x, y) in enumerate(zip(got, want))]
+
+            arrays, idx = _pair_problem(5, args.tiles, args.L)
+            a = [T(v).to(sd) for v in arrays.values()]
+            ix = pair_indices(idx)
+            got = fused_edge._fused_edge_step2_cuda(*a, *ix, 1, NODE_TILE)
+            want = fused_edge.fused_edge_step2_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE)
+            shares += [report(f"fused_edge2_fwd {sd_name} {n}", x, y, ftol[n])
+                       for n, x, y in zip(FWD_NAMES, got, want)]
+
+            arrays, idx = _pair_problem(6, args.tiles, args.L_bwd)
+            a = [T(v).to(sd) for v in arrays.values()]
+            ix = pair_indices(idx)
+            z, _, _ = fused_edge.fused_edge_step2_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE)
+            cot = cotangents(7, z.shape[0], a[0].shape[0], args.L_bwd, sd)
+            got = fused_edge._fused_edge2_bwd_cuda(*a, *ix, 1, NODE_TILE, z, *cot)
+            want = fused_edge.fused_edge2_bwd_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE, z,
+                                                        *cot)
+            shares += [report(f"fused_edge2_bwd {sd_name} #{i}", x, y, btol)
                        for i, (x, y) in enumerate(zip(got, want))]
 
             rng = np.random.default_rng(8)

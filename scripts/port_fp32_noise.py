@@ -3,7 +3,8 @@ the same model in fp64, at the flagship size.
 
     PYTHONPATH=. python scripts/port_fp32_noise.py [--device cpu|cuda] [--seed 0]
     PYTHONPATH=. python scripts/port_fp32_noise.py --grad [--device cpu|cuda]
-        [--ref-device cpu|cuda] [--n-graphs 16] [--impls fused3,fused,pallas,hybrid]
+        [--ref-device cpu|cuda] [--n-graphs 16]
+        [--impls fused3,fused,fused2,pallas,hybrid]
 
 Forward mode (default): builds one serving request as ``chip_smoke.py`` does
 (16 meshes, RCM packing, the committed checkpoint), then prints, in
@@ -16,7 +17,7 @@ latents after each message-passing step (fp64 run).
 Gradient mode (``--grad``): the step-1 loss gradient of ``chip_smoke.py``'s
 training phase (the benchmark's model from ``torch.Generator`` seed 0,
 ``NormStats.ones()``, NMSE + 10 x divergence, on ``build_workload``'s
-batch). It computes the gradient of the fp64 ``xla`` model on
+batch; fused2 runs on the same meshes packed pair-blocked). It computes the gradient of the fp64 ``xla`` model on
 ``--ref-device`` (per-step remat keeps its memory small) and, on
 ``--device``, of fp32 ``xla`` (twice: its gathers' backward adds with
 atomics on the card) and of each fp32 impl of ``--impls`` (default
@@ -54,14 +55,19 @@ class Fp64Matmul(TorchFunctionMode):
 
 
 def grad_noise(args: argparse.Namespace) -> None:
-    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples, pack_workload
 
-    host, n_edges, n_nodes = build_workload(args.n_graphs, seed=args.seed)
+    impls = args.impls.split(",")
+    samples = build_samples(args.n_graphs, seed=args.seed)
+    host, n_edges, n_nodes = pack_workload(samples)
+    hosts = {False: host}
+    if "fused2" in impls:
+        hosts[True] = pack_workload(samples, pair_blocks=True)[0]
     print(f"batch: {args.n_graphs} meshes, {n_nodes} nodes, {n_edges} edges, "
           f"Np={host.num_nodes_padded} Ep={host.num_edges_padded}", flush=True)
 
     def grads(impl: str, device: str, dtype: torch.dtype, remat: bool):
-        batch = host.to(device)
+        batch = hosts[impl == "fused2"].to(device)
         if dtype == torch.float64:
             batch = dataclasses.replace(batch, **{
                 f: getattr(batch, f).double() for f in (
@@ -79,7 +85,6 @@ def grad_noise(args: argparse.Namespace) -> None:
         return total, out
 
     l64, ref = grads("xla", args.ref_device, torch.float64, remat=True)
-    impls = args.impls.split(",")
     runs = {"xla fp32": grads("xla", args.device, torch.float32, remat=False),
             "xla fp32 (again)": grads("xla", args.device, torch.float32, remat=False)}
     for impl in impls:

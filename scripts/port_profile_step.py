@@ -1,10 +1,10 @@
 """Where the time of one training step of the port goes on the card.
 
     PYTHONPATH=. python scripts/port_profile_step.py
-        [--impl fused3|fused|hybrid|pallas|xla] [--stream-dtype float32|bfloat16]
+        [--impl fused3|fused|fused2|hybrid|pallas|xla] [--stream-dtype float32|bfloat16]
         [--trace build/step_trace.json]
 
-Builds ``chip_smoke.py``'s training batch and model (the benchmark's step:
+Builds ``chip_smoke.py``'s training batch (pair-blocked for fused2) and model (the benchmark's step:
 latent 128, 10 message-passing steps, no remat, NMSE + 10 x divergence,
 Adam), takes two warm-up ``Trainer.train_step``s, then traces a third with
 ``torch.profiler`` (CPU and CUDA activity). It prints the step's wall time,
@@ -34,23 +34,29 @@ import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
 from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
 
-# sub-kernel names of each ported kernel's library (csrc/*.cu)
+# sub-kernel names of each ported kernel's library (csrc/*.cu). The first
+# is the kernel's own tile kernel; the v2 and pair-blocked edge steps share
+# the others (csrc/edge_common.cuh), which go to the kernel whose tile
+# kernel ran in the step
 GROUPS = {
     "fused_edge3_fwd (#1)": ("step3_tile_kernel", "moments_reduce_kernel"),
     "fused_edge3_bwd (#2)": ("step3_bwd_tile_kernel", "step3_bwd_wgrad_kernel",
                              "step3_bwd_reduce_kernel"),
     "segment_sum_csr (#3)": ("block_partial_kernel", "tile_merge_kernel"),
     "segment_sum_csr_pair (#4)": ("pair_partial_kernel", "pair_merge_kernel"),
-    "fused_edge_fwd (#5)": ("v2_fwd_tile_kernel", "v2_fwd_moments_kernel"),
-    "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel", "v2_bwd_wgrad_kernel",
-                            "v2_bwd_reduce_kernel"),
+    "fused_edge_fwd (#5)": ("v2_fwd_tile_kernel", "edge_moments_kernel"),
+    "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel", "edge_bwd_wgrad_kernel",
+                            "edge_bwd_reduce_kernel"),
+    "fused_edge2_fwd (#7)": ("pair_fwd_tile_kernel", "edge_moments_kernel"),
+    "fused_edge2_bwd (#8)": ("pair_bwd_tile_kernel", "edge_bwd_wgrad_kernel",
+                             "edge_bwd_reduce_kernel"),
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def group_of(name: str) -> str | None:
+def group_of(name: str, ran: set[str]) -> str | None:
     for group, subs in GROUPS.items():
-        if any(sub in name for sub in subs):
+        if group in ran and any(sub in name for sub in subs):
             return group
     return None
 
@@ -68,7 +74,8 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
 
-    host, n_edges, _ = build_workload(chip_smoke.N_MESHES, seed=0)
+    host, n_edges, _ = build_workload(chip_smoke.N_MESHES, seed=0,
+                                      pair_blocks=args.impl == "fused2")
     batch = host.to("cuda")
     trainer = chip_smoke.make_trainer(args.impl, args.stream_dtype, "cuda")
     for _ in range(2):
@@ -82,6 +89,7 @@ def main() -> None:
             trainer.train_step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(args.trace) if args.trace else Path(tmp) / "trace.json"
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -104,12 +112,13 @@ def main() -> None:
     busy += cur_hi - cur_lo
     window = max(float(step["ts"]) + float(step["dur"]), spans[-1][1]) - float(step["ts"])
 
+    ran = {g for g, subs in GROUPS.items() if any(subs[0] in e["name"] for e in dev)}
     by_group: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     by_sub: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     rest: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     for e in dev:
         name, dur = e["name"], float(e["dur"]) / 1e3
-        g = group_of(name)
+        g = group_of(name, ran)
         if g is None:
             rest[name][0] += dur
             rest[name][1] += 1
@@ -124,7 +133,8 @@ def main() -> None:
     print(f"train step {args.impl} {args.stream_dtype}: wall {wall_ms:.3f} ms, "
           f"{n_edges / wall_ms * 1e3:.0f} edges/s; device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms window, idle share {1 - busy / window:.4f}; "
-          f"sum of device intervals {total_dev:.3f} ms", flush=True)
+          f"sum of device intervals {total_dev:.3f} ms; peak memory allocated {peak_gb:.2f} GB",
+          flush=True)
     for g, (ms, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g}: {ms:.3f} ms over {n} device kernels ({ms / total_dev:.1%} of device time)")
     for sub, (ms, n) in sorted(by_sub.items(), key=lambda kv: -kv[1][0]):

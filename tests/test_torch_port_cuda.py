@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 the fused3 edge step's forward and backward, the block-CSR segment sum, the
-v2 ("fused") edge step's forward and backward and the pair segment sum. It
+v2 ("fused") edge step's forward and backward, the pair segment sum and the
+pair-blocked ("fused2") edge step's forward and backward. It
 imports neither JAX nor the JAX package, so it runs where the card is (that
 machine has no JAX; skip the repo's conftest there):
 
@@ -11,13 +12,17 @@ flagship shapes. Tolerances: the JAX package's fused3 op tolerances
 (tests/test_fused3_op.py:65-70 forward and :87-95 gradients in fp32,
 :128-131 the segment sum and bf16), and for the v2 step the JAX package's
 v2 op tolerances (tests/test_fused_op.py:86-91 forward, :116-120
-gradients), as rtol = atol."""
+gradients), which the fused2 step shares, as rtol = atol."""
 
 import numpy as np
 import pytest
 import torch
 
-from p_div_gnn_tpu_torch.graphs.batching import blockify_edges, build_sender_view
+from p_div_gnn_tpu_torch.graphs.batching import (
+    blockify_edges,
+    blockify_edges_pair,
+    build_sender_view,
+)
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE
 from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
 
@@ -63,6 +68,45 @@ def _v2_problem(seed: int, n_tiles: int, L: int):
     v2 = {"a_u": a_u, "a_v": a_v, "g_v": a_v[snd], "g_u": a_u[snd]}
     v2.update({k: arrays[k] for k in ("e", "w_e", "b0", "w2", "b2")})
     return v2, idx
+
+
+def _pair_problem(seed: int, n_tiles: int, L: int, stray: bool = True):
+    """Random receiver-sorted edges, each sender within about one node tile
+    of its receiver, in the pair-blocked layout (several sender tiles per
+    receiver tile, padding slots), with the inputs of the fused2 edge step:
+    proj_u, proj_v ~ N(0, 1), e ~ N(0, 1), weights ~ N(0, 1/L), biases ~
+    N(0, 1). With ``stray`` and several tiles, one real slot's receiver and
+    another's sender are moved out of their block's tiles (the layout never
+    does that; the kernels must read zero there). Numpy arrays for both
+    packages; ``idx`` holds the layout and its sender view."""
+    rng = np.random.default_rng(seed)
+    num_nodes = n_tiles * NODE_TILE
+    E = 4 * num_nodes
+    rcv = np.sort(rng.integers(0, num_nodes, size=E))
+    shift = rng.integers(-1, 2, size=E) * NODE_TILE
+    snd = np.clip(rcv + shift + rng.integers(-40, 40, size=E), 0, num_nodes - 1)
+    snd_b, rcv_b, _, gid_b, _, block_tile, block_snd_tile = blockify_edges_pair(
+        senders=snd, receivers=rcv, edge_weight=np.ones(E, np.float32),
+        edge_gid=np.zeros(E, np.int64), num_nodes=num_nodes, n_graphs=1,
+    )
+    if stray and n_tiles > 1:
+        real = np.flatnonzero(gid_b == 0)
+        i, j = real[len(real) // 3], real[2 * len(real) // 3]
+        rcv_b[i] = (rcv_b[i] + NODE_TILE) % num_nodes
+        snd_b[j] = (snd_b[j] + NODE_TILE) % num_nodes
+    Ep = len(rcv_b)
+    f32 = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)  # noqa: E731
+    arrays = {
+        "proj_u": f32(num_nodes, L), "proj_v": f32(num_nodes, L), "e": f32(Ep, L),
+        "w_e": f32(L, L, scale=L**-0.5), "b0": f32(L),
+        "w2": f32(L, L, scale=L**-0.5), "b2": f32(L),
+    }
+    perm, srt, sbt = build_sender_view(snd_b, num_nodes)
+    idx = {"receivers": rcv_b.astype(np.int32), "senders": snd_b.astype(np.int32),
+           "edge_gid": gid_b.astype(np.int32), "block_tile": block_tile,
+           "block_snd_tile": block_snd_tile, "snd_perm": perm, "snd_sorted": srt,
+           "snd_block_tile": sbt}
+    return arrays, idx
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -239,6 +283,96 @@ def test_fused_v2_training_step_is_deterministic_on_cuda():
     grads = []
     for _ in range(2):
         model = EncodeProcessDecode(128, 2, scatter_impl="fused", remat_steps=False,
+                                    generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
+        before = [f.launches for f in counters]
+        _, g = trainer.loss_and_grads(batch)
+        assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
+        grads.append(g)
+    for name, g in grads[0].items():
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, grads[1][name]), name
+
+
+def _pair_on_cuda(arrays, idx, dtype):
+    args = [T(a).to("cuda", dtype) for a in arrays.values()]
+    ix = {k: T(np.array(v)).cuda() for k, v in idx.items()}
+    aux = tuple(ix[k] for k in ("edge_gid", "block_tile", "block_snd_tile", "snd_perm",
+                                "snd_sorted", "snd_block_tile"))
+    return args, ix["receivers"], ix["senders"], aux
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_kernel_matches_reference_on_cuda(dtype):
+    """The fused2 forward over three node tiles of the pair-blocked layout,
+    L = 128, with a slot whose receiver and one whose sender lie outside
+    their block's tiles; the launch count rises by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(5, 3, L=128), dtype)
+    before = fused_edge.fused_edge_step2.launches
+    got = fused_edge.fused_edge_step2(*args, rcv, snd, aux, 1, NODE_TILE)
+    assert fused_edge.fused_edge_step2.launches == before + 1
+    want = fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1, NODE_TILE)
+    tols = (1e-5, 1e-4, 1e-3) if dtype == torch.float32 else (3e-2,) * 3
+    for a, b, tol in zip(got, want, tols):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_backward_kernel_matches_reference_on_cuda(dtype):
+    """The fused2 backward kernel over three node tiles, L = 128, nonzero
+    cotangents on z_upd, R and M, against its plain version; then the whole
+    VJP (the kernel and the pair segment sum over the sender view) against
+    the plain VJP. Each kernel's launch count rises by one per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(6, 3, L=128), dtype)
+    z_upd, _, _ = fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1, NODE_TILE)
+    rng = np.random.default_rng(7)
+    Np, L = args[0].shape
+    dz = T(rng.normal(size=z_upd.shape).astype(np.float32)).to("cuda", dtype)
+    dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
+    cots = (z_upd, dz, dr, dm)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    before = fused_edge.fused_edge2_bwd.launches
+    got = fused_edge.fused_edge2_bwd(*args, rcv, snd, aux, 1, NODE_TILE, *cots)
+    assert fused_edge.fused_edge2_bwd.launches == before + 1
+    want = fused_edge.fused_edge2_bwd_reference(*args, rcv, snd, aux, 1, NODE_TILE, *cots)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    pair_before = scatter_csr.csr_segment_sum_pair.launches
+    got = fused_edge.fused_edge_step2_backward(*args, rcv, snd, aux, 1, NODE_TILE, *cots)
+    assert scatter_csr.csr_segment_sum_pair.launches == pair_before + 1
+    assert fused_edge.fused_edge2_bwd.launches == before + 2
+    want = fused_edge.fused_edge_step2_backward_reference(*args, rcv, snd, aux, 1, NODE_TILE,
+                                                          *cots)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def test_fused2_training_step_is_deterministic_on_cuda():
+    """The "fused2" training step through its three kernels on a
+    pair-blocked batch, twice from the same weights: the gradients are
+    bit-equal and finite; each step launches each kernel once per
+    message-passing step. Two meshes, L = 128, two message-passing steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    batch = build_workload(n_graphs=2, seed=0, pair_blocks=True)[0].to("cuda")
+    counters = (fused_edge.fused_edge_step2, fused_edge.fused_edge2_bwd,
+                scatter_csr.csr_segment_sum_pair)
+    grads = []
+    for _ in range(2):
+        model = EncodeProcessDecode(128, 2, scatter_impl="fused2", remat_steps=False,
                                     generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
         before = [f.launches for f in counters]

@@ -36,6 +36,8 @@ from test_torch_port_model import ATOL, CKPT, RTOL, STATS, _batches
 
 L, STEPS, LAMBDA = 16, 2, 10.0
 IMPLS = ("fused", "pallas", "hybrid")
+# the scatter_impl branches of the JAX Processor (p_div_gnn_tpu/models/epd.py:165-392)
+JAX_SCATTER_IMPLS = ("xla", "pallas", "hybrid", "fused", "fused2", "fused3")
 
 
 @pytest.fixture(scope="module")
@@ -77,10 +79,14 @@ def _port_trainer(params, impl, remat=False):
 
 
 def test_scatter_impls():
-    """The port takes every scatter_impl of the JAX package but "fused2"."""
-    assert set(SCATTER_IMPLS) == {"xla", "pallas", "hybrid", "fused", "fused3"}
+    """The port takes every scatter_impl of the JAX package, and refuses a
+    name the JAX package does not have."""
+    assert set(SCATTER_IMPLS) == set(JAX_SCATTER_IMPLS)
+    for impl in SCATTER_IMPLS:
+        model = EncodeProcessDecode(latent_size=L, message_passing_steps=1, scatter_impl=impl)
+        assert model.processor.scatter_impl == impl
     with pytest.raises(ValueError, match="scatter_impl"):
-        EncodeProcessDecode(latent_size=L, message_passing_steps=1, scatter_impl="fused2")
+        EncodeProcessDecode(latent_size=L, message_passing_steps=1, scatter_impl="fused4")
 
 
 @pytest.mark.parametrize("impl,stream_dtype", [

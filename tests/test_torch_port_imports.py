@@ -3,8 +3,9 @@ chip_smoke.py, nor the card-side test file, imports JAX, flax, msgpack,
 yaml, pandas or anything of the JAX package (the machine with the card has
 none of them). Module names are matched whole, so the port's own name,
 which begins with the JAX package's, is allowed. The kernel sources
-(csrc/*.cu) include no PyTorch header and export the plain C interface
-that ops/cuda_build.py loads with ctypes."""
+(csrc/*.cu) and the headers they share (csrc/*.cuh) include no PyTorch
+header, and the sources export the plain C interface that
+ops/cuda_build.py loads with ctypes."""
 
 import ast
 import re
@@ -17,6 +18,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "pandas", "p_d
 FILES = sorted((ROOT / "p_div_gnn_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_port_cuda.py"]
 SOURCES = sorted((ROOT / "p_div_gnn_tpu_torch" / "csrc").glob("*.cu"))
+HEADERS = sorted((ROOT / "p_div_gnn_tpu_torch" / "csrc").glob("*.cuh"))
 
 
 def imported_modules(path: Path) -> set[str]:
@@ -65,3 +67,13 @@ def test_kernel_sources_include_no_pytorch_header(path):
     assert includes and not [h for h in includes if h.split("/")[0] in (
         "torch", "ATen", "c10", "pybind11")], includes
     assert 'extern "C"' in text and "pdg_cuda_error_string" in text
+
+
+def pytorch_includes(text: str) -> list[str]:
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]", text, flags=re.M)
+    return [h for h in includes if h.split("/")[0] in ("torch", "ATen", "c10", "pybind11")]
+
+
+@pytest.mark.parametrize("path", HEADERS, ids=lambda p: p.name)
+def test_kernel_headers_include_no_pytorch_header(path):
+    assert not pytorch_includes(path.read_text())
