@@ -19,7 +19,7 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    sums also beside ``index_add_``): the fused3 and the v2 ("fused") edge
    steps' forwards on a serving request's batch, in fp32 and bf16 streams;
    their backwards and the block-CSR segment sum (fp32, bf16) on the
-   training batch; the pair segment sum (fp32) on both training batches'
+   training batch's sender view in run order; the pair segment sum (fp32) on both training batches'
    sender views, as fused and fused2 call it; the pair-blocked ("fused2")
    edge step's forward and backward on the pair-blocked training batch, in
    fp32 and bf16 streams;
@@ -383,9 +383,9 @@ def backward_kernel_phase(batch) -> dict:
 
 def segment_sum_kernel_phase(batch) -> dict:
     """Hold the block-CSR segment sum against its plain version on the
-    training batch's sender view, as the sender gather's backward calls it
-    (rows read through snd_perm); time both and ``index_add_``, the one
-    PyTorch call that computes the same sums."""
+    training batch's sender view in run order, as the sender gather's
+    backward calls it (rows read through snd_run_perm); time both and
+    ``index_add_``, the one PyTorch call that computes the same sums."""
     import torch
 
     from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_reference
@@ -401,15 +401,27 @@ def segment_sum_kernel_phase(batch) -> dict:
     for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         rows = g.to(sd)
         kern = lambda: csr_segment_sum(  # noqa: E731
-            rows, batch.snd_sorted, batch.snd_block_tile, Np, batch.tile, perm=batch.snd_perm)
+            rows, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
+            perm=batch.snd_run_perm)
         plain = lambda: csr_segment_sum_reference(  # noqa: E731
-            rows, batch.snd_sorted, Np, batch.snd_perm)
+            rows, batch.snd_run_sorted, Np, batch.snd_run_perm)
         library = lambda: torch.zeros((Np, L), device=dev).index_add_(  # noqa: E731
             0, snd, rows.float())
         err = held(f"segment_sum_csr {sd_name}", kern(), plain(), CSR_TOL[sd_name])[0]
+        # the JAX package's order of the same view splits a sender's slots
+        # into several runs: the kernel must refuse it, not sum it wrongly
+        try:
+            csr_segment_sum(rows, batch.snd_sorted, batch.snd_block_tile, Np, batch.tile,
+                            perm=batch.snd_perm)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"segment_sum_csr {sd_name}: the view in the JAX package's order "
+              "was summed, not refused")
         s = torch.finfo(sd).bits // 8
-        # reads each source row once and the view's indices; writes the sums
-        n_bytes = s * Ep * L + 4 * (2 * Ep2 + NB2) + 4 * Np * L
+        # reads each source row once and the view's two indices per slot;
+        # writes the sums
+        n_bytes = s * Ep * L + 4 * 2 * Ep2 + 4 * Np * L
         b_ms, b_by = bound(Ep * L, n_bytes, sd_name)
         res = {"max_abs_err": err, "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 10),
                "library_ms": cuda_ms(library, 20), "bound_ms": b_ms, "bound_by": b_by}
@@ -552,7 +564,7 @@ def v2_backward_kernel_phase(batch) -> dict:
 def pair_kernel_phase(batch, view: str) -> dict:
     """Hold the pair segment sum against its plain version on ``batch``'s
     sender view, as the path named ``view`` calls it with two fp32 streams
-    read through snd_perm: the pair sender gather's backward (fused) on the
+    read through snd_run_perm: the pair sender gather's backward (fused) on the
     receiver-major training batch, the sender-side adds of dpre1 / dpre2
     (fused2, which casts them to fp32) on the pair-blocked one. Time both
     and two ``index_add_`` calls, the PyTorch calls that compute the same
@@ -572,9 +584,10 @@ def pair_kernel_phase(batch, view: str) -> dict:
     g_v, g_u = (torch.randn((Ep, L), generator=gen, device=dev) for _ in range(2))
     snd = batch.senders.long()
     kern = lambda: csr_segment_sum_pair(  # noqa: E731
-        g_v, g_u, batch.snd_sorted, batch.snd_block_tile, Np, batch.tile, perm=batch.snd_perm)
+        g_v, g_u, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
+        perm=batch.snd_run_perm)
     plain = lambda: csr_segment_sum_pair_reference(  # noqa: E731
-        g_v, g_u, batch.snd_sorted, Np, batch.snd_perm)
+        g_v, g_u, batch.snd_run_sorted, Np, batch.snd_run_perm)
     library = lambda: tuple(  # noqa: E731
         torch.zeros((Np, L), device=dev).index_add_(0, snd, g) for g in (g_v, g_u))
     got, want = kern(), plain()
@@ -618,7 +631,7 @@ def pair_step_inputs(batch, gen):
 
 def pair_aux(batch) -> tuple:
     return (batch.edge_gid, batch.edge_block_tile, batch.edge_block_snd_tile,
-            batch.snd_perm, batch.snd_sorted, batch.snd_block_tile)
+            batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
 
 
 def fused2_kernel_phase(batch) -> dict:

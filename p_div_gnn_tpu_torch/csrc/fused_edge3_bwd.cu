@@ -1,4 +1,5 @@
-// Fused edge-step backward (fused3) for NVIDIA Hopper (sm_90a).
+// Fused edge-step backward (fused3) for NVIDIA Hopper (sm_90a), on the
+// tensor cores and on FMA chains that track the plain version's rounding.
 //
 // Replaces the Pallas TPU kernel `_step3_bwd_kernel` of
 // p_div_gnn_tpu/ops/fused_edge3.py (launched by `_step3_backward_pallas`
@@ -18,77 +19,128 @@
 //   dy2 = (dz_upd + dM2 + 2·dM3·z_upd)·(z_upd > 0)   dpre2 = dy2·W2ᵀ·(h2 > 0)
 //   dg = dpre1·Wvᵀ + dpre2·Wuᵀ       (Ep, L) stream dtype
 //   de = (dpre1 + dpre2)·Weᵀ         (Ep, L) stream dtype
-//   dx[r] += dpre1·Wuᵀ + dpre2·Wvᵀ   (Np, L) fp32
+//   dx[r] = Σ dpre1·Wuᵀ + dpre2·Wvᵀ  (Np, L) fp32
 //   dW2 = Σ h1ᵀdy1 + h2ᵀdy2   dWe = Σ eᵀ(dpre1+dpre2)   db2 = Σ dy1+dy2
 //   dWu = Σ x[r]ᵀdpre1 + gᵀdpre2   dWv = Σ x[r]ᵀdpre2 + gᵀdpre1   db0 = Σ dpre1+dpre2
 //
-// What bounds it on this card: 20 L×L products per edge slot (6 to
-// recompute the forward, 7 for the data cotangents, 7 for the weight
-// grads), 2·20·L² flops per slot against ~3.3 KB of streamed bytes per
-// slot in fp32 (g, e, z_upd, dz_upd in, dg, de out, and the node rows):
-// ~180 flop/byte at L=128, so the fp32 FMA rate (67 TFLOP/s; the tensor
-// cores are not used) is the bound, not HBM.
+// What bounds it on this card: 20 L×L products per edge slot (6 recompute
+// the forward, 7 form the data cotangents, 7 the weight grads), 2·20·L²
+// flops per slot against ~3.3 KB of streamed bytes in fp32: operations.
 //
-// Design, in three launches:
-// 1. `step3_bwd_tile_kernel`: one CTA per node tile, as in the forward. It
-//    walks the tile's edge blocks (binary search in edge_block_tile), 16
-//    edges at a time, and does the 13 per-edge products. Thread c owns
-//    column c of the tile's dx rows and is their only writer (the TPU
-//    kernel sums dx into a node-tile block the sequential grid revisits; no
-//    atomics are needed here and the sums run in edge order): a run of
-//    slots with the same receiver is summed in a register and added to dx
-//    when it ends. It sums db2 and db0 for its column in fp64 into per-tile
-//    partials. It writes h1, h2, dy1, dy2, dpre1, dpre2 and dpre1+dpre2,
-//    rounded to the stream dtype as the weight-grad contractions take them,
-//    to a scratch stream.
-// 2. `step3_bwd_wgrad_kernel`: the weight-grad products Σ_i A[i]ᵀB[i]
-//    over all slots, which the TPU kernel sums into one (4L+8, L) block
-//    revisited by every grid step. Here the slots are cut into chunks;
-//    each CTA computes one 64-row slab of one weight grad over one chunk,
-//    an outer product per edge from shared memory with a 4×8 register
-//    tile per thread, and writes a per-chunk partial. The products are
-//    fp32 FMAs into a register that starts from zero every WG = 8 slots;
-//    each such 8-slot sum is then added to an fp64 accumulator. The sums
-//    run over ~2.6e5 slots at the flagship size: one fp32 chain per chunk
-//    would carry its rounding at the size of the running sum (~1e-3
-//    absolute on the entries that cancel to near zero, against a 2e-4
-//    check), while an 8-slot chain rounds at the size of a few products,
-//    close to the floor that rounding each fp32 product alone sets. The
-//    fp64 adds are one per 8 FMAs, so the kernel runs at the fp32 rate.
-// 3. `step3_bwd_reduce_kernel`: sums the per-chunk and per-tile partials in
-//    a fixed order and rounds once to fp32, into one (4L+2, L) block
-//    [dW2; dWe; dWu; dWv; db2; db0]. The result does not change from run
-//    to run.
-// - Each product is one FMA chain over k in order; the first-layer sum is
-//   grouped as the forward groups it, so the recomputed h1, h2 and z_msg
-//   are the forward's bit for bit.
-// - Precision: fp32 FMA for the per-edge products (no TF32) and for the
-//   8-slot weight-grad sums, fp64 for the sums of those and for db0 / db2.
-//   In bf16 mode the operands of every contraction are bf16 with fp32
-//   accumulation, as the JAX package's `_mms` rounds them: h, dy and dpre
-//   are rounded before they are contracted, and each dx row is rounded
-//   before it is added.
-// - Shared memory of kernel 1 is 3·16·L·4 bytes + 128 (24.7 KB at L 128),
-//   and 128 threads of at most 255 registers each take half an SM's 64 K
-//   registers, so two CTAs share an SM and the 167 tiles of the flagship
-//   batch run in one wave on 132 SMs. The per-thread column mapping, which
-//   re-reads each weight from L2 for every 16 edges and runs no
-//   tensor-core instruction, is what a faster version works on.
+// Which products run where, and why. The weight grads sum ~2.6e5 slots of
+// products, and the check against the plain version (rtol = atol = 2e-4 in
+// fp32) holds their entries that cancel to near 0 to a few fp32 roundings
+// of the data. On the flagship batch the plain fp32 version is itself at
+// 1.06 of that check against the same backward in fp64, and a backward whose
+// h1, dy and dpre differ from the plain version's by fp32 rounding (the
+// tensor cores' sums do) at 2.5 of it (scripts/port_fp32_noise.py --split
+// --flagship, PERF.md). With bf16 streams the same holds at the 3e-2
+// check: a variant with all 20 products on the tensor cores put dx at
+// 3.07 of the allowance at the flagship size (relu gates flipped where
+// its pre-activations rounded otherwise; PERF.md §6). So the 8 products
+// whose results feed the relu gates, the bf16 roundings and the
+// weight-grad sums are formed as the plain version forms them, and the
+// other 12 run on the tensor cores:
+// - FMA chains (bit-equal to the plain version's cuBLAS products, each an
+//   fp32 FMA chain over k in order; the first layer grouped as
+//   ((x·Wa + g·Wb) + e·We) + b0): pre1, pre2 (5 products), h1·W2, dy1·W2ᵀ
+//   and dy2·W2ᵀ. The gates and roundings are then the plain version's.
+// - Tensor cores (mma.sync m16n8k16, bf16 operands, fp32 accumulation;
+//   HMMA in the SASS): dg, de and the dx rows (5 products) and the 7
+//   weight-grad products. With bf16 streams each operand is one bf16 term
+//   (`_dot_default` as `_mms` applies it); with fp32 streams each is split
+//   into three bf16 terms (`_split3`) and the six cross products of terms
+//   i + j <= 2 are summed, smallest first: what Mosaic lowers
+//   Precision.HIGHEST to (`_mm_f32`). The tensor cores sum a k16 block from
+//   0 and the block is added in fp32: their own sum truncates to the
+//   largest magnitude in it, which, chained over a whole product, biased
+//   the weight grads (PERF.md §6).
+//
+// Design, in four launches:
+// 0. `prepare_weights_kernel`: Wu, Wv, We, W2, W2ᵀ in fp32 for the chains,
+//    Weᵀ, Wuᵀ, Wvᵀ as NT bf16 terms (NT = 3 for fp32 streams, 1 for bf16).
+// 1. `step3_bwd_tile_kernel`: one CTA of 8 warps per part of ~PART = 512
+//    slots, the part's ends moved to the next receiver-run boundary, so each
+//    node's run lies in one CTA, the only writer of its dx row (the
+//    receiver-major layout sorts each tile's slots by receiver, so a
+//    receiver has one run; the wrapper checks that once per layout tensor
+//    and raises on another order, a pair-blocked batch's among them). It walks its part in edge steps
+//    of M = 32 slots. The chains run as a register-tiled SIMT product: lane
+//    l of warp w holds a 4 x 4 block (rows 4·(l/4), columns 16w + 4·(l%4))
+//    and reads its operands from transposed fp32 tiles and the weights from
+//    a two-stage ring of fp32 chunks (cp.async; 32 rows of Wu, Wv and We,
+//    the first layer's five chains at once, then 64 rows of W2 or W2ᵀ; 16
+//    and 32 with bf16 streams), one barrier a chunk. The tensor-core
+//    products read dpre1, dpre2 and dpre1 + dpre2 as NT-term tiles (over the
+//    consumed fp32 operands) with ldmatrix from XOR-swizzled rows (no bank
+//    conflicts), and the split weights from a second two-stage ring of
+//    32-row chunks, or, with bf16 streams, from a copy resident in shared
+//    memory. Each staged chunk serves the step's 32 rows: a step reads each
+//    weight from L2 once, where the column-per-thread CTA of the earlier
+//    kernel read them for every 16 slots. dx: the step's dx rows
+//    (rounded to the stream dtype) pass through shared memory, and thread c
+//    sums column c of each receiver run in slot order in fp64 and writes
+//    it once: no atomics, one writer per node. db2 and db0 are summed per
+//    column in fp64 from the fp32 values and written per CTA.
+//    The weight-grad operands h1, h2, dy1, dy2, dpre1, dpre2 and dpre1 +
+//    dpre2 go to a 7-stream scratch in the stream dtype, written once and
+//    read once: 7·Ep·L·4 bytes in fp32 (917 MB at the flagship size, ~0.55
+//    ms of HBM time in and out at the peak rate), half that in bf16. A sum
+//    over ~2.6e5 slots of 128×128 per weight grad does not fit a CTA's
+//    registers or shared memory, so it is not fused here.
+// 2. `step3_bwd_wgrad_kernel`: CTA (chunk of slots, weight grad, half of
+//    its rows) sums A[i]ᵀB[i] over its chunk in items of 32 slots and one
+//    (A, B) pair: cp.async (zero-filling past the chunk) keeps 3 items'
+//    rows in flight while one is split into NT-term tiles, both read with
+//    ldmatrix.trans; the tensor cores sum each k16 block of slots from 0,
+//    an item's two blocks are added in fp32, and that 32-slot partial is
+//    added to an fp64 register accumulator (it rounds at the size of a few
+//    products, not of the running sum). 16 warps a CTA with fp32 streams,
+//    8 with bf16 (two CTAs an SM); the chunk's receivers are staged in
+//    shared memory for the x[r] rows.
+// 3. `step3_bwd_reduce_kernel`: sums the per-chunk and per-part partials in
+//    order in fp64 and rounds once, into [dW2; dWe; dWu; dWv; db2; db0].
+//    Every sum runs in a fixed order: two calls give bit-equal outputs.
+// - ptxas (sm_90a, CUDA 12.8), fp32 / bf16 streams: the tile kernel 246 /
+//   185 registers and 224,528 / 199,952 bytes of dynamic shared memory (one
+//   CTA per SM); the weight-grad kernel 128 / 128 registers at 512 / 256
+//   threads and 167,936 / 94,208 bytes (one / two CTAs per SM); no spills (a
+//   16-byte stack frame). The SASS holds 240 / 40 HMMA instructions in the
+//   tile kernel and 48 / 16 in the weight-grad kernel (scripts/port_sass.py;
+//   PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int EC = 16;   // edges staged per chunk in kernel 1
-constexpr int EW = 32;   // edges staged per step in kernel 2
-constexpr int KB = 64;   // weight-grad rows per CTA in kernel 2
-constexpr int TK = 4;    // weight-grad rows per thread (one float4 of A)
-constexpr int TC = 8;    // weight-grad columns per thread
-constexpr int WG = 8;    // slots per fp32 weight-grad sum in kernel 2
-static_assert(EW % WG == 0, "a staged step holds whole fp32 sums");
+constexpr int M = 32;         // slots per edge step of the tile kernel
+constexpr int MI = M / 32;    // m16 tiles of a warp in the tile kernel's tensor-core products
+constexpr int KC = 32;        // rows per staged chunk of a split weight
+constexpr int PART = 512;     // slots per tile-kernel CTA, before the run alignment
+constexpr int WG = 32;        // slots of a weight-grad item (one fp32 partial)
+constexpr int WSTAGES = 4;    // weight-grad items in shared memory: 3 in flight
+// threads of a weight-grad CTA: 16 warps with fp32 streams (one CTA per
+// SM), 8 with bf16 (two)
+template <int NT> __host__ __device__ constexpr int wthreads() { return NT == 1 ? 256 : 512; }
+constexpr int MIN_CHUNKS = 64;  // weight-grad chunks of a launch, at least
+constexpr int MAX_CHUNK = 8192;  // slots of a weight-grad chunk, at most (receivers in shared memory)
+constexpr int THREADS = 256;  // 8 warps in the tile kernel
+// With bf16 streams (NT = 1 term) the tensor cores' split weights stay
+// resident in shared memory (96 KB), and the fp32 ring's chunks (kf rows of
+// the first layer's three weights) are halved to make room for them.
+template <int NT> __host__ __device__ constexpr int kf() { return NT == 1 ? 16 : 32; }
+template <int NT> __host__ __device__ constexpr bool resident() { return NT == 1; }
+constexpr unsigned FULL = 0xffffffffu;
 enum { S_H1, S_H2, S_DY1, S_DY2, S_DP1, S_DP2, S_DPS, SRC_E, SRC_G, SRC_XR };
+// the fp32 weights of the FMA chains and the split weights of the
+// tile kernel's tensor-core products, in the order an edge step streams them
+enum { F_U, F_V, F_E, F_2, F_2T, N_FMA };
+enum { T_ET, T_UT, T_VT, N_TC };
+constexpr int N_WEIGHTS = static_cast<int>(N_FMA) + static_cast<int>(N_TC);
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -104,295 +156,7 @@ template <typename T> __device__ __forceinline__ float round_sd(float v) {
   return to_f(from_f<T>(v));
 }
 
-// First index in the sorted array a[0, n) whose value is >= key.
-__device__ __forceinline__ int64_t first_not_less(const int32_t* a, int64_t n, int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) / 2;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// acc[i] = Σ_k rows[i][k]·w[k][c] for the EC staged rows, one FMA chain per
-// output over k in order (w is (L, L) row-major, read along column c).
-template <typename T>
-__device__ __forceinline__ void rows_times_w(const float* rows, const T* __restrict__ w,
-                                             int64_t L, int c, float (&acc)[EC]) {
-#pragma unroll
-  for (int i = 0; i < EC; ++i) acc[i] = 0.f;
-  for (int64_t k = 0; k < L; k += 4) {
-    float w_k[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) w_k[j] = to_f(w[(k + j) * L + c]);
-#pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      const float4 r4 = *reinterpret_cast<const float4*>(rows + i * L + k);
-      acc[i] = fmaf(r4.x, w_k[0], acc[i]);
-      acc[i] = fmaf(r4.y, w_k[1], acc[i]);
-      acc[i] = fmaf(r4.z, w_k[2], acc[i]);
-      acc[i] = fmaf(r4.w, w_k[3], acc[i]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void step3_bwd_tile_kernel(
-    const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ e,
-    const T* __restrict__ z_upd, const T* __restrict__ dz_upd,
-    const float* __restrict__ dR, const float* __restrict__ dM,
-    const int32_t* __restrict__ rcv, const int32_t* __restrict__ gid,
-    const int32_t* __restrict__ block_tile,
-    const T* __restrict__ wu, const T* __restrict__ wv, const T* __restrict__ we,
-    const T* __restrict__ w2, const T* __restrict__ wuT, const T* __restrict__ wvT,
-    const T* __restrict__ weT, const T* __restrict__ w2T,
-    const T* __restrict__ b0, const T* __restrict__ b2,
-    T* __restrict__ dg, T* __restrict__ de, float* __restrict__ dx,
-    T* __restrict__ scratch, double* __restrict__ bpart,
-    int64_t n_edges, int64_t L, int64_t tile, int64_t block, int64_t n_blocks,
-    int64_t n_graphs) {
-  extern __shared__ float4 smem4[];
-  float* s0 = reinterpret_cast<float*>(smem4);    // (EC, L) x[r] → h1 → dy1 → dpre1
-  float* s1 = s0 + EC * L;                        // (EC, L) g    → h2 → dy2 → dpre2
-  float* s2 = s1 + EC * L;                        // (EC, L) e    →            dpre1+dpre2
-  int* rl_s = reinterpret_cast<int*>(s2 + EC * L);      // (EC,) local receiver or -1
-  float* mk_s = reinterpret_cast<float*>(rl_s + EC);    // (EC,) mask
-
-  const int c = threadIdx.x;  // blockDim.x == L: thread c owns column c
-  const int64_t t = blockIdx.x;
-  const int64_t node_lo = t * tile;
-  const int64_t e_lo = first_not_less(block_tile, n_blocks, t) * block;
-  const int64_t e_hi = first_not_less(block_tile, n_blocks, t + 1) * block;
-  const int64_t EL = n_edges * L;
-
-  // dx: a run of slots with the same receiver (the layout sorts each tile's
-  // slots by receiver) is summed in a register and added to dx (zeroed by
-  // the caller) when the run ends; this CTA is the only writer of its tile
-  float dx_run = 0.f;
-  int dx_rl = -1;
-  const float b0c = to_f(b0[c]);
-  const float b2c = to_f(b2[c]);
-  const float dm0 = dM[0 * L + c], dm1 = dM[1 * L + c];
-  const float dm2 = dM[2 * L + c], dm3 = dM[3 * L + c];
-  double s_db2 = 0.0, s_db0 = 0.0;
-
-  for (int64_t base = e_lo; base < e_hi; base += EC) {
-    for (int i = c; i < EC; i += blockDim.x) {
-      const int64_t ei = base + i;
-      int rl = -1;
-      float m = 0.f;
-      if (ei < e_hi) {
-        const int64_t r = rcv[ei];
-        if (r >= node_lo && r < node_lo + tile) rl = static_cast<int>(r - node_lo);
-        m = gid[ei] < n_graphs ? 1.f : 0.f;
-      }
-      rl_s[i] = rl;
-      mk_s[i] = m;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      const bool valid = ei < e_hi;
-      const int rl = rl_s[i];
-      s0[i * L + c] = rl >= 0 ? to_f(x[(node_lo + rl) * L + c]) : 0.f;
-      s1[i * L + c] = valid ? to_f(g[ei * L + c]) : 0.f;
-      s2[i * L + c] = valid ? to_f(e[ei * L + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // --- recompute the forward's first layer, as fused_edge3_fwd.cu runs it:
-    // pre = ((x·Wu + g·Wv) + e·We) + b0; bit i of on1 / on2 is pre > 0
-    float h1[EC], h2[EC];
-    uint32_t on1 = 0, on2 = 0;
-    {
-      float xu[EC], xv[EC], gu[EC], gv[EC], ep[EC];
-#pragma unroll
-      for (int i = 0; i < EC; ++i) xu[i] = xv[i] = gu[i] = gv[i] = ep[i] = 0.f;
-      for (int64_t k = 0; k < L; k += 4) {
-        float wu_k[4], wv_k[4], we_k[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wu_k[j] = to_f(wu[(k + j) * L + c]);
-          wv_k[j] = to_f(wv[(k + j) * L + c]);
-          we_k[j] = to_f(we[(k + j) * L + c]);
-        }
-#pragma unroll
-        for (int i = 0; i < EC; ++i) {
-          const float4 x4 = *reinterpret_cast<const float4*>(s0 + i * L + k);
-          const float4 g4 = *reinterpret_cast<const float4*>(s1 + i * L + k);
-          const float4 e4 = *reinterpret_cast<const float4*>(s2 + i * L + k);
-          const float xa[4] = {x4.x, x4.y, x4.z, x4.w};
-          const float ga[4] = {g4.x, g4.y, g4.z, g4.w};
-          const float ea[4] = {e4.x, e4.y, e4.z, e4.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            xu[i] = fmaf(xa[j], wu_k[j], xu[i]);
-            xv[i] = fmaf(xa[j], wv_k[j], xv[i]);
-            gu[i] = fmaf(ga[j], wu_k[j], gu[i]);
-            gv[i] = fmaf(ga[j], wv_k[j], gv[i]);
-            ep[i] = fmaf(ea[j], we_k[j], ep[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const float pre1 = ((xu[i] + gv[i]) + ep[i]) + b0c;
-        const float pre2 = ((xv[i] + gu[i]) + ep[i]) + b0c;
-        on1 |= (pre1 > 0.f ? 1u : 0u) << i;
-        on2 |= (pre2 > 0.f ? 1u : 0u) << i;
-        h1[i] = round_sd<T>(fmaxf(pre1, 0.f));
-        h2[i] = round_sd<T>(fmaxf(pre2, 0.f));
-      }
-    }
-    __syncthreads();  // every thread is done reading x / g / e
-#pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      s0[i * L + c] = h1[i];
-      s1[i * L + c] = h2[i];
-      if (ei < e_hi) {
-        scratch[S_H1 * EL + ei * L + c] = from_f<T>(h1[i]);
-        scratch[S_H2 * EL + ei * L + c] = from_f<T>(h2[i]);
-      }
-    }
-    __syncthreads();
-
-    // --- z_msg = relu(h1·W2 + b2)·mask, then the two output cotangents
-    float dy1[EC], dy2[EC];
-    {
-      float am[EC];
-      rows_times_w<T>(s0, w2, L, c, am);
-#pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const int64_t ei = base + i;
-        const bool valid = ei < e_hi;
-        const int rl = rl_s[i];
-        const float zm = fmaxf(am[i] + b2c, 0.f) * mk_s[i];
-        // (dR[r] + dM0) + (2·dM1)·z, rounded after each operation as the
-        // plain version rounds it (no contraction into an FMA)
-        const float dzm = __fadd_rn((rl >= 0 ? dR[(node_lo + rl) * L + c] : 0.f) + dm0,
-                                    __fmul_rn(2.f * dm1, zm));
-        dy1[i] = dzm * (zm > 0.f ? 1.f : 0.f);
-        const float zu = valid ? to_f(z_upd[ei * L + c]) : 0.f;
-        const float dzu = __fadd_rn((valid ? to_f(dz_upd[ei * L + c]) : 0.f) + dm2,
-                                    __fmul_rn(2.f * dm3, zu));
-        dy2[i] = dzu * (zu > 0.f ? 1.f : 0.f);
-        s_db2 += static_cast<double>(dy1[i] + dy2[i]);
-      }
-    }
-    __syncthreads();  // every thread is done reading h1
-#pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      s0[i * L + c] = round_sd<T>(dy1[i]);
-      s1[i * L + c] = round_sd<T>(dy2[i]);
-      if (ei < e_hi) {
-        scratch[S_DY1 * EL + ei * L + c] = from_f<T>(dy1[i]);
-        scratch[S_DY2 * EL + ei * L + c] = from_f<T>(dy2[i]);
-      }
-    }
-    __syncthreads();
-
-    // --- dpre = (dy·W2ᵀ)·(pre > 0)
-    float dp1[EC], dp2[EC];
-#pragma unroll
-    for (int i = 0; i < EC; ++i) dp1[i] = dp2[i] = 0.f;
-    for (int64_t k = 0; k < L; k += 4) {
-      float w_k[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w_k[j] = to_f(w2T[(k + j) * L + c]);
-#pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const float4 p4 = *reinterpret_cast<const float4*>(s0 + i * L + k);
-        const float4 q4 = *reinterpret_cast<const float4*>(s1 + i * L + k);
-        const float pa[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float qa[4] = {q4.x, q4.y, q4.z, q4.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dp1[i] = fmaf(pa[j], w_k[j], dp1[i]);
-          dp2[i] = fmaf(qa[j], w_k[j], dp2[i]);
-        }
-      }
-    }
-    __syncthreads();  // every thread is done reading dy
-#pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      dp1[i] *= (on1 >> i) & 1u ? 1.f : 0.f;
-      dp2[i] *= (on2 >> i) & 1u ? 1.f : 0.f;
-      const float dps = dp1[i] + dp2[i];
-      s_db0 += static_cast<double>(dps);
-      s0[i * L + c] = round_sd<T>(dp1[i]);
-      s1[i * L + c] = round_sd<T>(dp2[i]);
-      s2[i * L + c] = round_sd<T>(dps);
-      if (ei < e_hi) {
-        scratch[S_DP1 * EL + ei * L + c] = from_f<T>(dp1[i]);
-        scratch[S_DP2 * EL + ei * L + c] = from_f<T>(dp2[i]);
-        scratch[S_DPS * EL + ei * L + c] = from_f<T>(dps);
-      }
-    }
-    __syncthreads();
-
-    // --- dg = dpre1·Wvᵀ + dpre2·Wuᵀ, de = dps·Weᵀ, dx[r] += dpre1·Wuᵀ + dpre2·Wvᵀ
-    {
-      float a1[EC], a2[EC], a3[EC], a4[EC], a5[EC];
-#pragma unroll
-      for (int i = 0; i < EC; ++i) a1[i] = a2[i] = a3[i] = a4[i] = a5[i] = 0.f;
-      for (int64_t k = 0; k < L; k += 4) {
-        float wu_k[4], wv_k[4], we_k[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wu_k[j] = to_f(wuT[(k + j) * L + c]);
-          wv_k[j] = to_f(wvT[(k + j) * L + c]);
-          we_k[j] = to_f(weT[(k + j) * L + c]);
-        }
-#pragma unroll
-        for (int i = 0; i < EC; ++i) {
-          const float4 p4 = *reinterpret_cast<const float4*>(s0 + i * L + k);
-          const float4 q4 = *reinterpret_cast<const float4*>(s1 + i * L + k);
-          const float4 s4 = *reinterpret_cast<const float4*>(s2 + i * L + k);
-          const float pa[4] = {p4.x, p4.y, p4.z, p4.w};
-          const float qa[4] = {q4.x, q4.y, q4.z, q4.w};
-          const float sa[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            a1[i] = fmaf(pa[j], wv_k[j], a1[i]);
-            a2[i] = fmaf(qa[j], wu_k[j], a2[i]);
-            a3[i] = fmaf(sa[j], we_k[j], a3[i]);
-            a4[i] = fmaf(pa[j], wu_k[j], a4[i]);
-            a5[i] = fmaf(qa[j], wv_k[j], a5[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const int64_t ei = base + i;
-        if (ei < e_hi) {
-          dg[ei * L + c] = from_f<T>(a1[i] + a2[i]);
-          de[ei * L + c] = from_f<T>(a3[i]);
-        }
-        const int rl = rl_s[i];
-        if (rl < 0) continue;
-        if (rl != dx_rl) {
-          if (dx_rl >= 0) dx[(node_lo + dx_rl) * L + c] += dx_run;
-          dx_run = 0.f;
-          dx_rl = rl;
-        }
-        dx_run += round_sd<T>(a4[i] + a5[i]);
-      }
-    }
-    __syncthreads();  // s0 / s1 / s2 / rl_s / mk_s are restaged next chunk
-  }
-
-  if (dx_rl >= 0) dx[(node_lo + dx_rl) * L + c] += dx_run;
-  bpart[(t * 2 + 0) * L + c] = s_db2;
-  bpart[(t * 2 + 1) * L + c] = s_db0;
-}
-
-// Four consecutive values of a stream as fp32 (p is 16-byte aligned for
-// fp32, 8-byte for bf16: rows are L values long and col0 + 4·j4 is a
-// multiple of 4).
+// Four consecutive values of a row as fp32.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -403,121 +167,897 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// Loads the staged rows' values of one operand stream as fp32 into
-// dst[i * width + j] = src(base + i)[col0 + j] for i < EW, j < width; rows
-// past `end` are zero. Stream SRC_XR reads x at the slot's receiver. Each
-// warp loads whole rows, four values per lane and load.
-template <typename T>
-__device__ __forceinline__ void stage_operand(
-    float* dst, int src, int64_t col0, int width, int64_t base, int64_t end,
-    const T* __restrict__ scratch, const T* __restrict__ x, const T* __restrict__ g,
-    const T* __restrict__ e, const int32_t* __restrict__ rcv, int64_t n_nodes,
-    int64_t n_edges, int64_t L) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n_warps = blockDim.x / 32;
-  for (int i = warp; i < EW; i += n_warps) {
-    const int64_t ei = base + i;
-    const T* row = nullptr;
-    if (ei < end) {
-      if (src == SRC_XR) {
-        const int64_t r = rcv[ei];
-        if (r >= 0 && r < n_nodes) row = x + r * L;
-      } else if (src == SRC_G) {
-        row = g + ei * L;
-      } else if (src == SRC_E) {
-        row = e + ei * L;
-      } else {
-        row = scratch + (src * n_edges + ei) * L;
-      }
+// Two consecutive fp32 values stored in the stream dtype.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  __nv_bfloat162 v;
+  v.x = __float2bfloat16_rn(a);
+  v.y = __float2bfloat16_rn(b);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// The NT bf16 terms of v (their bits): NT = 1 rounds v, NT = 3 splits it as
+// `_split3` does (b1 = bf16(v), b2 = bf16(v − b1), b3 = bf16(v − b1 − b2)).
+template <int NT>
+__device__ __forceinline__ void split(float v, uint32_t (&t)[NT]) {
+  float r = v;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const __nv_bfloat16 b = __float2bfloat16_rn(r);
+    t[i] = __bfloat16_as_ushort(b);
+    r -= __bfloat162float(b);
+  }
+}
+
+// Offset (in bf16 elements) of (row, col) in a tile of RL-element rows whose
+// 16-byte chunks are XOR-swizzled by the row: the 8 rows an ldmatrix reads
+// at one column fall in 8 different bank groups.
+template <int RL>
+__device__ __forceinline__ int swz(int row, int col) {
+  constexpr int CPR = RL / 8;
+  constexpr int X = CPR < 8 ? CPR - 1 : 7;
+  return row * RL + ((((col >> 3) ^ (row & X))) << 3) + (col & 7);
+}
+
+// Writes the NT terms of 4 consecutive values at (row, col) of a swizzled
+// tile; term t lies at tile + t·tstride.
+template <int NT, int RL>
+__device__ __forceinline__ void put4(uint16_t* tile, int tstride, int row, int col, float4 v) {
+  uint32_t a[NT], b[NT], c[NT], d[NT];
+  split<NT>(v.x, a);
+  split<NT>(v.y, b);
+  split<NT>(v.z, c);
+  split<NT>(v.w, d);
+  const int o = swz<RL>(row, col);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    uint2 u;
+    u.x = a[t] | (b[t] << 16);
+    u.y = c[t] | (d[t] << 16);
+    *reinterpret_cast<uint2*>(tile + t * tstride + o) = u;
+  }
+}
+
+// First slot at or after s (< n) that starts a receiver run, n if none.
+// Warp-collective: every lane gets the same answer.
+__device__ __forceinline__ int64_t run_start(const int32_t* __restrict__ rcv, int64_t s,
+                                             int64_t n) {
+  if (s <= 0) return 0;
+  if (s >= n) return n;
+  const int lane = static_cast<int>(threadIdx.x % 32);
+  for (int64_t b = s;; b += 32) {
+    const int64_t i = b + lane;
+    const bool start = i >= n || rcv[i] != rcv[i - 1];
+    const unsigned m = __ballot_sync(FULL, start);
+    if (m != 0) return b + __ffs(static_cast<int>(m)) - 1;
+  }
+}
+
+// The split-weight ring of the tensor-core products: chunk q of the stream
+// (KC rows of one of the N_TC weights, NT terms, swizzled) goes to stage
+// q & 1 by cp.async. acquire() waits for chunk q and starts chunk q + 1.
+template <int NT, int L>
+struct SplitRing {
+  const uint16_t* wsplit;  // (N_TC, NT, L, L) bf16 terms
+  uint16_t* ring;          // 2 stages of (NT, KC, L)
+  int q;
+
+  __device__ __forceinline__ void issue(int qq) {
+    constexpr int CHUNKS = L / KC, ROW8 = L / 8, PER_TERM = KC * ROW8;
+    const int w = (qq / CHUNKS) % N_TC, kc = qq % CHUNKS;
+    uint16_t* dst = ring + (qq & 1) * NT * KC * L;
+    for (int p = threadIdx.x; p < NT * PER_TERM; p += THREADS) {
+      const int t = p / PER_TERM, r = (p % PER_TERM) / ROW8, c = (p % ROW8) * 8;
+      cp_async16(dst + t * KC * L + swz<L>(r, c),
+                 wsplit + (static_cast<int64_t>(w * NT + t) * L + kc * KC + r) * L + c);
     }
-    for (int j4 = lane; j4 < width / 4; j4 += 32) {
-      const float4 v = row ? load4(row + col0 + 4 * j4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(dst + i * width + 4 * j4) = v;
+    cp_async_commit();
+  }
+  // One barrier a chunk: it publishes chunk q, and every thread has left
+  // chunk q - 1, whose stage chunk q + 1 then takes.
+  __device__ __forceinline__ const uint16_t* acquire() {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(q + 1);
+    return ring + (q & 1) * NT * KC * L;
+  }
+  __device__ __forceinline__ void release() { ++q; }
+};
+
+// The fp32 weight ring of the FMA chains: chunk q holds rows of the weights
+// of one part of an edge step, (Wu, Wv, We) for the first layer, then W2,
+// W2ᵀ. Same protocol as SplitRing (a wait for chunk q also waits for the
+// other ring's prefetched chunk, long landed).
+template <int L, int KF>
+struct Fp32Ring {
+  const float* wfma;  // (N_FMA, L, L) fp32
+  float* ring;        // 2 stages of (3, KF, L)
+  int q;
+  // chunks of an edge step: the first layer's (Wu, Wv, We) KF rows at a
+  // time, then W2 and W2ᵀ 2·KF rows at a time
+  static constexpr int FIRST = L / KF, SINGLE = L / (2 * KF), STEP = FIRST + 2 * SINGLE;
+
+  __device__ __forceinline__ void issue(int qq) {
+    constexpr int ROW4 = L / 4;
+    const int c = qq % STEP;
+    int w[3], n, rows, k0;
+    if (c < FIRST) {
+      w[0] = F_U; w[1] = F_V; w[2] = F_E;
+      n = 3, rows = KF, k0 = c * KF;
+    } else {
+      w[0] = c < FIRST + SINGLE ? F_2 : F_2T;
+      n = 1, rows = 2 * KF, k0 = ((c - FIRST) % SINGLE) * 2 * KF;
+    }
+    float* dst = ring + (qq & 1) * 3 * KF * L;
+    for (int p = threadIdx.x; p < n * rows * ROW4; p += THREADS) {
+      const int i = p / (rows * ROW4), r = (p % (rows * ROW4)) / ROW4, col = (p % ROW4) * 4;
+      cp_async16(dst + (i * rows + r) * L + col,
+                 wfma + (static_cast<int64_t>(w[i]) * L + k0 + r) * L + col);
+    }
+    cp_async_commit();
+  }
+  __device__ __forceinline__ const float* acquire() {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(q + 1);
+    return ring + (q & 1) * 3 * KF * L;
+  }
+  __device__ __forceinline__ void release() { ++q; }
+};
+
+// A warp's block of an (M, L) tensor-core product: rows (M/2)·(warp % 2) +
+// 16·mi + ..., columns (L/4)·(warp / 2) + 8·nj + ..., in mma fragment order.
+template <int L>
+struct Frag {
+  float v[MI][L / 32][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < L / 32; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[mi][nj][e] = 0.f;
+  }
+};
+
+// acc[a] += op[a][:, k0 : k0 + KC] · wc for a < NA: op[a] an (M, L) operand
+// tile of NT terms, wc the weight rows k0 .. k0 + KC (NT terms wstride apart,
+// swizzled by row), summing the cross products of terms i + j < NT.
+template <int NT, int L, int NA>
+__device__ __forceinline__ void mma_chunk(Frag<L>* const (&acc)[NA],
+                                          const uint16_t* const (&op)[NA],
+                                          const uint16_t* wc, int wstride, int k0) {
+  constexpr int NTL = L / 32;
+  const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
+  const int wm = warp % 2, wn = warp / 2;
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 16) {
+#pragma unroll
+    for (int a = 0; a < NA; ++a)
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        uint32_t af[NT][4];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          ldsm_x4(af[t], op[a] + t * M * L +
+                             swz<L>(wm * (M / 2) + mi * 16 + lane % 16, k0 + kk + (lane / 16) * 8));
+        // the k16 block's term products, the smallest first ((i, 2), (i, 1),
+        // (i, 0) for the A terms i with i + j < NT), are summed by the tensor
+        // cores from 0, then added to the accumulator in fp32: the tensor
+        // cores' own sum truncates to the largest magnitude in it, so it is
+        // kept to one block
+        float t16[NTL][4];
+#pragma unroll
+        for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) t16[nj][k] = 0.f;
+#pragma unroll
+        for (int tb = NT - 1; tb >= 0; --tb) {
+          uint32_t b[NTL][2];
+#pragma unroll
+          for (int j = 0; j < NTL; j += 2) {
+            const int q = lane / 8;
+            uint32_t r[4];
+            ldsm_x4_trans(r, wc + tb * wstride +
+                                 swz<L>(kk + lane % 8 + (q & 1) * 8, wn * (L / 4) + j * 8 + (q >> 1) * 8));
+            b[j][0] = r[0];
+            b[j][1] = r[1];
+            b[j + 1][0] = r[2];
+            b[j + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int ta = NT - 1 - tb; ta >= 0; --ta)
+#pragma unroll
+            for (int nj = 0; nj < NTL; ++nj) mma_bf16_16816(t16[nj], af[ta], b[nj][0], b[nj][1]);
+        }
+#pragma unroll
+        for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[a]->v[mi][nj][k] += t16[nj][k];
+      }
+  }
+}
+
+// One split weight: acc[a] += op[a] · W for a < NA, W the ring's next
+// weight, or (resident) resident weight w.
+template <int NT, int L, int NA>
+__device__ __forceinline__ void mma_weight(SplitRing<NT, L>& ring, const uint16_t* res, int w,
+                                           Frag<L>* const (&acc)[NA],
+                                           const uint16_t* const (&op)[NA]) {
+  if constexpr (resident<NT>()) {
+#pragma unroll 1
+    for (int k0 = 0; k0 < L; k0 += KC)
+      mma_chunk<NT, L, NA>(acc, op, res + (static_cast<int64_t>(w) * NT * L + k0) * L, L * L, k0);
+  } else {
+#pragma unroll 1
+    for (int k0 = 0; k0 < L; k0 += KC) {
+      const uint16_t* wc = ring.acquire();
+      mma_chunk<NT, L, NA>(acc, op, wc, KC * L, k0);
+      ring.release();
     }
   }
 }
 
-// One 64-row slab of one weight grad over one chunk of slots:
-// wpart[chunk][mat][k][c] = Σ_{i in chunk} Σ_pairs A[i][k]·B[i][c], fp32 over
-// each WG slots, fp64 across them.
-template <typename T>
-__global__ void step3_bwd_wgrad_kernel(
-    const T* __restrict__ scratch, const T* __restrict__ x, const T* __restrict__ g,
-    const T* __restrict__ e, const int32_t* __restrict__ rcv, double* __restrict__ wpart,
-    int64_t n_nodes, int64_t n_edges, int64_t L, int64_t chunk) {
-  extern __shared__ float4 wsmem4[];
-  float* a_s = reinterpret_cast<float*>(wsmem4);  // (EW, KB)
-  float* b_s = a_s + EW * KB;                     // (EW, L)
+// Calls fn(row, col, v0, v1) for each pair of fragment values (columns col
+// and col + 1 of one row) of this thread.
+template <int L, typename F>
+__device__ __forceinline__ void for_pairs(Frag<L>& f, F&& fn) {
+  const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < L / 32; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        fn((warp % 2) * (M / 2) + mi * 16 + g + 8 * h, (warp / 2) * (L / 4) + nj * 8 + 2 * tq,
+           f.v[mi][nj][2 * h], f.v[mi][nj][2 * h + 1]);
+}
 
-  const int64_t ck = blockIdx.x;
-  const int n_kb = static_cast<int>(L / KB);
-  const int mat = blockIdx.y / n_kb;
-  const int64_t k0 = static_cast<int64_t>(blockIdx.y % n_kb) * KB;
-  // thread (ty, tx) owns rows k0 + ty·TK + a and columns tx + b·(L/TC):
-  // neighbouring threads read neighbouring columns of the staged rows
-  const int n_tx = static_cast<int>(L / TC);
-  const int tx = threadIdx.x % n_tx;
-  const int ty = threadIdx.x / n_tx;
-  const int64_t lo = ck * chunk;
-  const int64_t hi = lo + chunk < n_edges ? lo + chunk : n_edges;
+// The FMA chains' register tile: warp w owns columns 16w .. 16w + 15 of an
+// (M, L) product and lane l the 4 x 4 block at rows 4·(l / 4), columns
+// 16w + 4·(l % 4). Each output is one fp32 FMA chain over k in order, as
+// the plain version's cuBLAS product forms it at these shapes.
+struct Quad {
+  float v[4][4];  // [row][column]
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
+  }
+};
+static_assert(M == 32, "the FMA tile covers 32 rows: 8 row groups of 4");
+// ... and 128 columns: 8 warps of 16
 
-  // (A, B) stream pairs of each weight grad: dW2, dWe, dWu, dWv
-  int pa[2], pb[2], n_pairs;
-  if (mat == 0) { pa[0] = S_H1; pb[0] = S_DY1; pa[1] = S_H2; pb[1] = S_DY2; n_pairs = 2; }
-  else if (mat == 1) { pa[0] = SRC_E; pb[0] = S_DPS; pa[1] = 0; pb[1] = 0; n_pairs = 1; }
-  else if (mat == 2) { pa[0] = SRC_XR; pb[0] = S_DP1; pa[1] = SRC_G; pb[1] = S_DP2; n_pairs = 2; }
-  else { pa[0] = SRC_XR; pb[0] = S_DP2; pa[1] = SRC_G; pb[1] = S_DP1; n_pairs = 2; }
+__device__ __forceinline__ int quad_row() { return 4 * (static_cast<int>(threadIdx.x % 32) / 4); }
+__device__ __forceinline__ int quad_col() {
+  return 16 * static_cast<int>(threadIdx.x / 32) + 4 * static_cast<int>(threadIdx.x % 4);
+}
 
-  double acc[TK][TC];
+// acc[c] = fma(AT_c[k][row], W_c[k][col], acc[c]) for the rows k of a staged
+// chunk, for NC chains: AT_c an (L, M) transposed fp32 operand, W_c the
+// chunk of weight w_c (ROWS rows, plain fp32 layout).
+template <int L, int ROWS, int NC>
+__device__ __forceinline__ void fma_chunk(Quad* const (&acc)[NC], const float* const (&at)[NC],
+                                          const float* const (&wc)[NC], int k0) {
+  const int r0 = quad_row(), c0 = quad_col();
+#pragma unroll 4
+  for (int kk = 0; kk < ROWS; ++kk) {
 #pragma unroll
-  for (int a = 0; a < TK; ++a)
+    for (int c = 0; c < NC; ++c) {
+      const float4 a4 = *reinterpret_cast<const float4*>(at[c] + (k0 + kk) * M + r0);
+      const float4 b4 = *reinterpret_cast<const float4*>(wc[c] + kk * L + c0);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
-    for (int b = 0; b < TC; ++b) acc[a][b] = 0.0;
-
-  for (int p = 0; p < n_pairs; ++p) {
-    for (int64_t base = lo; base < hi; base += EW) {
-      __syncthreads();  // the previous step's operands are consumed
-      stage_operand<T>(a_s, pa[p], k0, KB, base, hi, scratch, x, g, e, rcv, n_nodes,
-                       n_edges, L);
-      stage_operand<T>(b_s, pb[p], 0, static_cast<int>(L), base, hi, scratch, x, g, e, rcv,
-                       n_nodes, n_edges, L);
-      __syncthreads();
-      for (int i0 = 0; i0 < EW; i0 += WG) {
-        float part[TK][TC];
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int a = 0; a < TK; ++a)
-#pragma unroll
-          for (int b = 0; b < TC; ++b) part[a][b] = 0.f;
-#pragma unroll
-        for (int i = i0; i < i0 + WG; ++i) {
-          const float4 a4 = *reinterpret_cast<const float4*>(a_s + i * KB + ty * TK);
-          const float av[TK] = {a4.x, a4.y, a4.z, a4.w};
-          float bv[TC];
-#pragma unroll
-          for (int b = 0; b < TC; ++b) bv[b] = b_s[i * L + b * n_tx + tx];
-#pragma unroll
-          for (int a = 0; a < TK; ++a)
-#pragma unroll
-            for (int b = 0; b < TC; ++b) part[a][b] = fmaf(av[a], bv[b], part[a][b]);
-        }
-#pragma unroll
-        for (int a = 0; a < TK; ++a)
-#pragma unroll
-          for (int b = 0; b < TC; ++b) acc[a][b] += static_cast<double>(part[a][b]);
-      }
+        for (int j = 0; j < 4; ++j) acc[c]->v[i][j] = fmaf(av[i], bv[j], acc[c]->v[i][j]);
     }
   }
-  double* out = wpart + (ck * 4 + mat) * L * L;
+}
+
+struct TileArgs {
+  const void *x, *g, *e, *z_upd, *dz_upd;
+  const float *dR, *dM;
+  const int32_t *rcv, *gid;
+  const void *b0, *b2;
+  const float* wfma;        // (N_FMA, L, L) fp32: Wu, Wv, We, W2, W2ᵀ
+  const uint16_t* wsplit;   // (N_TC, NT, L, L) bf16 terms: Weᵀ, Wuᵀ, Wvᵀ
+  void *dg, *de;
+  float* dx;
+  void* scratch;
+  double* bpart;            // (n_parts, 2, L) this CTA's db2, db0 column sums
+  int64_t n_nodes, n_edges, n_graphs;
+};
+
+// Bytes of the tile kernel's operand region: three transposed fp32 operands
+// of the chains, then (over them) three split operand tiles of the tensor
+// cores, then the step's dx rows.
+template <int NT, int L>
+__host__ __device__ constexpr int64_t tile_operand_bytes() {
+  return 3 * L * M * 4 > 3 * NT * M * L * 2 ? 3 * L * M * 4 : 3 * NT * M * L * 2;
+}
+
+// Shared memory of one tile-kernel CTA: the operand region, the fp32 and the
+// split weight rings, the step's receivers and masks, the biases and dM rows.
+template <int NT, int L>
+constexpr int64_t tile_smem_bytes() {
+  return tile_operand_bytes<NT, L>() + 2 * 3 * kf<NT>() * L * 4 +
+         (resident<NT>() ? N_TC * L * L * 2 : 2 * NT * KC * L * 2) + 16 + M * 8 +
+         6 * L * 4;
+}
+
+// Writes a quad's 4 x 4 values transposed into an (L, M) fp32 operand.
+__device__ __forceinline__ void put_quad_t(float* at, const Quad& q) {
+  const int r0 = quad_row(), c0 = quad_col();
 #pragma unroll
-  for (int a = 0; a < TK; ++a)
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(at + (c0 + j) * M + r0) =
+        make_float4(q.v[0][j], q.v[1][j], q.v[2][j], q.v[3][j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, const float (&v)[4]) {
+  store2(p, v[0], v[1]);
+  store2(p + 2, v[2], v[3]);
+}
+
+template <typename T, int NT, int L>
+__global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileArgs a) {
+  extern __shared__ float4 smem4[];
+  float* at0 = reinterpret_cast<float*>(smem4);  // (L, M): x[r]ᵀ → h1ᵀ
+  float* at1 = at0 + L * M;                      // gᵀ → dy1ᵀ
+  float* at2 = at1 + L * M;                      // eᵀ → dy2ᵀ
+  // over them once dy1ᵀ, dy2ᵀ are consumed: the tensor cores' operands
+  uint16_t* op0 = reinterpret_cast<uint16_t*>(smem4);  // dpre1 terms
+  uint16_t* op1 = op0 + NT * M * L;                    // dpre2 terms
+  uint16_t* op2 = op1 + NT * M * L;                    // dpre1+dpre2 terms
+  float* fring_s = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
+                                            tile_operand_bytes<NT, L>());  // fp32 weight ring
+  // the split weight ring, or (resident) the N_TC split weights
+  constexpr int KF = kf<NT>();
+  uint16_t* sring_s = reinterpret_cast<uint16_t*>(fring_s + 2 * 3 * KF * L);
+  int64_t* bounds_s = reinterpret_cast<int64_t*>(
+      sring_s + (resident<NT>() ? N_TC * L * L : 2 * NT * KC * L));  // (2,)
+  int* rcv_s = reinterpret_cast<int*>(bounds_s + 2);  // (M,) receiver or -1
+  float* mask_s = reinterpret_cast<float*>(rcv_s + M);  // (M,)
+  float* cst_s = mask_s + M;        // (6, L): b0, b2, dM0, dM1, dM2, dM3
+  T* dx_s = reinterpret_cast<T*>(smem4);  // (M, L) the step's dx rows, over op0 once consumed
+
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  const T* e = static_cast<const T*>(a.e);
+  const T* z_upd = static_cast<const T*>(a.z_upd);
+  const T* dz_upd = static_cast<const T*>(a.dz_upd);
+  T* dg = static_cast<T*>(a.dg);
+  T* de = static_cast<T*>(a.de);
+  T* scratch = static_cast<T*>(a.scratch);
+  const int64_t EL = a.n_edges * L;
+  const int tid = static_cast<int>(threadIdx.x);
+
+  // this CTA's slots: [PART·b, PART·(b+1)), both ends moved to the next
+  // start of a receiver run
+  if (tid < 32) {
+    const int64_t s0 = static_cast<int64_t>(blockIdx.x) * PART;
+    const int64_t s1 = s0 + PART < a.n_edges ? s0 + PART : a.n_edges;
+    const int64_t lo = run_start(a.rcv, s0, a.n_edges);
+    const int64_t hi = run_start(a.rcv, s1, a.n_edges);
+    if (tid == 0) {
+      bounds_s[0] = lo;
+      bounds_s[1] = hi;
+    }
+  }
+  for (int i = tid; i < L; i += THREADS) {
+    cst_s[0 * L + i] = to_f(static_cast<const T*>(a.b0)[i]);
+    cst_s[1 * L + i] = to_f(static_cast<const T*>(a.b2)[i]);
+    for (int j = 0; j < 4; ++j) cst_s[(2 + j) * L + i] = a.dM[j * L + i];
+  }
+  __syncthreads();
+  const int64_t lo = bounds_s[0], hi = bounds_s[1];
+  double* bpart = a.bpart + static_cast<int64_t>(blockIdx.x) * 2 * L;
+  if (lo >= hi) {  // the whole CTA: a run longer than PART took its slots
+    for (int i = tid; i < 2 * L; i += THREADS) bpart[i] = 0.0;
+    return;
+  }
+
+  Fp32Ring<L, KF> fring{a.wfma, fring_s, 0};
+  SplitRing<NT, L> sring{a.wsplit, sring_s, 0};
+  fring.issue(0);
+  if constexpr (resident<NT>()) {
+    for (int p = tid; p < N_TC * L * L / 8; p += THREADS) {
+      const int r = p / (L / 8), c = (p % (L / 8)) * 8;  // row r of the stacked weights
+      cp_async16(sring_s + (r / L) * L * L + swz<L>(r % L, c),
+                 a.wsplit + static_cast<int64_t>(r) * L + c);
+    }
+    cp_async_commit();
+  } else {
+    sring.issue(0);
+  }
+  const int r0 = quad_row(), c0 = quad_col();
+  // dx: thread c < L sums column c of the current receiver run in fp64
+  double dx_run = 0.0;
+  int dx_r = -1;
+  // db2 = Σ dy1 + dy2 and db0 = Σ dpre1 + dpre2 over this thread's rows, per
+  // column of its quad, in fp64
+  double db2[4] = {0.0, 0.0, 0.0, 0.0}, db0[4] = {0.0, 0.0, 0.0, 0.0};
+
+#pragma unroll 1
+  for (int64_t base = lo; base < hi; base += M) {
+    const int n = static_cast<int>(hi - base < M ? hi - base : M);
+    if (tid < M) {
+      int r = -1;
+      float m = 0.f;
+      if (tid < n) {
+        r = a.rcv[base + tid];
+        if (r < 0 || r >= a.n_nodes) r = -1;
+        m = a.gid[base + tid] < a.n_graphs ? 1.f : 0.f;
+      }
+      rcv_s[tid] = r;
+      mask_s[tid] = m;
+    }
+    __syncthreads();
+    // x[r], g and e, transposed: lane i stages row i, so the column-major
+    // stores fall in 32 banks; all of a thread's loads go out before its
+    // first store
+    {
+      constexpr int PER = M * L / 4 / THREADS;
+      float4 v[3][PER];
 #pragma unroll
-    for (int b = 0; b < TC; ++b) out[(k0 + ty * TK + a) * L + b * n_tx + tx] = acc[a][b];
+      for (int u = 0; u < PER; ++u) {
+        const int p = tid + u * THREADS, row = p % M, col = (p / M) * 4;
+        const int r = rcv_s[row];
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        v[0][u] = r >= 0 ? load4(x + static_cast<int64_t>(r) * L + col) : z;
+        v[1][u] = row < n ? load4(g + (base + row) * L + col) : z;
+        v[2][u] = row < n ? load4(e + (base + row) * L + col) : z;
+      }
+#pragma unroll
+      for (int u = 0; u < PER; ++u) {
+        const int p = tid + u * THREADS, row = p % M, col = (p / M) * 4;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          float* at = k == 0 ? at0 : k == 1 ? at1 : at2;
+          at[(col + 0) * M + row] = v[k][u].x;
+          at[(col + 1) * M + row] = v[k][u].y;
+          at[(col + 2) * M + row] = v[k][u].z;
+          at[(col + 3) * M + row] = v[k][u].w;
+        }
+      }
+    }
+    __syncthreads();
+
+    // --- the first layer on FMA chains: xu, gv, ep, xv, gu
+    uint32_t on1 = 0, on2 = 0;  // relu gates of the quad, bit 4·i + j
+    {
+      Quad xu, gv, ep, xv, gu;
+      xu.zero(); gv.zero(); ep.zero(); xv.zero(); gu.zero();
+#pragma unroll 1
+      for (int k0 = 0; k0 < L; k0 += KF) {
+        const float* wc = fring.acquire();
+        const float* wu_c = wc;
+        const float* wv_c = wc + KF * L;
+        const float* we_c = wc + 2 * KF * L;
+        fma_chunk<L, KF, 5>({&xu, &gv, &ep, &xv, &gu}, {at0, at1, at2, at0, at1},
+                        {wu_c, wv_c, we_c, wv_c, wu_c}, k0);
+        fring.release();
+      }
+      __syncthreads();  // every warp is done with x[r], whose place h1 takes
+      // pre = ((x·Wa + g·Wb) + e·We) + b0, as the plain version adds them
+      float h1[4][4], h2[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float b0c = cst_s[c0 + j];
+          const float p1 = ((xu.v[i][j] + gv.v[i][j]) + ep.v[i][j]) + b0c;
+          const float p2 = ((xv.v[i][j] + gu.v[i][j]) + ep.v[i][j]) + b0c;
+          on1 |= (p1 > 0.f ? 1u : 0u) << (4 * i + j);
+          on2 |= (p2 > 0.f ? 1u : 0u) << (4 * i + j);
+          h1[i][j] = round_sd<T>(fmaxf(p1, 0.f));
+          h2[i][j] = round_sd<T>(fmaxf(p2, 0.f));
+          xu.v[i][j] = h1[i][j];
+        }
+      put_quad_t(at0, xu);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r0 + i < n) {
+          store4(scratch + S_H1 * EL + (base + r0 + i) * L + c0, h1[i]);
+          store4(scratch + S_H2 * EL + (base + r0 + i) * L + c0, h2[i]);
+        }
+    }
+    __syncthreads();
+
+    // --- z_msg = relu(h1·W2 + b2)·mask, then the two output cotangents
+    {
+      Quad am;
+      am.zero();
+#pragma unroll 1
+      for (int k0 = 0; k0 < L; k0 += 2 * KF) {
+        const float* wc = fring.acquire();
+        fma_chunk<L, 2 * KF, 1>({&am}, {at0}, {wc}, k0);
+        fring.release();
+      }
+      Quad dy1, dy2;
+      float4 dr[4], zu[4], dzu[4];  // every row's loads out before the first use
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + i, r = rcv_s[row];
+        const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        dr[i] = r >= 0 ? load4(a.dR + static_cast<int64_t>(r) * L + c0) : z4;
+        zu[i] = row < n ? load4(z_upd + (base + row) * L + c0) : z4;
+        dzu[i] = row < n ? load4(dz_upd + (base + row) * L + c0) : z4;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + i;
+        const float drv[4] = {dr[i].x, dr[i].y, dr[i].z, dr[i].w},
+                    zuv[4] = {zu[i].x, zu[i].y, zu[i].z, zu[i].w},
+                    dzv[4] = {dzu[i].x, dzu[i].y, dzu[i].z, dzu[i].w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = c0 + j;
+          const float zm = fmaxf(am.v[i][j] + cst_s[L + c], 0.f) * mask_s[row];
+          // (dR[r] + dM0) + (2·dM1)·z, rounded after each operation as the
+          // plain version rounds it (no contraction into an FMA)
+          const float dzm =
+              __fadd_rn(drv[j] + cst_s[2 * L + c], __fmul_rn(2.f * cst_s[3 * L + c], zm));
+          dy1.v[i][j] = dzm * (zm > 0.f ? 1.f : 0.f);
+          const float d2 =
+              __fadd_rn(dzv[j] + cst_s[4 * L + c], __fmul_rn(2.f * cst_s[5 * L + c], zuv[j]));
+          dy2.v[i][j] = d2 * (zuv[j] > 0.f ? 1.f : 0.f);
+          db2[j] += static_cast<double>(dy1.v[i][j] + dy2.v[i][j]);
+        }
+        if (row < n) {
+          store4(scratch + S_DY1 * EL + (base + row) * L + c0, dy1.v[i]);
+          store4(scratch + S_DY2 * EL + (base + row) * L + c0, dy2.v[i]);
+        }
+      }
+      // the operands of the next products, rounded as the plain version's
+      // products take them; g and e are consumed
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dy1.v[i][j] = round_sd<T>(dy1.v[i][j]);
+          dy2.v[i][j] = round_sd<T>(dy2.v[i][j]);
+        }
+      put_quad_t(at1, dy1);
+      put_quad_t(at2, dy2);
+    }
+    __syncthreads();
+
+    // --- dpre = (dy·W2ᵀ)·(pre > 0)
+    {
+      Quad dp1, dp2;
+      dp1.zero();
+      dp2.zero();
+#pragma unroll 1
+      for (int k0 = 0; k0 < L; k0 += 2 * KF) {
+        const float* wc = fring.acquire();
+        fma_chunk<L, 2 * KF, 2>({&dp1, &dp2}, {at1, at2}, {wc, wc}, k0);
+        fring.release();
+      }
+      __syncthreads();  // every warp is done with dy1ᵀ and dy2ᵀ, over which the tiles go
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p[4], q[4], s[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          p[j] = (on1 >> (4 * i + j)) & 1u ? dp1.v[i][j] : 0.f;
+          q[j] = (on2 >> (4 * i + j)) & 1u ? dp2.v[i][j] : 0.f;
+          s[j] = p[j] + q[j];
+          db0[j] += static_cast<double>(s[j]);
+        }
+        const int row = r0 + i;
+        put4<NT, L>(op0, M * L, row, c0, make_float4(p[0], p[1], p[2], p[3]));
+        put4<NT, L>(op1, M * L, row, c0, make_float4(q[0], q[1], q[2], q[3]));
+        put4<NT, L>(op2, M * L, row, c0, make_float4(s[0], s[1], s[2], s[3]));
+        if (row < n) {
+          const int64_t o = (base + row) * L + c0;
+          store4(scratch + S_DP1 * EL + o, p);
+          store4(scratch + S_DP2 * EL + o, q);
+          store4(scratch + S_DPS * EL + o, s);
+        }
+      }
+    }
+    __syncthreads();
+
+    // --- on the tensor cores: de = dps·Weᵀ; dg = dpre1·Wvᵀ + dpre2·Wuᵀ; dx
+    // rows dpre1·Wuᵀ + dpre2·Wvᵀ
+    {
+      Frag<L> f1, f2;
+      f1.zero();
+      mma_weight<NT, L, 1>(sring, sring_s, T_ET, {&f1}, {op2});
+      for_pairs<L>(f1, [&](int row, int col, float& v0, float& v1) {
+        if (row < n) store2(de + (base + row) * L + col, v0, v1);
+      });
+      f1.zero();
+      f2.zero();
+      mma_weight<NT, L, 2>(sring, sring_s, T_UT, {&f1, &f2}, {op1, op0});
+      mma_weight<NT, L, 2>(sring, sring_s, T_VT, {&f1, &f2}, {op0, op1});
+      for_pairs<L>(f1, [&](int row, int col, float& v0, float& v1) {
+        if (row < n) store2(dg + (base + row) * L + col, v0, v1);
+      });
+      __syncthreads();  // every warp is done with the tiles, over which the dx rows go
+      for_pairs<L>(f2, [&](int row, int col, float& v0, float& v1) {
+        store2(dx_s + row * L + col, v0, v1);
+      });
+    }
+    __syncthreads();
+    if (tid < L) {
+      for (int i = 0; i < n; ++i) {
+        const int r = rcv_s[i];
+        if (r != dx_r) {
+          if (dx_r >= 0) a.dx[static_cast<int64_t>(dx_r) * L + tid] = static_cast<float>(dx_run);
+          dx_run = 0.0;
+          dx_r = r;
+        }
+        dx_run += to_f(dx_s[i * L + tid]);
+      }
+    }
+    __syncthreads();  // rcv_s and the operands are restaged next step
+  }
+  if (tid < L && dx_r >= 0) a.dx[static_cast<int64_t>(dx_r) * L + tid] = static_cast<float>(dx_run);
+  // the 8 lanes of a column group, in a fixed xor tree
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      db2[j] += __shfl_xor_sync(FULL, db2[j], o);
+      db0[j] += __shfl_xor_sync(FULL, db0[j], o);
+    }
+  }
+  if (tid % 32 < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bpart[c0 + j] = db2[j];
+      bpart[L + c0 + j] = db0[j];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+struct Weights {
+  const void* w[N_WEIGHTS];  // Wu, Wv, We, W2, W2ᵀ, Weᵀ, Wuᵀ, Wvᵀ, each (L, L)
+};
+
+// wfma[w] = weight w (< N_FMA) in fp32; wsplit[w][t] = term t of weight
+// N_FMA + w, (L, L) row-major bf16 bits.
+template <typename T, int NT>
+__global__ void prepare_weights_kernel(const Weights ws, float* __restrict__ wfma,
+                                       uint16_t* __restrict__ wsplit, int64_t L) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t LL = L * L;
+  if (idx >= N_WEIGHTS * LL) return;
+  const int64_t w = idx / LL, i = idx % LL;
+  const float v = to_f(static_cast<const T*>(ws.w[w])[i]);
+  if (w < N_FMA) {
+    wfma[idx] = v;
+    return;
+  }
+  uint32_t t[NT];
+  split<NT>(v, t);
+#pragma unroll
+  for (int k = 0; k < NT; ++k) wsplit[((w - N_FMA) * NT + k) * LL + i] = static_cast<uint16_t>(t[k]);
+}
+
+// The address of row i of an operand stream of the weight-grad products at
+// column col, or null where the row is zero (past the chunk's end, or a slot
+// without receiver).
+template <typename T>
+__device__ __forceinline__ const T* operand_row(int src, int64_t i, int64_t lo, int64_t end,
+                                                int col, const T* __restrict__ scratch,
+                                                const T* __restrict__ x, const T* __restrict__ g,
+                                                const T* __restrict__ e,
+                                                const int32_t* rcv_chunk, int64_t n_nodes,
+                                                int64_t n_edges, int64_t L) {
+  if (i >= end) return nullptr;
+  if (src == SRC_XR) {
+    const int64_t r = rcv_chunk[i - lo];
+    return r >= 0 && r < n_nodes ? x + r * L + col : nullptr;
+  }
+  if (src == SRC_G) return g + i * L + col;
+  if (src == SRC_E) return e + i * L + col;
+  return scratch + (src * n_edges + i) * L + col;
+}
+
+struct WgradArgs {
+  const void *scratch, *x, *g, *e;
+  const int32_t* rcv;
+  double* wpart;
+  int64_t n_nodes, n_edges, chunk;
+};
+
+// Shared memory of one weight-grad CTA: WSTAGES stages of one item's raw
+// rows (stream dtype), its NT-term tiles and the chunk's receivers.
+template <typename T, int NT, int L>
+constexpr int64_t wgrad_smem_bytes() {
+  return WSTAGES * WG * (L / 2 + L) * static_cast<int64_t>(sizeof(T)) +
+         NT * WG * (L / 2 + L) * 2 + MAX_CHUNK * 4;
+}
+
+// CTA (chunk ck, 2·mat + half): rows [half·L/2, +L/2) of weight grad mat
+// (dW2, dWe, dWu, dWv) over the slots of chunk ck, as Σ_pairs Σ_i A[i]ᵀB[i]:
+// the tensor cores sum each pair over 32 slots in fp32, which is then added
+// to an fp64 accumulator. Warp w owns rows (L/4)·(w % 2) .. of the half and
+// columns (L/WN)·(w / 2) ... The work is a sequence of items, (32 slots, one
+// pair) each; cp.async fetches the raw rows of the next WSTAGES - 1 items
+// while one is split into its terms and multiplied.
+template <typename T, int NT, int L>
+__global__ void __launch_bounds__(wthreads<NT>(), NT == 1 ? 2 : 1)
+    step3_bwd_wgrad_kernel(const WgradArgs a) {
+  extern __shared__ float4 wsmem4[];
+  constexpr int WTHREADS = wthreads<NT>();
+  constexpr int WN = WTHREADS / 64;     // warp columns (two warp rows)
+  constexpr int AW = L / 2;             // weight-grad rows of a CTA
+  constexpr int MT = AW / 2 / 16;       // m16 tiles of a warp
+  constexpr int NTL = L / WN / 8;       // n8 tiles of a warp
+  constexpr int RAW = WG * (AW + L);    // raw values of one item: A (WG, AW), B (WG, L)
+  constexpr int V = 16 / static_cast<int>(sizeof(T));  // values per 16-byte copy
+  T* raw_s = reinterpret_cast<T*>(wsmem4);  // [stage] (RAW,)
+  uint16_t* a_s = reinterpret_cast<uint16_t*>(raw_s + WSTAGES * RAW);  // NT × (WG, AW)
+  uint16_t* b_s = a_s + NT * WG * AW;                                  // NT × (WG, L)
+  int32_t* rcv_s = reinterpret_cast<int32_t*>(b_s + NT * WG * L);       // (chunk,)
+
+  const T* scratch = static_cast<const T*>(a.scratch);
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  const T* e = static_cast<const T*>(a.e);
+  const int tid = static_cast<int>(threadIdx.x), lane = tid % 32, warp = tid / 32;
+  const int wm = warp % 2, wn = warp / 2;
+  const int64_t ck = blockIdx.x;
+  const int mat = static_cast<int>(blockIdx.y / 2), half = static_cast<int>(blockIdx.y % 2);
+  const int64_t lo = ck * a.chunk;
+  const int64_t hi = lo + a.chunk < a.n_edges ? lo + a.chunk : a.n_edges;
+
+  // (A, B) stream pairs of each weight grad: dW2, dWe, dWu, dWv
+  int pa[2], pb[2], n_pairs_mat;
+  if (mat == 0) { pa[0] = S_H1; pb[0] = S_DY1; pa[1] = S_H2; pb[1] = S_DY2; n_pairs_mat = 2; }
+  else if (mat == 1) { pa[0] = SRC_E; pb[0] = S_DPS; pa[1] = 0; pb[1] = 0; n_pairs_mat = 1; }
+  else if (mat == 2) { pa[0] = SRC_XR; pb[0] = S_DP1; pa[1] = SRC_G; pb[1] = S_DP2; n_pairs_mat = 2; }
+  else { pa[0] = SRC_XR; pb[0] = S_DP2; pa[1] = SRC_G; pb[1] = S_DP1; n_pairs_mat = 2; }
+  const int64_t n_items = (hi - lo + WG - 1) / WG * n_pairs_mat;
+  for (int64_t i = tid; i < hi - lo; i += WTHREADS) rcv_s[i] = a.rcv[lo + i];
+  __syncthreads();
+
+  // item it's raw rows into its stage (zero-filled past the chunk and for
+  // slots without receiver); an item past the last commits an empty group
+  auto fetch = [&](int64_t it) {
+    if (it < n_items) {
+      const int p = static_cast<int>(it % n_pairs_mat);
+      const int64_t base = lo + (it / n_pairs_mat) * WG;
+      T* dst = raw_s + (it % WSTAGES) * RAW;
+      for (int q = tid; q < RAW / V; q += WTHREADS) {
+        const bool in_a = q < WG * AW / V;
+        const int qq = in_a ? q : q - WG * AW / V;
+        const int width = in_a ? AW : L;
+        const int row = qq / (width / V), col = (qq % (width / V)) * V;
+        const T* src = operand_row<T>(in_a ? pa[p] : pb[p], base + row, lo, hi,
+                                      in_a ? half * AW + col : col, scratch, x, g, e, rcv_s,
+                                      a.n_nodes, a.n_edges, L);
+        cp_async16_zfill(dst + (in_a ? 0 : WG * AW) + row * width + col, src != nullptr ? src : x,
+                         src != nullptr);
+      }
+    }
+    cp_async_commit();
+  };
+
+  double acc[MT][NTL][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[mi][nj][k] = 0.0;
+
+  for (int s = 0; s < WSTAGES - 1; ++s) fetch(s);
+#pragma unroll 1
+  for (int64_t it = 0; it < n_items; ++it) {
+    cp_async_wait<WSTAGES - 2>();
+    __syncthreads();  // item it's rows are in; item it - 1's tiles and stage are free
+    fetch(it + WSTAGES - 1);
+    const T* src = raw_s + (it % WSTAGES) * RAW;
+    for (int q = tid; q < RAW / 4; q += WTHREADS) {
+      const bool in_a = q < WG * AW / 4;
+      const int qq = in_a ? q : q - WG * AW / 4;
+      const int width = in_a ? AW : L;
+      const int row = qq / (width / 4), col = (qq % (width / 4)) * 4;
+      const float4 v = load4(src + (in_a ? 0 : WG * AW) + row * width + col);
+      if (in_a) put4<NT, AW>(a_s, WG * AW, row, col, v);
+      else put4<NT, L>(b_s, WG * L, row, col, v);
+    }
+    __syncthreads();
+    // one fp32 partial per item (32 slots): each k16 block's term products
+    // are summed by the tensor cores from 0 and added to it in fp32, and it
+    // is added to the fp64 accumulator
+    const int j8 = lane / 8;
+    float part[MT][NTL][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) part[mi][nj][k] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < WG; kk += 16) {
+      // with one term a block is one MMA, which adds to the partial itself
+      float t16[MT][NTL][4];
+      if constexpr (NT > 1) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) t16[mi][nj][k] = 0.f;
+      }
+      uint32_t af[NT][MT][4];
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+          ldsm_x4_trans(af[t][mi], a_s + t * WG * AW +
+                                       swz<AW>(kk + lane % 8 + (j8 >> 1) * 8,
+                                               wm * (AW / 2) + mi * 16 + (j8 & 1) * 8));
+#pragma unroll
+      for (int tb = NT - 1; tb >= 0; --tb) {  // as mma_chunk orders the terms
+        uint32_t bf[NTL][2];
+#pragma unroll
+        for (int j = 0; j < NTL; j += 2) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, b_s + tb * WG * L +
+                               swz<L>(kk + lane % 8 + (j8 & 1) * 8, wn * (L / WN) + j * 8 + (j8 >> 1) * 8));
+          bf[j][0] = r[0];
+          bf[j][1] = r[1];
+          bf[j + 1][0] = r[2];
+          bf[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int ta = NT - 1 - tb; ta >= 0; --ta)
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+            for (int nj = 0; nj < NTL; ++nj)
+              mma_bf16_16816(NT > 1 ? t16[mi][nj] : part[mi][nj], af[ta][mi], bf[nj][0],
+                             bf[nj][1]);
+      }
+      if constexpr (NT > 1) {
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) part[mi][nj][k] += t16[mi][nj][k];
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[mi][nj][k] += static_cast<double>(part[mi][nj][k]);
+  }
+  cp_async_wait<0>();
+  double* out = a.wpart + (ck * 4 + mat) * L * L;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NTL; ++nj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = half * AW + wm * (AW / 2) + mi * 16 + lane / 4 + 8 * h;
+        const int64_t col = wn * (L / WN) + nj * 8 + 2 * (lane % 4);
+        *reinterpret_cast<double2*>(out + row * L + col) =
+            make_double2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+      }
 }
 
 // wb = [dW2; dWe; dWu; dWv; db2; db0] (4L+2, L) fp32: the per-chunk and
-// per-tile partials summed in order in fp64, rounded once.
+// per-part partials summed in order in fp64, rounded once.
 __global__ void step3_bwd_reduce_kernel(const double* __restrict__ wpart, int64_t n_chunks,
-                                        const double* __restrict__ bpart, int64_t n_tiles,
+                                        const double* __restrict__ bpart, int64_t n_parts,
                                         int64_t L, float* __restrict__ wb) {
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int64_t n_w = 4 * L * L;
@@ -528,58 +1068,42 @@ __global__ void step3_bwd_reduce_kernel(const double* __restrict__ wpart, int64_
   } else if (idx < n_w + 2 * L) {
     const int64_t j = (idx - n_w) / L, c = (idx - n_w) % L;
     double s = 0.0;
-    for (int64_t t = 0; t < n_tiles; ++t) s += bpart[(t * 2 + j) * L + c];
+    for (int64_t pt = 0; pt < n_parts; ++pt) s += bpart[(pt * 2 + j) * L + c];
     wb[idx] = static_cast<float>(s);
   }
 }
 
-struct Args {
-  const void *x, *g, *e, *z_upd, *dz_upd;
-  const float *dR, *dM;
-  const int32_t *rcv, *gid, *block_tile;
-  const void *wu, *wv, *we, *w2, *wuT, *wvT, *weT, *w2T, *b0, *b2;
-  void *dg, *de;
-  float* dx;
-  void* scratch;
-  double *bpart, *wpart;
-  float* wb;
-  int64_t n_nodes, n_edges, L, tile, n_blocks, n_graphs, n_chunks;
-};
-
-template <typename T>
-cudaError_t launch(const Args& a, size_t smem_tile, size_t smem_wgrad, cudaStream_t stream) {
-  const int64_t n_tiles = a.n_nodes / a.tile;
-  const int64_t block = a.n_blocks > 0 ? a.n_edges / a.n_blocks : 0;
-  cudaError_t err = cudaFuncSetAttribute(step3_bwd_tile_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_tile));
+template <typename T, int NT, int L>
+cudaError_t launch(const TileArgs& ta, const WgradArgs& wa, const Weights& ws, uint16_t* wsplit,
+                   int64_t n_chunks, float* wb, cudaStream_t stream) {
+  const int64_t n_w = N_WEIGHTS * static_cast<int64_t>(L) * L;
+  prepare_weights_kernel<T, NT><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, stream>>>(
+      ws, const_cast<float*>(ta.wfma), wsplit, L);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto c = [](const void* p) { return static_cast<const T*>(p); };
-  step3_bwd_tile_kernel<T><<<static_cast<unsigned>(n_tiles), static_cast<unsigned>(a.L),
-                             smem_tile, stream>>>(
-      c(a.x), c(a.g), c(a.e), c(a.z_upd), c(a.dz_upd), a.dR, a.dM, a.rcv, a.gid, a.block_tile,
-      c(a.wu), c(a.wv), c(a.we), c(a.w2), c(a.wuT), c(a.wvT), c(a.weT), c(a.w2T), c(a.b0),
-      c(a.b2), static_cast<T*>(a.dg), static_cast<T*>(a.de), a.dx, static_cast<T*>(a.scratch),
-      a.bpart, a.n_edges, a.L, a.tile, block, a.n_blocks, a.n_graphs);
+
+  const int smem_tile = static_cast<int>(tile_smem_bytes<NT, L>());
+  err = cudaFuncSetAttribute(step3_bwd_tile_kernel<T, NT, L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_tile);
+  if (err != cudaSuccess) return err;
+  const int64_t n_parts = (ta.n_edges + PART - 1) / PART;
+  step3_bwd_tile_kernel<T, NT, L><<<static_cast<unsigned>(n_parts), THREADS, smem_tile, stream>>>(
+      ta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = cudaFuncSetAttribute(step3_bwd_wgrad_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_wgrad));
+  const int smem_wgrad = static_cast<int>(wgrad_smem_bytes<T, NT, L>());
+  err = cudaFuncSetAttribute(step3_bwd_wgrad_kernel<T, NT, L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_wgrad);
   if (err != cudaSuccess) return err;
-  const int64_t chunk = (a.n_edges + a.n_chunks - 1) / a.n_chunks;
-  const dim3 grid(static_cast<unsigned>(a.n_chunks), static_cast<unsigned>(4 * (a.L / KB)));
-  const unsigned threads = static_cast<unsigned>((KB / TK) * (a.L / TC));
-  step3_bwd_wgrad_kernel<T><<<grid, threads, smem_wgrad, stream>>>(
-      static_cast<const T*>(a.scratch), c(a.x), c(a.g), c(a.e), a.rcv, a.wpart, a.n_nodes,
-      a.n_edges, a.L, chunk);
+  step3_bwd_wgrad_kernel<T, NT, L><<<dim3(static_cast<unsigned>(n_chunks), 8), wthreads<NT>(),
+                                     smem_wgrad, stream>>>(wa);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int64_t n_out = (4 * a.L + 2) * a.L;
+  const int64_t n_out = (4 * L + 2) * static_cast<int64_t>(L);
   step3_bwd_reduce_kernel<<<static_cast<unsigned>((n_out + 255) / 256), 256, 0, stream>>>(
-      a.wpart, a.n_chunks, a.bpart, n_tiles, a.L, a.wb);
+      wa.wpart, n_chunks, ta.bpart, n_parts, L, wb);
   return cudaGetLastError();
 }
 
@@ -587,47 +1111,56 @@ cudaError_t launch(const Args& a, size_t smem_tile, size_t smem_wgrad, cudaStrea
 
 extern "C" {
 
-// Shared memory of one CTA of the tile kernel and of the weight-grad kernel.
-int64_t pdg_fused_edge3_bwd_tile_smem_bytes(int64_t L) {
-  return 3 * EC * L * static_cast<int64_t>(sizeof(float)) +
-         EC * static_cast<int64_t>(sizeof(int) + sizeof(float));
-}
-int64_t pdg_fused_edge3_bwd_wgrad_smem_bytes(int64_t L) {
-  return EW * (KB + L) * static_cast<int64_t>(sizeof(float));
+// CTAs of the tile kernel over n_edges slots: the rows of bpart.
+int64_t pdg_fused_edge3_bwd_parts(int64_t n_edges) { return (n_edges + PART - 1) / PART; }
+
+// Weight-grad chunks over n_edges slots: the rows of wpart.
+int64_t pdg_fused_edge3_bwd_chunks(int64_t n_edges) {
+  const int64_t need = (n_edges + MAX_CHUNK - 1) / MAX_CHUNK;
+  return need > MIN_CHUNKS ? need : MIN_CHUNKS;
 }
 
 // Launches the backward on `stream`. Pointers are device pointers. x, g, e,
 // z_upd, dz_upd, the weights, their transposes (wuT[k][c] = wu[c][k], ...),
 // dg, de and scratch (7, n_edges, L) are fp32 (bf16 == 0) or bf16
 // (bf16 == 1); dR (n_nodes, L), dM (8, L), dx (n_nodes, L, zeroed by the
-// caller) and wb (4L+2, L) are fp32; rcv, gid and block_tile are int32; bpart (n_nodes/tile, 2, L)
-// and wpart (n_chunks, 4, L, L) are fp64 scratch. Returns a cudaError_t
-// value (0 on success).
+// caller) and wb (4L+2, L) are fp32; rcv (receiver-sorted runs) and gid are
+// int32; wfma (5, L, L) fp32 and wsplit (3, 3 or 1, L, L) bf16 scratch
+// (3 terms in fp32 mode);
+// bpart (pdg_fused_edge3_bwd_parts(n_edges), 2, L) and wpart (n_chunks =
+// pdg_fused_edge3_bwd_chunks(n_edges), 4, L, L) fp64 scratch. L is
+// 128. Returns a cudaError_t value (0 on success).
 int pdg_fused_edge3_bwd(int bf16, const void* x, const void* g, const void* e,
                         const void* z_upd, const void* dz_upd, const void* dR, const void* dM,
-                        const void* rcv, const void* gid, const void* block_tile,
-                        const void* wu, const void* wv, const void* we, const void* w2,
-                        const void* wuT, const void* wvT, const void* weT, const void* w2T,
-                        const void* b0, const void* b2, void* dg, void* de, void* dx,
-                        void* scratch, void* bpart, void* wpart, void* wb, int64_t n_nodes,
-                        int64_t n_edges, int64_t L, int64_t tile, int64_t n_blocks,
-                        int64_t n_graphs, int64_t n_chunks, void* stream) {
-  if (L < KB || L > 4 * KB || L % KB != 0 || tile <= 0 || n_nodes % tile != 0 ||
-      n_blocks <= 0 || n_edges % n_blocks != 0 || n_chunks <= 0) {
+                        const void* rcv, const void* gid, const void* wu, const void* wv,
+                        const void* we, const void* w2, const void* wuT, const void* wvT,
+                        const void* weT, const void* w2T, const void* b0, const void* b2,
+                        void* dg, void* de, void* dx, void* scratch, void* wsplit,
+                        void* wfma, void* bpart, void* wpart, void* wb, int64_t n_nodes,
+                        int64_t n_edges,
+                        int64_t L, int64_t n_graphs, int64_t n_chunks, void* stream) {
+  if (L != 128 || n_nodes < 1 || n_edges < 1 || n_chunks < 1 ||
+      (n_edges + n_chunks - 1) / n_chunks > MAX_CHUNK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{x, g, e, z_upd, dz_upd,
-         static_cast<const float*>(dR), static_cast<const float*>(dM),
-         static_cast<const int32_t*>(rcv), static_cast<const int32_t*>(gid),
-         static_cast<const int32_t*>(block_tile),
-         wu, wv, we, w2, wuT, wvT, weT, w2T, b0, b2, dg, de, static_cast<float*>(dx), scratch,
-         static_cast<double*>(bpart), static_cast<double*>(wpart), static_cast<float*>(wb),
-         n_nodes, n_edges, L, tile, n_blocks, n_graphs, n_chunks};
-  const size_t smem_tile = static_cast<size_t>(pdg_fused_edge3_bwd_tile_smem_bytes(L));
-  const size_t smem_wgrad = static_cast<size_t>(pdg_fused_edge3_bwd_wgrad_smem_bytes(L));
+  const auto* r = static_cast<const int32_t*>(rcv);
+  TileArgs ta{x, g, e, z_upd, dz_upd, static_cast<const float*>(dR),
+              static_cast<const float*>(dM), r, static_cast<const int32_t*>(gid), b0, b2,
+              static_cast<const float*>(wfma), static_cast<const uint16_t*>(wsplit), dg, de,
+              static_cast<float*>(dx), scratch, static_cast<double*>(bpart),
+              n_nodes, n_edges, n_graphs};
+  WgradArgs wa{scratch, x, g, e, r, static_cast<double*>(wpart), n_nodes, n_edges,
+               (n_edges + n_chunks - 1) / n_chunks};
+  const Weights ws{{wu, wv, we, w2, w2T, weT, wuT, wvT}};
+  auto* sp = static_cast<uint16_t*>(wsplit);
+  auto* o = static_cast<float*>(wb);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? launch<__nv_bfloat16>(a, smem_tile, smem_wgrad, s)
-                         : launch<float>(a, smem_tile, smem_wgrad, s);
+  cudaError_t err;
+  if (bf16) {
+    err = launch<__nv_bfloat16, 1, 128>(ta, wa, ws, sp, n_chunks, o, s);
+  } else {
+    err = launch<float, 3, 128>(ta, wa, ws, sp, n_chunks, o, s);
+  }
   return static_cast<int>(err);
 }
 

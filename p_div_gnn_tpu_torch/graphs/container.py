@@ -14,6 +14,10 @@ fields with the same layout contract, held as numpy arrays on the host
   (receiver tile, sender tile) instead and names each block's sender tile
   in ``edge_block_snd_tile``: its receivers are not globally sorted;
 - padding edges carry ``edge_gid == n_graphs`` and contribute nothing.
+
+Beyond the JAX package's fields, ``.to(device)`` derives from the sender
+view, on the device, the order in which the port's block-CSR segment sum
+reads it (``snd_run_perm``, ``snd_run_sorted``; see ``sender_run_order``).
 """
 
 from __future__ import annotations
@@ -82,23 +86,34 @@ class GraphBatch:
     # scatter_impl="fused2"): sender tile per edge block
     edge_block_snd_tile: Array | None = None  # (Ep // block,) i32
 
+    # --- the sender view in run order (sender_run_order), made by .to():
+    # each tile's slots stably sorted by sender, padding last
+    snd_run_perm: Array | None = None  # (Ep2,) i32
+    snd_run_sorted: Array | None = None  # (Ep2,) i32
+
     # --- static
     n_graphs: int = 1
     tile: int = NODE_TILE
 
     def array_fields(self) -> list[str]:
+        """The fields of the JAX package's batch (the derived run order and
+        the static sizes left out)."""
         return [
             f.name for f in dataclasses.fields(self)
-            if f.name not in ("n_graphs", "tile")
+            if f.name not in ("n_graphs", "tile", "snd_run_perm", "snd_run_sorted")
         ]
 
     def to(self, device: str | torch.device) -> "GraphBatch":
-        """A copy with every array as a torch tensor on ``device``."""
+        """A copy with every array as a torch tensor on ``device``, and the
+        sender view's run order derived there."""
         moved = {
             name: None if (v := getattr(self, name)) is None
             else torch.as_tensor(v).to(device)
             for name in self.array_fields()
         }
+        if moved["snd_perm"] is not None:
+            moved["snd_run_perm"], moved["snd_run_sorted"] = sender_run_order(
+                moved["snd_perm"], moved["snd_sorted"], moved["snd_block_tile"])
         return dataclasses.replace(self, **moved)
 
     @property
@@ -125,6 +140,22 @@ class GraphBatch:
     @property
     def num_edges_padded(self) -> int:
         return int(self.senders.shape[0])
+
+
+def sender_run_order(
+    snd_perm: torch.Tensor,  # (Ep2,) i32 source slot of each sender-view slot
+    snd_sorted: torch.Tensor,  # (Ep2,) i32 sender per slot, -1 for padding
+    snd_block_tile: torch.Tensor,  # (Ep2 / block,) i32 sender tile per block
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sender view with each tile's slots stably sorted by sender,
+    padding (-1) last: the same (slot, sender) pairs per tile, with every
+    sender's slots consecutive, as ``csr_segment_sum``'s kernel needs them.
+    Returns (snd_run_perm, snd_run_sorted), int32 on the inputs' device."""
+    block = snd_perm.shape[0] // snd_block_tile.shape[0]
+    tile_of_slot = snd_block_tile.long().repeat_interleave(block)
+    key = (tile_of_slot << 32) | (snd_sorted.long() & 0xFFFFFFFF)  # -1 → 2³² − 1
+    order = torch.sort(key, stable=True).indices
+    return snd_perm[order].contiguous(), snd_sorted[order].contiguous()
 
 
 @dataclasses.dataclass(frozen=True)

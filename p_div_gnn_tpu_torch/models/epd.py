@@ -36,6 +36,13 @@ JAX package's impl of the same name:
   (``ops/fused_edge3.py``), and the graph-LN folded lazily into its
   consumers: ``aggr = R·α1 + deg·β1``, ``new_e = (z_upd·α2 + β2)·mask``.
 
+Every sender gather reads the batch's sender view in run order
+(``GraphBatch.snd_run_perm`` / ``snd_run_sorted``, made by
+``GraphBatch.to``): the block-CSR segment sum kernel needs each sender's
+slots consecutive. On the card, "pallas" and the fused3 backward need the
+receiver-major layout, whose receivers are consecutive too: their kernels
+raise on a pair-blocked batch (the plain versions on the CPU take it).
+
 Training the fused paths needs the sender view
 (``pack_batch(sender_view=True)``); without it the step raises rather than
 accumulate the gathers' gradient in the stream dtype.
@@ -129,9 +136,13 @@ class Processor(nn.Module):
         edge_mask = batch.edge_mask
         ln_w, ln_b = self.edge_ln.weight, self.edge_ln.bias
         Np = x.shape[0]
+        # the sender gathers read the sender view in run order (GraphBatch.to)
         view = None
         if batch.snd_perm is not None:
-            view = (batch.snd_perm, batch.snd_sorted, batch.snd_block_tile)
+            if batch.snd_run_perm is None:
+                raise ValueError("the batch's sender view has no run order: move the "
+                                 "batch to its device with GraphBatch.to")
+            view = (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
         if self.scatter_impl in FUSED_IMPLS:
             # the kernels address node tiles of the batch's layout
             if batch.tile != NODE_TILE:

@@ -768,9 +768,10 @@ def fused_edge_step2(
     b2: torch.Tensor,  # (L,)
     receivers: torch.Tensor,  # (Ep,) i32
     senders: torch.Tensor,  # (Ep,) i32
-    aux: PairAux,  # (edge_gid, block_tile, block_snd_tile, snd_perm, snd_sorted,
-    #               snd_block_tile); the sender view may be None when no
-    #               gradient is taken
+    aux: PairAux,  # (edge_gid, block_tile, block_snd_tile, perm, sorted,
+    #               snd_block_tile): the sender view, in any slot order within
+    #               a tile (the Processor passes its run order); it may be
+    #               None when no gradient is taken
     n_graphs: int,
     tile: int,  # node tile of the layout (GraphBatch.tile)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -38,7 +38,7 @@ import functools
 import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
-from p_div_gnn_tpu_torch.ops.segment import segment_sum
+from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -148,8 +148,9 @@ def fused_edge_step3_backward_reference(
     the weight grads are formed with matmuls. Returns fp32
     (dx (Np, L), dg, de, dWu, dWv, dWe, db0, dW2, db2), dg and de in the
     stream dtype. The weight grads sum over every slot in fp64 and round
-    once: the exact sums of the products, which the kernel's fp32 products
-    (summed in fp32 over 8 slots, then in fp64) approach to their rounding."""
+    once: the exact sums of the products, which the kernel's tensor-core
+    products (summed in fp32 over 32 slots, then in fp64) approach to their
+    rounding."""
     sd = g_x.dtype
     Np = x.shape[0]
 
@@ -202,15 +203,13 @@ def _bwd_library() -> CudaLibrary:
     built = load_cuda_library("fused_edge3_bwd")
     fn = built.lib.pdg_fused_edge3_bwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] + [ctypes.c_void_p] * 28 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    for count in (built.lib.pdg_fused_edge3_bwd_parts, built.lib.pdg_fused_edge3_bwd_chunks):
+        count.argtypes = [ctypes.c_int64]
+        count.restype = ctypes.c_int64
     return built
-
-
-# weight-grad partial sums per launch of the backward: slots are cut into
-# this many chunks (~2 waves of weight-grad CTAs on 132 SMs at L=128)
-BWD_CHUNKS = 64
 
 
 def _fused_edge_step3_backward_cuda(
@@ -245,8 +244,11 @@ def _fused_edge_step3_backward_cuda(
     _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    _check(L % 64 == 0 and 64 <= L <= 256, f"L={L} must be a multiple of 64 in [64, 256]")
+    _check(L == 128, f"L={L}: the backward kernel is built for L = 128 only, the width of "
+           "every configuration of the repo (other widths: ROADMAP.md §B)")
     _check(7 * Ep * L < 2**31 and Np * L < 2**31, "arrays too large")
+    # one writer per dx row: each receiver's slots must be one run
+    require_consecutive_runs(receivers, Np, "fused_edge_step3_backward")
 
     dev = x.device
     transposed = [w.t().contiguous() for w in (w_u, w_v, w_e, w2)]
@@ -254,17 +256,26 @@ def _fused_edge_step3_backward_cuda(
     de = torch.empty((Ep, L), dtype=sd, device=dev)
     dx = torch.zeros((Np, L), dtype=torch.float32, device=dev)
     scratch = torch.empty((7, Ep, L), dtype=sd, device=dev)
-    bpart = torch.empty((Np // tile, 2, L), dtype=torch.float64, device=dev)
-    wpart = torch.empty((BWD_CHUNKS, 4, L, L), dtype=torch.float64, device=dev)
+    # Wu, Wv, We, W2, W2ᵀ in fp32 for the FMA chains; Weᵀ, Wuᵀ, Wvᵀ as bf16
+    # terms for the tensor cores, 3 per weight in fp32 mode
+    wfma = torch.empty((5, L, L), dtype=torch.float32, device=dev)
+    n_terms = 1 if sd == torch.bfloat16 else 3
+    wsplit = torch.empty((3, n_terms, L, L), dtype=torch.int16, device=dev)
+    bpart = torch.empty((built.lib.pdg_fused_edge3_bwd_parts(Ep), 2, L), dtype=torch.float64,
+                        device=dev)
+    # weight-grad partial sums: slots are cut into chunks, each summed by 8
+    # CTAs (4 weight grads x 2 row halves)
+    n_chunks = built.lib.pdg_fused_edge3_bwd_chunks(Ep)
+    wpart = torch.empty((n_chunks, 4, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((4 * L + 2, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_fused_edge3_bwd(
             int(sd == torch.bfloat16),
             *(t.data_ptr() for t in (x, g_x, e, z_upd, dz_upd, dr, dm, receivers, edge_gid,
-                                     block_tile, w_u, w_v, w_e, w2, *transposed, b0, b2,
-                                     dg, de, dx, scratch, bpart, wpart, wb)),
-            Np, Ep, L, tile, n_blocks, int(n_graphs), BWD_CHUNKS, stream,
+                                     w_u, w_v, w_e, w2, *transposed, b0, b2,
+                                     dg, de, dx, scratch, wsplit, wfma, bpart, wpart, wb)),
+            Np, Ep, L, int(n_graphs), n_chunks, stream,
         )
     check_launch(built, err, "fused_edge3_bwd")
     fused_edge_step3_backward.launches += 1
@@ -285,8 +296,10 @@ def fused_edge_step3_backward(
 ) -> tuple[torch.Tensor, ...]:
     """The fused3 edge step's VJP: fp32 (dx, dg, de, dWu, dWv, dWe, db0,
     dW2, db2), dg and de in the stream dtype. CUDA tensors go to the kernel
-    (``fused_edge_step3_backward.launches`` counts its launches), CPU
-    tensors to the plain version; anything else raises."""
+    (``fused_edge_step3_backward.launches`` counts its launches), which
+    takes L = 128 and each receiver's slots consecutive (the receiver-major
+    layout; a pair-blocked batch's is not) and raises otherwise; CPU tensors
+    go to the plain version; anything else raises."""
     edge_gid, block_tile = aux
     args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
     cots = (z_upd, dz_upd, dr, dm)

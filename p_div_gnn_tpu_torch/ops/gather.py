@@ -3,18 +3,22 @@
 fp32 inputs also ``sender_gather`` of the hybrid path, `:21-52`) and
 ``:58-110`` (``sender_gather_pair``, the v2 fused path).
 
-The forward is a plain row gather ``x[senders]``. The backward permutes the
-(Ep, L) cotangent into the batch's sender-major view (``snd_perm``; padding
-slots point at slot 0 and carry ``snd_sorted == -1``, so they add nothing)
-and adds it per sender with the block-CSR segment sum
-(``ops/scatter_csr.py``) into an fp32 accumulator, then casts to x's dtype.
+The forward is a plain row gather ``x[senders]``. The backward of
+``sender_gather_one`` permutes the (Ep, L) cotangent into the batch's
+sender-major view in run order (``GraphBatch.snd_run_perm``: each tile's
+slots sorted by sender, so each sender's slots are consecutive; padding
+slots point at slot 0 and carry ``-1``, so they add nothing) and adds it per
+sender with the block-CSR segment sum (``ops/scatter_csr.py``) into an fp32
+accumulator, then casts to x's dtype.
 The sums run in a fixed order, so the gradient is the same in every run,
 and in bf16 stream mode it is accumulated in fp32, not bf16.
 
 ``sender_gather_pair`` gathers two node projections at once and returns
 ``(proj_v[senders], proj_u[senders])``; its backward casts both cotangents
-to fp32 and sums them in one pass of the pair segment sum, returning
-``(d proj_u, d proj_v)`` in the order of its inputs.
+to fp32 and sums them in one pass of the pair segment sum over the sender
+view in the same run order (the pair sum takes any slot order within a
+tile; the run order holds each tile's (slot, sender) pairs of ``snd_perm``),
+returning ``(d proj_u, d proj_v)`` in the order of its inputs.
 
 Without the sender view there is no such backward: the gathers are then
 forward-only and raise when a gradient would be needed.
@@ -56,7 +60,7 @@ def _refuse_without_view(name: str, *xs: torch.Tensor) -> None:
 def sender_gather_one(
     x: torch.Tensor,  # (Np, L) node latents, stream dtype
     senders: torch.Tensor,  # (Ep,) i32
-    view: SenderView | None = None,  # (snd_perm, snd_sorted, snd_block_tile)
+    view: SenderView | None = None,  # (snd_run_perm, snd_run_sorted, snd_block_tile)
     tile: int | None = None,  # node tile of the view (GraphBatch.tile)
 ) -> torch.Tensor:
     """``x[senders]``: one (Ep, L) stream in x's dtype, whose backward is
@@ -93,7 +97,7 @@ def sender_gather_pair(
     proj_u: torch.Tensor,  # (Np, L) first-slot node projection
     proj_v: torch.Tensor,  # (Np, L) second-slot node projection
     senders: torch.Tensor,  # (Ep,) i32
-    view: SenderView | None = None,  # (snd_perm, snd_sorted, snd_block_tile)
+    view: SenderView | None = None,  # (snd_run_perm, snd_run_sorted, snd_block_tile)
     tile: int | None = None,  # node tile of the view (GraphBatch.tile)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(proj_v[senders], proj_u[senders])`` — the message path's and the

@@ -1,24 +1,32 @@
-"""Block-CSR segment sum into node tiles — the counterpart of
+"""Block-CSR segment sums — the counterpart of
 ``p_div_gnn_tpu/ops/scatter_pallas.py``'s ``pallas_segment_sum`` (whose
 forward is the Pallas kernel ``_kernel``) and ``pallas_segment_sum_pair``
 (the Pallas kernel ``_kernel_pair``).
 
-The rows (Ep2, L) are grouped into blocks of ``Ep2 / len(block_tile)``
-slots; block b feeds node tile ``block_tile[b]``, and
 ``out[n] = Σ rows[s]`` over the slots s with ``receivers[s] == n``,
-accumulated in fp32 and returned as (num_nodes, L) fp32. Slots with
+accumulated in fp64 and returned as (num_nodes, L) fp32. Slots with
 receiver −1 add nothing. With ``perm``, slot s reads ``rows[perm[s]]``: the
 sender gather's backward (``ops/gather.py``) permutes its cotangent into
 the sender-major view this way.
 
 ``csr_segment_sum`` runs the hand-written CUDA kernel
-(``csrc/segment_sum_csr.cu``) for CUDA tensors and the plain PyTorch version
-``csr_segment_sum_reference`` for CPU tensors; there is no fallback from one
-to the other. Its backward is a plain gather, as in the JAX package.
+(``csrc/segment_sum_csr.cu``, a streaming segmented reduction) for CUDA
+tensors and the plain PyTorch version ``csr_segment_sum_reference`` for CPU
+tensors; there is no fallback from one to the other. The kernel sums each
+run of consecutive slots with one receiver once, so the slots of a receiver
+must be consecutive: the receiver-major layout is sorted so, and the sender
+gathers read the sender view in its derived order
+(``GraphBatch.snd_run_perm`` / ``snd_run_sorted``). On a CUDA tensor whose
+receivers are not so, the wrapper raises (``require_consecutive_runs``,
+checked once per layout tensor); the plain version takes any order, as the
+JAX function does. ``block_tile`` and ``tile`` name the layout's blocks, as
+the JAX function takes them; neither the kernel nor the plain version reads
+them. Its backward is a plain gather, as in the JAX package.
+
 ``csr_segment_sum_pair`` sums two fp32 streams over one layout in one launch
-of its own kernel (same source), or ``csr_segment_sum_pair_reference`` on
-the CPU; it runs inside the pair sender gather's backward and has no
-backward of its own.
+of its own kernel (same source; any slot order within a block's tile), or
+``csr_segment_sum_pair_reference`` on the CPU; it runs inside the pair
+sender gather's backward and has no backward of its own.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import functools
 import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
-from p_div_gnn_tpu_torch.ops.segment import segment_sum
+from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
 
 ROW_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -51,8 +59,9 @@ def csr_segment_sum_reference(
 def _library() -> CudaLibrary:
     built = load_cuda_library("segment_sum_csr")
     fn = built.lib.pdg_segment_sum_csr
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    built.lib.pdg_segment_sum_csr_chunk_slots.restype = ctypes.c_int64
     pair = built.lib.pdg_segment_sum_csr_pair
     pair.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
     pair.restype = ctypes.c_int
@@ -65,38 +74,36 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _csr_segment_sum_cuda(
-    rows: torch.Tensor, receivers: torch.Tensor, block_tile: torch.Tensor,
-    num_nodes: int, tile: int, perm: torch.Tensor | None,
+    rows: torch.Tensor, receivers: torch.Tensor, num_nodes: int, perm: torch.Tensor | None,
 ) -> torch.Tensor:
     built = _library()
     n_src, L = rows.shape
     n_slots = receivers.shape[0]
-    ints = (receivers, block_tile) + (() if perm is None else (perm,))
+    ints = (receivers,) + (() if perm is None else (perm,))
     _check(rows.dtype in ROW_DTYPES, f"row dtype {rows.dtype} is not float32 or bfloat16")
     _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
     _check(len({t.device for t in (rows,) + ints}) == 1, "tensors on several devices")
     _check(all(t.is_contiguous() for t in (rows,) + ints), "tensors must be contiguous")
-    _check(receivers.dim() == 1 and (perm is None or perm.shape == receivers.shape),
+    _check(receivers.dim() == 1 and n_slots > 0 and (perm is None or perm.shape == receivers.shape),
            "receivers (and perm) must be (Ep2,)")
     _check(perm is not None or n_src == n_slots, "rows must be (Ep2, L) without perm")
-    n_blocks = block_tile.shape[0]
-    _check(block_tile.dim() == 1 and n_blocks > 0 and n_slots % n_blocks == 0,
-           "slots must split into whole blocks")
-    _check(tile > 0 and num_nodes % tile == 0, f"num_nodes={num_nodes} is not a multiple of tile={tile}")
-    _check(1 <= L <= 1024, f"L={L} must be in [1, 1024]")
-    _check(n_src * L < 2**31 and num_nodes * L < 2**31 and n_blocks * tile * L < 2**31,
+    _check(L >= 4 and L % 4 == 0, f"L={L} must be a multiple of 4")
+    _check(n_src * L < 2**31 and num_nodes * L < 2**31 and 2 * n_slots * L < 2**31,
            "arrays too large")
+    require_consecutive_runs(receivers, num_nodes, "csr_segment_sum")
 
     dev = rows.device
-    partial = torch.empty((n_blocks, tile, L), dtype=torch.float32, device=dev)
+    n_chunks = -(-n_slots // built.lib.pdg_segment_sum_csr_chunk_slots())
+    pieces = torch.empty((n_chunks, 2, L), dtype=torch.float64, device=dev)
+    kind = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     out = torch.empty((num_nodes, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_segment_sum_csr(
             int(rows.dtype == torch.bfloat16), rows.data_ptr(),
             None if perm is None else perm.data_ptr(), receivers.data_ptr(),
-            block_tile.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_src, n_slots, L, num_nodes, tile, n_blocks, stream,
+            pieces.data_ptr(), kind.data_ptr(), out.data_ptr(), n_src, n_slots, L, num_nodes,
+            stream,
         )
     check_launch(built, err, "segment_sum_csr")
     csr_segment_sum.launches += 1
@@ -107,7 +114,7 @@ def _segment_sum_dispatch(rows, receivers, block_tile, num_nodes, tile, perm):
     tensors = (rows, receivers, block_tile) + (() if perm is None else (perm,))
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
-        return _csr_segment_sum_cuda(rows, receivers, block_tile, num_nodes, tile, perm)
+        return _csr_segment_sum_cuda(rows, receivers, num_nodes, perm)
     if kinds == {"cpu"}:
         return csr_segment_sum_reference(rows, receivers, num_nodes, perm)
     raise ValueError(f"csr_segment_sum runs on cuda or cpu tensors, got {sorted(kinds)}")
@@ -138,14 +145,17 @@ class _CsrSegmentSum(torch.autograd.Function):
 def csr_segment_sum(
     rows: torch.Tensor,  # (Ep2, L) f32 or bf16; (n_src, L) with perm
     receivers: torch.Tensor,  # (Ep2,) i32 node id per slot, −1 for padding
-    block_tile: torch.Tensor,  # (Ep2 / block,) i32 node tile per block, sorted
+    block_tile: torch.Tensor,  # (Ep2 / block,) i32 node tile per block; not read
     num_nodes: int,
-    tile: int,  # node tile of the layout (GraphBatch.tile)
+    tile: int,  # node tile of the layout (GraphBatch.tile); not read
     perm: torch.Tensor | None = None,  # (Ep2,) i32 source row of each slot
 ) -> torch.Tensor:
     """(num_nodes, L) fp32 segment sum over the block-CSR layout. CUDA
     tensors go to the kernel (``csr_segment_sum.launches`` counts its
-    launches), CPU tensors to the plain version; anything else raises."""
+    launches), which needs each receiver's slots consecutive and raises
+    otherwise; CPU tensors go to the plain version, which takes any order;
+    anything else raises. ``block_tile`` and ``tile`` are taken as the JAX
+    function takes them and are not read."""
     return _CsrSegmentSum.apply(rows, receivers, block_tile, num_nodes, tile, perm)
 
 

@@ -6,11 +6,18 @@ Each ``p_div_gnn_tpu_torch/csrc/*.cu`` is compiled by the host C++ compiler
 (g++, C++20) against a small emulation of the CUDA runtime: a CTA's threads
 are host threads, ``__syncthreads`` is a barrier, dynamic shared memory is
 a per-CTA buffer filled with garbage, launches run one CTA at a time. The
-port's own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py``
-with the v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on CPU tensors against the emulated
-libraries, and each kernel is held against its plain version at small
-shapes, with ``chip_smoke.py``'s tolerances; the script exits 1 if one
-disagrees.
+warp-level primitives exchange values among a warp's 32 threads between
+two barriers of the warp: ``__shfl_sync``, ``__shfl_xor_sync``,
+``__ballot_sync``, and ``csrc/mma_sm90.cuh``'s ``ldmatrix`` (x4, plain
+and transposed) and ``mma.sync`` m16n8k16 (bf16, fp32 accumulation) with
+the PTX ISA's fragment layouts; ``cp.async`` is a plain copy. The port's
+own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py`` with the
+v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on
+CPU tensors against the emulated libraries, and each kernel is held against
+its plain version at small shapes (the fused3 backward at L = 128, the
+width its FMA tile is made for; the segment sum on both callers' layouts,
+twice, the two calls bit-equal), with ``chip_smoke.py``'s tolerances; the
+script exits 1 if one disagrees.
 
 It checks what a kernel computes (indexing, synchronization, the order of
 its sums, the wrapper's argument list), not its speed, and not whether
@@ -40,7 +47,13 @@ import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.batching import build_sender_view  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE  # noqa: E402
 from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3, scatter_csr  # noqa: E402
-from test_torch_port_cuda import _edge_problem, _pair_problem, _v2_problem  # noqa: E402
+from test_torch_port_cuda import (  # noqa: E402
+    _edge_problem,
+    _longest_run,
+    _pair_problem,
+    _segment_problem,
+    _v2_problem,
+)
 
 OUT = ROOT / "build" / "port_cuda_emulate"
 
@@ -49,8 +62,11 @@ CUDA_RUNTIME_H = r"""
 #include <stdint.h>
 #include <stddef.h>
 #include <math.h>
+#include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <deque>
+#include <strings.h>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -60,10 +76,15 @@ CUDA_RUNTIME_H = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
-#define __shared__
+#define __noinline__
+// CTAs run one at a time, so a function-scope static is one CTA's
+// shared memory
+#define __shared__ static
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct double2 { double x, y; };
 struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -72,10 +93,55 @@ inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local float4* emu_smem = nullptr;
 inline thread_local std::barrier<>* emu_bar = nullptr;
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline double2 make_double2(double a, double b) { return {a, b}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+// A warp's lanes exchange values through `words` between two barriers of
+// the warp's 32 threads: each warp-collective call is made by all lanes.
+struct EmuWarp {
+  std::barrier<>* bar;
+  uint64_t words[32][8];
+  const void* ptrs[32];
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local unsigned emu_lane = 0;
+inline uint64_t emu_exchange(uint64_t mine, unsigned src) {
+  emu_warp->words[emu_lane][0] = mine;
+  emu_warp->bar->arrive_and_wait();
+  const uint64_t got = emu_warp->words[src % 32][0];
+  emu_warp->bar->arrive_and_wait();
+  return got;
+}
+inline int __shfl_sync(unsigned, int v, int src) {
+  return static_cast<int>(emu_exchange(static_cast<uint32_t>(v), static_cast<unsigned>(src)));
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  emu_warp->words[emu_lane][0] = pred ? 1 : 0;
+  emu_warp->bar->arrive_and_wait();
+  unsigned m = 0;
+  for (unsigned l = 0; l < 32; ++l) m |= static_cast<unsigned>(emu_warp->words[l][0]) << l;
+  emu_warp->bar->arrive_and_wait();
+  return m;
+}
+inline int __ffs(int x) { return ::ffs(x); }
+inline double __shfl_xor_sync(unsigned, double v, int mask) {
+  uint64_t u;
+  std::memcpy(&u, &v, 8);
+  u = emu_exchange(u, emu_lane ^ static_cast<unsigned>(mask));
+  double d;
+  std::memcpy(&d, &u, 8);
+  return d;
+}
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+#define EMU_STREAM reinterpret_cast<cudaStream_t>(0x5eed0000beefULL)
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t st) {
+  if (st != EMU_STREAM) throw "memset on a stream the wrapper did not pass";
+  std::memset(p, v, n);
+  return 0;
+}
 template <typename F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
@@ -85,9 +151,8 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 struct EmuCfg { dim3 grid, block; size_t smem; };
-// the wrappers pass this stream; another value is an argument list that
+// the wrappers pass EMU_STREAM; another value is an argument list that
 // ctypes cut (a pointer passed as a 32-bit int)
-#define EMU_STREAM reinterpret_cast<cudaStream_t>(0x5eed0000beefULL)
 inline EmuCfg emu_cfg(dim3 g, dim3 b, size_t s = 0, cudaStream_t st = EMU_STREAM) {
   if (st != EMU_STREAM) throw "launch on a stream the wrapper did not pass";
   return {g, b, s};
@@ -101,9 +166,18 @@ void emu_launch(EmuCfg cfg, K kernel, A... args) {
       for (unsigned bx = 0; bx < cfg.grid.x; ++bx) {
         std::memset(smem.data(), 0xff, smem.size() * sizeof(float4));
         std::barrier<> bar(nt);
+        const unsigned nw = (nt + 31) / 32;
+        std::deque<std::barrier<>> warp_bars;
+        std::vector<EmuWarp> warps(nw);
+        for (unsigned w = 0; w < nw; ++w) {
+          warp_bars.emplace_back(std::min<unsigned>(32, nt - 32 * w));
+          warps[w].bar = &warp_bars[w];
+        }
         std::vector<std::thread> threads;
         for (unsigned t = 0; t < nt; ++t)
           threads.emplace_back([&, t] {
+            emu_warp = &warps[t / 32];
+            emu_lane = t % 32;
             threadIdx = dim3(t % cfg.block.x, (t / cfg.block.x) % cfg.block.y,
                              t / (cfg.block.x * cfg.block.y));
             blockIdx = dim3(bx, by, bz);
@@ -140,7 +214,75 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {  // round to nearest even
 inline float2 __bfloat1622float2(__nv_bfloat162 p) {
   return {__bfloat162float(p.x), __bfloat162float(p.y)};
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
 """
+
+
+# csrc/mma_sm90.cuh's PTX wrappers, emulated with the PTX fragment layouts
+MMA_SM90_H = r"""
+inline uint16_t emu_lane_half(unsigned lane, int reg, int half) {
+  return static_cast<uint16_t>(emu_warp->words[lane][reg] >> (16 * half));
+}
+inline float emu_bf16(uint16_t bits) {
+  uint32_t u = uint32_t(bits) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+// lane l gets, for matrix j (rows from lanes 8j..8j+7), row l/4 and
+// elements 2(l%4), 2(l%4)+1; transposed: column l/4, rows 2(l%4), 2(l%4)+1
+inline void emu_ldsm(uint32_t (&r)[4], const void* p, bool trans) {
+  emu_warp->ptrs[emu_lane] = p;
+  emu_warp->bar->arrive_and_wait();
+  const unsigned l = emu_lane;
+  for (int j = 0; j < 4; ++j) {
+    uint16_t lo, hi;
+    if (!trans) {
+      const auto* row = static_cast<const uint16_t*>(emu_warp->ptrs[8 * j + l / 4]);
+      lo = row[2 * (l % 4)];
+      hi = row[2 * (l % 4) + 1];
+    } else {
+      lo = static_cast<const uint16_t*>(emu_warp->ptrs[8 * j + 2 * (l % 4)])[l / 4];
+      hi = static_cast<const uint16_t*>(emu_warp->ptrs[8 * j + 2 * (l % 4) + 1])[l / 4];
+    }
+    r[j] = uint32_t(lo) | (uint32_t(hi) << 16);
+  }
+  emu_warp->bar->arrive_and_wait();
+}
+inline void ldsm_x4(uint32_t (&r)[4], const void* p) { emu_ldsm(r, p, false); }
+inline void ldsm_x4_trans(uint32_t (&r)[4], const void* p) { emu_ldsm(r, p, true); }
+// d += a·b, m16n8k16: a_i / b_i / d_i of lane l as the PTX ISA lays them
+// out (group g = l/4, t = l%4); products summed in fp32 in k order
+inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  uint64_t* w = emu_warp->words[emu_lane];
+  for (int i = 0; i < 4; ++i) w[i] = a[i];
+  w[4] = b0;
+  w[5] = b1;
+  emu_warp->bar->arrive_and_wait();
+  const unsigned g = emu_lane / 4, t = emu_lane % 4;
+  for (int e = 0; e < 4; ++e) {
+    const unsigned row = g + (e >= 2 ? 8 : 0), col = 2 * t + (e % 2);
+    float sum = d[e];
+    for (unsigned k = 0; k < 16; ++k) {
+      const float av = emu_bf16(emu_lane_half((row % 8) * 4 + (k % 8) / 2,
+                                              (row >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0), k % 2));
+      const float bv = emu_bf16(emu_lane_half(col * 4 + (k % 8) / 2, 4 + (k >= 8 ? 1 : 0),
+                                              k % 2));
+      sum += av * bv;
+    }
+    d[e] = sum;
+  }
+  emu_warp->bar->arrive_and_wait();
+}
+inline void cp_async16(void* smem, const void* gmem) { std::memcpy(smem, gmem, 16); }
+inline void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  if (valid) std::memcpy(smem, gmem, 16);
+  else std::memset(smem, 0, 16);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+"""
+EMULATED_HEADERS = {"mma_sm90.cuh": MMA_SM90_H}
 
 
 def build(name: str) -> Path:
@@ -151,8 +293,8 @@ def build(name: str) -> Path:
     source = cuda_build.CSRC_DIR / f"{name}.cu"
     src = source.read_text()
     for header in cuda_build.local_headers(source):  # inlined: it holds kernels too
-        src = src.replace(f'#include "{header.name}"',
-                          header.read_text().replace("#pragma once\n", ""))
+        text = EMULATED_HEADERS.get(header.name) or header.read_text()
+        src = src.replace(f'#include "{header.name}"', text.replace("#pragma once\n", ""))
     src = re.sub(r"extern __shared__ float4 (\w+)\[\];", r"float4* \1 = emu_smem;", src)
     src = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"emu_launch(emu_cfg(\2), \1, ", src,
                  flags=re.S)
@@ -231,7 +373,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
     ap.add_argument("--L", type=int, default=16, help="width of the forwards")
-    ap.add_argument("--L-bwd", type=int, default=64, help="width of the backwards (64k)")
+    ap.add_argument("--L-bwd", type=int, default=64,
+                    help="width of the v2 and fused2 backwards (64k; fused3's is 128)")
     args = ap.parse_args()
     shares = []
     with emulated_kernels():
@@ -245,11 +388,12 @@ def main() -> int:
             shares += [report(f"fused_edge3_fwd {sd_name} {n}", x, y, ftol[n])
                        for n, x, y in zip(FWD_NAMES, got, want)]
 
-            arrays, idx = _edge_problem(6, args.tiles, args.L_bwd)
+            # the fused3 backward's FMA tile is made for L = 128
+            arrays, idx = _edge_problem(6, args.tiles, 128)
             a = [T(v).to(sd) for v in arrays.values()]
             rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
             z, _, _ = fused_edge3.fused_edge_step3_reference(*a, rcv, gid, 1)
-            cot = cotangents(7, z.shape[0], a[0].shape[0], args.L_bwd, sd)
+            cot = cotangents(7, z.shape[0], a[0].shape[0], 128, sd)
             got = fused_edge3._fused_edge_step3_backward_cuda(*a, rcv, gid, bt, 1, NODE_TILE,
                                                               z, *cot)
             want = fused_edge3.fused_edge_step3_backward_reference(*a, rcv, gid, 1, z, *cot)
@@ -294,16 +438,21 @@ def main() -> int:
             shares += [report(f"fused_edge2_bwd {sd_name} #{i}", x, y, btol)
                        for i, (x, y) in enumerate(zip(got, want))]
 
-            rng = np.random.default_rng(8)
+            rows, layouts = _segment_problem(8, args.tiles, args.L)
             n_nodes = args.tiles * NODE_TILE
+            tol = chip_smoke.CSR_TOL[sd_name]
+            for layout, (rcv, bt, perm) in layouts.items():
+                got = [scatter_csr._csr_segment_sum_cuda(rows.to(sd), rcv, n_nodes, perm)
+                       for _ in range(2)]
+                assert torch.equal(got[0], got[1]), f"segment_sum_csr {layout}: two calls differ"
+                want = scatter_csr.csr_segment_sum_reference(rows.to(sd), rcv, n_nodes, perm)
+                shares.append(report(f"segment_sum_csr {sd_name} {layout} (longest run "
+                                     f"{_longest_run(rcv)})", got[0], want, tol))
+            # the pair sum takes the sender view as the JAX package lays it out
+            rng = np.random.default_rng(8)
             perm, srt, sbt = (T(v) for v in build_sender_view(
                 rng.integers(0, n_nodes, size=6 * n_nodes), n_nodes))
             rows = T(rng.normal(size=(6 * n_nodes, args.L)).astype(np.float32))
-            tol = chip_smoke.CSR_TOL[sd_name]
-            got = scatter_csr._csr_segment_sum_cuda(rows.to(sd), srt, sbt, n_nodes, NODE_TILE,
-                                                    perm)
-            want = scatter_csr.csr_segment_sum_reference(rows.to(sd), srt, n_nodes, perm)
-            shares.append(report(f"segment_sum_csr {sd_name}", got, want, tol))
             if sd == torch.float32:
                 other = T(rng.normal(size=rows.shape).astype(np.float32))
                 got = scatter_csr._csr_segment_sum_pair_cuda(rows, other, srt, sbt, n_nodes,

@@ -40,9 +40,9 @@ from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
 # kernel ran in the step
 GROUPS = {
     "fused_edge3_fwd (#1)": ("step3_tile_kernel", "moments_reduce_kernel"),
-    "fused_edge3_bwd (#2)": ("step3_bwd_tile_kernel", "step3_bwd_wgrad_kernel",
-                             "step3_bwd_reduce_kernel"),
-    "segment_sum_csr (#3)": ("block_partial_kernel", "tile_merge_kernel"),
+    "fused_edge3_bwd (#2)": ("prepare_weights_kernel", "step3_bwd_tile_kernel",
+                             "step3_bwd_wgrad_kernel", "step3_bwd_reduce_kernel"),
+    "segment_sum_csr (#3)": ("run_chunk_kernel", "run_merge_kernel"),
     "segment_sum_csr_pair (#4)": ("pair_partial_kernel", "pair_merge_kernel"),
     "fused_edge_fwd (#5)": ("v2_fwd_tile_kernel", "edge_moments_kernel"),
     "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel", "edge_bwd_wgrad_kernel",

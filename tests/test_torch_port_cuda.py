@@ -23,15 +23,56 @@ from p_div_gnn_tpu_torch.graphs.batching import (
     blockify_edges_pair,
     build_sender_view,
 )
-from p_div_gnn_tpu_torch.graphs.container import NODE_TILE
+from p_div_gnn_tpu_torch.graphs.container import EDGE_BLOCK, NODE_TILE, sender_run_order
 from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
 
 T = torch.from_numpy
+# slots per chunk of the segment sum kernel (csrc/segment_sum_csr.cu
+# RUN_CHUNK): a longer run is split across chunks
+RUN_CHUNK = 64
+# slots per edge step of the fused3 backward's tile kernel
+# (csrc/fused_edge3_bwd.cu M)
+BWD_STEP = 32
 
 
-def _edge_problem(seed: int, n_tiles: int, L: int):
-    """Random receiver-sorted edges in the block-aligned CSR layout, with a
-    second graph's worth of padding slots; numpy inputs for both packages."""
+def _segment_problem(seed: int, n_tiles: int, L: int):
+    """Rows and the block-CSR segment sum's two callers' layouts over random
+    receiver-sorted edges of ``n_tiles`` node tiles: "sender", the sender
+    view in run order with its permutation (the sender gather's backward;
+    the receiver layout's padding slots all send from the last node, whose
+    run is the longest), and "receiver", the receiver layout without one
+    (the pallas scatter). Each layout is (receivers, block_tile, perm) as
+    CPU tensors; rows are (Ep, L) fp32 ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    num_nodes = n_tiles * NODE_TILE
+    E = 6 * num_nodes
+    snd_b, rcv_b, _, _, _, block_tile = blockify_edges(
+        senders=rng.integers(0, num_nodes, size=E),
+        receivers=np.sort(rng.integers(0, num_nodes, size=E)),
+        edge_weight=np.ones(E, np.float32), edge_gid=np.zeros(E, np.int64),
+        num_nodes=num_nodes, n_graphs=1,
+    )
+    perm, srt, sbt = (T(v) for v in build_sender_view(snd_b, num_nodes))
+    run_perm, run_sorted = sender_run_order(perm, srt, sbt)
+    rows = T(rng.normal(size=(len(rcv_b), L)).astype(np.float32))
+    return rows, {"sender": (run_sorted, sbt, run_perm),
+                  "receiver": (T(rcv_b.astype(np.int32)), T(block_tile.astype(np.int32)), None)}
+
+
+def _longest_run(receivers: torch.Tensor) -> int:
+    """Slots in the longest run of one receiver (-1 slots left out)."""
+    r = receivers.cpu()
+    change = torch.ones(len(r), dtype=torch.bool)
+    change[1:] = r[1:] != r[:-1]
+    starts = torch.nonzero(change).flatten()
+    lengths = torch.diff(torch.cat([starts, torch.tensor([len(r)])]))
+    return int(lengths[r[starts] >= 0].max())
+
+
+def _edge_problem(seed: int, n_tiles: int, L: int, edge_block: int = EDGE_BLOCK):
+    """Random receiver-sorted edges in the block-aligned CSR layout (blocks of
+    ``edge_block`` slots), with a second graph's worth of padding slots;
+    numpy inputs for both packages."""
     rng = np.random.default_rng(seed)
     num_nodes = n_tiles * NODE_TILE
     E = 6 * num_nodes
@@ -40,6 +81,7 @@ def _edge_problem(seed: int, n_tiles: int, L: int):
     snd_b, rcv_b, _, gid_b, _, block_tile = blockify_edges(
         senders=snd, receivers=rcv, edge_weight=np.ones(E, np.float32),
         edge_gid=np.zeros(E, np.int64), num_nodes=num_nodes, n_graphs=1,
+        edge_block=edge_block,
     )
     Ep = len(rcv_b)
     f32 = lambda *s, scale=1.0: (rng.normal(size=s) * scale).astype(np.float32)  # noqa: E731
@@ -155,15 +197,18 @@ def test_backward_kernel_matches_reference_on_cuda(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segment_sum_kernel_matches_reference_on_cuda(dtype):
-    """The sender view of three node tiles, L = 128, rows read through the
-    permutation; the launch count rises by one per call."""
+    """The sender view of three node tiles in run order, L = 128, rows read
+    through the permutation; the launch count rises by one per call. The
+    same view in the JAX package's order, whose senders' slots are not
+    consecutive, is refused before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(8)
     num_nodes = 3 * NODE_TILE
     E = 6 * num_nodes
-    perm, srt, sbt = (T(v).cuda() for v in build_sender_view(
-        rng.integers(0, num_nodes, size=E), num_nodes))
+    view = [T(v) for v in build_sender_view(rng.integers(0, num_nodes, size=E), num_nodes)]
+    perm, srt = (t.cuda() for t in sender_run_order(*view))
+    sbt = view[2].cuda()
     rows = T(rng.normal(size=(E, 128)).astype(np.float32)).to("cuda", dtype)
     before = scatter_csr.csr_segment_sum.launches
     got = scatter_csr.csr_segment_sum(rows, srt, sbt, num_nodes, NODE_TILE, perm=perm)
@@ -171,6 +216,95 @@ def test_segment_sum_kernel_matches_reference_on_cuda(dtype):
     want = scatter_csr.csr_segment_sum_reference(rows, srt, num_nodes, perm)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    jax_perm, jax_srt = view[0].cuda(), view[1].cuda()
+    with pytest.raises(ValueError, match="not consecutive"):
+        scatter_csr.csr_segment_sum(rows, jax_srt, sbt, num_nodes, NODE_TILE, perm=jax_perm)
+    assert scatter_csr.csr_segment_sum.launches == before + 1
+
+
+@pytest.mark.parametrize("layout", ["sender", "receiver"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_runs_are_split_and_deterministic_on_cuda(dtype, layout):
+    """Both callers' layouts over three node tiles, L = 128, with and without
+    the permutation: one receiver's run is longer than a chunk, so it is
+    summed in pieces; two calls give bit-equal sums, within the tolerance of
+    the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows, layouts = _segment_problem(10, 3, L=128)
+    rcv, bt, perm = (None if t is None else t.cuda() for t in layouts[layout])
+    assert _longest_run(rcv) > RUN_CHUNK
+    rows = rows.to("cuda", dtype)
+    num_nodes = 3 * NODE_TILE
+    before = scatter_csr.csr_segment_sum.launches
+    got = [scatter_csr.csr_segment_sum(rows, rcv, bt, num_nodes, NODE_TILE, perm=perm)
+           for _ in range(2)]
+    assert scatter_csr.csr_segment_sum.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    want = scatter_csr.csr_segment_sum_reference(rows, rcv, num_nodes, perm)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got[0], want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_steps_and_determinism_on_cuda(dtype):
+    """The fused3 backward over three node tiles, L = 128, in blocks of 250
+    slots, so no tile's slot count is a multiple of the kernel's edge step;
+    the tiles' padding receivers have runs longer than an edge step. Two
+    calls give bit-equal outputs, within the tolerance of the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arrays, idx = _edge_problem(11, 3, L=128, edge_block=250)
+    counts = np.bincount(idx["block_tile"], minlength=3) * 250
+    assert (counts % BWD_STEP != 0).any()
+    args = [T(a).to("cuda", dtype) for a in arrays.values()]
+    rcv, gid, bt = (T(idx[k]).cuda() for k in ("receivers", "edge_gid", "block_tile"))
+    assert _longest_run(rcv) > BWD_STEP
+    z_upd, _, _ = fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1)
+    rng = np.random.default_rng(12)
+    Np, L = arrays["x"].shape
+    dz = T(rng.normal(size=z_upd.shape).astype(np.float32)).to("cuda", dtype)
+    dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
+    got = [fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
+                                                 z_upd, dz, dr, dm) for _ in range(2)]
+    want = fused_edge3.fused_edge_step3_backward_reference(*args, rcv, gid, 1,
+                                                           z_upd, dz, dr, dm)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    for a, b, c in zip(got[0], got[1], want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c.float(), rtol=tol, atol=tol)
+
+
+def test_backward_kernel_refuses_split_receiver_runs_on_cuda():
+    """The fused3 backward writes each receiver's dx row once, from one run:
+    on a pair-blocked layout, which splits a receiver's slots over several
+    blocks, it raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.ops.segment import runs_are_consecutive
+
+    arrays, idx = _pair_problem(13, 3, L=128, stray=False)
+    rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
+                    for k in ("receivers", "edge_gid", "block_tile"))
+    Np, Ep, L = 3 * NODE_TILE, rcv.shape[0], 128
+    assert not runs_are_consecutive(rcv, Np)
+    rng = np.random.default_rng(14)
+    x = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    g_x = x[T(np.asarray(idx["senders"], np.int64)).cuda()]
+    w = [T((rng.normal(size=(L, L)) * L**-0.5).astype(np.float32)).cuda() for _ in range(4)]
+    b0, b2 = (T(rng.normal(size=L).astype(np.float32)).cuda() for _ in range(2))
+    e = T(arrays["e"]).cuda()
+    z_upd = torch.zeros((Ep, L), device="cuda")
+    dz = torch.ones((Ep, L), device="cuda")
+    dr = torch.ones((Np, L), device="cuda")
+    dm = torch.zeros((8, L), device="cuda")
+    before = fused_edge3.fused_edge_step3_backward.launches
+    with pytest.raises(ValueError, match="not consecutive"):
+        fused_edge3.fused_edge_step3_backward(x, g_x, e, w[0], w[1], w[2], b0, w[3], b2, rcv,
+                                              (gid, bt), 1, NODE_TILE, z_upd, dz, dr, dm)
+    assert fused_edge3.fused_edge_step3_backward.launches == before
 
 
 def test_remat_steps_give_the_same_gradients_on_cuda():
