@@ -207,10 +207,12 @@ def edge_step_inputs(batch, gen):
 
 def kernel_phase(batch) -> dict:
     """Hold fused_edge_step3's kernel against its plain version on the card
-    at the batch's shapes, in both stream dtypes; time both."""
+    at the batch's shapes, in both stream dtypes (two calls must be
+    bit-equal); time both."""
     import torch
 
     from p_div_gnn_tpu_torch.ops.fused_edge3 import (
+        _library,
         fused_edge_step3,
         fused_edge_step3_reference,
     )
@@ -218,9 +220,15 @@ def kernel_phase(batch) -> dict:
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
-    e_real = int(batch.edge_mask.sum())
+    real = batch.edge_mask.bool()
+    e_real = int(real.sum())
+    # x[r]·Wu and x[r]·Wv are the same for every slot of a receiver: the
+    # function needs them once per receiver of a real slot
+    n_rcv = int(torch.unique(batch.receivers[real]).numel())
     base = edge_step_inputs(batch, torch.Generator(device=dev).manual_seed(0))
     aux = (batch.edge_gid, batch.edge_block_tile)
+    n_parts = int(_library().lib.pdg_fused_edge3_fwd_parts())
+    say(f"kernel fused_edge3_fwd: {n_parts} parts (one CTA per SM)")
     results = {}
     for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         args = [base[k].to(sd).contiguous() for k in base]
@@ -230,15 +238,22 @@ def kernel_phase(batch) -> dict:
         plain = lambda: fused_edge_step3_reference(  # noqa: E731
             *args, batch.receivers, batch.edge_gid, batch.n_graphs
         )
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
-        errs = {name: held(f"fused_edge3_fwd {sd_name} {name}", a, b,
-                           KERNEL_TOL[sd_name][name])[0]
-                for name, a, b in zip(("z_upd", "R", "M"), got, want)}
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"fused_edge3_fwd {sd_name}: two calls differ")
+        checked = {name: held(f"fused_edge3_fwd {sd_name} {name}", a, b,
+                              KERNEL_TOL[sd_name][name])
+                   for name, a, b in zip(("z_upd", "R", "M"), got, want)}
+        errs = {name: v[0] for name, v in checked.items()}
+        del got, again, want
         s = torch.finfo(sd).bits // 8
-        n_bytes = (s * (Np * L + 3 * Ep * L + 4 * L * L + 2 * L)
-                   + 4 * (2 * Ep + NB) + 4 * (Np * L + 8 * L))
-        flops = 2 * 7 * L * L * e_real
+        # read: x, the real slots' g and e, the weights, biases, rcv and gid;
+        # written: z_upd (every slot), R and M
+        n_bytes = (s * (Np * L + 2 * e_real * L + Ep * L + 4 * L * L + 2 * L)
+                   + 4 * 2 * Ep + 4 * (Np * L + 8 * L))
+        # per real slot g·Wu, g·Wv, e·We and h·W2 twice; per receiver x·Wu, x·Wv
+        flops = 2 * L * L * (5 * e_real + 2 * n_rcv)
         b_ms, b_by = bound(flops, n_bytes, sd_name)
         res = {
             "max_abs_err": max(errs.values()), "errs": errs,
@@ -247,11 +262,15 @@ def kernel_phase(batch) -> dict:
         }
         results[sd_name] = res
         say(f"kernel fused_edge3_fwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
-            f"real_edges={e_real} max_abs_err "
+            f"real_edges={e_real} receivers={n_rcv} max_abs_err "
             + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
+            + " share of the allowance "
+            + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
             + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
             f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
-            f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB)")
+            f"{flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB), "
+            f"share of the bound {b_ms / res['ms']:.3f}; two calls bit-equal")
+        torch.cuda.empty_cache()
     return results
 
 
@@ -336,7 +355,9 @@ def backward_kernel_phase(batch) -> dict:
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
-    e_real = int(batch.edge_mask.sum())
+    real = batch.edge_mask.bool()
+    e_real = int(real.sum())
+    n_rcv = int(torch.unique(batch.receivers[real]).numel())
     gen = torch.Generator(device=dev).manual_seed(1)
     base = edge_step_inputs(batch, gen)
     dz, dr, dm = (torch.randn(shape, generator=gen, device=dev)
@@ -365,7 +386,10 @@ def backward_kernel_phase(batch) -> dict:
         # weight grads (fp32)
         n_bytes = (s * (Np * L + 6 * Ep * L + 4 * L * L + 2 * L)
                    + 4 * (2 * Np * L + 8 * L + (4 * L + 2) * L) + 4 * (2 * Ep + NB))
-        flops = 2 * 20 * L * L * e_real
+        # 20 products per real slot (6 recompute the forward, 7 form the data
+        # cotangents, 7 the weight grads), of which x[r]·Wu and x[r]·Wv are
+        # needed once per receiver
+        flops = 2 * L * L * (18 * e_real + 2 * n_rcv)
         b_ms, b_by = bound(flops, n_bytes, sd_name)
         res = {"max_abs_err": max(errs.values()), "ms": cuda_ms(kern, 5),
                "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by}

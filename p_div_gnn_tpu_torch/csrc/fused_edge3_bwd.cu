@@ -24,8 +24,9 @@
 //   dWu = Σ x[r]ᵀdpre1 + gᵀdpre2   dWv = Σ x[r]ᵀdpre2 + gᵀdpre1   db0 = Σ dpre1+dpre2
 //
 // What bounds it on this card: 20 L×L products per edge slot (6 recompute
-// the forward, 7 form the data cotangents, 7 the weight grads), 2·20·L²
-// flops per slot against ~3.3 KB of streamed bytes in fp32: operations.
+// the forward, 7 form the data cotangents, 7 the weight grads), of which
+// x[r]·Wu and x[r]·Wv are needed once per receiver: ~2·18·L² flops per slot
+// against ~3.3 KB of streamed bytes in fp32: operations.
 //
 // Which products run where, and why. The weight grads sum ~2.6e5 slots of
 // products, and the check against the plain version (rtol = atol = 2e-4 in
@@ -56,7 +57,9 @@
 //   largest magnitude in it, which, chained over a whole product, biased
 //   the weight grads (PERF.md §6).
 //
-// Design, in four launches:
+// Design, in four launches (the FMA tile, its weight ring, the staging of an
+// edge step's rows, the part split, the swizzled tiles and the tensor-core
+// chunk are shared with the forward, in fused3_tile.cuh):
 // 0. `prepare_weights_kernel`: Wu, Wv, We, W2, W2ᵀ in fp32 for the chains,
 //    Weᵀ, Wuᵀ, Wvᵀ as NT bf16 terms (NT = 3 for fp32 streams, 1 for bf16).
 // 1. `step3_bwd_tile_kernel`: one CTA of 8 warps per part of ~PART = 512
@@ -114,12 +117,10 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "fused3_tile.cuh"
 
 namespace {
 
-constexpr int M = 32;         // slots per edge step of the tile kernel
-constexpr int MI = M / 32;    // m16 tiles of a warp in the tile kernel's tensor-core products
-constexpr int KC = 32;        // rows per staged chunk of a split weight
 constexpr int PART = 512;     // slots per tile-kernel CTA, before the run alignment
 constexpr int WG = 32;        // slots of a weight-grad item (one fp32 partial)
 constexpr int WSTAGES = 4;    // weight-grad items in shared memory: 3 in flight
@@ -128,112 +129,18 @@ constexpr int WSTAGES = 4;    // weight-grad items in shared memory: 3 in flight
 template <int NT> __host__ __device__ constexpr int wthreads() { return NT == 1 ? 256 : 512; }
 constexpr int MIN_CHUNKS = 64;  // weight-grad chunks of a launch, at least
 constexpr int MAX_CHUNK = 8192;  // slots of a weight-grad chunk, at most (receivers in shared memory)
-constexpr int THREADS = 256;  // 8 warps in the tile kernel
 // With bf16 streams (NT = 1 term) the tensor cores' split weights stay
 // resident in shared memory (96 KB), and the fp32 ring's chunks (kf rows of
 // the first layer's three weights) are halved to make room for them.
 template <int NT> __host__ __device__ constexpr int kf() { return NT == 1 ? 16 : 32; }
 template <int NT> __host__ __device__ constexpr bool resident() { return NT == 1; }
-constexpr unsigned FULL = 0xffffffffu;
 enum { S_H1, S_H2, S_DY1, S_DY2, S_DP1, S_DP2, S_DPS, SRC_E, SRC_G, SRC_XR };
-// the fp32 weights of the FMA chains and the split weights of the
-// tile kernel's tensor-core products, in the order an edge step streams them
-enum { F_U, F_V, F_E, F_2, F_2T, N_FMA };
+// the fp32 weights of the FMA chains (fused3_tile.cuh's F_U .. F_2, then
+// W2ᵀ) and the split weights of the tile kernel's tensor-core products, in
+// the order an edge step streams them
+constexpr int N_FMA = F_2 + 2;
 enum { T_ET, T_UT, T_VT, N_TC };
 constexpr int N_WEIGHTS = static_cast<int>(N_FMA) + static_cast<int>(N_TC);
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round an fp32 value through the stream dtype (identity in fp32).
-template <typename T> __device__ __forceinline__ float round_sd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// Four consecutive values of a row as fp32.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// Two consecutive fp32 values stored in the stream dtype.
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16_rn(a);
-  v.y = __float2bfloat16_rn(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
-}
-
-// The NT bf16 terms of v (their bits): NT = 1 rounds v, NT = 3 splits it as
-// `_split3` does (b1 = bf16(v), b2 = bf16(v − b1), b3 = bf16(v − b1 − b2)).
-template <int NT>
-__device__ __forceinline__ void split(float v, uint32_t (&t)[NT]) {
-  float r = v;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    const __nv_bfloat16 b = __float2bfloat16_rn(r);
-    t[i] = __bfloat16_as_ushort(b);
-    r -= __bfloat162float(b);
-  }
-}
-
-// Offset (in bf16 elements) of (row, col) in a tile of RL-element rows whose
-// 16-byte chunks are XOR-swizzled by the row: the 8 rows an ldmatrix reads
-// at one column fall in 8 different bank groups.
-template <int RL>
-__device__ __forceinline__ int swz(int row, int col) {
-  constexpr int CPR = RL / 8;
-  constexpr int X = CPR < 8 ? CPR - 1 : 7;
-  return row * RL + ((((col >> 3) ^ (row & X))) << 3) + (col & 7);
-}
-
-// Writes the NT terms of 4 consecutive values at (row, col) of a swizzled
-// tile; term t lies at tile + t·tstride.
-template <int NT, int RL>
-__device__ __forceinline__ void put4(uint16_t* tile, int tstride, int row, int col, float4 v) {
-  uint32_t a[NT], b[NT], c[NT], d[NT];
-  split<NT>(v.x, a);
-  split<NT>(v.y, b);
-  split<NT>(v.z, c);
-  split<NT>(v.w, d);
-  const int o = swz<RL>(row, col);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    uint2 u;
-    u.x = a[t] | (b[t] << 16);
-    u.y = c[t] | (d[t] << 16);
-    *reinterpret_cast<uint2*>(tile + t * tstride + o) = u;
-  }
-}
-
-// First slot at or after s (< n) that starts a receiver run, n if none.
-// Warp-collective: every lane gets the same answer.
-__device__ __forceinline__ int64_t run_start(const int32_t* __restrict__ rcv, int64_t s,
-                                             int64_t n) {
-  if (s <= 0) return 0;
-  if (s >= n) return n;
-  const int lane = static_cast<int>(threadIdx.x % 32);
-  for (int64_t b = s;; b += 32) {
-    const int64_t i = b + lane;
-    const bool start = i >= n || rcv[i] != rcv[i - 1];
-    const unsigned m = __ballot_sync(FULL, start);
-    if (m != 0) return b + __ffs(static_cast<int>(m)) - 1;
-  }
-}
 
 // The split-weight ring of the tensor-core products: chunk q of the stream
 // (KC rows of one of the N_TC weights, NT terms, swizzled) goes to stage
@@ -266,120 +173,6 @@ struct SplitRing {
   __device__ __forceinline__ void release() { ++q; }
 };
 
-// The fp32 weight ring of the FMA chains: chunk q holds rows of the weights
-// of one part of an edge step, (Wu, Wv, We) for the first layer, then W2,
-// W2ᵀ. Same protocol as SplitRing (a wait for chunk q also waits for the
-// other ring's prefetched chunk, long landed).
-template <int L, int KF>
-struct Fp32Ring {
-  const float* wfma;  // (N_FMA, L, L) fp32
-  float* ring;        // 2 stages of (3, KF, L)
-  int q;
-  // chunks of an edge step: the first layer's (Wu, Wv, We) KF rows at a
-  // time, then W2 and W2ᵀ 2·KF rows at a time
-  static constexpr int FIRST = L / KF, SINGLE = L / (2 * KF), STEP = FIRST + 2 * SINGLE;
-
-  __device__ __forceinline__ void issue(int qq) {
-    constexpr int ROW4 = L / 4;
-    const int c = qq % STEP;
-    int w[3], n, rows, k0;
-    if (c < FIRST) {
-      w[0] = F_U; w[1] = F_V; w[2] = F_E;
-      n = 3, rows = KF, k0 = c * KF;
-    } else {
-      w[0] = c < FIRST + SINGLE ? F_2 : F_2T;
-      n = 1, rows = 2 * KF, k0 = ((c - FIRST) % SINGLE) * 2 * KF;
-    }
-    float* dst = ring + (qq & 1) * 3 * KF * L;
-    for (int p = threadIdx.x; p < n * rows * ROW4; p += THREADS) {
-      const int i = p / (rows * ROW4), r = (p % (rows * ROW4)) / ROW4, col = (p % ROW4) * 4;
-      cp_async16(dst + (i * rows + r) * L + col,
-                 wfma + (static_cast<int64_t>(w[i]) * L + k0 + r) * L + col);
-    }
-    cp_async_commit();
-  }
-  __device__ __forceinline__ const float* acquire() {
-    cp_async_wait<0>();
-    __syncthreads();
-    issue(q + 1);
-    return ring + (q & 1) * 3 * KF * L;
-  }
-  __device__ __forceinline__ void release() { ++q; }
-};
-
-// A warp's block of an (M, L) tensor-core product: rows (M/2)·(warp % 2) +
-// 16·mi + ..., columns (L/4)·(warp / 2) + 8·nj + ..., in mma fragment order.
-template <int L>
-struct Frag {
-  float v[MI][L / 32][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < L / 32; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[mi][nj][e] = 0.f;
-  }
-};
-
-// acc[a] += op[a][:, k0 : k0 + KC] · wc for a < NA: op[a] an (M, L) operand
-// tile of NT terms, wc the weight rows k0 .. k0 + KC (NT terms wstride apart,
-// swizzled by row), summing the cross products of terms i + j < NT.
-template <int NT, int L, int NA>
-__device__ __forceinline__ void mma_chunk(Frag<L>* const (&acc)[NA],
-                                          const uint16_t* const (&op)[NA],
-                                          const uint16_t* wc, int wstride, int k0) {
-  constexpr int NTL = L / 32;
-  const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
-  const int wm = warp % 2, wn = warp / 2;
-#pragma unroll
-  for (int kk = 0; kk < KC; kk += 16) {
-#pragma unroll
-    for (int a = 0; a < NA; ++a)
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        uint32_t af[NT][4];
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-          ldsm_x4(af[t], op[a] + t * M * L +
-                             swz<L>(wm * (M / 2) + mi * 16 + lane % 16, k0 + kk + (lane / 16) * 8));
-        // the k16 block's term products, the smallest first ((i, 2), (i, 1),
-        // (i, 0) for the A terms i with i + j < NT), are summed by the tensor
-        // cores from 0, then added to the accumulator in fp32: the tensor
-        // cores' own sum truncates to the largest magnitude in it, so it is
-        // kept to one block
-        float t16[NTL][4];
-#pragma unroll
-        for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) t16[nj][k] = 0.f;
-#pragma unroll
-        for (int tb = NT - 1; tb >= 0; --tb) {
-          uint32_t b[NTL][2];
-#pragma unroll
-          for (int j = 0; j < NTL; j += 2) {
-            const int q = lane / 8;
-            uint32_t r[4];
-            ldsm_x4_trans(r, wc + tb * wstride +
-                                 swz<L>(kk + lane % 8 + (q & 1) * 8, wn * (L / 4) + j * 8 + (q >> 1) * 8));
-            b[j][0] = r[0];
-            b[j][1] = r[1];
-            b[j + 1][0] = r[2];
-            b[j + 1][1] = r[3];
-          }
-#pragma unroll
-          for (int ta = NT - 1 - tb; ta >= 0; --ta)
-#pragma unroll
-            for (int nj = 0; nj < NTL; ++nj) mma_bf16_16816(t16[nj], af[ta], b[nj][0], b[nj][1]);
-        }
-#pragma unroll
-        for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[a]->v[mi][nj][k] += t16[nj][k];
-      }
-  }
-}
-
 // One split weight: acc[a] += op[a] · W for a < NA, W the ring's next
 // weight, or (resident) resident weight w.
 template <int NT, int L, int NA>
@@ -396,65 +189,6 @@ __device__ __forceinline__ void mma_weight(SplitRing<NT, L>& ring, const uint16_
       const uint16_t* wc = ring.acquire();
       mma_chunk<NT, L, NA>(acc, op, wc, KC * L, k0);
       ring.release();
-    }
-  }
-}
-
-// Calls fn(row, col, v0, v1) for each pair of fragment values (columns col
-// and col + 1 of one row) of this thread.
-template <int L, typename F>
-__device__ __forceinline__ void for_pairs(Frag<L>& f, F&& fn) {
-  const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < L / 32; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        fn((warp % 2) * (M / 2) + mi * 16 + g + 8 * h, (warp / 2) * (L / 4) + nj * 8 + 2 * tq,
-           f.v[mi][nj][2 * h], f.v[mi][nj][2 * h + 1]);
-}
-
-// The FMA chains' register tile: warp w owns columns 16w .. 16w + 15 of an
-// (M, L) product and lane l the 4 x 4 block at rows 4·(l / 4), columns
-// 16w + 4·(l % 4). Each output is one fp32 FMA chain over k in order, as
-// the plain version's cuBLAS product forms it at these shapes.
-struct Quad {
-  float v[4][4];  // [row][column]
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[i][j] = 0.f;
-  }
-};
-static_assert(M == 32, "the FMA tile covers 32 rows: 8 row groups of 4");
-// ... and 128 columns: 8 warps of 16
-
-__device__ __forceinline__ int quad_row() { return 4 * (static_cast<int>(threadIdx.x % 32) / 4); }
-__device__ __forceinline__ int quad_col() {
-  return 16 * static_cast<int>(threadIdx.x / 32) + 4 * static_cast<int>(threadIdx.x % 4);
-}
-
-// acc[c] = fma(AT_c[k][row], W_c[k][col], acc[c]) for the rows k of a staged
-// chunk, for NC chains: AT_c an (L, M) transposed fp32 operand, W_c the
-// chunk of weight w_c (ROWS rows, plain fp32 layout).
-template <int L, int ROWS, int NC>
-__device__ __forceinline__ void fma_chunk(Quad* const (&acc)[NC], const float* const (&at)[NC],
-                                          const float* const (&wc)[NC], int k0) {
-  const int r0 = quad_row(), c0 = quad_col();
-#pragma unroll 4
-  for (int kk = 0; kk < ROWS; ++kk) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float4 a4 = *reinterpret_cast<const float4*>(at[c] + (k0 + kk) * M + r0);
-      const float4 b4 = *reinterpret_cast<const float4*>(wc[c] + kk * L + c0);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[c]->v[i][j] = fmaf(av[i], bv[j], acc[c]->v[i][j]);
     }
   }
 }
@@ -488,21 +222,6 @@ constexpr int64_t tile_smem_bytes() {
   return tile_operand_bytes<NT, L>() + 2 * 3 * kf<NT>() * L * 4 +
          (resident<NT>() ? N_TC * L * L * 2 : 2 * NT * KC * L * 2) + 16 + M * 8 +
          6 * L * 4;
-}
-
-// Writes a quad's 4 x 4 values transposed into an (L, M) fp32 operand.
-__device__ __forceinline__ void put_quad_t(float* at, const Quad& q) {
-  const int r0 = quad_row(), c0 = quad_col();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(at + (c0 + j) * M + r0) =
-        make_float4(q.v[0][j], q.v[1][j], q.v[2][j], q.v[3][j]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* p, const float (&v)[4]) {
-  store2(p, v[0], v[1]);
-  store2(p + 2, v[2], v[3]);
 }
 
 template <typename T, int NT, int L>
@@ -543,12 +262,7 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
   if (tid < 32) {
     const int64_t s0 = static_cast<int64_t>(blockIdx.x) * PART;
     const int64_t s1 = s0 + PART < a.n_edges ? s0 + PART : a.n_edges;
-    const int64_t lo = run_start(a.rcv, s0, a.n_edges);
-    const int64_t hi = run_start(a.rcv, s1, a.n_edges);
-    if (tid == 0) {
-      bounds_s[0] = lo;
-      bounds_s[1] = hi;
-    }
+    part_bounds(a.rcv, s0, s1, a.n_edges, bounds_s);
   }
   for (int i = tid; i < L; i += THREADS) {
     cst_s[0 * L + i] = to_f(static_cast<const T*>(a.b0)[i]);
@@ -563,7 +277,7 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
     return;
   }
 
-  Fp32Ring<L, KF> fring{a.wfma, fring_s, 0};
+  Fp32Ring<L, KF, 2> fring{a.wfma, fring_s, 0};
   SplitRing<NT, L> sring{a.wsplit, sring_s, 0};
   fring.issue(0);
   if constexpr (resident<NT>()) {
@@ -599,34 +313,7 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
       mask_s[tid] = m;
     }
     __syncthreads();
-    // x[r], g and e, transposed: lane i stages row i, so the column-major
-    // stores fall in 32 banks; all of a thread's loads go out before its
-    // first store
-    {
-      constexpr int PER = M * L / 4 / THREADS;
-      float4 v[3][PER];
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int p = tid + u * THREADS, row = p % M, col = (p / M) * 4;
-        const int r = rcv_s[row];
-        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-        v[0][u] = r >= 0 ? load4(x + static_cast<int64_t>(r) * L + col) : z;
-        v[1][u] = row < n ? load4(g + (base + row) * L + col) : z;
-        v[2][u] = row < n ? load4(e + (base + row) * L + col) : z;
-      }
-#pragma unroll
-      for (int u = 0; u < PER; ++u) {
-        const int p = tid + u * THREADS, row = p % M, col = (p / M) * 4;
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          float* at = k == 0 ? at0 : k == 1 ? at1 : at2;
-          at[(col + 0) * M + row] = v[k][u].x;
-          at[(col + 1) * M + row] = v[k][u].y;
-          at[(col + 2) * M + row] = v[k][u].z;
-          at[(col + 3) * M + row] = v[k][u].w;
-        }
-      }
-    }
+    stage_rows_t<T, L>(at0, at1, at2, x, g, e, rcv_s, base, n);
     __syncthreads();
 
     // --- the first layer on FMA chains: xu, gv, ep, xv, gu
@@ -938,8 +625,11 @@ __global__ void __launch_bounds__(wthreads<NT>(), NT == 1 ? 2 : 1)
         const T* src = operand_row<T>(in_a ? pa[p] : pb[p], base + row, lo, hi,
                                       in_a ? half * AW + col : col, scratch, x, g, e, rcv_s,
                                       a.n_nodes, a.n_edges, L);
-        cp_async16_zfill(dst + (in_a ? 0 : WG * AW) + row * width + col, src != nullptr ? src : x,
-                         src != nullptr);
+        if constexpr (keep(WITHOUT_WG_FETCH))
+          cp_async16_zfill(dst + (in_a ? 0 : WG * AW) + row * width + col,
+                           src != nullptr ? src : x, src != nullptr);
+        else
+          (void)src;
       }
     }
     cp_async_commit();
@@ -966,8 +656,12 @@ __global__ void __launch_bounds__(wthreads<NT>(), NT == 1 ? 2 : 1)
       const int width = in_a ? AW : L;
       const int row = qq / (width / 4), col = (qq % (width / 4)) * 4;
       const float4 v = load4(src + (in_a ? 0 : WG * AW) + row * width + col);
-      if (in_a) put4<NT, AW>(a_s, WG * AW, row, col, v);
-      else put4<NT, L>(b_s, WG * L, row, col, v);
+      if constexpr (keep(WITHOUT_WG_SPLIT)) {
+        if (in_a) put4<NT, AW>(a_s, WG * AW, row, col, v);
+        else put4<NT, L>(b_s, WG * L, row, col, v);
+      } else if (v.x == 1234.5f) {
+        a_s[tid] = 1;  // keeps the load
+      }
     }
     __syncthreads();
     // one fp32 partial per item (32 slots): each k16 block's term products
@@ -1020,8 +714,9 @@ __global__ void __launch_bounds__(wthreads<NT>(), NT == 1 ? 2 : 1)
           for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
             for (int nj = 0; nj < NTL; ++nj)
-              mma_bf16_16816(NT > 1 ? t16[mi][nj] : part[mi][nj], af[ta][mi], bf[nj][0],
-                             bf[nj][1]);
+              if constexpr (keep(WITHOUT_WG_MMA))
+                mma_bf16_16816(NT > 1 ? t16[mi][nj] : part[mi][nj], af[ta][mi], bf[nj][0],
+                               bf[nj][1]);
       }
       if constexpr (NT > 1) {
 #pragma unroll

@@ -1,4 +1,5 @@
-// Fused edge-step forward (fused3) for NVIDIA Hopper (sm_90a).
+// Fused edge-step forward (fused3) for NVIDIA Hopper (sm_90a): fp32 streams
+// on register-tiled FMA chains, bf16 streams on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_step3_kernel` of
 // p_div_gnn_tpu/ops/fused_edge3.py (launched by `_step3_forward` through
@@ -14,252 +15,643 @@
 // Σz_msg, Σz_msg², Σz_upd, Σz_upd² and four zero rows. mask_i = 0 where
 // edge_gid[i] >= n_graphs (padding slots).
 //
-// What bounds it on this card: 7 L×L products per edge slot (x·Wu, x·Wv,
-// g·Wu, g·Wv and e·We, shared by both evaluations, then h·W2 twice),
-// 2·7·L² flops per slot, against ~0.9 KB of streamed bytes per slot
-// in fp32: ~3.6 flop/byte at L=128, so on the H100 the fp32 FMA rate
-// (67 TFLOP/s, the tensor cores are not used) is the bound, not HBM.
+// What bounds it on this card: 7 L×L products per real slot (x·Wu, x·Wv,
+// g·Wu, g·Wv and e·We, shared by both evaluations, then h·W2 twice), of
+// which x·Wu and x·Wv are needed once per receiver: 2·(5 + 2/deg)·L² flops
+// per slot against ~1.3 KB of streamed bytes per slot in fp32, so the fp32
+// FMA rate (67 TFLOP/s) bounds fp32 streams. With bf16 streams the products
+// run on the tensor cores (989 TFLOP/s) and the bytes (~0.7 KB a slot at
+// 3.35 TB/s) are the bound. The kernel forms x·Wu and x·Wv per slot.
 //
-// Design:
-// - The TPU grid runs in order and accumulates R and M into revisited
-//   output blocks. A CUDA grid does not, so this kernel gives each CTA one
-//   node tile: it walks the tile's edge blocks (edge_block_tile is sorted,
-//   a binary search finds the run) and is the only writer of that R tile,
-//   which it keeps in shared memory. Thread c owns column c of everything it
-//   accumulates, so R and the moment partials need no atomics and the sums
-//   run in edge order: the result does not change from run to run.
-// - M is reduced from per-tile partials by a second, one-CTA kernel. The
-//   moment sums run over every edge of the batch (~3e7 terms at the
-//   flagship shapes) and feed a one-pass variance E[z²] − mean², which
-//   amplifies their rounding; they are accumulated in fp64 (4 adds per
-//   edge and column against ~900 fp32 FMAs) and rounded once to fp32.
-// - The receiver row is read directly as x[r] (the TPU's one-hot gather
-//   matmul has no place here); a receiver outside the CTA's tile reads zero
-//   and adds nothing to R, as the one-hot contraction does on the TPU.
-// - Edges are staged 16 at a time in shared memory as fp32; the weights
-//   stream from L2 (4·L² values, 256 KB in fp32, do not fit beside the
-//   128 KB R tile). Each thread keeps the five first-layer products of its
-//   16 edges in registers and reads the staged rows as float4 broadcasts,
-//   so each shared load feeds 20 FMAs.
-// - Each product is one FMA chain over k in order, as a GEMM computes it,
-//   and the first-layer sum is grouped as the plain path groups it. The
-//   trained model amplifies one-ulp differences in its edge activations to
-//   ~1e-5 in its standardized output at the flagship size, the size of the
-//   tolerance the fused path is held to against the plain path, so the
-//   kernel keeps the plain path's rounding where it can.
-// - Precision: fp32 FMA only, no TF32. In bf16 mode operands are bf16 with
-//   fp32 accumulation, h = relu(pre) is rounded to bf16 before ·W2, R sums
-//   the bf16-rounded z_msg and M the unrounded fp32 z — where the JAX
-//   package rounds (fused_edge3.py `_mms`).
-// - Shared memory is (tile + 3·16)·L·4 bytes + 128 (152 KB at tile 256,
-//   L 128), so one CTA runs per SM: occupancy, and the single wave and a
-//   bit of the grid (Np/tile CTAs), are what a faster version works on.
+// Design (one launch of a tile kernel, after a memset of R, and for the FMA
+// kernel a copy of the weights into one fp32 block for the ring). L is 64,
+// 128 (every configuration of the repo) or 256.
+// - The slots are cut into one part per SM (a persistent grid: one 8-warp
+//   CTA fits an SM, so every SM gets one CTA and there is no second wave);
+//   both ends of a part move to the next start of a receiver run, so each
+//   receiver's run lies in one CTA (the wrapper checks once per layout
+//   tensor that each receiver's slots are consecutive, and raises on another
+//   order). A CTA walks its part in edge steps; a step made only of padding
+//   slots writes zero z_upd rows and skips its products.
+// - The FMA kernel (fp32 streams at every width, bf16 at L = 256) keeps the
+//   plain version's rounding: each product is one fp32 FMA chain over k in
+//   order (as cuBLAS forms it at these shapes), the first layer grouped as
+//   ((x·Wa + g·Wb) + e·We) + b0, h rounded to the stream dtype; no TF32.
+//   The chains run as #2's (fused_edge3_bwd.cu) register-tiled SIMT product
+//   (fused3_tile.cuh): each thread holds a 4 x 4 block of each of the five
+//   first-layer chains and reads its operands as float4 broadcasts from
+//   transposed fp32 tiles, so a step has fma_rows<L>() = 4096 / L slots (32
+//   at L = 128); Wu, Wv, We and then W2 stream through a two-stage cp.async
+//   ring, each chunk serving the step's rows, so a weight value is read from
+//   L2 once a step; the next step's rows are loaded into registers while
+//   the second layer runs. In fp32, z_upd is then bit-equal to the plain
+//   version.
+// - The tensor-core kernel (bf16 streams at L = 64 and 128) runs all seven
+//   products on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+//   accumulation: `_dot_default` as `_mms` applies it), in steps of M = 32
+//   slots. The four weights stay resident in shared memory as bf16 (128 KB
+//   at L = 128, XOR-swizzled rows for ldmatrix; at L = 256 they would take
+//   512 KB, more than an SM has, so bf16 at 256 runs the FMA kernel); the
+//   step's x[r], g and e rows arrive by cp.async into one of two buffers
+//   while the step before is computed; the first-layer sum is grouped in
+//   fp32 on the accumulator fragments, and h = relu(pre) is rounded to bf16
+//   in shared memory as the A operand of ·W2, where the JAX package rounds
+//   it. The forward's relu gates need not round as the plain version does
+//   (relu is continuous), so the kernel is held at the 3e-2 bf16 tolerance,
+//   not bit-equality. The products accumulate in the MMAs themselves
+//   (mma_chunk's DIRECT): 16 registers fewer than summing each k16 block
+//   apart, which took the kernel to 255 registers and spills.
+// - R and M: the step's z_msg and z_upd (fp32, masked) pass through shared
+//   memory; the thread of column c of z_msg sums it, rounded to the stream
+//   dtype, over each receiver run in slot order in fp64 and writes the run's
+//   sum once (no atomics, no R tile: the plain version's fp64 segment sum);
+//   the threads of the z_msg and z_upd columns sum Σz and Σz² (the
+//   unrounded fp32 z) in fp64; a one-CTA kernel adds the parts' sums in
+//   order and rounds once. Every sum runs in a fixed order: two calls give
+//   bit-equal outputs.
+// - ptxas (sm_90a, CUDA 12.8) at L = 128: the fp32 FMA kernel 232 registers
+//   (a 16-byte stack frame, no spills) and 182,816 bytes of dynamic shared
+//   memory; the tensor-core kernel 205 registers (no spills) and 231,968
+//   bytes. Each runs one CTA per SM, which the persistent grid is sized
+//   for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+#include "fused3_tile.cuh"
+
 namespace {
 
-constexpr int EC = 16;  // edges staged per chunk
+constexpr int N_W = 4;  // Wu, Wv, We, W2
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct FwdArgs {
+  const void *x, *g, *e;
+  const int32_t *rcv, *gid;
+  const void* w[N_W];  // Wu, Wv, We, W2 (L, L), stream dtype
+  const void *b0, *b2;
+  const float* wfma;   // (N_W, L, L) fp32 copy of the weights (the FMA kernel)
+  void* z_upd;
+  float* R;            // (n_nodes, L), zeroed before the launch
+  double* mpart;       // (gridDim.x, 4, L) each part's moment sums
+  int64_t n_nodes, n_edges, n_graphs, part;  // part: nominal slots of a CTA
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+#if PDG_PART_CLOCK
+// Each CTA's first and last %globaltimer reading (ns) of the last launch:
+// built only by scripts/port_fwd_ablation.py, which weighs the parts'
+// balance with them.
+__device__ unsigned long long part_clock[2 * 1024];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
-
-// Round an fp32 value through the stream dtype (identity in fp32).
-template <typename T> __device__ __forceinline__ float round_sd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-// First index in the sorted array a[0, n) whose value is >= key.
-__device__ __forceinline__ int64_t first_not_less(const int32_t* a, int64_t n, int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) / 2;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
+struct PartClock {
+  unsigned long long t0;
+  __device__ __forceinline__ PartClock() : t0(global_ns()) {}
+  __device__ __forceinline__ void stop() {
+    __syncthreads();
+    if (threadIdx.x == 0 && blockIdx.x < 1024) {
+      part_clock[2 * blockIdx.x] = t0;
+      part_clock[2 * blockIdx.x + 1] = global_ns();
+    }
   }
-  return lo;
-}
+};
+#else
+struct PartClock {
+  __device__ __forceinline__ void stop() {}
+};
+#endif
 
-template <typename T>
-__global__ void step3_tile_kernel(
-    const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ e,
-    const int32_t* __restrict__ rcv, const int32_t* __restrict__ gid,
-    const int32_t* __restrict__ block_tile,
-    const T* __restrict__ wu, const T* __restrict__ wv, const T* __restrict__ we,
-    const T* __restrict__ w2, const T* __restrict__ b0, const T* __restrict__ b2,
-    T* __restrict__ z_upd, float* __restrict__ R, double* __restrict__ mpart,
-    int64_t L, int64_t tile, int64_t block, int64_t n_blocks, int64_t n_graphs) {
-  extern __shared__ float4 smem4[];
-  float* rs = reinterpret_cast<float*>(smem4);  // (tile, L) R accumulator
-  float* xs = rs + tile * L;                    // (EC, L) x[r]; later h_msg
-  float* gs = xs + EC * L;                      // (EC, L) g;    later h_upd
-  float* es = gs + EC * L;                      // (EC, L) e
-  int* rl_s = reinterpret_cast<int*>(es + EC * L);  // (EC,) local receiver or -1
-  float* mk_s = reinterpret_cast<float*>(rl_s + EC);  // (EC,) mask
+// The MS slots of a step, held by warp 0 (lane i holds rows i, i + 32, ...):
+// their receivers (-1 outside [0, n_nodes)) and masks. A step's slots are
+// read into registers while the step before runs, then published to shared
+// memory.
+template <int MS>
+struct SlotIndex {
+  static constexpr int RPL = (MS + 31) / 32;
+  int r[RPL];
+  float m[RPL];
 
-  const int c = threadIdx.x;  // blockDim.x == L: thread c owns column c
-  const int64_t t = blockIdx.x;
-  const int64_t node_lo = t * tile;
-  const int64_t e_lo = first_not_less(block_tile, n_blocks, t) * block;
-  const int64_t e_hi = first_not_less(block_tile, n_blocks, t + 1) * block;
-
-  for (int64_t r = 0; r < tile; ++r) rs[r * L + c] = 0.f;
-  const float b0c = to_f(b0[c]);
-  const float b2c = to_f(b2[c]);
-  double s_m = 0.0, s_m2 = 0.0, s_u = 0.0, s_u2 = 0.0;
-
-  for (int64_t base = e_lo; base < e_hi; base += EC) {
-    for (int i = c; i < EC; i += blockDim.x) {
-      const int64_t ei = base + i;
-      int rl = -1;
-      float m = 0.f;
-      if (ei < e_hi) {
-        const int64_t r = rcv[ei];
-        if (r >= node_lo && r < node_lo + tile) rl = static_cast<int>(r - node_lo);
-        m = gid[ei] < n_graphs ? 1.f : 0.f;
+  __device__ __forceinline__ SlotIndex() {
+#pragma unroll
+    for (int j = 0; j < RPL; ++j) r[j] = -1, m[j] = 0.f;
+  }
+  // the rows of the step at base, which has n <= MS rows
+  __device__ __forceinline__ void load(const FwdArgs& a, int64_t base, int n) {
+#pragma unroll
+    for (int j = 0; j < RPL; ++j) {
+      const int row = static_cast<int>(threadIdx.x) + 32 * j;
+      if (row < n) {
+        r[j] = a.rcv[base + row];
+        if (r[j] < 0 || r[j] >= a.n_nodes) r[j] = -1;
+        m[j] = a.gid[base + row] < a.n_graphs ? 1.f : 0.f;
       }
-      rl_s[i] = rl;
-      mk_s[i] = m;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      const bool valid = ei < e_hi;
-      const int rl = rl_s[i];
-      xs[i * L + c] = rl >= 0 ? to_f(x[(node_lo + rl) * L + c]) : 0.f;
-      gs[i * L + c] = valid ? to_f(g[ei * L + c]) : 0.f;
-      es[i * L + c] = valid ? to_f(e[ei * L + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // first layer: one FMA chain over k per product, as a GEMM runs it,
-    // summed like the plain path: pre = ((x·Wu + g·Wv) + e·We) + b0
-    float xu[EC], xv[EC], gu[EC], gv[EC], ep[EC];
+  }
+  // Warp 0: the step's receivers and masks, and whether any slot is real.
+  __device__ __forceinline__ void publish(int* rcv_s, float* mask_s, int* live_s) const {
+    bool any = false;
 #pragma unroll
-    for (int i = 0; i < EC; ++i) xu[i] = xv[i] = gu[i] = gv[i] = ep[i] = 0.f;
-    for (int64_t k = 0; k < L; k += 4) {
-      float wu_k[4], wv_k[4], we_k[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wu_k[j] = to_f(wu[(k + j) * L + c]);
-        wv_k[j] = to_f(wv[(k + j) * L + c]);
-        we_k[j] = to_f(we[(k + j) * L + c]);
+    for (int j = 0; j < RPL; ++j) {
+      const int row = static_cast<int>(threadIdx.x) + 32 * j;
+      if (row < MS) {
+        rcv_s[row] = r[j];
+        mask_s[row] = m[j];
       }
+      any = any || m[j] != 0.f;
+    }
+    const unsigned live = __ballot_sync(FULL, any);
+    if (threadIdx.x == 0) *live_s = live != 0u;
+  }
+};
+
+// The column sums of a CTA's slots, from a step's (MS, L + 4) z tiles. Role
+// j of thread t is column q = t + 256·j of [z_msg | z_upd] (one role a
+// thread, two at L = 256, none for q >= 2L): a z_msg column's thread sums
+// each receiver run's z_msg (rounded to the stream dtype) in slot order in
+// fp64, writing the sum once when the run ends, and Σz_msg, Σz_msg²; a
+// z_upd column's thread writes the column of the z_upd rows and sums
+// Σz_upd, Σz_upd². A step of only padding writes zero z_upd rows and adds
+// nothing (its z are zeros). The z_msg column of thread t is t.
+template <typename T, int L, int MS>
+struct ColumnSums {
+  static constexpr int NR = 2 * L > THREADS ? 2 * L / THREADS : 1;
+  static constexpr int ZS = L + 4, CH = MS < 32 ? MS : 32;  // rows read before their adds
+  double s0[NR], s1[NR];  // Σz, Σz² of each role's column
+  double run = 0.0;       // the open receiver run's sum (z_msg role)
+  int run_r = -1;         // its receiver
+
+  __device__ __forceinline__ ColumnSums() {
 #pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const float4 x4 = *reinterpret_cast<const float4*>(xs + i * L + k);
-        const float4 g4 = *reinterpret_cast<const float4*>(gs + i * L + k);
-        const float4 e4 = *reinterpret_cast<const float4*>(es + i * L + k);
-        const float xa[4] = {x4.x, x4.y, x4.z, x4.w};
-        const float ga[4] = {g4.x, g4.y, g4.z, g4.w};
-        const float ea[4] = {e4.x, e4.y, e4.z, e4.w};
+    for (int j = 0; j < NR; ++j) s0[j] = s1[j] = 0.0;
+  }
+  __device__ __forceinline__ void flush(float* R) {
+    if (run_r >= 0) R[static_cast<int64_t>(run_r) * L + threadIdx.x] = static_cast<float>(run);
+  }
+  __device__ __forceinline__ void step(const float* zm_s, const float* zu_s, const int* rcv_s,
+                                       int n, bool live, int64_t base, T* z_upd, float* R) {
+    if constexpr (!keep(WITHOUT_COLUMNS)) return;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          xu[i] = fmaf(xa[j], wu_k[j], xu[i]);
-          xv[i] = fmaf(xa[j], wv_k[j], xv[i]);
-          gu[i] = fmaf(ga[j], wu_k[j], gu[i]);
-          gv[i] = fmaf(ga[j], wv_k[j], gv[i]);
-          ep[i] = fmaf(ea[j], we_k[j], ep[i]);
+    for (int j = 0; j < NR; ++j) {
+      const int q = static_cast<int>(threadIdx.x) + THREADS * j;
+      // the column's values (and the receivers) are read before the adds,
+      // so the loads overlap; the adds then run in slot order
+      float z[CH];
+      if (q < L) {
+        if (!live) continue;
+#pragma unroll 1
+        for (int i0 = 0; i0 < MS; i0 += CH) {
+          int rr[CH];
+#pragma unroll
+          for (int i = 0; i < CH; ++i) {
+            z[i] = zm_s[(i0 + i) * ZS + q];
+            rr[i] = rcv_s[i0 + i];
+          }
+#pragma unroll
+          for (int i = 0; i < CH; ++i) {
+            if (i0 + i < n) {
+              if constexpr (keep(WITHOUT_RUNS)) {
+                if (rr[i] != run_r) {
+                  flush(R);
+                  run = 0.0;
+                  run_r = rr[i];
+                }
+                run += static_cast<double>(round_sd<T>(z[i]));
+              }
+              if constexpr (keep(WITHOUT_MOMENTS)) {
+                s0[j] += static_cast<double>(z[i]);
+                s1[j] += static_cast<double>(z[i]) * z[i];
+              }
+            }
+          }
+        }
+      } else if (q < 2 * L) {
+        const int c = q - L;
+#pragma unroll 1
+        for (int i0 = 0; i0 < MS; i0 += CH) {
+#pragma unroll
+          for (int i = 0; i < CH; ++i) z[i] = live ? zu_s[(i0 + i) * ZS + c] : 0.f;
+#pragma unroll
+          for (int i = 0; i < CH; ++i) {
+            if (i0 + i < n) {
+              z_upd[(base + i0 + i) * L + c] = from_f<T>(z[i]);
+              if constexpr (keep(WITHOUT_MOMENTS)) {
+                s0[j] += static_cast<double>(z[i]);
+                s1[j] += static_cast<double>(z[i]) * z[i];
+              }
+            }
+          }
         }
       }
     }
-    __syncthreads();  // every thread is done reading xs / gs
+  }
+  // the last run's sum and this CTA's moment sums (rows 0, 1: z_msg; 2, 3:
+  // z_upd)
+  __device__ __forceinline__ void finish(float* R, double* mpart) {
+    if (static_cast<int>(threadIdx.x) < L) flush(R);
 #pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      xs[i * L + c] = round_sd<T>(fmaxf(((xu[i] + gv[i]) + ep[i]) + b0c, 0.f));
-      gs[i * L + c] = round_sd<T>(fmaxf(((xv[i] + gu[i]) + ep[i]) + b0c, 0.f));
-    }
-    __syncthreads();
-
-    // second layer: y = h·W2
-    float am[EC], au[EC];
-#pragma unroll
-    for (int i = 0; i < EC; ++i) am[i] = au[i] = 0.f;
-    for (int64_t k = 0; k < L; k += 4) {
-      float w2_k[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w2_k[j] = to_f(w2[(k + j) * L + c]);
-#pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const float4 hm = *reinterpret_cast<const float4*>(xs + i * L + k);
-        const float4 hu = *reinterpret_cast<const float4*>(gs + i * L + k);
-        am[i] = fmaf(hm.x, w2_k[0], am[i]);
-        am[i] = fmaf(hm.y, w2_k[1], am[i]);
-        am[i] = fmaf(hm.z, w2_k[2], am[i]);
-        am[i] = fmaf(hm.w, w2_k[3], am[i]);
-        au[i] = fmaf(hu.x, w2_k[0], au[i]);
-        au[i] = fmaf(hu.y, w2_k[1], au[i]);
-        au[i] = fmaf(hu.z, w2_k[2], au[i]);
-        au[i] = fmaf(hu.w, w2_k[3], au[i]);
+    for (int j = 0; j < NR; ++j) {
+      const int q = static_cast<int>(threadIdx.x) + THREADS * j;
+      if (q < 2 * L) {
+        const int row = q < L ? 0 : 2, c = q % L;
+        mpart[row * L + c] = s0[j];
+        mpart[(row + 1) * L + c] = s1[j];
       }
     }
-#pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      const float m = mk_s[i];
-      const float zm = fmaxf(am[i] + b2c, 0.f) * m;
-      const float zu = fmaxf(au[i] + b2c, 0.f) * m;
-      if (ei < e_hi) z_upd[ei * L + c] = from_f<T>(zu);
-      const int rl = rl_s[i];
-      if (rl >= 0) rs[rl * L + c] += round_sd<T>(zm);
-      s_m += zm;
-      s_m2 += static_cast<double>(zm) * zm;
-      s_u += zu;
-      s_u2 += static_cast<double>(zu) * zu;
+  }
+};
+
+// The FMA kernel at width L: MS = fma_rows<L>() slots a step (64, 32, 16 at
+// L = 64, 128, 256), so each thread holds one 4 x 4 block of each chain; KF
+// rows of Wu, Wv and We a ring chunk (W2: 2·KF).
+template <int L> __host__ __device__ constexpr int fma_kf() { return L <= 128 ? 32 : 16; }
+
+// Shared memory of the FMA kernel: three transposed (L, MS) operand tiles,
+// the weight ring, the z tiles, indices and biases.
+template <int L> constexpr int64_t fma_smem_bytes() {
+  constexpr int MS = fma_rows<L>(), KF = fma_kf<L>();
+  return (3 * L * MS + 2 * 3 * KF * L + 2 * MS * (L + 4)) * 4 + 16 + 2 * MS * 8 + 16 + 2 * L * 4;
+}
+
+// Register-tiled FMA chains over stream dtype T (fp32 at every width, bf16
+// at L = 256, where the tensor-core kernel's resident weights do not fit):
+// in fp32, bit-equal to the plain version.
+template <typename T, int L>
+__global__ void __launch_bounds__(THREADS, 1) step3_fwd_fma_kernel(const FwdArgs a) {
+  constexpr int MS = fma_rows<L>(), KF = fma_kf<L>(), ZS = L + 4;
+  PartClock timer;
+  extern __shared__ float4 smem4[];
+  float* at0 = reinterpret_cast<float*>(smem4);  // (L, MS): x[r]ᵀ → h1ᵀ
+  float* at1 = at0 + L * MS;                     // gᵀ → h2ᵀ
+  float* at2 = at1 + L * MS;                     // eᵀ
+  float* ring_s = at2 + L * MS;                  // 2 stages of (3, KF, L)
+  float* zm_s = ring_s + 2 * 3 * KF * L;         // (MS, ZS) z_msg
+  float* zu_s = zm_s + MS * ZS;                  // (MS, ZS) z_upd
+  int64_t* bounds_s = reinterpret_cast<int64_t*>(zu_s + MS * ZS);  // (2,)
+  int* rcv_s = reinterpret_cast<int*>(bounds_s + 2);              // (2, MS) by step parity
+  float* mask_s = reinterpret_cast<float*>(rcv_s + 2 * MS);       // (2, MS)
+  int* live_s = reinterpret_cast<int*>(mask_s + 2 * MS);          // (4,): 2 used
+  float* cst_s = reinterpret_cast<float*>(live_s + 4);            // (2, L): b0, b2
+
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(a.g);
+  const T* e = static_cast<const T*>(a.e);
+  T* z_upd = static_cast<T*>(a.z_upd);
+  const int tid = static_cast<int>(threadIdx.x);
+
+  if (tid < 32) {
+    const int64_t s0 = static_cast<int64_t>(blockIdx.x) * a.part;
+    part_bounds(a.rcv, s0, s0 + a.part, a.n_edges, bounds_s);
+  }
+  for (int i = tid; i < L; i += THREADS) {
+    cst_s[i] = to_f(static_cast<const T*>(a.b0)[i]);
+    cst_s[L + i] = to_f(static_cast<const T*>(a.b2)[i]);
+  }
+  __syncthreads();
+  const int64_t lo = bounds_s[0], hi = bounds_s[1];
+  ColumnSums<T, L, MS> cs;
+  if (lo < hi) {
+    Fp32Ring<L, KF, 1> ring{a.wfma, ring_s, 0};
+    ring.issue(0);
+    if (tid < 32) {
+      SlotIndex<MS> first;
+      first.load(a, lo, static_cast<int>(hi - lo < MS ? hi - lo : MS));
+      first.publish(rcv_s, mask_s, live_s);
     }
-    __syncthreads();  // xs / gs / rl_s / mk_s are restaged next chunk
+    __syncthreads();
+    const int r0 = quad_row<L>(), c0 = quad_col<L>();
+    // the rows of the step: loaded during the step before's second layer
+    // (have_rows) or at the step's start
+    float4 rows[3][rows_per_thread<L>()];
+    bool have_rows = false;
+    int s = 0;
+#pragma unroll 1
+    for (int64_t base = lo; base < hi; base += MS, ++s) {
+      const int b = s & 1;
+      const int n = static_cast<int>(hi - base < MS ? hi - base : MS);
+      const int64_t next = base + MS;
+      const int nn = next < hi ? static_cast<int>(hi - next < MS ? hi - next : MS) : 0;
+      // the next step's indices, in flight while this step's first layer runs
+      SlotIndex<MS> nx;
+      if (tid < 32) nx.load(a, next, nn);
+      const bool live = live_s[b] != 0;
+      const float* mask = mask_s + b * MS;
+      Quad xu, gv, ep, xv, gu;
+      if (live) {
+        if (!have_rows) load_rows<T, L>(rows, x, g, e, rcv_s + b * MS, base, n);
+        // published by the ring's first barrier
+        if constexpr (keep(WITHOUT_STAGE)) store_rows_t<L>(at0, at1, at2, rows);
+        // --- the first layer: xu, gv, ep, xv, gu, one FMA chain each
+        xu.zero(); gv.zero(); ep.zero(); xv.zero(); gu.zero();
+#pragma unroll 1
+        for (int k0 = 0; k0 < L; k0 += KF) {
+          const float* wc = ring.acquire();
+          const float* wu_c = wc;
+          const float* wv_c = wc + KF * L;
+          const float* we_c = wc + 2 * KF * L;
+          fma_chunk<L, KF, 5>({&xu, &gv, &ep, &xv, &gu}, {at0, at1, at2, at0, at1},
+                              {wu_c, wv_c, we_c, wv_c, wu_c}, k0);
+          ring.release();
+        }
+      }
+      if (tid < 32) nx.publish(rcv_s + (b ^ 1) * MS, mask_s + (b ^ 1) * MS, live_s + (b ^ 1));
+      // every warp is done with x[r] and g, whose places h1, h2 take; the
+      // next step's indices are in
+      __syncthreads();
+      have_rows = false;
+      if (live) {
+        // pre = ((x·Wa + g·Wb) + e·We) + b0, as the plain version adds them;
+        // h = relu(pre) rounded to the stream dtype, as the plain version
+        // rounds it
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float b0c = cst_s[c0 + j];
+            const float p1 = ((xu.v[i][j] + gv.v[i][j]) + ep.v[i][j]) + b0c;
+            const float p2 = ((xv.v[i][j] + gu.v[i][j]) + ep.v[i][j]) + b0c;
+            xu.v[i][j] = round_sd<T>(fmaxf(p1, 0.f));
+            gv.v[i][j] = round_sd<T>(fmaxf(p2, 0.f));
+          }
+        put_quad_t<L>(at0, xu);
+        put_quad_t<L>(at1, gv);
+        // the next step's rows, in flight while the second layer runs
+        if (nn > 0 && live_s[b ^ 1]) {
+          load_rows<T, L>(rows, x, g, e, rcv_s + (b ^ 1) * MS, next, nn);
+          have_rows = true;
+        }
+        // --- the second layer: y = h·W2 for both (published by the ring's
+        // first barrier)
+        Quad am, au;
+        am.zero();
+        au.zero();
+#pragma unroll 1
+        for (int k0 = 0; k0 < L; k0 += 2 * KF) {
+          const float* wc = ring.acquire();
+          fma_chunk<L, 2 * KF, 2>({&am, &au}, {at0, at1}, {wc, wc}, k0);
+          ring.release();
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float m = mask[r0 + i];
+          float zm[4], zu[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float b2c = cst_s[L + c0 + j];
+            zm[j] = fmaxf(am.v[i][j] + b2c, 0.f) * m;
+            zu[j] = fmaxf(au.v[i][j] + b2c, 0.f) * m;
+          }
+          *reinterpret_cast<float4*>(zm_s + (r0 + i) * ZS + c0) =
+              make_float4(zm[0], zm[1], zm[2], zm[3]);
+          *reinterpret_cast<float4*>(zu_s + (r0 + i) * ZS + c0) =
+              make_float4(zu[0], zu[1], zu[2], zu[3]);
+        }
+        __syncthreads();
+      }
+      cs.step(zm_s, zu_s, rcv_s + b * MS, n, live, base, z_upd, a.R);
+      __syncthreads();  // the tiles and this step's indices are restaged
+    }
   }
-
-  // column c of rs was written by this thread only: no barrier needed
-  for (int64_t r = 0; r < tile; ++r) R[(node_lo + r) * L + c] = rs[r * L + c];
-  double* mp = mpart + t * 4 * L;
-  mp[0 * L + c] = s_m;
-  mp[1 * L + c] = s_m2;
-  mp[2 * L + c] = s_u;
-  mp[3 * L + c] = s_u2;
+  cs.finish(a.R, a.mpart + static_cast<int64_t>(blockIdx.x) * 4 * L);
+  cp_async_wait<0>();
+  timer.stop();
 }
 
-// M[j] = Σ_t mpart[t][j] for j < 4, in tile order; rows 4..7 are zero.
-__global__ void moments_reduce_kernel(const double* __restrict__ mpart, int64_t n_tiles,
-                                      int64_t L, float* __restrict__ M) {
-  const int c = threadIdx.x;
-  for (int j = 0; j < 4; ++j) {
-    double s = 0.0;
-    for (int64_t t = 0; t < n_tiles; ++t) s += mpart[(t * 4 + j) * L + c];
-    M[j * L + c] = static_cast<float>(s);
-  }
-  for (int j = 4; j < 8; ++j) M[j * L + c] = 0.f;
+// Shared memory of the tensor-core kernel: the resident weights, two buffers
+// of the step's x[r], g, e tiles, the h tiles (all bf16, swizzled), the fp32
+// z tiles, then the indices of two steps and the biases.
+template <int L> constexpr int64_t mma_smem_bytes() {
+  return (N_W * L * L + 2 * 3 * M * L + 2 * M * L) * 2 + 2 * M * (L + 4) * 4 + 16 + 2 * M * 8 +
+         16 + 2 * L * 4;
 }
 
+// Issues the cp.async copies of the g and e rows (which = 0) or the x[r]
+// rows (which = 1) of the step at `base` (n rows, the rest zero-filled) into
+// the swizzled tiles of buffer `buf` (x, g, e), and commits them.
+template <int L>
+__device__ __forceinline__ void issue_rows(const FwdArgs& a, uint16_t* buf, int64_t base, int n,
+                                           const int* rcv_s, int which) {
+  constexpr int CH = L / 8;  // 16-byte chunks of a row
+  const auto* x = static_cast<const uint16_t*>(a.x);
+  const auto* g = static_cast<const uint16_t*>(a.g);
+  const auto* e = static_cast<const uint16_t*>(a.e);
+  if (which == 0) {
+    for (int p = static_cast<int>(threadIdx.x); p < 2 * M * CH; p += THREADS) {
+      const int t = p / (M * CH), row = (p / CH) % M, c = (p % CH) * 8;
+      const bool ok = row < n;
+      const uint16_t* src = (t == 0 ? g : e) + (ok ? (base + row) * L + c : 0);
+      if constexpr (keep(WITHOUT_COPY))
+        cp_async16_zfill(buf + (1 + t) * M * L + swz<L>(row, c), src, ok);
+      else
+        (void)src;
+    }
+  } else {
+    for (int p = static_cast<int>(threadIdx.x); p < M * CH; p += THREADS) {
+      const int row = p / CH, c = (p % CH) * 8;
+      const int r = rcv_s[row];
+      const uint16_t* src = x + (r >= 0 ? static_cast<int64_t>(r) * L + c : 0);
+      if constexpr (keep(WITHOUT_COPY))
+        cp_async16_zfill(buf + swz<L>(row, c), src, r >= 0);
+      else
+        (void)src;
+    }
+  }
+  cp_async_commit();
+}
+
+// Calls fn(row, col, mi, nj, k) for each value of this thread's fragments
+// (k indexes Frag::v[mi][nj][·]).
+template <int L, typename F>
+__device__ __forceinline__ void for_values(F&& fn) {
+  const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < L / 32; ++nj)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        fn((warp % 2) * (M / 2) + mi * 16 + lane / 4 + 8 * (k / 2),
+           (warp / 2) * (L / 4) + nj * 8 + 2 * (lane % 4) + k % 2, mi, nj, k);
+}
+
+// bf16 streams at L = 64 or 128: all seven products on the tensor cores.
+template <int L>
+__global__ void __launch_bounds__(THREADS, 1) step3_fwd_mma_kernel(const FwdArgs a) {
+  constexpr int ZS = L + 4;
+  PartClock timer;
+  extern __shared__ float4 smem4[];
+  uint16_t* w_s = reinterpret_cast<uint16_t*>(smem4);  // (N_W, L, L) resident weights
+  uint16_t* buf_s = w_s + N_W * L * L;                 // 2 × (x, g, e) (M, L) tiles
+  uint16_t* h_s = buf_s + 2 * 3 * M * L;               // (2, M, L): h1, h2
+  float* zm_s = reinterpret_cast<float*>(h_s + 2 * M * L);  // (M, ZS) z_msg
+  float* zu_s = zm_s + M * ZS;                              // (M, ZS) z_upd
+  int64_t* bounds_s = reinterpret_cast<int64_t*>(zu_s + M * ZS);  // (2,)
+  int* rcv_s = reinterpret_cast<int*>(bounds_s + 2);             // (2, M) by step parity
+  float* mask_s = reinterpret_cast<float*>(rcv_s + 2 * M);       // (2, M)
+  int* live_s = reinterpret_cast<int*>(mask_s + 2 * M);          // (4,): 2 used
+  float* cst_s = reinterpret_cast<float*>(live_s + 4);           // (2, L): b0, b2
+
+  auto* z_upd = static_cast<__nv_bfloat16*>(a.z_upd);
+  const int tid = static_cast<int>(threadIdx.x);
+  if (tid < 32) {
+    const int64_t s0 = static_cast<int64_t>(blockIdx.x) * a.part;
+    part_bounds(a.rcv, s0, s0 + a.part, a.n_edges, bounds_s);
+  }
+  for (int i = tid; i < L; i += THREADS) {
+    cst_s[i] = to_f(static_cast<const __nv_bfloat16*>(a.b0)[i]);
+    cst_s[L + i] = to_f(static_cast<const __nv_bfloat16*>(a.b2)[i]);
+  }
+  __syncthreads();
+  const int64_t lo = bounds_s[0], hi = bounds_s[1];
+  ColumnSums<__nv_bfloat16, L, M> cs;
+  if (lo < hi) {
+#pragma unroll
+    for (int w = 0; w < N_W; ++w) {
+      const auto* src = static_cast<const uint16_t*>(a.w[w]);
+      for (int p = tid; p < L * L / 8; p += THREADS) {
+        const int r = p / (L / 8), c = (p % (L / 8)) * 8;
+        cp_async16(w_s + w * L * L + swz<L>(r, c), src + r * L + c);
+      }
+    }
+    cp_async_commit();
+    // step 0's indices and rows
+    if (tid < 32) {
+      SlotIndex<M> first;
+      first.load(a, lo, static_cast<int>(hi - lo < M ? hi - lo : M));
+      first.publish(rcv_s, mask_s, live_s);
+    }
+    __syncthreads();
+    const int n0 = static_cast<int>(hi - lo < M ? hi - lo : M);
+    issue_rows<L>(a, buf_s, lo, n0, rcv_s, 0);
+    if (live_s[0]) issue_rows<L>(a, buf_s, lo, n0, rcv_s, 1);
+
+    int s = 0;
+#pragma unroll 1
+    for (int64_t base = lo; base < hi; base += M, ++s) {
+      const int b = s & 1;
+      const int n = static_cast<int>(hi - base < M ? hi - base : M);
+      const int64_t next = base + M;
+      const int nn = next < hi ? static_cast<int>(hi - next < M ? hi - next : M) : 0;
+      // the next step's indices, in flight while this step's products run
+      SlotIndex<M> nx;
+      if (tid < 32) nx.load(a, next, nn);
+      cp_async_wait<0>();
+      __syncthreads();  // this step's rows (and the weights) are in
+      uint16_t* cur = buf_s + b * 3 * M * L;
+      if (nn > 0) issue_rows<L>(a, buf_s + (b ^ 1) * 3 * M * L, next, nn, nullptr, 0);
+      const bool live = live_s[b] != 0;
+      const float* mask = mask_s + b * M;
+      if (live) {
+        // --- the first layer: five products, the sum grouped in fp32
+        Frag<L> xu, gu, gv, xv, ep;
+        xu.zero(); gu.zero(); gv.zero(); xv.zero(); ep.zero();
+        const uint16_t* xt = cur;
+        const uint16_t* gt = cur + M * L;
+        const uint16_t* et = cur + 2 * M * L;
+#pragma unroll 1
+        for (int k0 = 0; k0 < L; k0 += KC) {
+          mma_chunk<1, L, 2, true>({&xu, &gu}, {xt, gt}, w_s + (F_U * L + k0) * L, L * L, k0);
+          mma_chunk<1, L, 2, true>({&gv, &xv}, {gt, xt}, w_s + (F_V * L + k0) * L, L * L, k0);
+          mma_chunk<1, L, 1, true>({&ep}, {et}, w_s + (F_E * L + k0) * L, L * L, k0);
+        }
+        for_values<L>([&](int row, int col, int mi, int nj, int k) {
+          const float b0c = cst_s[col];
+          const float e = ep.v[mi][nj][k];
+          xu.v[mi][nj][k] = fmaxf(((xu.v[mi][nj][k] + gv.v[mi][nj][k]) + e) + b0c, 0.f);
+          xv.v[mi][nj][k] = fmaxf(((xv.v[mi][nj][k] + gu.v[mi][nj][k]) + e) + b0c, 0.f);
+        });
+        for_pairs<L>(xu, [&](int row, int col, float& v0, float& v1) {
+          store2(reinterpret_cast<__nv_bfloat16*>(h_s + swz<L>(row, col)), v0, v1);
+        });
+        for_pairs<L>(xv, [&](int row, int col, float& v0, float& v1) {
+          store2(reinterpret_cast<__nv_bfloat16*>(h_s + M * L + swz<L>(row, col)), v0, v1);
+        });
+      }
+      if (tid < 32) nx.publish(rcv_s + (b ^ 1) * M, mask_s + (b ^ 1) * M, live_s + (b ^ 1));
+      __syncthreads();  // h1, h2 and the next step's indices are in
+      if (nn > 0 && live_s[b ^ 1])
+        issue_rows<L>(a, buf_s + (b ^ 1) * 3 * M * L, next, nn, rcv_s + (b ^ 1) * M, 1);
+      if (live) {
+        // --- the second layer: y = h·W2 for both
+        Frag<L> y1, y2;
+        y1.zero();
+        y2.zero();
+#pragma unroll 1
+        for (int k0 = 0; k0 < L; k0 += KC)
+          mma_chunk<1, L, 2, true>({&y1, &y2}, {h_s, h_s + M * L}, w_s + (F_2 * L + k0) * L,
+                                   L * L, k0);
+        auto put_z = [&](float* z_s) {
+          return [&, z_s](int row, int col, float& v0, float& v1) {
+            *reinterpret_cast<float2*>(z_s + row * ZS + col) =
+                make_float2(fmaxf(v0 + cst_s[L + col], 0.f) * mask[row],
+                            fmaxf(v1 + cst_s[L + col + 1], 0.f) * mask[row]);
+          };
+        };
+        for_pairs<L>(y1, put_z(zm_s));
+        for_pairs<L>(y2, put_z(zu_s));
+        __syncthreads();
+      }
+      cs.step(zm_s, zu_s, rcv_s + b * M, n, live, base, z_upd, a.R);
+    }
+  }
+  cs.finish(a.R, a.mpart + static_cast<int64_t>(blockIdx.x) * 4 * L);
+  cp_async_wait<0>();
+  timer.stop();
+}
+
+// wfma[w] = weight w in fp32 (the FMA kernel's ring source).
 template <typename T>
-cudaError_t launch(const void* x, const void* g, const void* e, const int32_t* rcv,
-                   const int32_t* gid, const int32_t* block_tile, const void* wu,
-                   const void* wv, const void* we, const void* w2, const void* b0,
-                   const void* b2, void* z_upd, float* R, double* mpart, float* M,
-                   int64_t n_nodes, int64_t n_edges, int64_t L, int64_t tile,
-                   int64_t n_blocks, int64_t n_graphs, size_t smem, cudaStream_t stream) {
-  const int64_t n_tiles = n_nodes / tile;
-  const int64_t block = n_blocks > 0 ? n_edges / n_blocks : 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      step3_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+__global__ void copy_weights_kernel(const FwdArgs a, int64_t L, float* __restrict__ wfma) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t LL = L * L;
+  if (idx < N_W * LL) wfma[idx] = to_f(static_cast<const T*>(a.w[idx / LL])[idx % LL]);
+}
+
+// M[j] = Σ_p mpart[p][j] for j < 4, in part order; rows 4..7 are zero. One
+// thread per (j, column): 4L threads; the loads of 8 parts go out before
+// their adds.
+__global__ void moments_reduce_kernel(const double* __restrict__ mpart, int64_t n_parts,
+                                      int64_t L, float* __restrict__ M) {
+  const int64_t j = threadIdx.x / L, c = threadIdx.x % L;
+  double s = 0.0;
+  int64_t p = 0;
+  for (; p + 8 <= n_parts; p += 8) {
+    double v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = mpart[((p + u) * 4 + j) * L + c];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s += v[u];
+  }
+  for (; p < n_parts; ++p) s += mpart[(p * 4 + j) * L + c];
+  M[j * L + c] = static_cast<float>(s);
+  M[(4 + j) * L + c] = 0.f;
+}
+
+template <typename T, int L>
+cudaError_t launch_fma(const FwdArgs& a, unsigned grid, cudaStream_t s) {
+  constexpr int64_t n_w = N_W * L * L;
+  copy_weights_kernel<T><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, s>>>(
+      a, L, const_cast<float*>(a.wfma));
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  step3_tile_kernel<T><<<static_cast<unsigned>(n_tiles), static_cast<unsigned>(L), smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(e), rcv, gid,
-      block_tile, static_cast<const T*>(wu), static_cast<const T*>(wv),
-      static_cast<const T*>(we), static_cast<const T*>(w2), static_cast<const T*>(b0),
-      static_cast<const T*>(b2), static_cast<T*>(z_upd), R, mpart, L, tile, block, n_blocks,
-      n_graphs);
-  err = cudaGetLastError();
+  const int smem = static_cast<int>(fma_smem_bytes<L>());
+  err = cudaFuncSetAttribute(step3_fwd_fma_kernel<T, L>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  moments_reduce_kernel<<<1, static_cast<unsigned>(L), 0, stream>>>(mpart, n_tiles, L, M);
+  step3_fwd_fma_kernel<T, L><<<grid, THREADS, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int L>
+cudaError_t launch_mma(const FwdArgs& a, unsigned grid, cudaStream_t s) {
+  const int smem = static_cast<int>(mma_smem_bytes<L>());
+  cudaError_t err = cudaFuncSetAttribute(step3_fwd_mma_kernel<L>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  step3_fwd_mma_kernel<L><<<grid, THREADS, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -267,42 +659,62 @@ cudaError_t launch(const void* x, const void* g, const void* e, const int32_t* r
 
 extern "C" {
 
-// Shared memory one CTA of the tile kernel needs.
-int64_t pdg_fused_edge3_smem_bytes(int64_t L, int64_t tile) {
-  return (tile + 3 * EC) * L * static_cast<int64_t>(sizeof(float)) +
-         EC * static_cast<int64_t>(sizeof(int) + sizeof(float));
+// Parts (CTAs) of a launch on the current device: one per SM; 0 on error.
+int64_t pdg_fused_edge3_fwd_parts() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 0;
+  }
+  return sms;
 }
 
+// Whether a launch at width L with bf16 (1) or fp32 (0) streams runs the
+// FMA kernel, which reads the fp32 weight copy wfma.
+int pdg_fused_edge3_fwd_needs_wfma(int bf16, int64_t L) { return !bf16 || L == 256; }
+
 // Launches the forward on `stream`. Pointers are device pointers; x, g, e,
-// the weights and z_upd are fp32 (bf16 == 0) or bf16 (bf16 == 1); rcv, gid
-// and block_tile are int32; R and M (8, L) are fp32; mpart
-// (n_nodes/tile, 4, L) is fp64 scratch. Returns a cudaError_t value (0 on success).
-int pdg_fused_edge3_fwd(int bf16, const void* x, const void* g, const void* e,
-                        const void* rcv, const void* gid, const void* block_tile,
-                        const void* wu, const void* wv, const void* we, const void* w2,
-                        const void* b0, const void* b2, void* z_upd, void* R, void* mpart,
-                        void* M, int64_t n_nodes, int64_t n_edges, int64_t L, int64_t tile,
-                        int64_t n_blocks, int64_t n_graphs, void* stream) {
-  if (L < 4 || L > 1024 || L % 4 != 0 || tile <= 0 || n_nodes % tile != 0 ||
-      n_blocks < 0 || (n_blocks > 0 && n_edges % n_blocks != 0) ||
-      (n_blocks == 0 && n_edges != 0)) {
+// the weights, the biases and z_upd are fp32 (bf16 == 0) or bf16 (bf16 ==
+// 1); rcv (each receiver's slots consecutive) and gid are int32; R
+// (n_nodes, L) and M (8, L) are fp32; wfma (4, L, L) fp32 scratch where
+// pdg_fused_edge3_fwd_needs_wfma says so (else unused); mpart (n_parts, 4,
+// L) fp64 scratch. L is 64, 128 or 256. Returns a cudaError_t value (0 on
+// success).
+int pdg_fused_edge3_fwd(int bf16, const void* x, const void* g, const void* e, const void* rcv,
+                        const void* gid, const void* wu, const void* wv, const void* we,
+                        const void* w2, const void* b0, const void* b2, void* z_upd, void* R,
+                        void* wfma, void* mpart, void* M, int64_t n_nodes, int64_t n_edges,
+                        int64_t L, int64_t n_graphs, int64_t n_parts, void* stream) {
+  if ((L != 64 && L != 128 && L != 256) || n_nodes < 1 || n_edges < 1 || n_parts < 1 ||
+      (pdg_fused_edge3_fwd_needs_wfma(bf16, L) && wfma == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(pdg_fused_edge3_smem_bytes(L, tile));
-  const auto* r = static_cast<const int32_t*>(rcv);
-  const auto* gi = static_cast<const int32_t*>(gid);
-  const auto* bt = static_cast<const int32_t*>(block_tile);
-  auto* Rf = static_cast<float*>(R);
-  auto* mp = static_cast<double*>(mpart);
-  auto* Mf = static_cast<float*>(M);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(x, g, e, r, gi, bt, wu, wv, we, w2, b0, b2, z_upd, Rf, mp,
-                                   Mf, n_nodes, n_edges, L, tile, n_blocks, n_graphs, smem, s)
-           : launch<float>(x, g, e, r, gi, bt, wu, wv, we, w2, b0, b2, z_upd, Rf, mp, Mf,
-                           n_nodes, n_edges, L, tile, n_blocks, n_graphs, smem, s);
-  return static_cast<int>(err);
+  const FwdArgs a{x, g, e, static_cast<const int32_t*>(rcv), static_cast<const int32_t*>(gid),
+                  {wu, wv, we, w2}, b0, b2, static_cast<const float*>(wfma), z_upd,
+                  static_cast<float*>(R), static_cast<double*>(mpart), n_nodes, n_edges,
+                  n_graphs, (n_edges + n_parts - 1) / n_parts};
+  cudaError_t err = cudaMemsetAsync(R, 0, static_cast<size_t>(n_nodes * L) * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>(n_parts);
+  if (L == 64) err = bf16 ? launch_mma<64>(a, grid, s) : launch_fma<float, 64>(a, grid, s);
+  else if (L == 128) err = bf16 ? launch_mma<128>(a, grid, s) : launch_fma<float, 128>(a, grid, s);
+  else err = bf16 ? launch_fma<__nv_bfloat16, 256>(a, grid, s) : launch_fma<float, 256>(a, grid, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moments_reduce_kernel<<<1, static_cast<unsigned>(4 * L), 0, s>>>(
+      static_cast<double*>(mpart), n_parts, L, static_cast<float*>(M));
+  return static_cast<int>(cudaGetLastError());
 }
+
+#if PDG_PART_CLOCK
+// Copies the last launch's per-CTA clock readings (2 per CTA, n_parts <=
+// 1024 CTAs) to host memory.
+int pdg_fused_edge3_fwd_part_clock(unsigned long long* host, int64_t n_parts) {
+  if (n_parts < 1 || n_parts > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaMemcpyFromSymbol(host, part_clock,
+                                               static_cast<size_t>(2 * n_parts) * 8));
+}
+#endif
 
 const char* pdg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

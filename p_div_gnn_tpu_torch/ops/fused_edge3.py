@@ -77,11 +77,18 @@ def _library() -> CudaLibrary:
     built = load_cuda_library("fused_edge3_fwd")
     fn = built.lib.pdg_fused_edge3_fwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 6
-        + [ctypes.c_void_p]
+        [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    built.lib.pdg_fused_edge3_fwd_parts.argtypes = []
+    built.lib.pdg_fused_edge3_fwd_parts.restype = ctypes.c_int64
+    built.lib.pdg_fused_edge3_fwd_needs_wfma.argtypes = [ctypes.c_int, ctypes.c_int64]
+    built.lib.pdg_fused_edge3_fwd_needs_wfma.restype = ctypes.c_int
     return built
+
+
+# the widths the forward kernel is built for
+FWD_WIDTHS = (64, 128, 256)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -115,21 +122,31 @@ def _fused_edge_step3_cuda(
     _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    _check(L % 4 == 0 and 4 <= L <= 1024, f"L={L} must be a multiple of 4 in [4, 1024]")
+    _check(L in FWD_WIDTHS, f"L={L}: the forward kernel is built for L = 64, 128 and 256 "
+           "(other widths: ROADMAP.md §B)")
     _check(Np * L < 2**31 and Ep * L < 2**31, "arrays too large")
+    # one writer per R row: each receiver's slots must be one run
+    require_consecutive_runs(receivers, Np, "fused_edge_step3")
 
     dev = x.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
-    r = torch.empty((Np, L), dtype=torch.float32, device=dev)
-    mpart = torch.empty((Np // tile, 4, L), dtype=torch.float64, device=dev)
+    r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
+    bf16 = int(sd == torch.bfloat16)
+    # the FMA chains read the four weights from one (4, L, L) fp32 block
+    wfma = torch.empty((4, L, L), dtype=torch.float32, device=dev) \
+        if built.lib.pdg_fused_edge3_fwd_needs_wfma(bf16, L) else None
     with torch.cuda.device(dev):
+        n_parts = built.lib.pdg_fused_edge3_fwd_parts()
+        _check(n_parts > 0, "cannot read the card's SM count")
+        mpart = torch.empty((n_parts, 4, L), dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_fused_edge3_fwd(
-            int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (x, g_x, e, receivers, edge_gid, block_tile,
-                                     w_u, w_v, w_e, w2, b0, b2, z_upd, r, mpart, m)),
-            Np, Ep, L, tile, n_blocks, int(n_graphs), stream,
+            bf16,
+            *(t.data_ptr() for t in (x, g_x, e, receivers, edge_gid, w_u, w_v, w_e, w2, b0, b2,
+                                     z_upd, r)),
+            None if wfma is None else wfma.data_ptr(), mpart.data_ptr(), m.data_ptr(),
+            Np, Ep, L, int(n_graphs), n_parts, stream,
         )
     check_launch(built, err, "fused_edge3_fwd")
     fused_edge_step3.launches += 1
@@ -371,8 +388,10 @@ def fused_edge_step3(
     """The fused3 edge step: (z_upd, R, M), differentiable in x, g_x, e and
     the weights. CUDA tensors go to the kernels (``fused_edge_step3.launches``
     counts the forward's launches, ``fused_edge_step3_backward.launches``
-    the backward's), CPU tensors to the plain versions; anything else
-    raises."""
+    the backward's), which take each receiver's slots consecutive (the
+    receiver-major layout; a pair-blocked batch's is not) and L = 64, 128 or
+    256 (the forward) or L = 128 (the backward), and raise otherwise; CPU
+    tensors go to the plain versions; anything else raises."""
     edge_gid, block_tile = aux
     return _FusedEdgeStep3.apply(x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid,
                                  block_tile, n_graphs, tile)

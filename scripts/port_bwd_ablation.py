@@ -4,19 +4,17 @@ device time with one part of its work taken out.
     PYTHONPATH=. python scripts/port_bwd_ablation.py
 
 Builds ``p_div_gnn_tpu_torch/csrc/fused_edge3_bwd.cu`` as it is ("base") and
-in variants with one part removed by a text edit of a copy, all with the
-port's nvcc flags, into ``build/port_bwd_ablation/``: the weight-grad
-kernel without its MMAs, without splitting the staged rows into bf16 terms,
-without fetching them; the tile kernel without its tensor-core products,
-without its FMA chains (and the shared loads that feed them). Each runs
-chip_smoke.py's backward kernel phase inputs (the flagship training batch,
-generator seed 1) in fp32 and bf16 streams, three calls under
-``torch.profiler``, and prints each sub-kernel's mean device time in ms. The variants compute wrong values; only their
-times are read. Needs a CUDA card and nvcc.
-
-The variants are text edits of the kernel source as committed with this
-script: once that text changes, the script stops with "source text not
-found", and its edits must be made to follow the new text.
+in variants with one part of its work taken out by a preprocessor switch
+(``-DPDG_WITHOUT=<part>``, a name of ``csrc/fused3_tile.cuh``'s ``enum Part``),
+all with the port's nvcc flags, into ``build/port_bwd_ablation/``: the
+weight-grad kernel without its MMAs, without splitting the staged rows into
+bf16 terms, without fetching them; the tile kernel without its tensor-core
+MMAs, without its FMA chains (and the shared loads that feed them). Each
+runs chip_smoke.py's backward kernel phase inputs (the flagship training
+batch, generator seed 1) in fp32 and bf16 streams, three calls under
+``torch.profiler``, and prints each sub-kernel's mean device time in ms.
+The variants compute wrong values; only their times are read. Needs a CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -38,46 +36,32 @@ from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge3  # noqa: E402
 OUT = ROOT / "build" / "port_bwd_ablation"
 SUBS = ("prepare_weights_kernel", "step3_bwd_tile_kernel", "step3_bwd_wgrad_kernel",
         "step3_bwd_reduce_kernel")
-# variant: (text of the source, its replacement) edits
+# variant: the part it is built without (csrc/fused3_tile.cuh, enum Part)
 VARIANTS = {
-    "base": [],
-    "wgrad without MMAs": [
-        ("mma_bf16_16816(NT > 1 ? t16[mi][nj] : part[mi][nj], af[ta][mi], bf[nj][0],\n"
-         "                             bf[nj][1]);", "{}")],
-    "wgrad without the term split": [
-        ("if (in_a) put4<NT, AW>(a_s, WG * AW, row, col, v);",
-         "if (v.x == 1234.5f) a_s[tid] = 1;"),
-        ("else put4<NT, L>(b_s, WG * L, row, col, v);", "")],
-    "wgrad without fetching": [
-        ("cp_async16_zfill(dst + (in_a ? 0 : WG * AW) + row * width + col, src != nullptr ? src : x,\n"
-         "                         src != nullptr);", "(void)src;")],
-    "tile without tensor cores": [
-        ("      mma_chunk<NT, L, NA>(acc, op, res + (static_cast<int64_t>(w) * NT * L + k0) * L, L * L, k0);",
-         "      {}"),
-        ("      mma_chunk<NT, L, NA>(acc, op, wc, KC * L, k0);", "      {}")],
-    "tile without FMA chains": [
-        ("acc[c]->v[i][j] = fmaf(av[i], bv[j], acc[c]->v[i][j]);", "(void)av; (void)bv;")],
+    "base": None,
+    "wgrad without MMAs": "WITHOUT_WG_MMA",
+    "wgrad without the term split": "WITHOUT_WG_SPLIT",
+    "wgrad without fetching": "WITHOUT_WG_FETCH",
+    "tile without MMAs": "WITHOUT_MMA",
+    "tile without FMA chains": "WITHOUT_FMA",
 }
 
 
-def build_variants() -> dict[str, Path]:
-    src = (cuda_build.CSRC_DIR / "fused_edge3_bwd.cu").read_text()
-    OUT.mkdir(parents=True, exist_ok=True)
-    for header in cuda_build.local_headers(cuda_build.CSRC_DIR / "fused_edge3_bwd.cu"):
-        (OUT / header.name).write_text(header.read_text())
+def build_variants(kernel: str = "fused_edge3_bwd", variants: dict = VARIANTS,
+                   out: Path = OUT, extra: dict | None = None) -> dict[str, Path]:
+    """Builds csrc/<kernel>.cu once per variant into out/variant<i>.so, with
+    -DPDG_WITHOUT=<its part> (none for None) and the variant's ``extra``
+    flags, in parallel."""
+    source = cuda_build.CSRC_DIR / f"{kernel}.cu"
+    out.mkdir(parents=True, exist_ok=True)
     flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     procs, libs = {}, {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: source text not found: {old[:60]}")
-            text = text.replace(old, new)
-        cu = OUT / f"variant{i}.cu"
-        cu.write_text(text)
-        libs[name] = OUT / f"variant{i}.so"
-        procs[name] = subprocess.Popen([cuda_build.find_nvcc(), *flags, "-o", str(libs[name]),
-                                        str(cu)])
+    for i, (name, part) in enumerate(variants.items()):
+        defs = [] if part is None else [f"-DPDG_WITHOUT={part}"]
+        defs += (extra or {}).get(name, [])
+        libs[name] = out / f"variant{i}.so"
+        procs[name] = subprocess.Popen([cuda_build.find_nvcc(), *flags, *defs, "-o",
+                                        str(libs[name]), str(source)])
     for name, proc in procs.items():
         if proc.wait() != 0:
             raise SystemExit(f"nvcc failed on variant {name!r}")

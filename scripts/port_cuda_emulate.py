@@ -14,10 +14,13 @@ the PTX ISA's fragment layouts; ``cp.async`` is a plain copy. The port's
 own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py`` with the
 v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on
 CPU tensors against the emulated libraries, and each kernel is held against
-its plain version at small shapes (the fused3 backward at L = 128, the
-width its FMA tile is made for; the segment sum on both callers' layouts,
-twice, the two calls bit-equal), with ``chip_smoke.py``'s tolerances; the
-script exits 1 if one disagrees.
+its plain version at small shapes (the fused3 forward at each width it is
+built for, 64, 128 and 256, on a layout with a tile of only padding, twice,
+the two calls bit-equal; the fused3 backward at L = 128, the width its
+tiles are made for; the segment sum on
+both callers' layouts, twice, the two calls bit-equal), with
+``chip_smoke.py``'s tolerances; the script exits 1 if one disagrees. The
+emulated card has 5 SMs (the fused3 forward's persistent grid).
 
 It checks what a kernel computes (indexing, synchronization, the order of
 its sums, the wrapper's argument list), not its speed, and not whether
@@ -135,7 +138,14 @@ inline double __shfl_xor_sync(unsigned, double v, int mask) {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
+// the emulated card's SMs: a persistent grid gets a few CTAs at small shapes
+constexpr int EMU_SMS = 5;
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? EMU_SMS : 0;
+  return 0;
+}
 #define EMU_STREAM reinterpret_cast<cudaStream_t>(0x5eed0000beefULL)
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t st) {
   if (st != EMU_STREAM) throw "memset on a stream the wrapper did not pass";
@@ -372,7 +382,8 @@ def pair_indices(idx: dict) -> tuple:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
-    ap.add_argument("--L", type=int, default=16, help="width of the forwards")
+    ap.add_argument("--L", type=int, default=16,
+                    help="width of the v2 and fused2 forwards (fused3's: 64, 128, 256)")
     ap.add_argument("--L-bwd", type=int, default=64,
                     help="width of the v2 and fused2 backwards (64k; fused3's is 128)")
     args = ap.parse_args()
@@ -380,13 +391,22 @@ def main() -> int:
     with emulated_kernels():
         for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             ftol, btol = chip_smoke.KERNEL_TOL[sd_name], chip_smoke.BWD_TOL[sd_name]
-            arrays, idx = _edge_problem(5, args.tiles, args.L)
-            a = [T(v).to(sd) for v in arrays.values()]
-            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
-            got = fused_edge3._fused_edge_step3_cuda(*a, rcv, gid, bt, 1, NODE_TILE)
-            want = fused_edge3.fused_edge_step3_reference(*a, rcv, gid, 1)
-            shares += [report(f"fused_edge3_fwd {sd_name} {n}", x, y, ftol[n])
-                       for n, x, y in zip(FWD_NAMES, got, want)]
+            # the fused3 forward at each of its widths; one node tile has no
+            # real edge (its block is all padding)
+            for L in fused_edge3.FWD_WIDTHS:
+                arrays, idx = _edge_problem(5, args.tiles, L, empty_tile=args.tiles - 1)
+                a = [T(v).to(sd) for v in arrays.values()]
+                rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+                got = [fused_edge3._fused_edge_step3_cuda(*a, rcv, gid, bt, 1, NODE_TILE)
+                       for _ in range(2)]
+                assert all(torch.equal(u, v) for u, v in zip(*got)), \
+                    f"fused_edge3_fwd L={L}: two calls differ"
+                want = fused_edge3.fused_edge_step3_reference(*a, rcv, gid, 1)
+                shares += [report(f"fused_edge3_fwd {sd_name} L={L} {n}", x, y, ftol[n])
+                           for n, x, y in zip(FWD_NAMES, got[0], want)]
+                if sd == torch.float32:  # the FMA chains keep the plain version's rounding
+                    assert torch.equal(got[0][0], want[0]), \
+                        f"fused_edge3_fwd fp32 L={L}: z_upd not bit-equal"
 
             # the fused3 backward's FMA tile is made for L = 128
             arrays, idx = _edge_problem(6, args.tiles, 128)

@@ -1,0 +1,138 @@
+"""Where the fused3 forward's time goes on the card: the tile kernel's device
+time with one part of its work taken out, and how evenly its parts end.
+
+    PYTHONPATH=. python scripts/port_fwd_ablation.py
+
+Builds ``p_div_gnn_tpu_torch/csrc/fused_edge3_fwd.cu`` as it is ("base") and
+in variants with one part of its work taken out by a preprocessor switch
+(``-DPDG_WITHOUT=<part>``, a name of ``csrc/fused3_tile.cuh``'s ``enum
+Part``), with the port's nvcc flags, into ``build/port_fwd_ablation/``
+(``port_bwd_ablation.build_variants``): without the FMA chains (fp32: the
+FMAs, and the shared loads that feed them), without staging the step's rows
+(fp32), without the MMAs (bf16), without copying the step's rows (bf16),
+and, in both, without the R run sums, without the moment sums, and without
+the column walks (R, M and the z_upd stores). Each runs chip_smoke.py's
+kernel phase inputs (the serving batch of request 0, generator seed 0) in
+fp32 and bf16 streams, five calls under ``torch.profiler``, and prints the
+mean device time of each sub-kernel in ms. The variants compute wrong
+values; only their times are read.
+
+Then a build with ``-DPDG_PART_CLOCK=1`` (the outputs unchanged) records
+each CTA's first and last ``%globaltimer`` reading of a call: the script
+prints, per dtype, the span of the launch (first start to last end), the
+longest, mean and shortest CTA time, and the longest against the mean (the
+share of the launch the parts' imbalance costs is at most 1 − mean /
+longest). Needs a CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import chip_smoke  # noqa: E402
+from p_div_gnn_tpu_torch.graphs.batching import pack_batch  # noqa: E402
+from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge3  # noqa: E402
+from port_bwd_ablation import build_variants  # noqa: E402
+
+OUT = ROOT / "build" / "port_fwd_ablation"
+SUBS = ("copy_weights_kernel", "step3_fwd_fma_kernel", "step3_fwd_mma_kernel",
+        "moments_reduce_kernel")
+# variant: the part it is built without (csrc/fused3_tile.cuh, enum Part)
+VARIANTS = {
+    "base": None,
+    "without FMA chains": "WITHOUT_FMA",
+    "without staging the rows": "WITHOUT_STAGE",
+    "without MMAs": "WITHOUT_MMA",
+    "without copying the rows": "WITHOUT_COPY",
+    "without the R runs": "WITHOUT_RUNS",
+    "without the moment sums": "WITHOUT_MOMENTS",
+    "without the column walks": "WITHOUT_COLUMNS",
+    "part clock": None,
+}
+EXTRA = {"part clock": ["-DPDG_PART_CLOCK=1"]}
+
+
+def load(path: Path) -> cuda_build.CudaLibrary:
+    lib = ctypes.CDLL(str(path))
+    lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pdg_cuda_error_string.restype = ctypes.c_char_p
+    fn = lib.pdg_fused_edge3_fwd
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.pdg_fused_edge3_fwd_parts.argtypes = []
+    lib.pdg_fused_edge3_fwd_parts.restype = ctypes.c_int64
+    lib.pdg_fused_edge3_fwd_needs_wfma.argtypes = [ctypes.c_int, ctypes.c_int64]
+    lib.pdg_fused_edge3_fwd_needs_wfma.restype = ctypes.c_int
+    return cuda_build.CudaLibrary(lib, path, 0.0, "")
+
+
+def part_times(built: cuda_build.CudaLibrary, call) -> str:
+    """One call's CTA times from the part clock build."""
+    n_parts = int(built.lib.pdg_fused_edge3_fwd_parts())
+    call()
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (2 * n_parts))()
+    err = built.lib.pdg_fused_edge3_fwd_part_clock(buf, ctypes.c_int64(n_parts))
+    cuda_build.check_launch(built, err, "pdg_fused_edge3_fwd_part_clock")
+    starts, ends = buf[0::2], buf[1::2]
+    spans = [(e - s) / 1e6 for s, e in zip(starts, ends)]
+    mean = statistics.fmean(spans)
+    return (f"launch span {(max(ends) - min(starts)) / 1e6:.4f} ms over {n_parts} CTAs; "
+            f"CTA time longest {max(spans):.4f} mean {mean:.4f} shortest {min(spans):.4f} ms; "
+            f"longest / mean {max(spans) / mean:.3f}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    libs = build_variants("fused_edge3_fwd", VARIANTS, OUT, EXTRA)
+    batch = pack_batch(chip_smoke.build_request(0), reorder="rcm", sender_view=False,
+                       div_ell=False).to("cuda")
+    base = chip_smoke.edge_step_inputs(batch, torch.Generator(device="cuda").manual_seed(0))
+    aux = (batch.edge_gid, batch.edge_block_tile)
+    for name, path in libs.items():
+        built = load(path)
+        fused_edge3._library = lambda built=built: built
+        for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            args = [base[k].to(sd).contiguous() for k in base]
+
+            def call():
+                return fused_edge3.fused_edge_step3(*args, batch.receivers, aux, batch.n_graphs,
+                                                    batch.tile)
+
+            if name == "part clock":
+                built.lib.pdg_fused_edge3_fwd_part_clock.argtypes = [ctypes.c_void_p,
+                                                                     ctypes.c_int64]
+                print(f"{name} {sd_name}: {part_times(built, call)}", flush=True)
+                continue
+            for _ in range(2):
+                call()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            times = {sub: 0.0 for sub in SUBS}
+            for e in prof.key_averages():
+                for sub in SUBS:
+                    if sub in e.key:
+                        times[sub] += e.device_time_total / 5e3
+            print(f"{name} {sd_name}: " + " ".join(f"{k} {v:.3f}" for k, v in times.items() if v)
+                  + f" ms; sum {sum(times.values()):.3f} ms", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -34,12 +34,13 @@ import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
 from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
 
-# sub-kernel names of each ported kernel's library (csrc/*.cu). The first
-# is the kernel's own tile kernel; the v2 and pair-blocked edge steps share
-# the others (csrc/edge_common.cuh), which go to the kernel whose tile
-# kernel ran in the step
+# sub-kernel names of each ported kernel's library (csrc/*.cu), its own tile
+# kernels first; the v2 and pair-blocked edge steps share the others
+# (csrc/edge_common.cuh), which go to the kernel whose tile kernel ran in
+# the step
 GROUPS = {
-    "fused_edge3_fwd (#1)": ("step3_tile_kernel", "moments_reduce_kernel"),
+    "fused_edge3_fwd (#1)": ("step3_fwd_fma_kernel", "step3_fwd_mma_kernel",
+                             "copy_weights_kernel", "moments_reduce_kernel"),
     "fused_edge3_bwd (#2)": ("prepare_weights_kernel", "step3_bwd_tile_kernel",
                              "step3_bwd_wgrad_kernel", "step3_bwd_reduce_kernel"),
     "segment_sum_csr (#3)": ("run_chunk_kernel", "run_merge_kernel"),
@@ -112,7 +113,12 @@ def main() -> None:
     busy += cur_hi - cur_lo
     window = max(float(step["ts"]) + float(step["dur"]), spans[-1][1]) - float(step["ts"])
 
-    ran = {g for g, subs in GROUPS.items() if any(subs[0] in e["name"] for e in dev)}
+    # a group ran if one of its own sub-kernels (not shared with another
+    # group) did
+    shared = {s for g, subs in GROUPS.items() for s in subs
+              if any(s in other for h, others in GROUPS.items() if h != g for other in others)}
+    ran = {g for g, subs in GROUPS.items()
+           if any(s in e["name"] for s in subs if s not in shared for e in dev)}
     by_group: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     by_sub: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
     rest: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-the fused3 edge step's forward and backward, the block-CSR segment sum, the
+the fused3 edge step's forward (its parts, its layout check, two calls
+bit-equal) and backward, the block-CSR segment sum, the
 v2 ("fused") edge step's forward and backward, the pair segment sum and the
 pair-blocked ("fused2") edge step's forward and backward. It
 imports neither JAX nor the JAX package, so it runs where the card is (that
@@ -69,15 +70,21 @@ def _longest_run(receivers: torch.Tensor) -> int:
     return int(lengths[r[starts] >= 0].max())
 
 
-def _edge_problem(seed: int, n_tiles: int, L: int, edge_block: int = EDGE_BLOCK):
+def _edge_problem(seed: int, n_tiles: int, L: int, edge_block: int = EDGE_BLOCK,
+                  empty_tile: int | None = None):
     """Random receiver-sorted edges in the block-aligned CSR layout (blocks of
     ``edge_block`` slots), with a second graph's worth of padding slots;
-    numpy inputs for both packages."""
+    numpy inputs for both packages. With ``empty_tile``, no real edge
+    receives in that node tile, whose one block is then all padding."""
     rng = np.random.default_rng(seed)
     num_nodes = n_tiles * NODE_TILE
     E = 6 * num_nodes
     rcv = np.sort(rng.integers(0, num_nodes, size=E))
     snd = rng.integers(0, num_nodes, size=E)
+    if empty_tile is not None:
+        keep = rcv // NODE_TILE != empty_tile
+        rcv, snd = rcv[keep], snd[keep]
+        E = len(rcv)
     snd_b, rcv_b, _, gid_b, _, block_tile = blockify_edges(
         senders=snd, receivers=rcv, edge_weight=np.ones(E, np.float32),
         edge_gid=np.zeros(E, np.int64), num_nodes=num_nodes, n_graphs=1,
@@ -151,21 +158,93 @@ def _pair_problem(seed: int, n_tiles: int, L: int, stray: bool = True):
     return arrays, idx
 
 
+@pytest.mark.parametrize("L", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_reference_on_cuda(dtype):
-    """Three node tiles, L = 128; the launch count rises by one per call."""
+def test_kernel_matches_reference_on_cuda(dtype, L):
+    """Four node tiles, one without a real edge (its block is all padding),
+    at each width the kernel is built for (128: the tile kernels of every
+    configuration; bf16 at 256 runs the FMA kernel); the kernel's parts
+    (one per SM) are several, a receiver run crosses a part's nominal end
+    (its CTA's split moves that end to the run's end), and a real receiver
+    has a tail of padding slots, as blockify_edges writes it. In fp32 z_upd
+    equals the plain version exactly (the same FMA chains), R and M hold at
+    the JAX op tolerances; in bf16 all three hold at 3e-2. The launch count
+    rises by one per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    arrays, idx = _edge_problem(5, 3, L=128)
+    arrays, idx = _edge_problem(5, 4, L=L, empty_tile=2)
+    rcv_np, gid_np = idx["receivers"], idx["edge_gid"]
+    n_parts = int(fused_edge3._library().lib.pdg_fused_edge3_fwd_parts())
+    nominal = np.arange(1, n_parts) * -(-len(rcv_np) // n_parts)
+    nominal = nominal[nominal < len(rcv_np)]
+    assert len(nominal) > 1, "several parts"
+    assert (rcv_np[nominal] == rcv_np[nominal - 1]).any(), "a run crosses a part's nominal end"
+    tile_of_block = idx["block_tile"]
+    assert 2 not in tile_of_block[np.flatnonzero(
+        (gid_np.reshape(len(tile_of_block), -1) == 0).any(axis=1))], "tile 2 is all padding"
+    tail = (gid_np[:-1] == 0) & (gid_np[1:] == 1) & (rcv_np[:-1] == rcv_np[1:])
+    assert tail.any(), "a real receiver has a tail of padding slots"
     args = [T(a).to("cuda", dtype) for a in arrays.values()]
     rcv, gid, bt = (T(idx[k]).cuda() for k in ("receivers", "edge_gid", "block_tile"))
     before = fused_edge3.fused_edge_step3.launches
     got = fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE)
     assert fused_edge3.fused_edge_step3.launches == before + 1
     want = fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1)
+    if dtype == torch.float32:
+        assert torch.equal(got[0], want[0])
     tols = (1e-5, 1e-4, 1e-3) if dtype == torch.float32 else (3e-2,) * 3
     for a, b, tol in zip(got, want, tols):
+        assert a.shape == b.shape and a.dtype == b.dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_two_calls_are_bit_equal_on_cuda(dtype):
+    """The fused3 forward sums R and M in a fixed order: two calls on four
+    node tiles (the first without a real edge), L = 128, give bit-equal
+    z_upd, R and M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arrays, idx = _edge_problem(15, 4, L=128, empty_tile=0)
+    args = [T(a).to("cuda", dtype) for a in arrays.values()]
+    rcv, gid, bt = (T(idx[k]).cuda() for k in ("receivers", "edge_gid", "block_tile"))
+    got = [fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE) for _ in range(2)]
+    for a, b in zip(*got):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+def _split_run_inputs(seed: int) -> tuple:
+    """The fused3 edge step's inputs (fp32, on the card) on a pair-blocked
+    layout of three node tiles, L = 128, which splits a receiver's slots
+    over several blocks: (args, receivers, edge_gid, block_tile)."""
+    from p_div_gnn_tpu_torch.ops.segment import runs_are_consecutive
+
+    arrays, idx = _pair_problem(seed, 3, L=128, stray=False)
+    rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
+                    for k in ("receivers", "edge_gid", "block_tile"))
+    Np, L = 3 * NODE_TILE, 128
+    assert not runs_are_consecutive(rcv, Np)
+    rng = np.random.default_rng(seed + 1)
+    x = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    g_x = x[T(np.asarray(idx["senders"], np.int64)).cuda()]
+    w = [T((rng.normal(size=(L, L)) * L**-0.5).astype(np.float32)).cuda() for _ in range(4)]
+    b0, b2 = (T(rng.normal(size=L).astype(np.float32)).cuda() for _ in range(2))
+    e = T(arrays["e"]).cuda()
+    return (x, g_x, e, w[0], w[1], w[2], b0, w[3], b2), rcv, gid, bt
+
+
+def test_kernel_refuses_split_receiver_runs_on_cuda():
+    """The fused3 forward writes each receiver's R row once, from one run:
+    on a pair-blocked layout, which splits a receiver's slots over several
+    blocks, it raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, rcv, gid, bt = _split_run_inputs(16)
+    before = fused_edge3.fused_edge_step3.launches
+    with pytest.raises(ValueError, match="not consecutive"):
+        fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE)
+    assert fused_edge3.fused_edge_step3.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -283,27 +362,16 @@ def test_backward_kernel_refuses_split_receiver_runs_on_cuda():
     blocks, it raises before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from p_div_gnn_tpu_torch.ops.segment import runs_are_consecutive
-
-    arrays, idx = _pair_problem(13, 3, L=128, stray=False)
-    rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
-                    for k in ("receivers", "edge_gid", "block_tile"))
+    args, rcv, gid, bt = _split_run_inputs(13)
     Np, Ep, L = 3 * NODE_TILE, rcv.shape[0], 128
-    assert not runs_are_consecutive(rcv, Np)
-    rng = np.random.default_rng(14)
-    x = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
-    g_x = x[T(np.asarray(idx["senders"], np.int64)).cuda()]
-    w = [T((rng.normal(size=(L, L)) * L**-0.5).astype(np.float32)).cuda() for _ in range(4)]
-    b0, b2 = (T(rng.normal(size=L).astype(np.float32)).cuda() for _ in range(2))
-    e = T(arrays["e"]).cuda()
     z_upd = torch.zeros((Ep, L), device="cuda")
     dz = torch.ones((Ep, L), device="cuda")
     dr = torch.ones((Np, L), device="cuda")
     dm = torch.zeros((8, L), device="cuda")
     before = fused_edge3.fused_edge_step3_backward.launches
     with pytest.raises(ValueError, match="not consecutive"):
-        fused_edge3.fused_edge_step3_backward(x, g_x, e, w[0], w[1], w[2], b0, w[3], b2, rcv,
-                                              (gid, bt), 1, NODE_TILE, z_upd, dz, dr, dm)
+        fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
+                                              z_upd, dz, dr, dm)
     assert fused_edge3.fused_edge_step3_backward.launches == before
 
 
