@@ -22,7 +22,11 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    training batch's sender view in run order; the pair segment sum (fp32) on both training batches'
    sender views, as fused and fused2 call it; the pair-blocked ("fused2")
    edge step's forward and backward on the pair-blocked training batch, in
-   fp32 and bf16 streams;
+   fp32 and bf16 streams (the v2 and pair-blocked backwards also print
+   their ptxas figures at each width and dtype and the device time of each
+   sub-kernel: tile, weight grads, reduce); then every fused kernel once at
+   L = 16 (zero-padded to a width it is built for) and 256, both dtypes,
+   against its plain version on a batch of 2 meshes (ROADMAP C1);
 3. serve: the committed checkpoint answers 3 requests of 16 meshes each
    through ``Predictor`` with fused3, fused and fused2 (fp32 streams); each
    path's forward kernel must launch exactly 10 times per request and no
@@ -183,13 +187,71 @@ def held(name: str, got, want, tol: float) -> tuple[float, float]:
     return worst, share
 
 
-def edge_step_inputs(batch, gen):
+def sub_kernel_ms(fn, subs: tuple[str, ...]) -> dict:
+    """Mean device time (ms) of each named sub-kernel over three calls of
+    ``fn`` under torch.profiler, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    times = {sub: 0.0 for sub in subs}
+    for e in prof.key_averages():
+        for sub in subs:
+            if sub in e.key:
+                times[sub] += e.device_time_total / 3e3
+    check(sum(times.values()) > 0, f"the profiler saw none of {subs} on the device")
+    return times
+
+
+def ptxas_figures(built, smem=None) -> list[str]:
+    """Each entry function's ptxas figures from a build's log (``-Xptxas
+    -v``): its name with stream dtype and width, registers, stack frame and
+    spill bytes, and, where ``smem(bf16, L, which)`` gives them, the tile
+    (which 0) or weight-grad (which 1) kernel's dynamic shared memory."""
+    import re
+
+    out, name, frame = [], None, ""
+    for line in built.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        if "stack frame" in line:
+            frame = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            # the kernel's name: the <length><name> of the mangled name that
+            # ends in _kernel
+            label = next((name[m.end(1):m.end(1) + int(m.group(1))]
+                          for m in re.finditer(r"(?=(\d+))", name)
+                          if name[m.end(1):m.end(1) + int(m.group(1))].endswith("_kernel")),
+                         name[:60])
+            width = re.search(r"Li(64|128|256)E", name)
+            bf16 = "bfloat16" in name
+            if width:
+                label += f"<{'bf16' if bf16 else 'fp32'}, L={width.group(1)}>"
+            fig = f"{label}: {m.group(1)} registers, {frame}"
+            if smem is not None and width and ("tile" in label or "wgrad" in label):
+                fig += f", {smem(int(bf16), int(width.group(1)), 0 if 'tile' in label else 1)} " \
+                       "bytes of dynamic shared memory"
+            out.append(fig)
+            name, frame = None, ""
+    return out
+
+
+def edge_step_inputs(batch, gen, L: int = LATENT):
     """Random inputs of the fused edge step at the batch's shapes: x and e
     ~ N(0, 1), g_x = x[senders], weights ~ N(0, 1/L), biases ~ N(0, 1)."""
     import torch
 
     dev = batch.receivers.device
-    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    Np, Ep = batch.num_nodes_padded, batch.num_edges_padded
 
     def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -457,7 +519,7 @@ def segment_sum_kernel_phase(batch) -> dict:
     return results
 
 
-def v2_step_inputs(batch, gen):
+def v2_step_inputs(batch, gen, L: int = LATENT):
     """Random inputs of the v2 edge step at the batch's shapes: node
     projections a_u, a_v ~ N(0, 1) and their sender gathers g_v =
     a_v[senders], g_u = a_u[senders], e ~ N(0, 1), weights ~ N(0, 1/L),
@@ -465,7 +527,7 @@ def v2_step_inputs(batch, gen):
     import torch
 
     dev = batch.receivers.device
-    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    Np, Ep = batch.num_nodes_padded, batch.num_edges_padded
 
     def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -533,11 +595,15 @@ def v2_backward_kernel_phase(batch) -> dict:
     import torch
 
     from p_div_gnn_tpu_torch.ops.fused_edge import (
+        _bwd_library,
         fused_edge_step_backward,
         fused_edge_step_backward_reference,
         fused_edge_step_reference,
     )
 
+    built = _bwd_library()
+    for fig in ptxas_figures(built, built.lib.pdg_fused_edge_bwd_smem):
+        say(f"kernel fused_edge_bwd ptxas: {fig}")
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
@@ -574,6 +640,10 @@ def v2_backward_kernel_phase(batch) -> dict:
         res = {"max_abs_err": max(v[0] for v in checked.values()), "ms": cuda_ms(kern, 5),
                "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by}
         results[sd_name] = res
+        split = sub_kernel_ms(kern, ("v2_bwd_tile_kernel", "bwd_wgrad_kernel",
+                                     "bwd_reduce_kernel", "prepare_weights_kernel"))
+        say(f"kernel fused_edge_bwd {sd_name} split: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
         say(f"kernel fused_edge_bwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
             f"real_edges={e_real} max_abs_err "
             + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
@@ -633,7 +703,7 @@ def pair_kernel_phase(batch, view: str) -> dict:
     return {"float32": res}
 
 
-def pair_step_inputs(batch, gen):
+def pair_step_inputs(batch, gen, L: int = LATENT):
     """Random inputs of the fused2 edge step at the pair-blocked batch's
     shapes: node projections proj_u, proj_v ~ N(0, 1), e ~ N(0, 1), weights
     ~ N(0, 1/L), biases ~ N(0, 1); in the order of fused_edge_step2's
@@ -641,7 +711,7 @@ def pair_step_inputs(batch, gen):
     import torch
 
     dev = batch.receivers.device
-    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    Np, Ep = batch.num_nodes_padded, batch.num_edges_padded
 
     def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -716,11 +786,15 @@ def fused2_backward_kernel_phase(batch) -> dict:
     import torch
 
     from p_div_gnn_tpu_torch.ops.fused_edge import (
+        _bwd_library2,
         fused_edge2_bwd,
         fused_edge2_bwd_reference,
         fused_edge_step2_reference,
     )
 
+    built = _bwd_library2()
+    for fig in ptxas_figures(built, built.lib.pdg_fused_edge2_bwd_smem):
+        say(f"kernel fused_edge2_bwd ptxas: {fig}")
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
@@ -755,6 +829,11 @@ def fused2_backward_kernel_phase(batch) -> dict:
         res = {"max_abs_err": max(v[0] for v in checked.values()), "ms": cuda_ms(kern, 5),
                "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by}
         results[sd_name] = res
+        split = sub_kernel_ms(kern, ("pair_bwd_tile_kernel", "bwd_wgrad_kernel",
+                                     "bwd_reduce_kernel", "zero_rows_kernel",
+                                     "prepare_weights_kernel"))
+        say(f"kernel fused_edge2_bwd {sd_name} split: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
         say(f"kernel fused_edge2_bwd {sd_name}: Np={Np} Ep={Ep} L={L} blocks={NB} "
             f"real_edges={e_real} max_abs_err "
             + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
@@ -765,6 +844,83 @@ def fused2_backward_kernel_phase(batch) -> dict:
         del z_upd, cots
         torch.cuda.empty_cache()
     return results
+
+
+# the width phase: every fused kernel at a width its tiles are not laid out
+# for (16, through the zero padding; the v2 forwards natively) and at the
+# widest they are (256), on a cut batch
+WIDTHS = (16, 256)
+WIDTH_MESHES = 2
+
+
+def width_phase() -> None:
+    """ROADMAP C1: hold each fused kernel (#1, #2, #5-#8) against its plain
+    version once at L = 16 and 256, in both stream dtypes, with random
+    inputs and nonzero cotangents, on a batch of WIDTH_MESHES meshes
+    (receiver-major and pair-blocked), at the JAX op tolerances."""
+    import torch
+
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3
+
+    batch = build_workload(WIDTH_MESHES, seed=0)[0].to("cuda")
+    pair = build_workload(WIDTH_MESHES, seed=0, pair_blocks=True)[0].to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rcv, gid, n_graphs, tile = batch.receivers, batch.edge_gid, batch.n_graphs, batch.tile
+    rm = (rcv, (gid, batch.edge_block_tile), n_graphs, tile)
+    pidx = (pair.receivers, pair.senders, pair_aux(pair), pair.n_graphs, pair.tile)
+    for L in WIDTHS:
+        for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            def cast(d):
+                return [t.to(sd).contiguous() for t in d.values()]
+
+            f3 = cast(edge_step_inputs(batch, gen, L))
+            v2 = cast(v2_step_inputs(batch, gen, L))
+            p2 = cast(pair_step_inputs(pair, gen, L))
+
+            def cots(b, z):
+                return (z, torch.randn(z.shape, generator=gen, device="cuda").to(sd),
+                        torch.randn((b.num_nodes_padded, L), generator=gen, device="cuda"),
+                        torch.randn((8, L), generator=gen, device="cuda"))
+
+            c3 = cots(batch, fused_edge3.fused_edge_step3_reference(*f3, rcv, gid, n_graphs)[0])
+            cv = cots(batch, fused_edge.fused_edge_step_reference(*v2, rcv, gid, n_graphs)[0])
+            cp = cots(pair, fused_edge.fused_edge_step2_reference(*p2, *pidx)[0])
+            fwd = tuple(KERNEL_TOL[sd_name].values())
+            bwd = (BWD_TOL[sd_name],) * 9
+            cases = {
+                "fused_edge3_fwd": (lambda: fused_edge3.fused_edge_step3(*f3, *rm),
+                                    lambda: fused_edge3.fused_edge_step3_reference(
+                                        *f3, rcv, gid, n_graphs), fwd),
+                "fused_edge3_bwd": (lambda: fused_edge3.fused_edge_step3_backward(
+                                        *f3, *rm, *c3),
+                                    lambda: fused_edge3.fused_edge_step3_backward_reference(
+                                        *f3, rcv, gid, n_graphs, *c3), bwd),
+                "fused_edge_fwd": (lambda: fused_edge.fused_edge_step(*v2, *rm),
+                                   lambda: fused_edge.fused_edge_step_reference(
+                                       *v2, rcv, gid, n_graphs), fwd),
+                "fused_edge_bwd": (lambda: fused_edge.fused_edge_step_backward(*v2, *rm, *cv),
+                                   lambda: fused_edge.fused_edge_step_backward_reference(
+                                       *v2, rcv, gid, n_graphs, *cv), bwd),
+                "fused_edge2_fwd": (lambda: fused_edge.fused_edge_step2(*p2, *pidx),
+                                    lambda: fused_edge.fused_edge_step2_reference(*p2, *pidx),
+                                    fwd),
+                "fused_edge2_bwd": (lambda: fused_edge.fused_edge2_bwd(*p2, *pidx, *cp),
+                                    lambda: fused_edge.fused_edge2_bwd_reference(
+                                        *p2, *pidx, *cp), bwd),
+            }
+            counters = counted_wrappers()
+            for name, (kern, plain, tols) in cases.items():
+                before = counters[name].launches
+                got = kern()
+                check(counters[name].launches == before + 1, f"width {name}: no launch")
+                want = plain()
+                torch.cuda.synchronize()
+                shares = [held(f"width {name} {sd_name} L={L} output {i}", a, b, tol)[1]
+                          for i, (a, b, tol) in enumerate(zip(got, want, tols, strict=True))]
+                say(f"width {name} {sd_name} L={L}: {len(shares)} outputs held, largest share "
+                    f"of the allowance {max(shares):.3f}")
+            torch.cuda.empty_cache()
 
 
 def counted_wrappers() -> dict:
@@ -995,9 +1151,8 @@ def main() -> int:
     say(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s wall")
     for built in libs.values():
         say(f"build: {built.path.relative_to(ROOT)} in {built.build_seconds:.1f} s")
-        for line in built.build_log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                say(f"build: {line.strip()}")
+        for fig in ptxas_figures(built):
+            say(f"build: {fig}")
 
     t0 = time.perf_counter()
     requests = [build_request(seed) for seed in REQUEST_SEEDS]
@@ -1029,6 +1184,9 @@ def main() -> int:
             for view, b in (("fused", train_batch), ("fused2", pair_batch))}
     f2 = fused2_kernel_phase(pair_batch)
     f2_bwd = fused2_backward_kernel_phase(pair_batch)
+    t0 = time.perf_counter()
+    width_phase()
+    say(f"width phase: {time.perf_counter() - t0:.1f} s")
     serve = serve_phase(requests)
     train = train_phase(train_batch, pair_batch, n_real_edges, smi)
 

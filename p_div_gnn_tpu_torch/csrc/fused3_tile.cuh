@@ -1,5 +1,6 @@
 // Device code shared by the fused3 edge step's forward
-// (fused_edge3_fwd.cu) and backward (fused_edge3_bwd.cu): dtype helpers,
+// (fused_edge3_fwd.cu) and the three one-pass backwards (fused_edge3_bwd.cu,
+// fused_edge_bwd.cu, fused_edge2_bwd.cu): dtype helpers,
 // the swizzled bf16 tiles and tensor-core products (mma.sync m16n8k16 over
 // ldmatrix fragments), the register-tiled fp32 FMA chains with their weight
 // ring, the transposed staging of an edge step's rows, and the split of the
@@ -7,10 +8,10 @@
 // source includes "mma_sm90.cuh" first. Each including source is its own
 // translation unit, so everything here lives in an anonymous namespace.
 //
-// Both kernels run THREADS = 256 threads (8 warps). The backward walks its
-// slots in edge steps of M = 32 slots at L = 128; the forward's FMA kernel
-// takes fma_rows<L>() slots a step at L = 64, 128 or 256 (64, 32, 16), its
-// tensor-core kernel M slots at L = 64 or 128.
+// The tile kernels run THREADS = 256 threads (8 warps). The backwards and
+// the forward's FMA kernel take fma_rows<L>() slots an edge step at L = 64,
+// 128 or 256 (64, 32, 16), the forward's tensor-core kernel M = 32 slots at
+// L = 64 or 128.
 
 #pragma once
 
@@ -20,8 +21,8 @@
 
 namespace {
 
-constexpr int M = 32;         // slots per edge step of a tile kernel
-constexpr int MI = M / 32;    // m16 tiles of a warp in a tile kernel's tensor-core products
+constexpr int M = 32;         // slots per edge step of the forward's tensor-core kernel
+constexpr int MI = M / 32;    // m16 tiles of a warp in that kernel's products
 constexpr int KC = 32;        // weight rows per tensor-core chunk (mma_chunk)
 constexpr int THREADS = 256;  // 8 warps in a tile kernel
 constexpr unsigned FULL = 0xffffffffu;
@@ -40,12 +41,13 @@ enum Part {
   WITHOUT_MMA,       // the tensor-core chunks' MMAs
   WITHOUT_STAGE,     // fwd fp32: staging an edge step's rows into shared memory
   WITHOUT_COPY,      // fwd bf16: copying an edge step's rows into shared memory
-  WITHOUT_RUNS,      // fwd: the R run sums
+  WITHOUT_RUNS,      // fwd: the R run sums; v2 bwd: the da run sums
   WITHOUT_MOMENTS,   // fwd: the moment sums
   WITHOUT_COLUMNS,   // fwd: the column walks (R, M and the z_upd stores)
   WITHOUT_WG_MMA,    // bwd: the weight-grad kernel's MMAs
   WITHOUT_WG_SPLIT,  // bwd: the weight-grad kernel's term split
   WITHOUT_WG_FETCH,  // bwd: the weight-grad kernel's operand fetch
+  WITHOUT_GATHER,    // v2 bwd: the first layer's receiver and sender rows
 };
 __host__ __device__ constexpr bool keep(int part) { return PDG_WITHOUT != part; }
 
@@ -63,16 +65,25 @@ template <typename T> __device__ __forceinline__ float round_sd(float v) {
   return to_f(from_f<T>(v));
 }
 
-// Four consecutive values of a row as fp32.
-__device__ __forceinline__ float4 load4(const float* p) {
+// Four consecutive values of a row in the stream dtype's bits (raw4), and
+// as fp32 (cvt4 of them; load4 both at once). A load kept raw until its use
+// lets the thread go on while it is in flight; a conversion right after
+// the load waits for it.
+__device__ __forceinline__ float4 raw4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ uint2 raw4(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ float4 cvt4(float4 v) { return v; }
+__device__ __forceinline__ float4 cvt4(uint2 u) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
+template <typename T> using Raw4 = decltype(raw4(static_cast<const T*>(nullptr)));
+__device__ __forceinline__ float4 load4(const float* p) { return raw4(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) { return cvt4(raw4(p)); }
 
 // Two consecutive fp32 values stored in the stream dtype.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -157,21 +168,25 @@ __device__ __forceinline__ void part_bounds(const int32_t* __restrict__ rcv, int
 }
 
 // The fp32 weight ring of the FMA chains: chunk q holds rows of the weights
-// of one part of an edge step, (Wu, Wv, We) for the first layer, then the
-// NS weights F_2, F_2 + 1, ... one at a time (the forward: W2; the
-// backward: W2, W2ᵀ). Chunk q goes to stage q & 1 by cp.async; acquire()
+// of one part of an edge step: with N1 = 3, (Wu, Wv, We) for the fused3
+// first layer, then the NS weights N1, N1 + 1, ... one at a time (the
+// fused3 forward: W2; its backward: W2, W2ᵀ; the v2 backwards, N1 = 0: We,
+// W2, W2ᵀ). Chunk q goes to stage q & 1 by cp.async; acquire()
 // waits for chunk q and starts chunk q + 1, with one barrier a chunk: it
 // publishes chunk q, and every thread has left chunk q - 1, whose stage
 // chunk q + 1 then takes (a wait for chunk q also waits for any other
 // cp.async group the thread committed before it).
-template <int L, int KF, int NS>
+template <int L, int KF, int NS, int N1 = 3>
 struct Fp32Ring {
-  const float* wfma;  // (3 + NS, L, L) fp32: Wu, Wv, We, then the NS weights
-  float* ring;        // 2 stages of (3, KF, L)
+  static_assert(N1 == 3 || N1 == 0, "a first layer of three weights, or none");
+  const float* wfma;  // (N1 + NS, L, L) fp32: Wu, Wv, We (N1 = 3), then the NS weights
+  float* ring;        // 2 stages of STAGE floats
   int q;
   // chunks of an edge step: the first layer's (Wu, Wv, We) KF rows at a
   // time, then each of the NS weights 2·KF rows at a time
-  static constexpr int FIRST = L / KF, SINGLE = L / (2 * KF), STEP = FIRST + NS * SINGLE;
+  static constexpr int FIRST = N1 ? L / KF : 0, SINGLE = L / (2 * KF),
+                       STEP = FIRST + NS * SINGLE;
+  static constexpr int STAGE = (N1 ? 3 : 2) * KF * L;  // floats of a stage
 
   __device__ __forceinline__ void issue(int qq) {
     constexpr int ROW4 = L / 4;
@@ -181,10 +196,10 @@ struct Fp32Ring {
       w[0] = F_U; w[1] = F_V; w[2] = F_E;
       n = 3, rows = KF, k0 = c * KF;
     } else {
-      w[0] = F_2 + (c - FIRST) / SINGLE;
+      w[0] = N1 + (c - FIRST) / SINGLE;
       n = 1, rows = 2 * KF, k0 = ((c - FIRST) % SINGLE) * 2 * KF;
     }
-    float* dst = ring + (qq & 1) * 3 * KF * L;
+    float* dst = ring + (qq & 1) * STAGE;
     for (int p = threadIdx.x; p < n * rows * ROW4; p += THREADS) {
       const int i = p / (rows * ROW4), r = (p % (rows * ROW4)) / ROW4, col = (p % ROW4) * 4;
       cp_async16(dst + (i * rows + r) * L + col,
@@ -196,39 +211,44 @@ struct Fp32Ring {
     cp_async_wait<0>();
     __syncthreads();
     issue(q + 1);
-    return ring + (q & 1) * 3 * KF * L;
+    return ring + (q & 1) * STAGE;
   }
   __device__ __forceinline__ void release() { ++q; }
 };
 
-// A warp's block of an (M, L) tensor-core product: rows (M/2)·(warp % 2) +
-// 16·mi + ..., columns (L/4)·(warp / 2) + 8·nj + ..., in mma fragment order.
-template <int L>
+// A warp's block of an (R, L) tensor-core product (R = 16, 32 or 64 rows):
+// the 8 warps lie in WR = 2 rows of warps (R >= 32) or 1, and WC = 8 / WR
+// columns; warp w holds rows (R/WR)·(w % WR) + 16·mi + ..., columns
+// (L/WC)·(w / WR) + 8·nj + ..., in mma fragment order.
+template <int L, int R = M>
 struct Frag {
-  float v[MI][L / 32][4];
+  static constexpr int WR = R >= 32 ? 2 : 1, WC = 8 / WR, MI = R / WR / 16, NTL = L / WC / 8;
+  static_assert(MI >= 1 && NTL >= 2 && NTL % 2 == 0, "whole m16 tiles, pairs of n8 tiles");
+  float v[MI][NTL][4];
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-      for (int nj = 0; nj < L / 32; ++nj)
+      for (int nj = 0; nj < NTL; ++nj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) v[mi][nj][e] = 0.f;
   }
 };
 
-// acc[a] += op[a][:, k0 : k0 + KC] · wc for a < NA: op[a] an (M, L) operand
+// acc[a] += op[a][:, k0 : k0 + KC] · wc for a < NA: op[a] an (R, L) operand
 // tile of NT terms, wc the weight rows k0 .. k0 + KC (NT terms wstride apart,
 // swizzled by row), summing the cross products of terms i + j < NT. With
 // DIRECT (one term only) each MMA adds to acc itself, as a plain bf16
 // product with fp32 accumulation does.
-template <int NT, int L, int NA, bool DIRECT = false>
-__device__ __forceinline__ void mma_chunk(Frag<L>* const (&acc)[NA],
+template <int NT, int L, int NA, bool DIRECT = false, int R = M>
+__device__ __forceinline__ void mma_chunk(Frag<L, R>* const (&acc)[NA],
                                           const uint16_t* const (&op)[NA],
                                           const uint16_t* wc, int wstride, int k0) {
   static_assert(!DIRECT || NT == 1, "direct accumulation takes one term");
-  constexpr int NTL = L / 32;
+  using F = Frag<L, R>;
+  constexpr int NTL = F::NTL, MI = F::MI;
   const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
-  const int wm = warp % 2, wn = warp / 2;
+  const int wm = warp % F::WR, wn = warp / F::WR;
 #pragma unroll
   for (int kk = 0; kk < KC; kk += 16) {
 #pragma unroll
@@ -238,8 +258,9 @@ __device__ __forceinline__ void mma_chunk(Frag<L>* const (&acc)[NA],
         uint32_t af[NT][4];
 #pragma unroll
         for (int t = 0; t < NT; ++t)
-          ldsm_x4(af[t], op[a] + t * M * L +
-                             swz<L>(wm * (M / 2) + mi * 16 + lane % 16, k0 + kk + (lane / 16) * 8));
+          ldsm_x4(af[t], op[a] + t * R * L +
+                             swz<L>(wm * (R / F::WR) + mi * 16 + lane % 16,
+                                    k0 + kk + (lane / 16) * 8));
         // the k16 block's term products, the smallest first ((i, 2), (i, 1),
         // (i, 0) for the A terms i with i + j < NT), are summed by the tensor
         // cores from 0, then added to the accumulator in fp32: the tensor
@@ -260,7 +281,8 @@ __device__ __forceinline__ void mma_chunk(Frag<L>* const (&acc)[NA],
             const int q = lane / 8;
             uint32_t r[4];
             ldsm_x4_trans(r, wc + tb * wstride +
-                                 swz<L>(kk + lane % 8 + (q & 1) * 8, wn * (L / 4) + j * 8 + (q >> 1) * 8));
+                                 swz<L>(kk + lane % 8 + (q & 1) * 8,
+                                        wn * (L / F::WC) + j * 8 + (q >> 1) * 8));
             b[j][0] = r[0];
             b[j][1] = r[1];
             b[j + 1][0] = r[2];
@@ -285,18 +307,20 @@ __device__ __forceinline__ void mma_chunk(Frag<L>* const (&acc)[NA],
 
 // Calls fn(row, col, v0, v1) for each pair of fragment values (columns col
 // and col + 1 of one row) of this thread.
-template <int L, typename F>
-__device__ __forceinline__ void for_pairs(Frag<L>& f, F&& fn) {
+template <int L, int R = M, typename Fn>
+__device__ __forceinline__ void for_pairs(Frag<L, R>& f, Fn&& fn) {
+  using F = Frag<L, R>;
   const int lane = static_cast<int>(threadIdx.x % 32), warp = static_cast<int>(threadIdx.x / 32);
   const int g = lane / 4, tq = lane % 4;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int mi = 0; mi < F::MI; ++mi)
 #pragma unroll
-    for (int nj = 0; nj < L / 32; ++nj)
+    for (int nj = 0; nj < F::NTL; ++nj)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        fn((warp % 2) * (M / 2) + mi * 16 + g + 8 * h, (warp / 2) * (L / 4) + nj * 8 + 2 * tq,
-           f.v[mi][nj][2 * h], f.v[mi][nj][2 * h + 1]);
+        fn((warp % F::WR) * (R / F::WR) + mi * 16 + g + 8 * h,
+           (warp / F::WR) * (L / F::WC) + nj * 8 + 2 * tq, f.v[mi][nj][2 * h],
+           f.v[mi][nj][2 * h + 1]);
 }
 
 // The FMA chains' register tile of an (fma_rows<L>(), L) product: each of
@@ -418,9 +442,9 @@ __device__ __forceinline__ void store_rows_t(float* at0, float* at1, float* at2,
   }
 }
 
-// Stages an edge step's x[r], g and e rows transposed into the (L, M) fp32
-// operands at0, at1, at2 (the backward, L = 128): load_rows, then
-// store_rows_t.
+// Stages an edge step's x[r], g and e rows transposed into the
+// (L, fma_rows<L>()) fp32 operands at0, at1, at2 (the fused3 backward):
+// load_rows, then store_rows_t.
 template <typename T, int L>
 __device__ __forceinline__ void stage_rows_t(float* at0, float* at1, float* at2,
                                              const T* __restrict__ x, const T* __restrict__ g,

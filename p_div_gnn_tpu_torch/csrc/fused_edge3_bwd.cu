@@ -59,7 +59,10 @@
 //
 // Design, in four launches (the FMA tile, its weight ring, the staging of an
 // edge step's rows, the part split, the swizzled tiles and the tensor-core
-// chunk are shared with the forward, in fused3_tile.cuh):
+// chunk are shared with the forward, in fused3_tile.cuh; the split-weight
+// ring, the weight preparation and the weight-grad and reduce kernels with
+// the v2 backwards, in bwd_common.cuh), at L = 64, 128 or 256 (the wrapper
+// pads any other L <= 256 with zeros, which is exact):
 // 0. `prepare_weights_kernel`: Wu, Wv, We, W2, W2ᵀ in fp32 for the chains,
 //    Weᵀ, Wuᵀ, Wvᵀ as NT bf16 terms (NT = 3 for fp32 streams, 1 for bf16).
 // 1. `step3_bwd_tile_kernel`: one CTA of 8 warps per part of ~PART = 512
@@ -67,18 +70,21 @@
 //    node's run lies in one CTA, the only writer of its dx row (the
 //    receiver-major layout sorts each tile's slots by receiver, so a
 //    receiver has one run; the wrapper checks that once per layout tensor
-//    and raises on another order, a pair-blocked batch's among them). It walks its part in edge steps
-//    of M = 32 slots. The chains run as a register-tiled SIMT product: lane
-//    l of warp w holds a 4 x 4 block (rows 4·(l/4), columns 16w + 4·(l%4))
-//    and reads its operands from transposed fp32 tiles and the weights from
-//    a two-stage ring of fp32 chunks (cp.async; 32 rows of Wu, Wv and We,
-//    the first layer's five chains at once, then 64 rows of W2 or W2ᵀ; 16
-//    and 32 with bf16 streams), one barrier a chunk. The tensor-core
+//    and raises on another order, a pair-blocked batch's among them). It
+//    walks its part in edge steps of S = fma_rows<L>() slots (64, 32, 16 at
+//    L = 64, 128, 256). The chains run as a register-tiled SIMT product:
+//    lane l of warp w holds a 4 x 4 block (at L = 128 rows 4·(l/4), columns
+//    16w + 4·(l%4)) and reads its operands from transposed fp32 tiles and
+//    the weights from a two-stage ring of fp32 chunks (cp.async; KF = 32
+//    rows of Wu, Wv and We, the first layer's five chains at once, then 2·KF
+//    rows of W2 or W2ᵀ; KF = 16 with bf16 streams; at L = 256 KF = 8 and 16,
+//    where the 16-slot step's tiles and the rings fill the 227 KB), one
+//    barrier a chunk. The tensor-core
 //    products read dpre1, dpre2 and dpre1 + dpre2 as NT-term tiles (over the
 //    consumed fp32 operands) with ldmatrix from XOR-swizzled rows (no bank
 //    conflicts), and the split weights from a second two-stage ring of
-//    32-row chunks, or, with bf16 streams, from a copy resident in shared
-//    memory. Each staged chunk serves the step's 32 rows: a step reads each
+//    32-row chunks, or, with bf16 streams at L <= 128, from a copy resident in shared
+//    memory. Each staged chunk serves the step's S rows: a step reads each
 //    weight from L2 once, where the column-per-thread CTA of the earlier
 //    kernel read them for every 16 slots. dx: the step's dx rows
 //    (rounded to the stream dtype) pass through shared memory, and thread c
@@ -91,26 +97,24 @@
 //    ms of HBM time in and out at the peak rate), half that in bf16. A sum
 //    over ~2.6e5 slots of 128×128 per weight grad does not fit a CTA's
 //    registers or shared memory, so it is not fused here.
-// 2. `step3_bwd_wgrad_kernel`: CTA (chunk of slots, weight grad, half of
-//    its rows) sums A[i]ᵀB[i] over its chunk in items of 32 slots and one
-//    (A, B) pair: cp.async (zero-filling past the chunk) keeps 3 items'
-//    rows in flight while one is split into NT-term tiles, both read with
-//    ldmatrix.trans; the tensor cores sum each k16 block of slots from 0,
-//    an item's two blocks are added in fp32, and that 32-slot partial is
-//    added to an fp64 register accumulator (it rounds at the size of a few
-//    products, not of the running sum). 16 warps a CTA with fp32 streams,
-//    8 with bf16 (two CTAs an SM); the chunk's receivers are staged in
-//    shared memory for the x[r] rows.
-// 3. `step3_bwd_reduce_kernel`: sums the per-chunk and per-part partials in
-//    order in fp64 and rounds once, into [dW2; dWe; dWu; dWv; db2; db0].
-//    Every sum runs in a fixed order: two calls give bit-equal outputs.
-// - ptxas (sm_90a, CUDA 12.8), fp32 / bf16 streams: the tile kernel 246 /
+// 2. `bwd_wgrad_kernel` (bwd_common.cuh), asked for four weight grads and
+//    their (A, B) stream pairs: dW2 (h1, dy1), (h2, dy2); dWe (e, dps); dWu
+//    (x[r], dpre1), (g, dpre2); dWv (x[r], dpre2), (g, dpre1). CTA (chunk of
+//    slots, weight grad, 64-row block, column block) sums A[i]ᵀB[i] over its
+//    chunk in items of 32 slots and one pair on the tensor cores, each
+//    32-slot partial added to an fp64 accumulator; the chunk's receivers are
+//    staged in shared memory for the x[r] rows.
+// 3. `bwd_reduce_kernel` (bwd_common.cuh): sums the per-chunk and per-part
+//    partials in order in fp64 and rounds once, into [dW2; dWe; dWu; dWv;
+//    db2; db0]. Every sum runs in a fixed order: two calls give bit-equal
+//    outputs.
+// - ptxas at L = 128 (sm_90a, CUDA 12.8), fp32 / bf16 streams: the tile kernel 246 /
 //   185 registers and 224,528 / 199,952 bytes of dynamic shared memory (one
 //   CTA per SM); the weight-grad kernel 128 / 128 registers at 512 / 256
 //   threads and 167,936 / 94,208 bytes (one / two CTAs per SM); no spills (a
 //   16-byte stack frame). The SASS holds 240 / 40 HMMA instructions in the
 //   tile kernel and 48 / 16 in the weight-grad kernel (scripts/port_sass.py;
-//   PERF.md §6).
+//   PERF.md §6). chip_smoke.py prints the figures at each width.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,80 +122,29 @@
 
 #include "mma_sm90.cuh"
 #include "fused3_tile.cuh"
+#include "bwd_common.cuh"
 
 namespace {
 
 constexpr int PART = 512;     // slots per tile-kernel CTA, before the run alignment
-constexpr int WG = 32;        // slots of a weight-grad item (one fp32 partial)
-constexpr int WSTAGES = 4;    // weight-grad items in shared memory: 3 in flight
-// threads of a weight-grad CTA: 16 warps with fp32 streams (one CTA per
-// SM), 8 with bf16 (two)
-template <int NT> __host__ __device__ constexpr int wthreads() { return NT == 1 ? 256 : 512; }
-constexpr int MIN_CHUNKS = 64;  // weight-grad chunks of a launch, at least
-constexpr int MAX_CHUNK = 8192;  // slots of a weight-grad chunk, at most (receivers in shared memory)
-// With bf16 streams (NT = 1 term) the tensor cores' split weights stay
-// resident in shared memory (96 KB), and the fp32 ring's chunks (kf rows of
-// the first layer's three weights) are halved to make room for them.
-template <int NT> __host__ __device__ constexpr int kf() { return NT == 1 ? 16 : 32; }
-template <int NT> __host__ __device__ constexpr bool resident() { return NT == 1; }
-enum { S_H1, S_H2, S_DY1, S_DY2, S_DP1, S_DP2, S_DPS, SRC_E, SRC_G, SRC_XR };
+// With bf16 streams (NT = 1 term) at L <= 128 the tensor cores' split
+// weights stay resident in shared memory (96 KB at L = 128), and the fp32
+// ring's chunks (kf rows of the first layer's three weights) are halved to
+// make room for them; at L = 256 both rings shrink to fit the 16-slot
+// step's tiles.
+template <int NT, int L> __host__ __device__ constexpr int kf() {
+  return L == 256 ? (NT == 1 ? 16 : 8) : (NT == 1 ? 16 : 32);
+}
+template <int NT, int L> __host__ __device__ constexpr bool resident() {
+  return NT == 1 && L <= 128;
+}
+enum { S_H1, S_H2, S_DY1, S_DY2, S_DP1, S_DP2, S_DPS, SRC_E, SRC_G, SRC_XR, N_SRC };
 // the fp32 weights of the FMA chains (fused3_tile.cuh's F_U .. F_2, then
 // W2ᵀ) and the split weights of the tile kernel's tensor-core products, in
 // the order an edge step streams them
 constexpr int N_FMA = F_2 + 2;
 enum { T_ET, T_UT, T_VT, N_TC };
 constexpr int N_WEIGHTS = static_cast<int>(N_FMA) + static_cast<int>(N_TC);
-
-// The split-weight ring of the tensor-core products: chunk q of the stream
-// (KC rows of one of the N_TC weights, NT terms, swizzled) goes to stage
-// q & 1 by cp.async. acquire() waits for chunk q and starts chunk q + 1.
-template <int NT, int L>
-struct SplitRing {
-  const uint16_t* wsplit;  // (N_TC, NT, L, L) bf16 terms
-  uint16_t* ring;          // 2 stages of (NT, KC, L)
-  int q;
-
-  __device__ __forceinline__ void issue(int qq) {
-    constexpr int CHUNKS = L / KC, ROW8 = L / 8, PER_TERM = KC * ROW8;
-    const int w = (qq / CHUNKS) % N_TC, kc = qq % CHUNKS;
-    uint16_t* dst = ring + (qq & 1) * NT * KC * L;
-    for (int p = threadIdx.x; p < NT * PER_TERM; p += THREADS) {
-      const int t = p / PER_TERM, r = (p % PER_TERM) / ROW8, c = (p % ROW8) * 8;
-      cp_async16(dst + t * KC * L + swz<L>(r, c),
-                 wsplit + (static_cast<int64_t>(w * NT + t) * L + kc * KC + r) * L + c);
-    }
-    cp_async_commit();
-  }
-  // One barrier a chunk: it publishes chunk q, and every thread has left
-  // chunk q - 1, whose stage chunk q + 1 then takes.
-  __device__ __forceinline__ const uint16_t* acquire() {
-    cp_async_wait<0>();
-    __syncthreads();
-    issue(q + 1);
-    return ring + (q & 1) * NT * KC * L;
-  }
-  __device__ __forceinline__ void release() { ++q; }
-};
-
-// One split weight: acc[a] += op[a] · W for a < NA, W the ring's next
-// weight, or (resident) resident weight w.
-template <int NT, int L, int NA>
-__device__ __forceinline__ void mma_weight(SplitRing<NT, L>& ring, const uint16_t* res, int w,
-                                           Frag<L>* const (&acc)[NA],
-                                           const uint16_t* const (&op)[NA]) {
-  if constexpr (resident<NT>()) {
-#pragma unroll 1
-    for (int k0 = 0; k0 < L; k0 += KC)
-      mma_chunk<NT, L, NA>(acc, op, res + (static_cast<int64_t>(w) * NT * L + k0) * L, L * L, k0);
-  } else {
-#pragma unroll 1
-    for (int k0 = 0; k0 < L; k0 += KC) {
-      const uint16_t* wc = ring.acquire();
-      mma_chunk<NT, L, NA>(acc, op, wc, KC * L, k0);
-      ring.release();
-    }
-  }
-}
 
 struct TileArgs {
   const void *x, *g, *e, *z_upd, *dz_upd;
@@ -209,42 +162,46 @@ struct TileArgs {
 
 // Bytes of the tile kernel's operand region: three transposed fp32 operands
 // of the chains, then (over them) three split operand tiles of the tensor
-// cores, then the step's dx rows.
+// cores, then the step's dx rows (fma_rows<L>() · L = 4096 values at every
+// width).
 template <int NT, int L>
 __host__ __device__ constexpr int64_t tile_operand_bytes() {
-  return 3 * L * M * 4 > 3 * NT * M * L * 2 ? 3 * L * M * 4 : 3 * NT * M * L * 2;
+  constexpr int S = fma_rows<L>();
+  return 3 * L * S * 4 > 3 * NT * S * L * 2 ? 3 * L * S * 4 : 3 * NT * S * L * 2;
 }
 
 // Shared memory of one tile-kernel CTA: the operand region, the fp32 and the
 // split weight rings, the step's receivers and masks, the biases and dM rows.
 template <int NT, int L>
 constexpr int64_t tile_smem_bytes() {
-  return tile_operand_bytes<NT, L>() + 2 * 3 * kf<NT>() * L * 4 +
-         (resident<NT>() ? N_TC * L * L * 2 : 2 * NT * KC * L * 2) + 16 + M * 8 +
-         6 * L * 4;
+  return tile_operand_bytes<NT, L>() + 2 * 3 * kf<NT, L>() * L * 4 +
+         (resident<NT, L>() ? N_TC * L * L * 2 : 2 * NT * KC * L * 2) + 16 +
+         fma_rows<L>() * 8 + 6 * L * 4;
 }
 
 template <typename T, int NT, int L>
 __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileArgs a) {
+  constexpr int S = fma_rows<L>();  // slots of an edge step
   extern __shared__ float4 smem4[];
-  float* at0 = reinterpret_cast<float*>(smem4);  // (L, M): x[r]ᵀ → h1ᵀ
-  float* at1 = at0 + L * M;                      // gᵀ → dy1ᵀ
-  float* at2 = at1 + L * M;                      // eᵀ → dy2ᵀ
+  float* at0 = reinterpret_cast<float*>(smem4);  // (L, S): x[r]ᵀ → h1ᵀ
+  float* at1 = at0 + L * S;                      // gᵀ → dy1ᵀ
+  float* at2 = at1 + L * S;                      // eᵀ → dy2ᵀ
   // over them once dy1ᵀ, dy2ᵀ are consumed: the tensor cores' operands
   uint16_t* op0 = reinterpret_cast<uint16_t*>(smem4);  // dpre1 terms
-  uint16_t* op1 = op0 + NT * M * L;                    // dpre2 terms
-  uint16_t* op2 = op1 + NT * M * L;                    // dpre1+dpre2 terms
+  uint16_t* op1 = op0 + NT * S * L;                    // dpre2 terms
+  uint16_t* op2 = op1 + NT * S * L;                    // dpre1+dpre2 terms
   float* fring_s = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) +
                                             tile_operand_bytes<NT, L>());  // fp32 weight ring
   // the split weight ring, or (resident) the N_TC split weights
-  constexpr int KF = kf<NT>();
+  constexpr int KF = kf<NT, L>();
+  constexpr bool RES = resident<NT, L>();
   uint16_t* sring_s = reinterpret_cast<uint16_t*>(fring_s + 2 * 3 * KF * L);
   int64_t* bounds_s = reinterpret_cast<int64_t*>(
-      sring_s + (resident<NT>() ? N_TC * L * L : 2 * NT * KC * L));  // (2,)
-  int* rcv_s = reinterpret_cast<int*>(bounds_s + 2);  // (M,) receiver or -1
-  float* mask_s = reinterpret_cast<float*>(rcv_s + M);  // (M,)
-  float* cst_s = mask_s + M;        // (6, L): b0, b2, dM0, dM1, dM2, dM3
-  T* dx_s = reinterpret_cast<T*>(smem4);  // (M, L) the step's dx rows, over op0 once consumed
+      sring_s + (RES ? N_TC * L * L : 2 * NT * KC * L));  // (2,)
+  int* rcv_s = reinterpret_cast<int*>(bounds_s + 2);  // (S,) receiver or -1
+  float* mask_s = reinterpret_cast<float*>(rcv_s + S);  // (S,)
+  float* cst_s = mask_s + S;        // (6, L): b0, b2, dM0, dM1, dM2, dM3
+  T* dx_s = reinterpret_cast<T*>(smem4);  // (S, L) the step's dx rows, over op0 once consumed
 
   const T* x = static_cast<const T*>(a.x);
   const T* g = static_cast<const T*>(a.g);
@@ -278,19 +235,14 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
   }
 
   Fp32Ring<L, KF, 2> fring{a.wfma, fring_s, 0};
-  SplitRing<NT, L> sring{a.wsplit, sring_s, 0};
+  SplitRing<NT, L, N_TC> sring{a.wsplit, sring_s, 0};
   fring.issue(0);
-  if constexpr (resident<NT>()) {
-    for (int p = tid; p < N_TC * L * L / 8; p += THREADS) {
-      const int r = p / (L / 8), c = (p % (L / 8)) * 8;  // row r of the stacked weights
-      cp_async16(sring_s + (r / L) * L * L + swz<L>(r % L, c),
-                 a.wsplit + static_cast<int64_t>(r) * L + c);
-    }
-    cp_async_commit();
+  if constexpr (RES) {
+    load_resident<NT, L, N_TC>(sring_s, a.wsplit);
   } else {
     sring.issue(0);
   }
-  const int r0 = quad_row(), c0 = quad_col();
+  const int r0 = quad_row<L>(), c0 = quad_col<L>();
   // dx: thread c < L sums column c of the current receiver run in fp64
   double dx_run = 0.0;
   int dx_r = -1;
@@ -299,9 +251,9 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
   double db2[4] = {0.0, 0.0, 0.0, 0.0}, db0[4] = {0.0, 0.0, 0.0, 0.0};
 
 #pragma unroll 1
-  for (int64_t base = lo; base < hi; base += M) {
-    const int n = static_cast<int>(hi - base < M ? hi - base : M);
-    if (tid < M) {
+  for (int64_t base = lo; base < hi; base += S) {
+    const int n = static_cast<int>(hi - base < S ? hi - base : S);
+    if (tid < S) {
       int r = -1;
       float m = 0.f;
       if (tid < n) {
@@ -347,7 +299,7 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
           h2[i][j] = round_sd<T>(fmaxf(p2, 0.f));
           xu.v[i][j] = h1[i][j];
         }
-      put_quad_t(at0, xu);
+      put_quad_t<L>(at0, xu);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (r0 + i < n) {
@@ -411,8 +363,8 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
           dy1.v[i][j] = round_sd<T>(dy1.v[i][j]);
           dy2.v[i][j] = round_sd<T>(dy2.v[i][j]);
         }
-      put_quad_t(at1, dy1);
-      put_quad_t(at2, dy2);
+      put_quad_t<L>(at1, dy1);
+      put_quad_t<L>(at2, dy2);
     }
     __syncthreads();
 
@@ -439,9 +391,9 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
           db0[j] += static_cast<double>(s[j]);
         }
         const int row = r0 + i;
-        put4<NT, L>(op0, M * L, row, c0, make_float4(p[0], p[1], p[2], p[3]));
-        put4<NT, L>(op1, M * L, row, c0, make_float4(q[0], q[1], q[2], q[3]));
-        put4<NT, L>(op2, M * L, row, c0, make_float4(s[0], s[1], s[2], s[3]));
+        put4<NT, L>(op0, S * L, row, c0, make_float4(p[0], p[1], p[2], p[3]));
+        put4<NT, L>(op1, S * L, row, c0, make_float4(q[0], q[1], q[2], q[3]));
+        put4<NT, L>(op2, S * L, row, c0, make_float4(s[0], s[1], s[2], s[3]));
         if (row < n) {
           const int64_t o = (base + row) * L + c0;
           store4(scratch + S_DP1 * EL + o, p);
@@ -455,21 +407,21 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
     // --- on the tensor cores: de = dps·Weᵀ; dg = dpre1·Wvᵀ + dpre2·Wuᵀ; dx
     // rows dpre1·Wuᵀ + dpre2·Wvᵀ
     {
-      Frag<L> f1, f2;
+      Frag<L, S> f1, f2;
       f1.zero();
-      mma_weight<NT, L, 1>(sring, sring_s, T_ET, {&f1}, {op2});
-      for_pairs<L>(f1, [&](int row, int col, float& v0, float& v1) {
+      mma_weight<NT, L, 1, S, RES>(sring, sring_s, T_ET, {&f1}, {op2});
+      for_pairs<L, S>(f1, [&](int row, int col, float& v0, float& v1) {
         if (row < n) store2(de + (base + row) * L + col, v0, v1);
       });
       f1.zero();
       f2.zero();
-      mma_weight<NT, L, 2>(sring, sring_s, T_UT, {&f1, &f2}, {op1, op0});
-      mma_weight<NT, L, 2>(sring, sring_s, T_VT, {&f1, &f2}, {op0, op1});
-      for_pairs<L>(f1, [&](int row, int col, float& v0, float& v1) {
+      mma_weight<NT, L, 2, S, RES>(sring, sring_s, T_UT, {&f1, &f2}, {op1, op0});
+      mma_weight<NT, L, 2, S, RES>(sring, sring_s, T_VT, {&f1, &f2}, {op0, op1});
+      for_pairs<L, S>(f1, [&](int row, int col, float& v0, float& v1) {
         if (row < n) store2(dg + (base + row) * L + col, v0, v1);
       });
       __syncthreads();  // every warp is done with the tiles, over which the dx rows go
-      for_pairs<L>(f2, [&](int row, int col, float& v0, float& v1) {
+      for_pairs<L, S>(f2, [&](int row, int col, float& v0, float& v1) {
         store2(dx_s + row * L + col, v0, v1);
       });
     }
@@ -488,16 +440,16 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
     __syncthreads();  // rcv_s and the operands are restaged next step
   }
   if (tid < L && dx_r >= 0) a.dx[static_cast<int64_t>(dx_r) * L + tid] = static_cast<float>(dx_run);
-  // the 8 lanes of a column group, in a fixed xor tree
+  // the lanes of a column group (lanes l, l + L/32, ...), in a fixed xor tree
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
-    for (int o = 4; o < 32; o <<= 1) {
+    for (int o = L / 32; o < 32; o <<= 1) {
       db2[j] += __shfl_xor_sync(FULL, db2[j], o);
       db0[j] += __shfl_xor_sync(FULL, db0[j], o);
     }
   }
-  if (tid % 32 < 4) {
+  if (tid % 32 < L / 32) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       bpart[c0 + j] = db2[j];
@@ -507,276 +459,15 @@ __global__ void __launch_bounds__(THREADS, 1) step3_bwd_tile_kernel(const TileAr
   cp_async_wait<0>();
 }
 
-struct Weights {
-  const void* w[N_WEIGHTS];  // Wu, Wv, We, W2, W2ᵀ, Weᵀ, Wuᵀ, Wvᵀ, each (L, L)
-};
-
-// wfma[w] = weight w (< N_FMA) in fp32; wsplit[w][t] = term t of weight
-// N_FMA + w, (L, L) row-major bf16 bits.
-template <typename T, int NT>
-__global__ void prepare_weights_kernel(const Weights ws, float* __restrict__ wfma,
-                                       uint16_t* __restrict__ wsplit, int64_t L) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t LL = L * L;
-  if (idx >= N_WEIGHTS * LL) return;
-  const int64_t w = idx / LL, i = idx % LL;
-  const float v = to_f(static_cast<const T*>(ws.w[w])[i]);
-  if (w < N_FMA) {
-    wfma[idx] = v;
-    return;
-  }
-  uint32_t t[NT];
-  split<NT>(v, t);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) wsplit[((w - N_FMA) * NT + k) * LL + i] = static_cast<uint16_t>(t[k]);
-}
-
-// The address of row i of an operand stream of the weight-grad products at
-// column col, or null where the row is zero (past the chunk's end, or a slot
-// without receiver).
-template <typename T>
-__device__ __forceinline__ const T* operand_row(int src, int64_t i, int64_t lo, int64_t end,
-                                                int col, const T* __restrict__ scratch,
-                                                const T* __restrict__ x, const T* __restrict__ g,
-                                                const T* __restrict__ e,
-                                                const int32_t* rcv_chunk, int64_t n_nodes,
-                                                int64_t n_edges, int64_t L) {
-  if (i >= end) return nullptr;
-  if (src == SRC_XR) {
-    const int64_t r = rcv_chunk[i - lo];
-    return r >= 0 && r < n_nodes ? x + r * L + col : nullptr;
-  }
-  if (src == SRC_G) return g + i * L + col;
-  if (src == SRC_E) return e + i * L + col;
-  return scratch + (src * n_edges + i) * L + col;
-}
-
-struct WgradArgs {
-  const void *scratch, *x, *g, *e;
-  const int32_t* rcv;
-  double* wpart;
-  int64_t n_nodes, n_edges, chunk;
-};
-
-// Shared memory of one weight-grad CTA: WSTAGES stages of one item's raw
-// rows (stream dtype), its NT-term tiles and the chunk's receivers.
-template <typename T, int NT, int L>
-constexpr int64_t wgrad_smem_bytes() {
-  return WSTAGES * WG * (L / 2 + L) * static_cast<int64_t>(sizeof(T)) +
-         NT * WG * (L / 2 + L) * 2 + MAX_CHUNK * 4;
-}
-
-// CTA (chunk ck, 2·mat + half): rows [half·L/2, +L/2) of weight grad mat
-// (dW2, dWe, dWu, dWv) over the slots of chunk ck, as Σ_pairs Σ_i A[i]ᵀB[i]:
-// the tensor cores sum each pair over 32 slots in fp32, which is then added
-// to an fp64 accumulator. Warp w owns rows (L/4)·(w % 2) .. of the half and
-// columns (L/WN)·(w / 2) ... The work is a sequence of items, (32 slots, one
-// pair) each; cp.async fetches the raw rows of the next WSTAGES - 1 items
-// while one is split into its terms and multiplied.
-template <typename T, int NT, int L>
-__global__ void __launch_bounds__(wthreads<NT>(), NT == 1 ? 2 : 1)
-    step3_bwd_wgrad_kernel(const WgradArgs a) {
-  extern __shared__ float4 wsmem4[];
-  constexpr int WTHREADS = wthreads<NT>();
-  constexpr int WN = WTHREADS / 64;     // warp columns (two warp rows)
-  constexpr int AW = L / 2;             // weight-grad rows of a CTA
-  constexpr int MT = AW / 2 / 16;       // m16 tiles of a warp
-  constexpr int NTL = L / WN / 8;       // n8 tiles of a warp
-  constexpr int RAW = WG * (AW + L);    // raw values of one item: A (WG, AW), B (WG, L)
-  constexpr int V = 16 / static_cast<int>(sizeof(T));  // values per 16-byte copy
-  T* raw_s = reinterpret_cast<T*>(wsmem4);  // [stage] (RAW,)
-  uint16_t* a_s = reinterpret_cast<uint16_t*>(raw_s + WSTAGES * RAW);  // NT × (WG, AW)
-  uint16_t* b_s = a_s + NT * WG * AW;                                  // NT × (WG, L)
-  int32_t* rcv_s = reinterpret_cast<int32_t*>(b_s + NT * WG * L);       // (chunk,)
-
-  const T* scratch = static_cast<const T*>(a.scratch);
-  const T* x = static_cast<const T*>(a.x);
-  const T* g = static_cast<const T*>(a.g);
-  const T* e = static_cast<const T*>(a.e);
-  const int tid = static_cast<int>(threadIdx.x), lane = tid % 32, warp = tid / 32;
-  const int wm = warp % 2, wn = warp / 2;
-  const int64_t ck = blockIdx.x;
-  const int mat = static_cast<int>(blockIdx.y / 2), half = static_cast<int>(blockIdx.y % 2);
-  const int64_t lo = ck * a.chunk;
-  const int64_t hi = lo + a.chunk < a.n_edges ? lo + a.chunk : a.n_edges;
-
-  // (A, B) stream pairs of each weight grad: dW2, dWe, dWu, dWv
-  int pa[2], pb[2], n_pairs_mat;
-  if (mat == 0) { pa[0] = S_H1; pb[0] = S_DY1; pa[1] = S_H2; pb[1] = S_DY2; n_pairs_mat = 2; }
-  else if (mat == 1) { pa[0] = SRC_E; pb[0] = S_DPS; pa[1] = 0; pb[1] = 0; n_pairs_mat = 1; }
-  else if (mat == 2) { pa[0] = SRC_XR; pb[0] = S_DP1; pa[1] = SRC_G; pb[1] = S_DP2; n_pairs_mat = 2; }
-  else { pa[0] = SRC_XR; pb[0] = S_DP2; pa[1] = SRC_G; pb[1] = S_DP1; n_pairs_mat = 2; }
-  const int64_t n_items = (hi - lo + WG - 1) / WG * n_pairs_mat;
-  for (int64_t i = tid; i < hi - lo; i += WTHREADS) rcv_s[i] = a.rcv[lo + i];
-  __syncthreads();
-
-  // item it's raw rows into its stage (zero-filled past the chunk and for
-  // slots without receiver); an item past the last commits an empty group
-  auto fetch = [&](int64_t it) {
-    if (it < n_items) {
-      const int p = static_cast<int>(it % n_pairs_mat);
-      const int64_t base = lo + (it / n_pairs_mat) * WG;
-      T* dst = raw_s + (it % WSTAGES) * RAW;
-      for (int q = tid; q < RAW / V; q += WTHREADS) {
-        const bool in_a = q < WG * AW / V;
-        const int qq = in_a ? q : q - WG * AW / V;
-        const int width = in_a ? AW : L;
-        const int row = qq / (width / V), col = (qq % (width / V)) * V;
-        const T* src = operand_row<T>(in_a ? pa[p] : pb[p], base + row, lo, hi,
-                                      in_a ? half * AW + col : col, scratch, x, g, e, rcv_s,
-                                      a.n_nodes, a.n_edges, L);
-        if constexpr (keep(WITHOUT_WG_FETCH))
-          cp_async16_zfill(dst + (in_a ? 0 : WG * AW) + row * width + col,
-                           src != nullptr ? src : x, src != nullptr);
-        else
-          (void)src;
-      }
-    }
-    cp_async_commit();
-  };
-
-  double acc[MT][NTL][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[mi][nj][k] = 0.0;
-
-  for (int s = 0; s < WSTAGES - 1; ++s) fetch(s);
-#pragma unroll 1
-  for (int64_t it = 0; it < n_items; ++it) {
-    cp_async_wait<WSTAGES - 2>();
-    __syncthreads();  // item it's rows are in; item it - 1's tiles and stage are free
-    fetch(it + WSTAGES - 1);
-    const T* src = raw_s + (it % WSTAGES) * RAW;
-    for (int q = tid; q < RAW / 4; q += WTHREADS) {
-      const bool in_a = q < WG * AW / 4;
-      const int qq = in_a ? q : q - WG * AW / 4;
-      const int width = in_a ? AW : L;
-      const int row = qq / (width / 4), col = (qq % (width / 4)) * 4;
-      const float4 v = load4(src + (in_a ? 0 : WG * AW) + row * width + col);
-      if constexpr (keep(WITHOUT_WG_SPLIT)) {
-        if (in_a) put4<NT, AW>(a_s, WG * AW, row, col, v);
-        else put4<NT, L>(b_s, WG * L, row, col, v);
-      } else if (v.x == 1234.5f) {
-        a_s[tid] = 1;  // keeps the load
-      }
-    }
-    __syncthreads();
-    // one fp32 partial per item (32 slots): each k16 block's term products
-    // are summed by the tensor cores from 0 and added to it in fp32, and it
-    // is added to the fp64 accumulator
-    const int j8 = lane / 8;
-    float part[MT][NTL][4];
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) part[mi][nj][k] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < WG; kk += 16) {
-      // with one term a block is one MMA, which adds to the partial itself
-      float t16[MT][NTL][4];
-      if constexpr (NT > 1) {
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-          for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) t16[mi][nj][k] = 0.f;
-      }
-      uint32_t af[NT][MT][4];
-#pragma unroll
-      for (int t = 0; t < NT; ++t)
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-          ldsm_x4_trans(af[t][mi], a_s + t * WG * AW +
-                                       swz<AW>(kk + lane % 8 + (j8 >> 1) * 8,
-                                               wm * (AW / 2) + mi * 16 + (j8 & 1) * 8));
-#pragma unroll
-      for (int tb = NT - 1; tb >= 0; --tb) {  // as mma_chunk orders the terms
-        uint32_t bf[NTL][2];
-#pragma unroll
-        for (int j = 0; j < NTL; j += 2) {
-          uint32_t r[4];
-          ldsm_x4_trans(r, b_s + tb * WG * L +
-                               swz<L>(kk + lane % 8 + (j8 & 1) * 8, wn * (L / WN) + j * 8 + (j8 >> 1) * 8));
-          bf[j][0] = r[0];
-          bf[j][1] = r[1];
-          bf[j + 1][0] = r[2];
-          bf[j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int ta = NT - 1 - tb; ta >= 0; --ta)
-#pragma unroll
-          for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-            for (int nj = 0; nj < NTL; ++nj)
-              if constexpr (keep(WITHOUT_WG_MMA))
-                mma_bf16_16816(NT > 1 ? t16[mi][nj] : part[mi][nj], af[ta][mi], bf[nj][0],
-                               bf[nj][1]);
-      }
-      if constexpr (NT > 1) {
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-          for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) part[mi][nj][k] += t16[mi][nj][k];
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[mi][nj][k] += static_cast<double>(part[mi][nj][k]);
-  }
-  cp_async_wait<0>();
-  double* out = a.wpart + (ck * 4 + mat) * L * L;
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NTL; ++nj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t row = half * AW + wm * (AW / 2) + mi * 16 + lane / 4 + 8 * h;
-        const int64_t col = wn * (L / WN) + nj * 8 + 2 * (lane % 4);
-        *reinterpret_cast<double2*>(out + row * L + col) =
-            make_double2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-      }
-}
-
-// wb = [dW2; dWe; dWu; dWv; db2; db0] (4L+2, L) fp32: the per-chunk and
-// per-part partials summed in order in fp64, rounded once.
-__global__ void step3_bwd_reduce_kernel(const double* __restrict__ wpart, int64_t n_chunks,
-                                        const double* __restrict__ bpart, int64_t n_parts,
-                                        int64_t L, float* __restrict__ wb) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t n_w = 4 * L * L;
-  if (idx < n_w) {
-    double s = 0.0;
-    for (int64_t ck = 0; ck < n_chunks; ++ck) s += wpart[ck * n_w + idx];
-    wb[idx] = static_cast<float>(s);
-  } else if (idx < n_w + 2 * L) {
-    const int64_t j = (idx - n_w) / L, c = (idx - n_w) % L;
-    double s = 0.0;
-    for (int64_t pt = 0; pt < n_parts; ++pt) s += bpart[(pt * 2 + j) * L + c];
-    wb[idx] = static_cast<float>(s);
-  }
-}
 
 template <typename T, int NT, int L>
 cudaError_t launch(const TileArgs& ta, const WgradArgs& wa, const Weights& ws, uint16_t* wsplit,
                    int64_t n_chunks, float* wb, cudaStream_t stream) {
-  const int64_t n_w = N_WEIGHTS * static_cast<int64_t>(L) * L;
-  prepare_weights_kernel<T, NT><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, stream>>>(
-      ws, const_cast<float*>(ta.wfma), wsplit, L);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = prepare_weights<T, NT>(ws, N_FMA, N_WEIGHTS, const_cast<float*>(ta.wfma),
+                                           wsplit, L, stream);
   if (err != cudaSuccess) return err;
 
+  static_assert(tile_smem_bytes<NT, L>() <= 232448, "fits an SM's 227 KB");
   const int smem_tile = static_cast<int>(tile_smem_bytes<NT, L>());
   err = cudaFuncSetAttribute(step3_bwd_tile_kernel<T, NT, L>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_tile);
@@ -786,20 +477,18 @@ cudaError_t launch(const TileArgs& ta, const WgradArgs& wa, const Weights& ws, u
       ta);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  return launch_wgrad_reduce<T, NT, L>(wa, n_chunks, ta.bpart, n_parts, wb, stream);
+}
 
-  const int smem_wgrad = static_cast<int>(wgrad_smem_bytes<T, NT, L>());
-  err = cudaFuncSetAttribute(step3_bwd_wgrad_kernel<T, NT, L>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_wgrad);
-  if (err != cudaSuccess) return err;
-  step3_bwd_wgrad_kernel<T, NT, L><<<dim3(static_cast<unsigned>(n_chunks), 8), wthreads<NT>(),
-                                     smem_wgrad, stream>>>(wa);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const int64_t n_out = (4 * L + 2) * static_cast<int64_t>(L);
-  step3_bwd_reduce_kernel<<<static_cast<unsigned>((n_out + 255) / 256), 256, 0, stream>>>(
-      wa.wpart, n_chunks, ta.bpart, n_parts, L, wb);
-  return cudaGetLastError();
+template <typename T, int NT>
+cudaError_t launch_width(const TileArgs& ta, const WgradArgs& wa, const Weights& ws,
+                         uint16_t* wsplit, int64_t n_chunks, float* wb, int64_t L,
+                         cudaStream_t stream) {
+  switch (L) {
+    case 64: return launch<T, NT, 64>(ta, wa, ws, wsplit, n_chunks, wb, stream);
+    case 128: return launch<T, NT, 128>(ta, wa, ws, wsplit, n_chunks, wb, stream);
+    default: return launch<T, NT, 256>(ta, wa, ws, wsplit, n_chunks, wb, stream);
+  }
 }
 
 }  // namespace
@@ -810,10 +499,7 @@ extern "C" {
 int64_t pdg_fused_edge3_bwd_parts(int64_t n_edges) { return (n_edges + PART - 1) / PART; }
 
 // Weight-grad chunks over n_edges slots: the rows of wpart.
-int64_t pdg_fused_edge3_bwd_chunks(int64_t n_edges) {
-  const int64_t need = (n_edges + MAX_CHUNK - 1) / MAX_CHUNK;
-  return need > MIN_CHUNKS ? need : MIN_CHUNKS;
-}
+int64_t pdg_fused_edge3_bwd_chunks(int64_t n_edges) { return wgrad_chunks(n_edges, 4); }
 
 // Launches the backward on `stream`. Pointers are device pointers. x, g, e,
 // z_upd, dz_upd, the weights, their transposes (wuT[k][c] = wu[c][k], ...),
@@ -824,7 +510,7 @@ int64_t pdg_fused_edge3_bwd_chunks(int64_t n_edges) {
 // (3 terms in fp32 mode);
 // bpart (pdg_fused_edge3_bwd_parts(n_edges), 2, L) and wpart (n_chunks =
 // pdg_fused_edge3_bwd_chunks(n_edges), 4, L, L) fp64 scratch. L is
-// 128. Returns a cudaError_t value (0 on success).
+// 64, 128 or 256. Returns a cudaError_t value (0 on success).
 int pdg_fused_edge3_bwd(int bf16, const void* x, const void* g, const void* e,
                         const void* z_upd, const void* dz_upd, const void* dR, const void* dM,
                         const void* rcv, const void* gid, const void* wu, const void* wv,
@@ -834,7 +520,7 @@ int pdg_fused_edge3_bwd(int bf16, const void* x, const void* g, const void* e,
                         void* wfma, void* bpart, void* wpart, void* wb, int64_t n_nodes,
                         int64_t n_edges,
                         int64_t L, int64_t n_graphs, int64_t n_chunks, void* stream) {
-  if (L != 128 || n_nodes < 1 || n_edges < 1 || n_chunks < 1 ||
+  if ((L != 64 && L != 128 && L != 256) || n_nodes < 1 || n_edges < 1 || n_chunks < 1 ||
       (n_edges + n_chunks - 1) / n_chunks > MAX_CHUNK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -844,18 +530,38 @@ int pdg_fused_edge3_bwd(int bf16, const void* x, const void* g, const void* e,
               static_cast<const float*>(wfma), static_cast<const uint16_t*>(wsplit), dg, de,
               static_cast<float*>(dx), scratch, static_cast<double*>(bpart),
               n_nodes, n_edges, n_graphs};
-  WgradArgs wa{scratch, x, g, e, r, static_cast<double*>(wpart), n_nodes, n_edges,
-               (n_edges + n_chunks - 1) / n_chunks};
+  // the weight grads' operand streams: the 7 scratch streams, e, g, and x
+  // at the receivers
+  WgradArgs wa{};
+  const int64_t plane = n_edges * L * (bf16 ? 2 : 4);
+  for (int s = 0; s < SRC_E; ++s) {
+    wa.src[s] = static_cast<const char*>(scratch) + s * plane;
+    wa.kind[s] = ROW;
+  }
+  wa.src[SRC_E] = e, wa.kind[SRC_E] = ROW;
+  wa.src[SRC_G] = g, wa.kind[SRC_G] = ROW;
+  wa.src[SRC_XR] = x, wa.kind[SRC_XR] = AT_IDX;
+  wa.idx = r;
+  wa.n_idx = n_nodes;
+  // dW2, dWe, dWu, dWv
+  const int pairs[4][2][2] = {{{S_H1, S_DY1}, {S_H2, S_DY2}},
+                              {{SRC_E, S_DPS}, {SRC_E, S_DPS}},
+                              {{SRC_XR, S_DP1}, {SRC_G, S_DP2}},
+                              {{SRC_XR, S_DP2}, {SRC_G, S_DP1}}};
+  wa.n_mats = 4;
+  for (int m = 0; m < 4; ++m) {
+    wa.n_pairs[m] = m == 1 ? 1 : 2;
+    for (int p = 0; p < 2; ++p) wa.pa[m][p] = pairs[m][p][0], wa.pb[m][p] = pairs[m][p][1];
+  }
+  wa.wpart = static_cast<double*>(wpart);
+  wa.n_rows = n_edges;
+  wa.chunk = (n_edges + n_chunks - 1) / n_chunks;
   const Weights ws{{wu, wv, we, w2, w2T, weT, wuT, wvT}};
   auto* sp = static_cast<uint16_t*>(wsplit);
   auto* o = static_cast<float*>(wb);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bf16) {
-    err = launch<__nv_bfloat16, 1, 128>(ta, wa, ws, sp, n_chunks, o, s);
-  } else {
-    err = launch<float, 3, 128>(ta, wa, ws, sp, n_chunks, o, s);
-  }
+  const cudaError_t err = bf16 ? launch_width<__nv_bfloat16, 1>(ta, wa, ws, sp, n_chunks, o, L, s)
+                               : launch_width<float, 3>(ta, wa, ws, sp, n_chunks, o, L, s);
   return static_cast<int>(err);
 }
 

@@ -1,4 +1,6 @@
-// Fused edge-step backward (v2, the "fused" Processor) for NVIDIA Hopper (sm_90a).
+// Fused edge-step backward (v2, the "fused" Processor) for NVIDIA Hopper
+// (sm_90a), on FMA chains that track the plain version's rounding and on
+// the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_step_bwd_kernel` of
 // p_div_gnn_tpu/ops/fused_edge.py (launched by `_step_backward_pallas`
@@ -18,7 +20,7 @@
 //   dy1 = (dR[r] + dM0 + 2·dM1·z_msg)·(z_msg > 0)    dpre1 = dy1·W2ᵀ·(h1 > 0)
 //   dy2 = (dz_upd + dM2 + 2·dM3·z_upd)·(z_upd > 0)   dpre2 = dy2·W2ᵀ·(h2 > 0)
 //   dg_v = dpre1, dg_u = dpre2, de = (dpre1 + dpre2)·Weᵀ   (Ep, L) stream dtype
-//   da_u[r] += dpre1, da_v[r] += dpre2                      (Np, L) fp32
+//   da_u[r] = Σ dpre1, da_v[r] = Σ dpre2                    (Np, L) fp32
 //   dW2 = Σ h1ᵀdy1 + h2ᵀdy2   dWe = Σ eᵀ(dpre1 + dpre2)
 //   db2 = Σ dy1 + dy2         db0 = Σ dpre1 + dpre2
 //
@@ -26,306 +28,107 @@
 // to recompute the forward, dy1·W2ᵀ, dy2·W2ᵀ and dps·Weᵀ for the data
 // cotangents, h1ᵀdy1, h2ᵀdy2 and eᵀdps for the weight grads), 2·8·L² flops
 // per slot, against ~4.1 KB of streamed bytes per slot in fp32 (g_v, g_u,
-// e, z_upd, dz_upd in, dg_v, dg_u, de out): ~64 flop/byte at L=128, so the
-// fp32 FMA rate (67 TFLOP/s; the tensor cores are not used) bounds it in
-// fp32, and bytes bound it in bf16 (against the tensor-core rate).
+// e, z_upd, dz_upd in, dg_v, dg_u, de out): operations bound it in fp32
+// (the four chains at the fp32 FMA rate), bytes in bf16.
 //
-// Design, in three launches:
-// 1. `v2_bwd_tile_kernel`: one CTA per node tile, walking the tile's edge
-//    blocks (binary search in edge_block_tile) 16 slots at a time, with 2L
-//    threads: thread (p, c) owns column c of path p (p = 0 the messages,
-//    p = 1 the edge update). The five per-slot products are split evenly:
-//    each path forms half the slots' e·We, half of h1·W2 and half of
-//    dps·Weᵀ, and its own dpre = dy·W2ᵀ. The TPU kernel sums dA into
-//    node-tile blocks that the sequential grid revisits; here the layout
-//    sorts each tile's slots by receiver, so path p's thread c keeps the
-//    running fp64 sum of its column of dpre for the current receiver in a
-//    register and adds it to da_p when the receiver changes: this CTA is
-//    the only writer of its tile's rows, no atomics. db2 and db0 go to
-//    per-tile fp64 partials. h1, h2, dy1, dy2 and dpre1 + dpre2, rounded to
-//    the stream dtype as the weight-grad contractions take them, go to a
-//    scratch stream.
-// 2. and 3. `edge_bwd_wgrad_kernel` and `edge_bwd_reduce_kernel`
-//    (edge_common.cuh, shared with the pair-blocked backward): the weight
-//    grads Σ_i A[i]ᵀB[i] over all real slots, which the TPU kernel sums into
-//    one (2L+8, L) block revisited by every grid step, as fp32 FMAs summed
-//    over 8 slots and in fp64 across them, then one ordered reduce of the
-//    partials into one (2L+2, L) block [dW2; dWe; db2; db0], rounded once.
-//    The result does not change from run to run. Padding slots are skipped:
-//    their products are exact zeros (dy is masked).
-// - Each product is one FMA chain over k in order; the first-layer sum is
-//   grouped as the forward groups it, so the recomputed z_msg is the
-//   forward's bit for bit. (dR[r] + dM0) + (2·dM1)·z is rounded after each
-//   operation, as the plain version rounds it (no contraction into an FMA).
-// - Precision: fp32 FMA for the per-slot products (no TF32) and for the
-//   8-slot weight-grad sums, fp64 for the sums of those, for dA and for
-//   db0 / db2. In bf16 mode every contraction takes bf16 operands with
+// Design (v2_bwd_tile.cuh, shared with the pair-blocked backward; the FMA
+// tile, its weight ring and the part split come from fused3_tile.cuh, the
+// split-weight ring and the weight-grad and reduce kernels from
+// bwd_common.cuh, shared with the fused3 backward), at L = 64, 128 or 256
+// (the wrapper pads any other L <= 256 with zeros, which is exact):
+// 0. `prepare_weights_kernel`: We, W2, W2ᵀ in fp32 for the chains, Weᵀ as
+//    NT bf16 terms (NT = 3 in fp32 mode, 1 in bf16).
+// 1. `v2_bwd_tile_kernel`: one CTA per part of ~512 slots, its ends moved to
+//    receiver-run boundaries, so one CTA writes each receiver's da_u and
+//    da_v rows, once, from fp64 column sums in slot order: the layout must
+//    give each receiver one run (the receiver-major layout does; the wrapper
+//    checks it once per layout tensor and raises on a split layout). e·We,
+//    h1·W2, dy1·W2ᵀ and dy2·W2ᵀ are FMA chains bit-equal to the plain
+//    version (so dg_v and dg_u are the parent kernel's bit for bit in fp32);
+//    de runs on the tensor cores. The per-part db2 and db0 column sums are
+//    fp64.
+// 2. `bwd_wgrad_kernel`, asked for dW2 (h1, dy1), (h2, dy2) and dWe (e,
+//    dps), on the tensor cores, each 32-slot partial added in fp64.
+// 3. `bwd_reduce_kernel`: the partials summed in order in fp64, rounded
+//    once, into [dW2; dWe; db2; db0]. Two calls give bit-equal outputs.
+// - Precision: fp32 FMA chains (no TF32), split-bf16 tensor-core products
+//   in fp32 mode; in bf16 mode every contraction takes bf16 operands with
 //   fp32 accumulation, as the JAX kernel does (`mm` of `_step_bwd_kernel`):
 //   h, dy and dpre1 + dpre2 are rounded before they are contracted, and dA
 //   sums the bf16-rounded dpre. The gathered dR row is not rounded, as in
-//   the JAX op on the CPU, to which the tests hold the port (the TPU's
-//   DEFAULT-precision one-hot gather may round it to bf16).
-// - Shared memory of kernel 1 is 5·16·L·4 bytes + 128 (41 KB at L 128);
-//   kernel 1 runs at most 128 registers a thread (launch bound 512), so
-//   two 256-thread CTAs share an SM. The weight-grad kernel (16·L/8 threads) has the
-//   same bound, so two of its CTAs share an SM at L 128: at 136 registers
-//   the bf16 instance ran one CTA per SM and took 1.8x the fp32 time.
+//   the JAX op on the CPU, to which the tests hold the port.
+// - The split, as the SASS shows it at L = 128 (scripts/port_sass.py):
+//   the tile kernel's four FMA-chain products are 256 FFMA (a 4 x 4 block a
+//   thread, unrolled), its one tensor-core product (de) 48 / 8 HMMA with
+//   fp32 / bf16 streams (six / one term products per k16 block); the
+//   weight-grad kernel's three products 48 / 16 HMMA. ptxas at L = 128:
+//   the tile kernel 202 / 185 registers, 224,784 / 151,056 bytes of dynamic
+//   shared memory (one CTA per SM); the weight-grad kernel 128 / 128
+//   registers at 512 / 256 threads; no spills. chip_smoke.py prints the
+//   figures at each width and dtype (PERF.md §6).
 
-#include "edge_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
-namespace {
-
-constexpr int EC = 16;  // edge slots staged per chunk of the tile kernel
-constexpr int HALF = EC / 2;
-
-template <typename T>
-__global__ void __launch_bounds__(512) v2_bwd_tile_kernel(
-    const T* __restrict__ a_u, const T* __restrict__ a_v, const T* __restrict__ g_v,
-    const T* __restrict__ g_u, const T* __restrict__ e, const T* __restrict__ z_upd,
-    const T* __restrict__ dz_upd, const float* __restrict__ dR, const float* __restrict__ dM,
-    const int32_t* __restrict__ rcv, const int32_t* __restrict__ gid,
-    const int32_t* __restrict__ block_tile, const T* __restrict__ we,
-    const T* __restrict__ w2, const T* __restrict__ weT, const T* __restrict__ w2T,
-    const T* __restrict__ b0, const T* __restrict__ b2, T* __restrict__ dg_v,
-    T* __restrict__ dg_u, T* __restrict__ de, float* __restrict__ da,
-    T* __restrict__ scratch, double* __restrict__ bpart, int64_t n_nodes, int64_t n_edges,
-    int64_t L, int64_t tile, int64_t block, int64_t n_blocks, int64_t n_graphs) {
-  extern __shared__ float4 smem4[];
-  float* s_e = reinterpret_cast<float*>(smem4);  // (EC, L) e rows
-  float* s_ep = s_e + EC * L;                    // (EC, L) e·We
-  float* s_h = s_ep + EC * L;                    // (2, EC, L) h, then dy, of each path
-  float* s_y = s_h + 2 * EC * L;                 // (EC, L) h1·W2, then dpre1, then dps
-  int* rl_s = reinterpret_cast<int*>(s_y + EC * L);     // (EC,) local receiver or -1
-  float* mk_s = reinterpret_cast<float*>(rl_s + EC);    // (EC,) mask
-
-  // blockDim.x == 2L: thread (path, c) owns column c of one path
-  const int path = static_cast<int>(threadIdx.x / L);
-  const int c = static_cast<int>(threadIdx.x % L);
-  const T* a = path ? a_v : a_u;
-  const T* g = path ? g_u : g_v;
-  T* dg = path ? dg_u : dg_v;
-  float* da_own = da + path * n_nodes * L;
-  float* h_own = s_h + path * EC * L;
-  const int64_t t = blockIdx.x;
-  const int64_t node_lo = t * tile;
-  const int64_t e_lo = first_not_less(block_tile, n_blocks, t) * block;
-  const int64_t e_hi = first_not_less(block_tile, n_blocks, t + 1) * block;
-  const int64_t EL = n_edges * L;
-
-  const float b0c = to_f(b0[c]);
-  const float b2c = to_f(b2[c]);
-  const float dm_a = dM[(2 * path) * L + c];           // dM0 or dM2
-  const float dm_b2 = 2.f * dM[(2 * path + 1) * L + c];  // 2·dM1 or 2·dM3
-  double s_dy = 0.0, s_dps = 0.0;  // db2 of this path; db0 (edge-update path)
-  double da_run = 0.0;             // dA of the current receiver
-  int da_rl = -1;
-
-  for (int64_t base = e_lo; base < e_hi; base += EC) {
-    for (int i = threadIdx.x; i < EC; i += blockDim.x) {
-      const int64_t ei = base + i;
-      int rl = -1;
-      float m = 0.f;
-      if (ei < e_hi) {
-        const int64_t r = rcv[ei];
-        if (r >= node_lo && r < node_lo + tile) rl = static_cast<int>(r - node_lo);
-        m = gid[ei] < n_graphs ? 1.f : 0.f;
-      }
-      rl_s[i] = rl;
-      mk_s[i] = m;
-    }
-    for (int i = path; i < EC; i += 2) {
-      const int64_t ei = base + i;
-      s_e[i * L + c] = ei < e_hi ? to_f(e[ei * L + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // --- recompute e·We, half the slots per path
-    {
-      float acc[HALF];
-      rows_times_w<T, HALF>(s_e + path * HALF * L, we, L, c, acc);
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) s_ep[(path * HALF + i) * L + c] = acc[i];
-    }
-    __syncthreads();
-
-    // --- h of this path, as the forward forms it; bit i of `on` is pre > 0
-    uint32_t on = 0;
-#pragma unroll 4
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      const int rl = rl_s[i];
-      const float ar = rl >= 0 ? to_f(a[(node_lo + rl) * L + c]) : 0.f;
-      const float gi = ei < e_hi ? to_f(g[ei * L + c]) : 0.f;
-      const float pre = ((ar + gi) + s_ep[i * L + c]) + b0c;
-      on |= (pre > 0.f ? 1u : 0u) << i;
-      const float h = round_sd<T>(fmaxf(pre, 0.f));
-      h_own[i * L + c] = h;
-      if (ei < e_hi) scratch[(S_H1 + path) * EL + ei * L + c] = from_f<T>(h);
-    }
-    __syncthreads();
-
-    // --- h1·W2 (the message path's z), half the slots per path
-    {
-      float acc[HALF];
-      rows_times_w<T, HALF>(s_h + path * HALF * L, w2, L, c, acc);
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) s_y[(path * HALF + i) * L + c] = acc[i];
-    }
-    __syncthreads();
-
-    // --- dy of this path
-#pragma unroll 4
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      const bool valid = ei < e_hi;
-      float z, dz;
-      if (path == 0) {
-        const int rl = rl_s[i];
-        z = fmaxf(s_y[i * L + c] + b2c, 0.f) * mk_s[i];
-        dz = (rl >= 0 ? dR[(node_lo + rl) * L + c] : 0.f) + dm_a;
-      } else {
-        z = valid ? to_f(z_upd[ei * L + c]) : 0.f;
-        dz = (valid ? to_f(dz_upd[ei * L + c]) : 0.f) + dm_a;
-      }
-      // (dz + dM) + (2·dM')·z, each operation rounded as the plain version
-      dz = __fadd_rn(dz, __fmul_rn(dm_b2, z));
-      const float dy = dz * (z > 0.f ? 1.f : 0.f);
-      s_dy += dy;
-      h_own[i * L + c] = round_sd<T>(dy);
-      if (valid) scratch[(S_DY1 + path) * EL + ei * L + c] = from_f<T>(dy);
-    }
-    __syncthreads();
-
-    // --- dpre = (dy·W2ᵀ)·(pre > 0) of this path: dg and the dA runs
-    float dp[EC];
-    rows_times_w<T, EC>(h_own, w2T, L, c, dp);
-#pragma unroll
-    for (int i = 0; i < EC; ++i) {
-      const int64_t ei = base + i;
-      dp[i] *= (on >> i) & 1u ? 1.f : 0.f;
-      if (ei < e_hi) dg[ei * L + c] = from_f<T>(dp[i]);
-      if (path == 0) s_y[i * L + c] = dp[i];
-      const int rl = rl_s[i];
-      if (rl < 0) continue;
-      if (rl != da_rl) {
-        if (da_rl >= 0) da_own[(node_lo + da_rl) * L + c] += static_cast<float>(da_run);
-        da_run = 0.0;
-        da_rl = rl;
-      }
-      da_run += round_sd<T>(dp[i]);
-    }
-    __syncthreads();
-
-    // --- dps = dpre1 + dpre2, formed by the edge-update path
-    if (path == 1) {
-#pragma unroll
-      for (int i = 0; i < EC; ++i) {
-        const int64_t ei = base + i;
-        const float dps = s_y[i * L + c] + dp[i];
-        s_dps += dps;
-        s_y[i * L + c] = round_sd<T>(dps);
-        if (ei < e_hi) scratch[S_DPS * EL + ei * L + c] = from_f<T>(dps);
-      }
-    }
-    __syncthreads();
-
-    // --- de = dps·Weᵀ, half the slots per path
-    {
-      float acc[HALF];
-      rows_times_w<T, HALF>(s_y + path * HALF * L, weT, L, c, acc);
-#pragma unroll
-      for (int i = 0; i < HALF; ++i) {
-        const int64_t ei = base + path * HALF + i;
-        if (ei < e_hi) de[ei * L + c] = from_f<T>(acc[i]);
-      }
-    }
-    __syncthreads();  // the staged rows are restaged next chunk
-  }
-
-  if (da_rl >= 0) da_own[(node_lo + da_rl) * L + c] += static_cast<float>(da_run);
-  bpart[(t * 3 + path) * L + c] = s_dy;
-  if (path == 1) bpart[(t * 3 + 2) * L + c] = s_dps;
-}
-
-struct Args {
-  const void *a_u, *a_v, *g_v, *g_u, *e, *z_upd, *dz_upd;
-  const float *dR, *dM;
-  const int32_t *rcv, *gid, *block_tile;
-  const void *we, *w2, *weT, *w2T, *b0, *b2;
-  void *dg_v, *dg_u, *de;
-  float* da;
-  void* scratch;
-  double *bpart, *wpart;
-  float* wb;
-  int64_t n_nodes, n_edges, L, tile, n_blocks, n_graphs, n_chunks;
-};
-
-template <typename T>
-cudaError_t launch(const Args& a, size_t smem_tile, cudaStream_t stream) {
-  const int64_t n_tiles = a.n_nodes / a.tile;
-  const int64_t block = a.n_edges / a.n_blocks;
-  cudaError_t err = cudaFuncSetAttribute(v2_bwd_tile_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_tile));
-  if (err != cudaSuccess) return err;
-  auto c = [](const void* p) { return static_cast<const T*>(p); };
-  v2_bwd_tile_kernel<T><<<static_cast<unsigned>(n_tiles), static_cast<unsigned>(2 * a.L),
-                          smem_tile, stream>>>(
-      c(a.a_u), c(a.a_v), c(a.g_v), c(a.g_u), c(a.e), c(a.z_upd), c(a.dz_upd), a.dR, a.dM,
-      a.rcv, a.gid, a.block_tile, c(a.we), c(a.w2), c(a.weT), c(a.w2T), c(a.b0), c(a.b2),
-      static_cast<T*>(a.dg_v), static_cast<T*>(a.dg_u), static_cast<T*>(a.de), a.da,
-      static_cast<T*>(a.scratch), a.bpart, a.n_nodes, a.n_edges, a.L, a.tile, block,
-      a.n_blocks, a.n_graphs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  return launch_wgrad_reduce<T>(static_cast<const T*>(a.scratch), c(a.e), a.gid, a.wpart,
-                                a.bpart, a.wb, a.n_edges, a.L, n_tiles, a.n_chunks,
-                                a.n_graphs, stream);
-}
-
-}  // namespace
+#include "mma_sm90.cuh"
+#include "fused3_tile.cuh"
+#include "bwd_common.cuh"
+#include "v2_bwd_tile.cuh"
 
 extern "C" {
 
-// Shared memory of one CTA of the tile kernel.
-int64_t pdg_fused_edge_bwd_tile_smem_bytes(int64_t L) {
-  return 5 * EC * L * static_cast<int64_t>(sizeof(float)) +
-         EC * static_cast<int64_t>(sizeof(int) + sizeof(float));
+// CTAs of the tile kernel over n_edges slots: the rows of bpart.
+int64_t pdg_fused_edge_bwd_parts(int64_t n_edges) { return v2_parts(n_edges); }
+
+// Dynamic shared memory of the tile kernel (which == 0) or of the
+// weight-grad kernel (which == 1) at width L (64, 128, 256), bytes.
+int64_t pdg_fused_edge_bwd_smem(int bf16, int64_t L, int which) {
+  return v2_bwd_smem(bf16, L, which);
 }
+
+// Weight-grad chunks over n_edges slots: the rows of wpart.
+int64_t pdg_fused_edge_bwd_chunks(int64_t n_edges) { return wgrad_chunks(n_edges, 2); }
 
 // Launches the backward on `stream`. Pointers are device pointers. a_u,
 // a_v, g_v, g_u, e, z_upd, dz_upd, the weights, their transposes
 // (weT[k][c] = we[c][k], w2T likewise), dg_v, dg_u, de and scratch
 // (5, n_edges, L) are fp32 (bf16 == 0) or bf16 (bf16 == 1); dR (n_nodes,
 // L), dM (8, L), da (2, n_nodes, L, zeroed by the caller) and wb (2L+2, L)
-// are fp32; rcv, gid and block_tile are int32; bpart (n_nodes/tile, 3, L)
-// and wpart (n_chunks, 2, L, L) are fp64 scratch. Returns a cudaError_t
-// value (0 on success).
+// are fp32; rcv (receiver-sorted runs) and gid are int32; wfma (3, L, L)
+// fp32 and wsplit (1, 3 or 1, L, L) bf16 scratch (3 terms in fp32 mode);
+// bpart (pdg_fused_edge_bwd_parts(n_edges), 2, L) and wpart (n_chunks =
+// pdg_fused_edge_bwd_chunks(n_edges), 2, L, L) fp64 scratch. L is 64, 128
+// or 256. Returns a cudaError_t value (0 on success).
 int pdg_fused_edge_bwd(int bf16, const void* a_u, const void* a_v, const void* g_v,
                        const void* g_u, const void* e, const void* z_upd, const void* dz_upd,
                        const void* dR, const void* dM, const void* rcv, const void* gid,
-                       const void* block_tile, const void* we, const void* w2,
-                       const void* weT, const void* w2T, const void* b0, const void* b2,
-                       void* dg_v, void* dg_u, void* de, void* da, void* scratch, void* bpart,
+                       const void* we, const void* w2, const void* w2T, const void* weT,
+                       const void* b0, const void* b2, void* dg_v, void* dg_u, void* de,
+                       void* da, void* scratch, void* wfma, void* wsplit, void* bpart,
                        void* wpart, void* wb, int64_t n_nodes, int64_t n_edges, int64_t L,
-                       int64_t tile, int64_t n_blocks, int64_t n_graphs, int64_t n_chunks,
-                       void* stream) {
-  if (L < KB || L > 4 * KB || L % KB != 0 || tile <= 0 || n_nodes % tile != 0 ||
-      n_blocks <= 0 || n_edges % n_blocks != 0 || n_chunks <= 0) {
+                       int64_t n_graphs, int64_t n_chunks, void* stream) {
+  if ((L != 64 && L != 128 && L != 256) || n_nodes < 1 || n_edges < 1 || n_chunks < 1 ||
+      (n_edges + n_chunks - 1) / n_chunks > MAX_CHUNK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a{a_u, a_v, g_v, g_u, e, z_upd, dz_upd,
-         static_cast<const float*>(dR), static_cast<const float*>(dM),
-         static_cast<const int32_t*>(rcv), static_cast<const int32_t*>(gid),
-         static_cast<const int32_t*>(block_tile),
-         we, w2, weT, w2T, b0, b2, dg_v, dg_u, de, static_cast<float*>(da), scratch,
-         static_cast<double*>(bpart), static_cast<double*>(wpart), static_cast<float*>(wb),
-         n_nodes, n_edges, L, tile, n_blocks, n_graphs, n_chunks};
-  const size_t smem_tile = static_cast<size_t>(pdg_fused_edge_bwd_tile_smem_bytes(L));
+  V2TileArgs ta{a_u, a_v, g_v, g_u, e, z_upd, dz_upd,
+                static_cast<const float*>(dR), static_cast<const float*>(dM),
+                static_cast<const int32_t*>(rcv), nullptr, nullptr,
+                static_cast<const int32_t*>(gid), b0, b2, static_cast<const float*>(wfma),
+                static_cast<const uint16_t*>(wsplit), dg_v, dg_u, de, static_cast<float*>(da),
+                scratch, static_cast<double*>(bpart), n_nodes, n_edges, n_graphs};
+  const Weights ws{{we, w2, w2T, weT}};
+  auto* wf = static_cast<float*>(wfma);
+  auto* sp = static_cast<uint16_t*>(wsplit);
+  auto* wp = static_cast<double*>(wpart);
+  auto* o = static_cast<float*>(wb);
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = bf16 ? launch<__nv_bfloat16>(a, smem_tile, s)
-                         : launch<float>(a, smem_tile, s);
+  const cudaError_t err =
+      bf16 ? v2_bwd_launch_width<__nv_bfloat16, 1, false>(ta, ws, wf, sp, nullptr, 0, nullptr,
+                                                          n_edges, wp, n_chunks, o, L, s)
+           : v2_bwd_launch_width<float, 3, false>(ta, ws, wf, sp, nullptr, 0, nullptr, n_edges,
+                                                  wp, n_chunks, o, L, s);
   return static_cast<int>(err);
 }
 

@@ -60,9 +60,16 @@ import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum_pair
-from p_div_gnn_tpu_torch.ops.segment import segment_sum
+from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
+from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
+# the widths the kernels are built for: the forwards (#5, #7; a column per
+# thread) take any multiple of 4, the backwards (#6, #8; fused3_tile.cuh's
+# register tile) 64, 128 and 256; any other L <= 256 runs at the next one,
+# zero-padded (ops/widths.py)
+FWD_WIDTHS = tuple(range(4, 257, 4))
+BWD_WIDTHS = (64, 128, 256)
 
 
 def moments_from_partials(
@@ -123,9 +130,9 @@ def fused_edge_step_reference(
 
 
 def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
-                  tile, extra_sd=(), extra_f32=()):
-    """Shapes, dtypes, devices and layout of a kernel call; returns
-    (Np, Ep, L, n_blocks)."""
+                  tile, widths, extra_sd=(), extra_f32=()):
+    """Shapes, dtypes, devices and layout of a kernel call built for
+    ``widths``; returns (Np, Ep, L, Lp, n_blocks), Lp the width it runs at."""
     Np, L = a_u.shape
     Ep = g_v.shape[0]
     sd = g_v.dtype
@@ -149,9 +156,9 @@ def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, b
     _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    _check(L % 4 == 0 and 4 <= L <= 256, f"L={L} must be a multiple of 4 in [4, 256]")
-    _check(5 * Ep * L < 2**31 and 2 * Np * L < 2**31, "arrays too large")
-    return Np, Ep, L, n_blocks
+    Lp = padded_width(L, widths, "fused_edge_step")
+    _check(5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31, "arrays too large")
+    return Np, Ep, L, Lp, n_blocks
 
 
 @functools.cache
@@ -172,8 +179,12 @@ def _fused_edge_step_cuda(
     n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     built = _library()
-    Np, Ep, L, n_blocks = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers,
-                                        edge_gid, block_tile, tile)
+    Np, Ep, L, Lp, n_blocks = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2,
+                                            receivers, edge_gid, block_tile, tile, FWD_WIDTHS)
+    if Lp != L:
+        padded = pad_args((a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2), "cccccwcwc", Lp)
+        out = _fused_edge_step_cuda(*padded, receivers, edge_gid, block_tile, n_graphs, tile)
+        return unpad_args(out, "ccc", L)
     sd = g_v.dtype
     dev = a_u.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
@@ -255,16 +266,15 @@ def _bwd_library() -> CudaLibrary:
     built = load_cuda_library("fused_edge_bwd")
     fn = built.lib.pdg_fused_edge_bwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 26 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    for count in (built.lib.pdg_fused_edge_bwd_parts, built.lib.pdg_fused_edge_bwd_chunks):
+        count.argtypes = [ctypes.c_int64]
+        count.restype = ctypes.c_int64
+    built.lib.pdg_fused_edge_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+    built.lib.pdg_fused_edge_bwd_smem.restype = ctypes.c_int64
     return built
-
-
-# weight-grad partial sums per launch of the backward: slots are cut into
-# this many chunks (with 2 weight grads of 2 slabs each at L=128, ~2 waves
-# of weight-grad CTAs on 132 SMs)
-BWD_CHUNKS = 128
 
 
 def _fused_edge_step_backward_cuda(
@@ -275,10 +285,18 @@ def _fused_edge_step_backward_cuda(
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
     built = _bwd_library()
-    Np, Ep, L, n_blocks = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers,
-                                        edge_gid, block_tile, tile, (z_upd, dz_upd), (dr, dm))
+    Np, Ep, L, Lp, n_blocks = _check_inputs(
+        a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile, tile,
+        BWD_WIDTHS, (z_upd, dz_upd), (dr, dm))
     _check(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
-    _check(L % 64 == 0 and 64 <= L <= 256, f"L={L} must be a multiple of 64 in [64, 256]")
+    # one writer per da row: each receiver's slots must be one run
+    require_consecutive_runs(receivers, Np, "fused_edge_step_backward")
+    if Lp != L:
+        out = _fused_edge_step_backward_cuda(
+            *pad_args((a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2), "cccccwcwc", Lp),
+            receivers, edge_gid, block_tile, n_graphs, tile,
+            *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
+        return unpad_args(out, "cccccwcwc", L)
     sd = g_v.dtype
     dev = a_u.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
@@ -287,17 +305,26 @@ def _fused_edge_step_backward_cuda(
     de = torch.empty((Ep, L), dtype=sd, device=dev)
     da = torch.zeros((2, Np, L), dtype=torch.float32, device=dev)
     scratch = torch.empty((5, Ep, L), dtype=sd, device=dev)
-    bpart = torch.empty((Np // tile, 3, L), dtype=torch.float64, device=dev)
-    wpart = torch.empty((BWD_CHUNKS, 2, L, L), dtype=torch.float64, device=dev)
+    # We, W2, W2ᵀ in fp32 for the FMA chains; Weᵀ as bf16 terms for the
+    # tensor cores, 3 in fp32 mode
+    wfma = torch.empty((3, L, L), dtype=torch.float32, device=dev)
+    n_terms = 1 if sd == torch.bfloat16 else 3
+    wsplit = torch.empty((1, n_terms, L, L), dtype=torch.int16, device=dev)
+    bpart = torch.empty((built.lib.pdg_fused_edge_bwd_parts(Ep), 2, L), dtype=torch.float64,
+                        device=dev)
+    # weight-grad partial sums: slots are cut into chunks, each summed by
+    # CTAs of 64 rows of dW2 or dWe
+    n_chunks = built.lib.pdg_fused_edge_bwd_chunks(Ep)
+    wpart = torch.empty((n_chunks, 2, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_fused_edge_bwd(
             int(sd == torch.bfloat16),
             *(t.data_ptr() for t in (a_u, a_v, g_v, g_u, e, z_upd, dz_upd, dr, dm, receivers,
-                                     edge_gid, block_tile, w_e, w2, weT, w2T, b0, b2,
-                                     dg_v, dg_u, de, da, scratch, bpart, wpart, wb)),
-            Np, Ep, L, tile, n_blocks, int(n_graphs), BWD_CHUNKS, stream,
+                                     edge_gid, w_e, w2, w2T, weT, b0, b2, dg_v, dg_u, de, da,
+                                     scratch, wfma, wsplit, bpart, wpart, wb)),
+            Np, Ep, L, int(n_graphs), n_chunks, stream,
         )
     check_launch(built, err, "fused_edge_bwd")
     fused_edge_step_backward.launches += 1
@@ -318,8 +345,11 @@ def fused_edge_step_backward(
     """The v2 edge step's VJP: (da_u, da_v, dg_v, dg_u, de, dWe, db0, dW2,
     db2), dg_v, dg_u and de in the stream dtype, the rest fp32. CUDA
     tensors go to the kernel (``fused_edge_step_backward.launches`` counts
-    its launches), CPU tensors to the plain version; anything else
-    raises."""
+    its launches), which takes L <= 256 (64, 128 and 256 natively, any
+    other width zero-padded to the next) and each receiver's slots
+    consecutive (the receiver-major layout; a pair-blocked batch's is not)
+    and raises otherwise; CPU tensors go to the plain version; anything
+    else raises."""
     edge_gid, block_tile = aux
     args = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers)
     cots = (z_upd, dz_upd, dr, dm)
@@ -460,9 +490,9 @@ def fused_edge_step2_reference(
 
 
 def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid,
-                       block_tile, block_snd_tile, tile, extra_sd=(), extra_f32=()):
-    """Shapes, dtypes, devices and layout of a fused2 kernel call; returns
-    (Np, Ep, L, n_blocks)."""
+                       block_tile, block_snd_tile, tile, widths, extra_sd=(), extra_f32=()):
+    """Shapes, dtypes, devices and layout of a fused2 kernel call built for
+    ``widths``; returns (Np, Ep, L, Lp, n_blocks), Lp the width it runs at."""
     Np, L = proj_u.shape
     Ep = e.shape[0]
     sd = e.dtype
@@ -488,9 +518,9 @@ def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, e
             and block_snd_tile.shape == block_tile.shape,
             "edge slots must split into whole blocks, each with a receiver and a sender tile")
     _check2(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    _check2(L % 4 == 0 and 4 <= L <= 256, f"L={L} must be a multiple of 4 in [4, 256]")
-    _check2(5 * Ep * L < 2**31 and 2 * Np * L < 2**31, "arrays too large")
-    return Np, Ep, L, n_blocks
+    Lp = padded_width(L, widths, "fused_edge_step2")
+    _check2(5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31, "arrays too large")
+    return Np, Ep, L, Lp, n_blocks
 
 
 @functools.cache
@@ -511,9 +541,14 @@ def _fused_edge_step2_cuda(
     block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     built = _library2()
-    Np, Ep, L, n_blocks = _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers,
-                                             senders, edge_gid, block_tile, block_snd_tile,
-                                             tile)
+    Np, Ep, L, Lp, n_blocks = _check_pair_inputs(
+        proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
+        block_snd_tile, tile, FWD_WIDTHS)
+    if Lp != L:
+        padded = pad_args((proj_u, proj_v, e, w_e, b0, w2, b2), "cccwcwc", Lp)
+        out = _fused_edge_step2_cuda(*padded, receivers, senders, edge_gid, block_tile,
+                                     block_snd_tile, n_graphs, tile)
+        return unpad_args(out, "ccc", L)
     sd = e.dtype
     dev = e.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
@@ -604,10 +639,44 @@ def _bwd_library2() -> CudaLibrary:
     built = load_cuda_library("fused_edge2_bwd")
     fn = built.lib.pdg_fused_edge2_bwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    for count in (built.lib.pdg_fused_edge2_bwd_parts, built.lib.pdg_fused_edge2_bwd_chunks):
+        count.argtypes = [ctypes.c_int64]
+        count.restype = ctypes.c_int64
+    built.lib.pdg_fused_edge2_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+    built.lib.pdg_fused_edge2_bwd_smem.restype = ctypes.c_int64
     return built
+
+
+def pair_bwd_entries(
+    receivers: torch.Tensor, senders: torch.Tensor, edge_gid: torch.Tensor,
+    block_tile: torch.Tensor, block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pair-blocked backward kernel's entries: (slot, rcv, snd) of the
+    real slots, stably sorted by receiver, so each receiver's slots are one
+    run of the list in slot order (the layout meets a receiver in up to ~4
+    runs, one per sender tile of its receiver tile); rcv and snd are -1
+    where the endpoint lies outside its block's tile (the layout never makes
+    one). Then the padding slots. int32, on the layout's device; kept on
+    ``edge_gid`` for the layout's later calls (one device sync per
+    layout)."""
+    key = tuple((t.data_ptr(), t._version) for t in
+                (receivers, senders, edge_gid, block_tile, block_snd_tile)) + (n_graphs, tile)
+    cached = getattr(edge_gid, "_pdg_pair_bwd_entries", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    in_r, in_s = _pair_in_tile(receivers, senders, block_tile, block_snd_tile, tile)
+    real = edge_gid < n_graphs
+    rcv = torch.where(in_r[:, 0], receivers, -1)
+    snd = torch.where(in_s[:, 0], senders, -1)
+    slots = torch.nonzero(real).flatten()
+    slots = slots[torch.sort(rcv[slots], stable=True).indices]
+    entries = (slots.int(), rcv[slots].int(), snd[slots].int(),
+               torch.nonzero(~real).flatten().int())
+    edge_gid._pdg_pair_bwd_entries = (key, entries)
+    return entries
 
 
 def _fused_edge2_bwd_cuda(
@@ -618,32 +687,43 @@ def _fused_edge2_bwd_cuda(
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
     built = _bwd_library2()
-    Np, Ep, L, n_blocks = _check_pair_inputs(
+    Np, Ep, L, Lp, n_blocks = _check_pair_inputs(
         proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
-        block_snd_tile, tile, (z_upd, dz_upd), (dr, dm))
+        block_snd_tile, tile, BWD_WIDTHS, (z_upd, dz_upd), (dr, dm))
     _check2(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
-    _check2(L % 64 == 0 and 64 <= L <= 256, f"L={L} must be a multiple of 64 in [64, 256]")
+    if Lp != L:
+        out = _fused_edge2_bwd_cuda(
+            *pad_args((proj_u, proj_v, e, w_e, b0, w2, b2), "cccwcwc", Lp), receivers,
+            senders, edge_gid, block_tile, block_snd_tile, n_graphs, tile,
+            *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
+        return unpad_args(out, "cccccwcwc", L)
+    slot, rcv, snd, pad = pair_bwd_entries(receivers, senders, edge_gid, block_tile,
+                                           block_snd_tile, n_graphs, tile)
+    n_real = slot.shape[0]
     sd = e.dtype
     dev = e.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
     dpre1 = torch.empty((Ep, L), dtype=sd, device=dev)
     dpre2 = torch.empty((Ep, L), dtype=sd, device=dev)
     de = torch.empty((Ep, L), dtype=sd, device=dev)
-    dur = torch.empty((2, Np, L), dtype=torch.float32, device=dev)
-    d64 = torch.empty((2, Np, L), dtype=torch.float64, device=dev)
-    scratch = torch.empty((5, Ep, L), dtype=sd, device=dev)
-    bpart = torch.empty((Np // tile, 3, L), dtype=torch.float64, device=dev)
-    wpart = torch.empty((BWD_CHUNKS, 2, L, L), dtype=torch.float64, device=dev)
+    dur = torch.zeros((2, Np, L), dtype=torch.float32, device=dev)
+    scratch = torch.empty((5, n_real, L), dtype=sd, device=dev)
+    wfma = torch.empty((3, L, L), dtype=torch.float32, device=dev)
+    n_terms = 1 if sd == torch.bfloat16 else 3
+    wsplit = torch.empty((1, n_terms, L, L), dtype=torch.int16, device=dev)
+    bpart = torch.empty((built.lib.pdg_fused_edge2_bwd_parts(n_real), 2, L),
+                        dtype=torch.float64, device=dev)
+    n_chunks = built.lib.pdg_fused_edge2_bwd_chunks(n_real)
+    wpart = torch.empty((n_chunks, 2, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_fused_edge2_bwd(
             int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (proj_u, proj_v, e, z_upd, dz_upd, dr, dm, receivers,
-                                     senders, edge_gid, block_tile, block_snd_tile, w_e, w2,
-                                     weT, w2T, b0, b2, dpre1, dpre2, de, dur, d64, scratch,
-                                     bpart, wpart, wb)),
-            Np, Ep, L, tile, n_blocks, int(n_graphs), BWD_CHUNKS, stream,
+            *(t.data_ptr() for t in (proj_u, proj_v, e, z_upd, dz_upd, dr, dm, slot, rcv, snd,
+                                     pad, w_e, w2, w2T, weT, b0, b2, dpre1, dpre2, de, dur,
+                                     scratch, wfma, wsplit, bpart, wpart, wb)),
+            Np, Ep, n_real, pad.shape[0], L, n_chunks, stream,
         )
     check_launch(built, err, "fused_edge2_bwd")
     fused_edge2_bwd.launches += 1
@@ -659,8 +739,10 @@ def fused_edge2_bwd(
 ) -> tuple[torch.Tensor, ...]:
     """The pair-blocked backward kernel's outputs (de, dpre1, dpre2, du_r,
     dv_r, dWe, db0, dW2, db2), before the sender-side sums. CUDA tensors go
-    to the kernel (``fused_edge2_bwd.launches`` counts its launches), CPU
-    tensors to ``fused_edge2_bwd_reference``; anything else raises."""
+    to the kernel (``fused_edge2_bwd.launches`` counts its launches), which
+    takes L <= 256 (64, 128 and 256 natively, any other width zero-padded to
+    the next) and raises otherwise, CPU tensors to
+    ``fused_edge2_bwd_reference``; anything else raises."""
     edge_gid, block_tile, block_snd_tile = aux[:3]
     args = (proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders)
     cots = (z_upd, dz_upd, dr, dm)

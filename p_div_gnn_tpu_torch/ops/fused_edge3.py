@@ -39,6 +39,7 @@ import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
+from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -87,8 +88,10 @@ def _library() -> CudaLibrary:
     return built
 
 
-# the widths the forward kernel is built for
+# the widths the kernels are built for; any other L <= 256 runs at the next
+# one, zero-padded (ops/widths.py)
 FWD_WIDTHS = (64, 128, 256)
+BWD_WIDTHS = (64, 128, 256)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -122,11 +125,13 @@ def _fused_edge_step3_cuda(
     _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    _check(L in FWD_WIDTHS, f"L={L}: the forward kernel is built for L = 64, 128 and 256 "
-           "(other widths: ROADMAP.md §B)")
-    _check(Np * L < 2**31 and Ep * L < 2**31, "arrays too large")
+    Lp = padded_width(L, FWD_WIDTHS, "fused_edge_step3")
+    _check(Np * Lp < 2**31 and Ep * Lp < 2**31, "arrays too large")
     # one writer per R row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step3")
+    if Lp != L:
+        out = _fused_edge_step3_cuda(*pad_args(floats, "cccwwwcwc", Lp), *ints, n_graphs, tile)
+        return unpad_args(out, "ccc", L)
 
     dev = x.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
@@ -261,11 +266,15 @@ def _fused_edge_step3_backward_cuda(
     _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    _check(L == 128, f"L={L}: the backward kernel is built for L = 128 only, the width of "
-           "every configuration of the repo (other widths: ROADMAP.md §B)")
-    _check(7 * Ep * L < 2**31 and Np * L < 2**31, "arrays too large")
+    Lp = padded_width(L, BWD_WIDTHS, "fused_edge_step3_backward")
+    _check(7 * Ep * Lp < 2**31 and Np * Lp < 2**31, "arrays too large")
     # one writer per dx row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step3_backward")
+    if Lp != L:
+        out = _fused_edge_step3_backward_cuda(
+            *pad_args(floats[:9], "cccwwwcwc", Lp), *ints, n_graphs, tile,
+            *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
+        return unpad_args(out, "cccwwwcwc", L)
 
     dev = x.device
     transposed = [w.t().contiguous() for w in (w_u, w_v, w_e, w2)]
@@ -314,7 +323,8 @@ def fused_edge_step3_backward(
     """The fused3 edge step's VJP: fp32 (dx, dg, de, dWu, dWv, dWe, db0,
     dW2, db2), dg and de in the stream dtype. CUDA tensors go to the kernel
     (``fused_edge_step3_backward.launches`` counts its launches), which
-    takes L = 128 and each receiver's slots consecutive (the receiver-major
+    takes L <= 256 (64, 128 and 256 natively, any other width zero-padded to
+    the next) and each receiver's slots consecutive (the receiver-major
     layout; a pair-blocked batch's is not) and raises otherwise; CPU tensors
     go to the plain version; anything else raises."""
     edge_gid, block_tile = aux
@@ -389,8 +399,9 @@ def fused_edge_step3(
     the weights. CUDA tensors go to the kernels (``fused_edge_step3.launches``
     counts the forward's launches, ``fused_edge_step3_backward.launches``
     the backward's), which take each receiver's slots consecutive (the
-    receiver-major layout; a pair-blocked batch's is not) and L = 64, 128 or
-    256 (the forward) or L = 128 (the backward), and raise otherwise; CPU
+    receiver-major layout; a pair-blocked batch's is not) and L <= 256 (64,
+    128 and 256 natively, any other width zero-padded to the next, which is
+    exact: ``ops/widths.py``), and raise otherwise; CPU
     tensors go to the plain versions; anything else raises."""
     edge_gid, block_tile = aux
     return _FusedEdgeStep3.apply(x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid,

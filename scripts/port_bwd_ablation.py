@@ -1,24 +1,29 @@
-"""Where the fused3 backward's time goes on the card: each sub-kernel's
+"""Where a one-pass backward's time goes on the card: each sub-kernel's
 device time with one part of its work taken out.
 
     PYTHONPATH=. python scripts/port_bwd_ablation.py
+        [--kernel fused_edge3_bwd|fused_edge_bwd|fused_edge2_bwd]
 
-Builds ``p_div_gnn_tpu_torch/csrc/fused_edge3_bwd.cu`` as it is ("base") and
+Builds ``p_div_gnn_tpu_torch/csrc/<kernel>.cu`` (default the fused3 backward,
+#2; the v2 backward #6, the pair-blocked backward #8) as it is ("base") and
 in variants with one part of its work taken out by a preprocessor switch
 (``-DPDG_WITHOUT=<part>``, a name of ``csrc/fused3_tile.cuh``'s ``enum Part``),
 all with the port's nvcc flags, into ``build/port_bwd_ablation/``: the
 weight-grad kernel without its MMAs, without splitting the staged rows into
 bf16 terms, without fetching them; the tile kernel without its tensor-core
-MMAs, without its FMA chains (and the shared loads that feed them). Each
-runs chip_smoke.py's backward kernel phase inputs (the flagship training
-batch, generator seed 1) in fp32 and bf16 streams, three calls under
-``torch.profiler``, and prints each sub-kernel's mean device time in ms.
-The variants compute wrong values; only their times are read. Needs a CUDA
-card and nvcc.
+MMAs, without its FMA chains (and the shared loads that feed them), and
+for #6 and #8 without the first layer's receiver and sender rows and
+without the receiver run sums. Each runs chip_smoke.py's backward kernel
+phase inputs (the flagship training batch, receiver-major or
+pair-blocked, that phase's generator seed) in fp32 and bf16 streams, three
+calls under ``torch.profiler``, and prints each sub-kernel's mean device
+time in ms. The variants compute wrong values; only their times are read.
+Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -31,11 +36,14 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
-from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge3  # noqa: E402
+from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3  # noqa: E402
 
 OUT = ROOT / "build" / "port_bwd_ablation"
-SUBS = ("prepare_weights_kernel", "step3_bwd_tile_kernel", "step3_bwd_wgrad_kernel",
-        "step3_bwd_reduce_kernel")
+# each kernel's sub-kernels (csrc/bwd_common.cuh's are shared)
+SHARED = ("prepare_weights_kernel", "bwd_wgrad_kernel", "bwd_reduce_kernel")
+SUBS = {"fused_edge3_bwd": ("step3_bwd_tile_kernel",) + SHARED,
+        "fused_edge_bwd": ("v2_bwd_tile_kernel",) + SHARED,
+        "fused_edge2_bwd": ("pair_bwd_tile_kernel", "zero_rows_kernel") + SHARED}
 # variant: the part it is built without (csrc/fused3_tile.cuh, enum Part)
 VARIANTS = {
     "base": None,
@@ -45,6 +53,10 @@ VARIANTS = {
     "tile without MMAs": "WITHOUT_MMA",
     "tile without FMA chains": "WITHOUT_FMA",
 }
+V2_VARIANTS = {**VARIANTS, "tile without the row gathers": "WITHOUT_GATHER",
+               "tile without the run sums": "WITHOUT_RUNS"}
+# pointer and size arguments of each launch function
+ARGS = {"fused_edge3_bwd": (28, 5), "fused_edge_bwd": (27, 5), "fused_edge2_bwd": (27, 6)}
 
 
 def build_variants(kernel: str = "fused_edge3_bwd", variants: dict = VARIANTS,
@@ -68,45 +80,77 @@ def build_variants(kernel: str = "fused_edge3_bwd", variants: dict = VARIANTS,
     return libs
 
 
-def load(path: Path) -> cuda_build.CudaLibrary:
+def load(path: Path, kernel: str) -> cuda_build.CudaLibrary:
     lib = ctypes.CDLL(str(path))
     lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pdg_cuda_error_string.restype = ctypes.c_char_p
-    fn = lib.pdg_fused_edge3_bwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 28 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+    n_ptr, n_int = ARGS[kernel]
+    fn = getattr(lib, f"pdg_{kernel}")
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    for count in (lib.pdg_fused_edge3_bwd_parts, lib.pdg_fused_edge3_bwd_chunks):
+    for count in (getattr(lib, f"pdg_{kernel}_parts"), getattr(lib, f"pdg_{kernel}_chunks")):
         count.argtypes = [ctypes.c_int64]
         count.restype = ctypes.c_int64
     return cuda_build.CudaLibrary(lib, path, 0.0, "")
 
 
+def calls(kernel: str):
+    """The kernel phase's inputs: yields (dtype name, a call of the wrapper,
+    the module attribute of its cached library)."""
+    pair = kernel == "fused_edge2_bwd"
+    batch = build_workload(chip_smoke.N_MESHES, seed=0, pair_blocks=pair)[0].to("cuda")
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, chip_smoke.LATENT
+    seed = {"fused_edge3_bwd": 1, "fused_edge_bwd": 4, "fused_edge2_bwd": 7}[kernel]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    make = {"fused_edge3_bwd": chip_smoke.edge_step_inputs,
+            "fused_edge_bwd": chip_smoke.v2_step_inputs,
+            "fused_edge2_bwd": chip_smoke.pair_step_inputs}[kernel]
+    base = make(batch, gen)
+    dz, dr, dm = (torch.randn(s, generator=gen, device="cuda") for s in ((Ep, L), (Np, L), (8, L)))
+    aux = (batch.edge_gid, batch.edge_block_tile)
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        if kernel == "fused_edge3_bwd":
+            z = fused_edge3.fused_edge_step3_reference(*args, batch.receivers, batch.edge_gid,
+                                                       batch.n_graphs)[0]
+            cots = (z, dz.to(sd), dr, dm)
+            yield sd_name, lambda: fused_edge3.fused_edge_step3_backward(
+                *args, batch.receivers, aux, batch.n_graphs, batch.tile, *cots)
+        elif kernel == "fused_edge_bwd":
+            z = fused_edge.fused_edge_step_reference(*args, batch.receivers, batch.edge_gid,
+                                                     batch.n_graphs)[0]
+            cots = (z, dz.to(sd), dr, dm)
+            yield sd_name, lambda: fused_edge.fused_edge_step_backward(
+                *args, batch.receivers, aux, batch.n_graphs, batch.tile, *cots)
+        else:
+            idx = (batch.receivers, batch.senders, chip_smoke.pair_aux(batch), batch.n_graphs,
+                   batch.tile)
+            z = fused_edge.fused_edge_step2_reference(*args, *idx)[0]
+            cots = (z, dz.to(sd), dr, dm)
+            yield sd_name, lambda: fused_edge.fused_edge2_bwd(*args, *idx, *cots)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", default="fused_edge3_bwd", choices=tuple(SUBS))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    libs = build_variants()
-    batch = build_workload(chip_smoke.N_MESHES, seed=0)[0].to("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    base = chip_smoke.edge_step_inputs(batch, gen)
-    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, chip_smoke.LATENT
-    dz, dr, dm = (torch.randn(s, generator=gen, device="cuda") for s in ((Ep, L), (Np, L), (8, L)))
-    aux = (batch.edge_gid, batch.edge_block_tile)
+    kernel = args.kernel
+    libs = build_variants(kernel, VARIANTS if kernel == "fused_edge3_bwd" else V2_VARIANTS,
+                          OUT / kernel)
+    module, attr = {"fused_edge3_bwd": (fused_edge3, "_bwd_library"),
+                    "fused_edge_bwd": (fused_edge, "_bwd_library"),
+                    "fused_edge2_bwd": (fused_edge, "_bwd_library2")}[kernel]
+    subs = SUBS[kernel]
     for name, path in libs.items():
-        built = load(path)
-        fused_edge3._bwd_library = lambda built=built: built
-        for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            args = [base[k].to(sd).contiguous() for k in base]
-            z_upd = fused_edge3.fused_edge_step3_reference(
-                *args, batch.receivers, batch.edge_gid, batch.n_graphs)[0]
-            dz_sd = dz.to(sd)
-
-            def call():
-                fused_edge3.fused_edge_step3_backward(
-                    *args, batch.receivers, aux, batch.n_graphs, batch.tile, z_upd, dz_sd, dr, dm)
-
+        built = load(path, kernel)
+        setattr(module, attr, lambda built=built: built)
+        for sd_name, call in calls(kernel):
             for _ in range(2):
                 call()
             torch.cuda.synchronize()
@@ -114,13 +158,15 @@ def main() -> None:
                 for _ in range(3):
                     call()
                 torch.cuda.synchronize()
-            times = {sub: 0.0 for sub in SUBS}
+            times = {sub: 0.0 for sub in subs}
             for e in prof.key_averages():
-                for sub in SUBS:
+                for sub in subs:
                     if sub in e.key:
                         times[sub] += e.device_time_total / 3e3
-            print(f"{name} {sd_name}: " + " ".join(f"{k} {v:.3f}" for k, v in times.items())
+            print(f"{kernel} {name} {sd_name}: "
+                  + " ".join(f"{k} {v:.3f}" for k, v in times.items())
                   + f" ms; sum {sum(times.values()):.3f} ms", flush=True)
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Run the port's CUDA kernels on the CPU, without a card or nvcc.
 
-    PYTHONPATH=. python scripts/port_cuda_emulate.py [--tiles 2] [--L 16] [--L-bwd 64]
+    PYTHONPATH=. python scripts/port_cuda_emulate.py [--tiles 2] [--L 16]
 
 Each ``p_div_gnn_tpu_torch/csrc/*.cu`` is compiled by the host C++ compiler
 (g++, C++20) against a small emulation of the CUDA runtime: a CTA's threads
@@ -14,13 +14,18 @@ the PTX ISA's fragment layouts; ``cp.async`` is a plain copy. The port's
 own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py`` with the
 v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on
 CPU tensors against the emulated libraries, and each kernel is held against
-its plain version at small shapes (the fused3 forward at each width it is
-built for, 64, 128 and 256, on a layout with a tile of only padding, twice,
-the two calls bit-equal; the fused3 backward at L = 128, the width its
-tiles are made for; the segment sum on
-both callers' layouts, twice, the two calls bit-equal), with
-``chip_smoke.py``'s tolerances; the script exits 1 if one disagrees. The
-emulated card has 5 SMs (the fused3 forward's persistent grid).
+its plain version at small shapes, in both stream dtypes: the fused3
+forward at each width it is built for, 64, 128 and 256, on a layout with a
+tile of only padding, twice, the two calls bit-equal; the fused3 backward
+at L = 64 and 256; the v2 (#6) and pair-blocked (#8) backwards at L = 64
+and 128 on layouts with a tile of only padding (#6: a receiver run across a
+part's nominal end; #8: receivers met in several runs of their tile, stray
+endpoints), twice, bit-equal, their fp32 FMA-chain outputs (dg_v, dg_u;
+dpre1, dpre2) equal to the plain version's; the v2 forwards; the segment
+sum on both callers' layouts, twice, bit-equal; then each fused kernel once
+(fp32) at a width it is not built for, through the wrappers' zero padding.
+Tolerances are ``chip_smoke.py``'s; the script exits 1 if one disagrees.
+The emulated card has 5 SMs (the fused3 forward's persistent grid).
 
 It checks what a kernel computes (indexing, synchronization, the order of
 its sums, the wrapper's argument list), not its speed, and not whether
@@ -379,18 +384,77 @@ def pair_indices(idx: dict) -> tuple:
                                                 "block_tile", "block_snd_tile"))
 
 
+def run_backward(name: str, sd_name: str, sd, make, L: int, call, plain, *, fwd_plain,
+                 bit_equal: tuple[int, ...] = (), twice: bool = False) -> list[float]:
+    """A backward kernel against its plain version on ``make(L)``'s
+    problem: its outputs' shares of the allowance; with ``twice`` two calls
+    bit-equal; in fp32 the outputs ``bit_equal`` (the FMA chains') equal the
+    plain version's."""
+    arrays, idx, ix = make(L)
+    a = [T(v).to(sd) for v in arrays.values()]
+    z = fwd_plain(a, ix)[0]
+    cot = cotangents(7, z.shape[0], a[0].shape[0], L, sd)
+    got = call(a, ix, z, cot)
+    if twice:
+        assert all(torch.equal(u, v) for u, v in zip(got, call(a, ix, z, cot))), \
+            f"{name} L={L}: two calls differ"
+    want = plain(a, ix, z, cot)
+    if sd == torch.float32:
+        for i in bit_equal:
+            assert torch.equal(got[i], want[i]), f"{name} fp32 L={L}: output {i} not bit-equal"
+    tol = chip_smoke.BWD_TOL[sd_name]
+    return [report(f"{name} {sd_name} L={L} #{i}", x, y, tol)
+            for i, (x, y) in enumerate(zip(got, want))]
+
+
+def v2_case(L: int, n_tiles: int = 2):
+    """The v2 problem; with several tiles its last one is empty (all
+    padding) and a receiver run crosses a part's nominal end (512 slots)."""
+    arrays, idx = _v2_problem(6, n_tiles, L, empty_tile=n_tiles - 1 if n_tiles > 1 else None)
+    if n_tiles > 1:
+        rcv = idx["receivers"]
+        nominal = np.arange(1, -(-len(rcv) // 512)) * 512
+        assert (rcv[nominal] == rcv[nominal - 1]).any(), "a run crosses a part's nominal end"
+    return arrays, idx, tuple(T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+
+
+def pair_case(L: int, n_tiles: int = 2):
+    """The pair-blocked problem; with several tiles its last one is empty,
+    with stray endpoints and receivers met in several runs of their tile."""
+    arrays, idx = _pair_problem(6, n_tiles, L, empty_tile=n_tiles - 1 if n_tiles > 1 else None)
+    return arrays, idx, pair_indices(idx)
+
+
+def fused3_case(L: int, n_tiles: int = 2, degree: int = 6):
+    arrays, idx = _edge_problem(6, n_tiles, L, degree=degree)
+    return arrays, idx, tuple(T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
     ap.add_argument("--L", type=int, default=16,
                     help="width of the v2 and fused2 forwards (fused3's: 64, 128, 256)")
-    ap.add_argument("--L-bwd", type=int, default=64,
-                    help="width of the v2 and fused2 backwards (64k; fused3's is 128)")
     args = ap.parse_args()
     shares = []
+    f3_fwd = lambda a, ix: fused_edge3.fused_edge_step3_reference(*a, ix[0], ix[1], 1)  # noqa: E731
+    v2_fwd = lambda a, ix: fused_edge.fused_edge_step_reference(*a, ix[0], ix[1], 1)  # noqa: E731
+    p2_fwd = lambda a, ix: fused_edge.fused_edge_step2_reference(  # noqa: E731
+        *a, *ix[:2], ix[2:], 1, NODE_TILE)
+    f3_bwd = (lambda a, ix, z, c: fused_edge3._fused_edge_step3_backward_cuda(
+                  *a, *ix, 1, NODE_TILE, z, *c),
+              lambda a, ix, z, c: fused_edge3.fused_edge_step3_backward_reference(
+                  *a, ix[0], ix[1], 1, z, *c))
+    v2_bwd = (lambda a, ix, z, c: fused_edge._fused_edge_step_backward_cuda(
+                  *a, *ix, 1, NODE_TILE, z, *c),
+              lambda a, ix, z, c: fused_edge.fused_edge_step_backward_reference(
+                  *a, ix[0], ix[1], 1, z, *c))
+    p2_bwd = (lambda a, ix, z, c: fused_edge._fused_edge2_bwd_cuda(*a, *ix, 1, NODE_TILE, z, *c),
+              lambda a, ix, z, c: fused_edge.fused_edge2_bwd_reference(
+                  *a, *ix[:2], ix[2:], 1, NODE_TILE, z, *c))
     with emulated_kernels():
         for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            ftol, btol = chip_smoke.KERNEL_TOL[sd_name], chip_smoke.BWD_TOL[sd_name]
+            ftol = chip_smoke.KERNEL_TOL[sd_name]
             # the fused3 forward at each of its widths; one node tile has no
             # real edge (its block is all padding)
             for L in fused_edge3.FWD_WIDTHS:
@@ -408,17 +472,21 @@ def main() -> int:
                     assert torch.equal(got[0][0], want[0]), \
                         f"fused_edge3_fwd fp32 L={L}: z_upd not bit-equal"
 
-            # the fused3 backward's FMA tile is made for L = 128
-            arrays, idx = _edge_problem(6, args.tiles, 128)
-            a = [T(v).to(sd) for v in arrays.values()]
-            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
-            z, _, _ = fused_edge3.fused_edge_step3_reference(*a, rcv, gid, 1)
-            cot = cotangents(7, z.shape[0], a[0].shape[0], 128, sd)
-            got = fused_edge3._fused_edge_step3_backward_cuda(*a, rcv, gid, bt, 1, NODE_TILE,
-                                                              z, *cot)
-            want = fused_edge3.fused_edge_step3_backward_reference(*a, rcv, gid, 1, z, *cot)
-            shares += [report(f"fused_edge3_bwd {sd_name} #{i}", x, y, btol)
-                       for i, (x, y) in enumerate(zip(got, want))]
+            # the fused3 backward at 64 (64-slot steps) and 256 (16-slot steps,
+            # the split weights from a ring; a node degree of 1 keeps it short)
+            for L, degree in ((64, 6), (256, 1)):
+                shares += run_backward("fused_edge3_bwd", sd_name, sd,
+                                       lambda L, d=degree: fused3_case(L, args.tiles, d), L,
+                                       *f3_bwd, fwd_plain=f3_fwd)
+            # the redesigned v2 (#6) and pair-blocked (#8) backwards: two calls
+            # bit-equal, fp32 dg_v / dg_u and dpre1 / dpre2 bit-equal
+            for L in (64, 128):
+                shares += run_backward("fused_edge_bwd", sd_name, sd,
+                                       lambda L: v2_case(L, args.tiles), L, *v2_bwd,
+                                       fwd_plain=v2_fwd, bit_equal=(2, 3), twice=True)
+                shares += run_backward("fused_edge2_bwd", sd_name, sd,
+                                       lambda L: pair_case(L, args.tiles), L, *p2_bwd,
+                                       fwd_plain=p2_fwd, bit_equal=(1, 2), twice=True)
 
             arrays, idx = _v2_problem(5, args.tiles, args.L)
             a = [T(v).to(sd) for v in arrays.values()]
@@ -428,17 +496,6 @@ def main() -> int:
             shares += [report(f"fused_edge_fwd {sd_name} {n}", x, y, ftol[n])
                        for n, x, y in zip(FWD_NAMES, got, want)]
 
-            arrays, idx = _v2_problem(6, args.tiles, args.L_bwd)
-            a = [T(v).to(sd) for v in arrays.values()]
-            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
-            z, _, _ = fused_edge.fused_edge_step_reference(*a, rcv, gid, 1)
-            cot = cotangents(7, z.shape[0], a[0].shape[0], args.L_bwd, sd)
-            got = fused_edge._fused_edge_step_backward_cuda(*a, rcv, gid, bt, 1, NODE_TILE,
-                                                            z, *cot)
-            want = fused_edge.fused_edge_step_backward_reference(*a, rcv, gid, 1, z, *cot)
-            shares += [report(f"fused_edge_bwd {sd_name} #{i}", x, y, btol)
-                       for i, (x, y) in enumerate(zip(got, want))]
-
             arrays, idx = _pair_problem(5, args.tiles, args.L)
             a = [T(v).to(sd) for v in arrays.values()]
             ix = pair_indices(idx)
@@ -446,17 +503,6 @@ def main() -> int:
             want = fused_edge.fused_edge_step2_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE)
             shares += [report(f"fused_edge2_fwd {sd_name} {n}", x, y, ftol[n])
                        for n, x, y in zip(FWD_NAMES, got, want)]
-
-            arrays, idx = _pair_problem(6, args.tiles, args.L_bwd)
-            a = [T(v).to(sd) for v in arrays.values()]
-            ix = pair_indices(idx)
-            z, _, _ = fused_edge.fused_edge_step2_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE)
-            cot = cotangents(7, z.shape[0], a[0].shape[0], args.L_bwd, sd)
-            got = fused_edge._fused_edge2_bwd_cuda(*a, *ix, 1, NODE_TILE, z, *cot)
-            want = fused_edge.fused_edge2_bwd_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE, z,
-                                                        *cot)
-            shares += [report(f"fused_edge2_bwd {sd_name} #{i}", x, y, btol)
-                       for i, (x, y) in enumerate(zip(got, want))]
 
             rows, layouts = _segment_problem(8, args.tiles, args.L)
             n_nodes = args.tiles * NODE_TILE
@@ -481,6 +527,36 @@ def main() -> int:
                                                                   perm)
                 shares += [report(f"segment_sum_csr_pair {i}", x, y, tol)
                            for i, (x, y) in enumerate(zip(got, want))]
+
+        # one width each fused kernel is not built for, through the zero
+        # padding (fp32, one node tile): 16 for fused3 and the backwards (run
+        # at 64), 18 for the v2 forwards (run at 20)
+        sd_name, sd = "float32", torch.float32
+        ftol = chip_smoke.KERNEL_TOL[sd_name]
+        arrays, idx, ix = fused3_case(16, 1)
+        a = [T(v).to(sd) for v in arrays.values()]
+        got = fused_edge3._fused_edge_step3_cuda(*a, *ix, 1, NODE_TILE)
+        shares += [report(f"fused_edge3_fwd padded L=16 {n}", x, y, ftol[n])
+                   for n, x, y in zip(FWD_NAMES, got, f3_fwd(a, ix))]
+        shares += run_backward("fused_edge3_bwd padded", sd_name, sd,
+                               lambda L: fused3_case(L, 1), 16, *f3_bwd, fwd_plain=f3_fwd)
+        shares += run_backward("fused_edge_bwd padded", sd_name, sd, lambda L: v2_case(L, 1),
+                               16, *v2_bwd, fwd_plain=v2_fwd, bit_equal=(2, 3))
+        shares += run_backward("fused_edge2_bwd padded", sd_name, sd,
+                               lambda L: pair_case(L, 1), 16, *p2_bwd, fwd_plain=p2_fwd,
+                               bit_equal=(1, 2))
+        arrays, idx = _v2_problem(5, 1, 18)
+        a = [T(v).to(sd) for v in arrays.values()]
+        rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
+        got = fused_edge._fused_edge_step_cuda(*a, rcv, gid, bt, 1, NODE_TILE)
+        shares += [report(f"fused_edge_fwd padded L=18 {n}", x, y, ftol[n])
+                   for n, x, y in zip(FWD_NAMES, got, v2_fwd(a, (rcv, gid)))]
+        arrays, idx = _pair_problem(5, 1, 18)
+        a = [T(v).to(sd) for v in arrays.values()]
+        ix = pair_indices(idx)
+        got = fused_edge._fused_edge_step2_cuda(*a, *ix, 1, NODE_TILE)
+        shares += [report(f"fused_edge2_fwd padded L=18 {n}", x, y, ftol[n])
+                   for n, x, y in zip(FWD_NAMES, got, p2_fwd(a, ix))]
     worst = max(shares)
     print(f"largest share of an allowance: {worst:.3f}", flush=True)
     return 0 if worst <= 1.0 else 1

@@ -35,22 +35,20 @@ from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
 from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
 
 # sub-kernel names of each ported kernel's library (csrc/*.cu), its own tile
-# kernels first; the v2 and pair-blocked edge steps share the others
-# (csrc/edge_common.cuh), which go to the kernel whose tile kernel ran in
-# the step
+# kernels first; the three backwards share the others (csrc/bwd_common.cuh)
+# and the two v2 forwards theirs (csrc/edge_common.cuh), which go to the
+# kernel whose tile kernel ran in the step
+_BWD_SHARED = ("prepare_weights_kernel", "bwd_wgrad_kernel", "bwd_reduce_kernel")
 GROUPS = {
     "fused_edge3_fwd (#1)": ("step3_fwd_fma_kernel", "step3_fwd_mma_kernel",
                              "copy_weights_kernel", "moments_reduce_kernel"),
-    "fused_edge3_bwd (#2)": ("prepare_weights_kernel", "step3_bwd_tile_kernel",
-                             "step3_bwd_wgrad_kernel", "step3_bwd_reduce_kernel"),
+    "fused_edge3_bwd (#2)": ("step3_bwd_tile_kernel",) + _BWD_SHARED,
     "segment_sum_csr (#3)": ("run_chunk_kernel", "run_merge_kernel"),
     "segment_sum_csr_pair (#4)": ("pair_partial_kernel", "pair_merge_kernel"),
     "fused_edge_fwd (#5)": ("v2_fwd_tile_kernel", "edge_moments_kernel"),
-    "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel", "edge_bwd_wgrad_kernel",
-                            "edge_bwd_reduce_kernel"),
+    "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel",) + _BWD_SHARED,
     "fused_edge2_fwd (#7)": ("pair_fwd_tile_kernel", "edge_moments_kernel"),
-    "fused_edge2_bwd (#8)": ("pair_bwd_tile_kernel", "edge_bwd_wgrad_kernel",
-                             "edge_bwd_reduce_kernel"),
+    "fused_edge2_bwd (#8)": ("pair_bwd_tile_kernel", "zero_rows_kernel") + _BWD_SHARED,
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 

@@ -1,20 +1,28 @@
-"""Hold the fused3 edge step's kernels of this checkout against another
-checkout's on the card, bit for bit: for example against the parent commit,
-unpacked with ``git archive`` into a directory that .gitignore lists.
+"""Hold the fused3 edge step's kernels and the v2 and pair-blocked backwards
+of this checkout against another checkout's on the card, bit for bit, and
+time the three backwards in both: for example against the parent commit,
+unpacked with ``git archive`` into a directory that .gitignore lists (the
+port's package is all it needs).
 
-    python3 scripts/port_tree_compare.py --other build/parent [--require bwd]
+    git archive HEAD p_div_gnn_tpu_torch | tar -x -C build/parent
+    python3 scripts/port_tree_compare.py --other build/parent [--require bwd ...]
 
-Each tree runs in a process of its own, from its own root: it builds its
-forward (``csrc/fused_edge3_fwd.cu``) and backward (``fused_edge3_bwd.cu``)
-kernels, packs the benchmark's training batch (16 meshes, seed 0) and draws
-seeded random inputs on the card (as chip_smoke.py's kernel phases do:
-x, e ~ N(0, 1), g_x = x[senders], weights ~ N(0, 1/L), biases and the
-cotangents ~ N(0, 1)), then runs the forward and, on the plain version's
-z_upd, the backward, in fp32 and bf16 streams, and writes a SHA-256 of each
-output's bytes to ``build/port_tree_compare/``. This process prints, per
-output, whether the two trees agree, and exits 1 if an output whose name
-starts with one of ``--require`` (default: bwd) differs. Needs one CUDA card
-and nvcc; it imports nothing of JAX.
+Each tree runs in a process of its own, from its own root (this file's
+worker, the tree's package): it builds its kernels, packs the benchmark's
+training batch (16 meshes, seed 0) receiver-major and pair-blocked, and
+draws seeded random inputs on the card (as chip_smoke.py's kernel phases
+do: node rows, e ~ N(0, 1), sender gathers of the node rows, weights ~
+N(0, 1/L), biases and the cotangents ~ N(0, 1)), then runs the fused3
+forward and backward (#1, #2; the backward on the plain version's z_upd),
+the v2 backward (#6) and the pair-blocked backward kernel (#8), in fp32 and
+bf16 streams, and writes a SHA-256 of each output's bytes and the
+backwards' times (CUDA events, mean of 5 calls after 2) to
+``build/port_tree_compare/``. The trees run in the order other, this,
+this, other; this process prints, per output, whether the two trees agree,
+each backward's times in both, and exits 1 if an output whose name starts
+with one of ``--require`` differs (default: the fused3 backward's outputs,
+and in fp32 #6's dg_v, dg_u and #8's dpre1, dpre2, the FMA chains' results).
+Needs one CUDA card and nvcc; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,9 +45,10 @@ def worker(out: Path) -> None:
     import torch
 
     from p_div_gnn_tpu_torch.datagen.workload import build_workload
-    from p_div_gnn_tpu_torch.ops import fused_edge3
+    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3
 
     batch = build_workload(16, seed=0)[0].to("cuda")
+    pair = build_workload(16, seed=0, pair_blocks=True)[0].to("cuda")
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, 128
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -52,11 +61,36 @@ def worker(out: Path) -> None:
             randn(L, L, scale=L**-0.5), randn(L)]
     dz, dr, dm = randn(Ep, L), randn(Np, L), randn(8, L)
     aux = (batch.edge_gid, batch.edge_block_tile)
-    hashes = {}
+    hashes, times = {}, {}
 
     def put(name: str, t: torch.Tensor) -> None:
         hashes[name] = hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
                                       .numpy().tobytes()).hexdigest()
+
+    def timed(name: str, fn) -> None:
+        for _ in range(2):
+            fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(stop) / 5
+
+    # the v2 step's inputs on the receiver-major batch and the fused2 step's on
+    # the pair-blocked one: node rows, their sender gathers, e, We, b0, W2, b2
+    a_u, a_v = randn(Np, L), randn(Np, L)
+    v2_base = [a_u, a_v, a_v.index_select(0, batch.senders),
+               a_u.index_select(0, batch.senders), randn(Ep, L), randn(L, L, scale=L**-0.5),
+               randn(L), randn(L, L, scale=L**-0.5), randn(L)]
+    v2_cots = randn(Ep, L), randn(Np, L), randn(8, L)
+    Np2, Ep2 = pair.num_nodes_padded, pair.num_edges_padded
+    pair_base = [randn(Np2, L), randn(Np2, L), randn(Ep2, L), randn(L, L, scale=L**-0.5),
+                 randn(L), randn(L, L, scale=L**-0.5), randn(L)]
+    pair_cots = randn(Ep2, L), randn(Np2, L), randn(8, L)
+    pair_aux = (pair.edge_gid, pair.edge_block_tile, pair.edge_block_snd_tile,
+                pair.snd_run_perm, pair.snd_run_sorted, pair.snd_block_tile)
 
     for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         args = [t.to(sd).contiguous() for t in base]
@@ -70,15 +104,39 @@ def worker(out: Path) -> None:
             *args, batch.receivers, aux, batch.n_graphs, batch.tile, z_upd, dz.to(sd), dr, dm)
         for name, t in zip(("dx", "dg", "de", "dWu", "dWv", "dWe", "db0", "dW2", "db2"), bwd):
             put(f"bwd {sd_name} {name}", t)
+        timed(f"bwd {sd_name}", lambda: fused_edge3.fused_edge_step3_backward(
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile, z_upd, dz.to(sd), dr, dm))
         del fwd, bwd, z_upd
+        args = [t.to(sd).contiguous() for t in v2_base]
+        z_upd = fused_edge.fused_edge_step_reference(*args, batch.receivers, batch.edge_gid,
+                                                     batch.n_graphs)[0]
+        cots = (z_upd, v2_cots[0].to(sd), *v2_cots[1:])
+        v2 = lambda: fused_edge.fused_edge_step_backward(  # noqa: E731
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile, *cots)
+        for name, t in zip(("da_u", "da_v", "dg_v", "dg_u", "de", "dWe", "db0", "dW2", "db2"),
+                           v2()):
+            put(f"v2bwd {sd_name} {name}", t)
+        timed(f"v2bwd {sd_name}", v2)
+        args = [t.to(sd).contiguous() for t in pair_base]
+        z_upd = fused_edge.fused_edge_step2_reference(*args, pair.receivers, pair.senders,
+                                                      pair_aux, pair.n_graphs, pair.tile)[0]
+        cots = (z_upd, pair_cots[0].to(sd), *pair_cots[1:])
+        p2 = lambda: fused_edge.fused_edge2_bwd(  # noqa: E731
+            *args, pair.receivers, pair.senders, pair_aux, pair.n_graphs, pair.tile, *cots)
+        for name, t in zip(("de", "dpre1", "dpre2", "du_r", "dv_r", "dWe", "db0", "dW2", "db2"),
+                           p2()):
+            put(f"pairbwd {sd_name} {name}", t)
+        timed(f"pairbwd {sd_name}", p2)
+        del args, z_upd, cots
         torch.cuda.empty_cache()
-    out.write_text(json.dumps(hashes, indent=1))
+    out.write_text(json.dumps({"hashes": hashes, "times": times}, indent=1))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="root of the other checkout")
-    ap.add_argument("--require", nargs="*", default=["bwd"],
+    ap.add_argument("--require", nargs="*",
+                    default=["bwd ", "v2bwd float32 dg_", "pairbwd float32 dpre"],
                     help="output name prefixes that must be bit-equal")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -86,18 +144,23 @@ def main() -> int:
         worker(args.worker)
         return 0
     OUT.mkdir(parents=True, exist_ok=True)
-    runs = {}
-    for label, tree in (("this", ROOT), ("other", args.other.resolve())):
-        out = OUT / f"{label}.json"
+    runs: dict[str, list] = {"this": [], "other": []}
+    trees = {"this": ROOT, "other": args.other.resolve()}
+    for i, label in enumerate(("other", "this", "this", "other")):
+        out = OUT / f"{label}{i}.json"
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(out)],
-                       cwd=tree, check=True)
-        runs[label] = json.loads(out.read_text())
+                       cwd=trees[label], check=True)
+        runs[label].append(json.loads(out.read_text()))
     bad = []
-    for name, h in runs["this"].items():
-        same = runs["other"].get(name) == h
+    for name, h in runs["this"][0]["hashes"].items():
+        same = runs["other"][0]["hashes"].get(name) == h
         print(f"{name}: {'bit-equal' if same else 'differs'}", flush=True)
         if not same and any(name.startswith(p) for p in args.require):
             bad.append(name)
+    for name in runs["this"][0]["times"]:
+        t = {k: [r["times"][name] for r in v] for k, v in runs.items()}
+        print(f"time {name}: other {t['other'][0]:.4f} / {t['other'][1]:.4f} ms, "
+              f"this {t['this'][0]:.4f} / {t['this'][1]:.4f} ms", flush=True)
     if bad:
         print(f"port_tree_compare: required outputs differ: {bad}", flush=True)
     return 1 if bad else 0

@@ -2,7 +2,9 @@
 the fused3 edge step's forward (its parts, its layout check, two calls
 bit-equal) and backward, the block-CSR segment sum, the
 v2 ("fused") edge step's forward and backward, the pair segment sum and the
-pair-blocked ("fused2") edge step's forward and backward. It
+pair-blocked ("fused2") edge step's forward and backward; every fused
+kernel at widths it is not built for (zero-padded) and the backwards at
+each width they are built for. It
 imports neither JAX nor the JAX package, so it runs where the card is (that
 machine has no JAX; skip the repo's conftest there):
 
@@ -71,14 +73,15 @@ def _longest_run(receivers: torch.Tensor) -> int:
 
 
 def _edge_problem(seed: int, n_tiles: int, L: int, edge_block: int = EDGE_BLOCK,
-                  empty_tile: int | None = None):
-    """Random receiver-sorted edges in the block-aligned CSR layout (blocks of
-    ``edge_block`` slots), with a second graph's worth of padding slots;
-    numpy inputs for both packages. With ``empty_tile``, no real edge
-    receives in that node tile, whose one block is then all padding."""
+                  empty_tile: int | None = None, degree: int = 6):
+    """Random receiver-sorted edges (``degree`` per node) in the
+    block-aligned CSR layout (blocks of ``edge_block`` slots), with a second
+    graph's worth of padding slots; numpy inputs for both packages. With
+    ``empty_tile``, no real edge receives in that node tile, whose one block
+    is then all padding."""
     rng = np.random.default_rng(seed)
     num_nodes = n_tiles * NODE_TILE
-    E = 6 * num_nodes
+    E = degree * num_nodes
     rcv = np.sort(rng.integers(0, num_nodes, size=E))
     snd = rng.integers(0, num_nodes, size=E)
     if empty_tile is not None:
@@ -104,11 +107,11 @@ def _edge_problem(seed: int, n_tiles: int, L: int, edge_block: int = EDGE_BLOCK,
     return arrays, idx
 
 
-def _v2_problem(seed: int, n_tiles: int, L: int):
+def _v2_problem(seed: int, n_tiles: int, L: int, empty_tile: int | None = None):
     """The inputs of the v2 edge step on ``_edge_problem``'s layout: node
     projections a_u, a_v ~ N(0, 1) and their sender gathers g_v = a_v[snd],
     g_u = a_u[snd]; numpy arrays for both packages."""
-    arrays, idx = _edge_problem(seed, n_tiles, L)
+    arrays, idx = _edge_problem(seed, n_tiles, L, empty_tile=empty_tile)
     rng = np.random.default_rng(seed + 1000)
     Np, Ep = arrays["x"].shape[0], arrays["g_x"].shape[0]
     a_u = rng.normal(size=(Np, L)).astype(np.float32)
@@ -119,7 +122,8 @@ def _v2_problem(seed: int, n_tiles: int, L: int):
     return v2, idx
 
 
-def _pair_problem(seed: int, n_tiles: int, L: int, stray: bool = True):
+def _pair_problem(seed: int, n_tiles: int, L: int, stray: bool = True,
+                  empty_tile: int | None = None):
     """Random receiver-sorted edges, each sender within about one node tile
     of its receiver, in the pair-blocked layout (several sender tiles per
     receiver tile, padding slots), with the inputs of the fused2 edge step:
@@ -127,13 +131,18 @@ def _pair_problem(seed: int, n_tiles: int, L: int, stray: bool = True):
     N(0, 1). With ``stray`` and several tiles, one real slot's receiver and
     another's sender are moved out of their block's tiles (the layout never
     does that; the kernels must read zero there). Numpy arrays for both
-    packages; ``idx`` holds the layout and its sender view."""
+    packages; ``idx`` holds the layout and its sender view. With
+    ``empty_tile``, no real edge receives in that node tile."""
     rng = np.random.default_rng(seed)
     num_nodes = n_tiles * NODE_TILE
     E = 4 * num_nodes
     rcv = np.sort(rng.integers(0, num_nodes, size=E))
     shift = rng.integers(-1, 2, size=E) * NODE_TILE
     snd = np.clip(rcv + shift + rng.integers(-40, 40, size=E), 0, num_nodes - 1)
+    if empty_tile is not None:
+        keep = rcv // NODE_TILE != empty_tile
+        rcv, snd = rcv[keep], snd[keep]
+        E = len(rcv)
     snd_b, rcv_b, _, gid_b, _, block_tile, block_snd_tile = blockify_edges_pair(
         senders=snd, receivers=rcv, edge_weight=np.ones(E, np.float32),
         edge_gid=np.zeros(E, np.int64), num_nodes=num_nodes, n_graphs=1,
@@ -584,3 +593,211 @@ def test_fused2_training_step_is_deterministic_on_cuda():
     for name, g in grads[0].items():
         assert torch.isfinite(g).all(), name
         assert torch.equal(g, grads[1][name]), name
+
+
+# --- widths (ROADMAP C1) and the redesigned v2 backwards (#6, #8)
+
+FWD_TOLS = {torch.float32: (1e-5, 1e-4, 1e-3), torch.bfloat16: (3e-2,) * 3}
+BWD_TOLS = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def _cots(seed: int, Ep: int, Np: int, L: int, dtype):
+    rng = np.random.default_rng(seed)
+    dz = T(rng.normal(size=(Ep, L)).astype(np.float32)).to("cuda", dtype)
+    dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
+    dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
+    return dz, dr, dm
+
+
+def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3):
+    """One fused kernel on the card at width L against its plain version:
+    (counter, call, plain, tolerances); ``call()`` launches the kernel
+    through its wrapper, ``plain()`` runs the plain version on the same
+    inputs."""
+    if kernel.startswith("fused3"):
+        args, (rcv, gid, bt) = _on_cuda(*_edge_problem(seed, n_tiles, L=L), dtype)
+        if kernel == "fused3_fwd":
+            return (fused_edge3.fused_edge_step3,
+                    lambda: fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE),
+                    lambda: fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1),
+                    FWD_TOLS[dtype])
+        z, _, _ = fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1)
+        cots = (z, *_cots(seed + 1, z.shape[0], args[0].shape[0], L, dtype))
+        return (fused_edge3.fused_edge_step3_backward,
+                lambda: fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1,
+                                                              NODE_TILE, *cots),
+                lambda: fused_edge3.fused_edge_step3_backward_reference(*args, rcv, gid, 1,
+                                                                        *cots),
+                (BWD_TOLS[dtype],) * 9)
+    if kernel.startswith("v2"):
+        args, (rcv, gid, bt) = _on_cuda(*_v2_problem(seed, n_tiles, L=L), dtype)
+        if kernel == "v2_fwd":
+            return (fused_edge.fused_edge_step,
+                    lambda: fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE),
+                    lambda: fused_edge.fused_edge_step_reference(*args, rcv, gid, 1),
+                    FWD_TOLS[dtype])
+        z, _, _ = fused_edge.fused_edge_step_reference(*args, rcv, gid, 1)
+        cots = (z, *_cots(seed + 1, z.shape[0], args[0].shape[0], L, dtype))
+        return (fused_edge.fused_edge_step_backward,
+                lambda: fused_edge.fused_edge_step_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
+                                                            *cots),
+                lambda: fused_edge.fused_edge_step_backward_reference(*args, rcv, gid, 1, *cots),
+                (BWD_TOLS[dtype],) * 9)
+    args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(seed, n_tiles, L=L), dtype)
+    if kernel == "pair_fwd":
+        return (fused_edge.fused_edge_step2,
+                lambda: fused_edge.fused_edge_step2(*args, rcv, snd, aux, 1, NODE_TILE),
+                lambda: fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1,
+                                                              NODE_TILE),
+                FWD_TOLS[dtype])
+    z, _, _ = fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1, NODE_TILE)
+    cots = (z, *_cots(seed + 1, z.shape[0], args[0].shape[0], L, dtype))
+    return (fused_edge.fused_edge2_bwd,
+            lambda: fused_edge.fused_edge2_bwd(*args, rcv, snd, aux, 1, NODE_TILE, *cots),
+            lambda: fused_edge.fused_edge2_bwd_reference(*args, rcv, snd, aux, 1, NODE_TILE,
+                                                         *cots),
+            (BWD_TOLS[dtype],) * 9)
+
+
+KERNELS = ("fused3_fwd", "fused3_bwd", "v2_fwd", "v2_bwd", "pair_fwd", "pair_bwd")
+
+
+def _held(counter, call, plain, tols):
+    before = counter.launches
+    got = call()
+    assert counter.launches == before + 1
+    want = plain()
+    for a, b, tol in zip(got, want, tols, strict=True):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    return got, want
+
+
+@pytest.mark.parametrize("L", [16, 96])
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_other_widths_through_padding_on_cuda(dtype, kernel, L):
+    """ROADMAP C1: each fused kernel at a width it is not built for (the
+    backwards' and fused3's 16 and 96, run at 64 and 128 with zero columns)
+    matches its plain version at the JAX op tolerances, with one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _held(*_kernel_case(kernel, L, dtype))
+
+
+@pytest.mark.parametrize("L", [64, 256])
+@pytest.mark.parametrize("kernel", ["v2_fwd", "pair_fwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_forward_kernels_other_widths_on_cuda(dtype, kernel, L):
+    """The v2 (#5) and pair-blocked (#7) forwards, built for every multiple
+    of 4, at L = 64 and 256 over three node tiles, against their plain
+    versions, with one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _held(*_kernel_case(kernel, L, dtype))
+
+
+@pytest.mark.parametrize("L", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_other_widths_on_cuda(dtype, L):
+    """The fused3 backward (#2) built at L = 64 (64-slot edge steps) and 256
+    (16-slot steps, the split weights from a ring) against its plain
+    version over three node tiles; two calls bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    counter, call, plain, tols = _kernel_case("fused3_bwd", L, dtype, seed=6)
+    got, _ = _held(counter, call, plain, tols)
+    for a, b in zip(got, call()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L", [64, 128, 256])
+@pytest.mark.parametrize("kernel", ["v2_bwd", "pair_bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_v2_backward_kernels_widths_and_determinism_on_cuda(dtype, kernel, L):
+    """The redesigned v2 (#6) and pair-blocked (#8) backwards at each width
+    they are built for, over three node tiles: several parts, a receiver run
+    across a part's nominal end (#6), a receiver met in several runs of its
+    tile (#8, the layout's split runs), a slot whose receiver and one whose
+    sender lie outside their block's tiles (#8); every output within the
+    JAX op tolerance of the plain version, two calls bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.ops.segment import runs_are_consecutive
+
+    counter, call, plain, tols = _kernel_case(kernel, L, dtype, seed=6)
+    if kernel == "v2_bwd":
+        _, idx = _v2_problem(6, 3, L=L)
+        rcv = idx["receivers"]
+        nominal = np.arange(1, -(-len(rcv) // 512)) * 512
+        assert (rcv[nominal] == rcv[nominal - 1]).any(), "a run crosses a part's nominal end"
+    else:
+        _, idx = _pair_problem(6, 3, L=L)
+        assert not runs_are_consecutive(T(idx["receivers"]), 3 * NODE_TILE), "split runs"
+    got, _ = _held(counter, call, plain, tols)
+    for a, b in zip(got, call()):
+        assert torch.equal(a, b)
+
+
+def test_v2_backward_kernel_refuses_split_receiver_runs_on_cuda():
+    """The v2 backward writes each receiver's da rows once, from one run: on
+    a pair-blocked layout, which splits a receiver's slots over several
+    blocks, it raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arrays, idx = _pair_problem(13, 3, L=128, stray=False)
+    rng = np.random.default_rng(14)
+    Np, Ep, L = 3 * NODE_TILE, len(idx["receivers"]), 128
+    f32 = lambda *s: T(rng.normal(size=s).astype(np.float32)).cuda()  # noqa: E731
+    args = (f32(Np, L), f32(Np, L), f32(Ep, L), f32(Ep, L), f32(Ep, L), f32(L, L), f32(L),
+            f32(L, L), f32(L))
+    rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
+                    for k in ("receivers", "edge_gid", "block_tile"))
+    cots = (torch.zeros((Ep, L), device="cuda"), f32(Ep, L), f32(Np, L), f32(8, L))
+    before = fused_edge.fused_edge_step_backward.launches
+    with pytest.raises(ValueError, match="not consecutive"):
+        fused_edge.fused_edge_step_backward(*args, rcv, (gid, bt), 1, NODE_TILE, *cots)
+    assert fused_edge.fused_edge_step_backward.launches == before
+
+
+def test_kernels_refuse_widths_above_256_on_cuda():
+    """L = 257 is wider than any build: each fused wrapper raises a
+    ValueError that names ROADMAP C1, before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for kernel in KERNELS:
+        counter, call, _, _ = _kernel_case(kernel, 257, torch.float32, n_tiles=1)
+        before = counter.launches
+        with pytest.raises(ValueError, match="C1"):
+            call()
+        assert counter.launches == before, kernel
+
+
+def test_fused3_training_step_at_width_64_on_cuda():
+    """ROADMAP C1's symptom: a fused3 model at latent 64 takes a train step
+    on the card through all three of its kernels, with finite gradients
+    within 2e-4 (relative, per parameter) of the plain xla path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    batch = build_workload(n_graphs=2, seed=0)[0].to("cuda")
+    grads = {}
+    for impl in ("fused3", "xla"):
+        model = EncodeProcessDecode(64, 2, scatter_impl=impl, remat_steps=False,
+                                    generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
+        before = [fused_edge3.fused_edge_step3.launches,
+                  fused_edge3.fused_edge_step3_backward.launches]
+        terms, grads[impl] = trainer.loss_and_grads(batch)
+        after = [fused_edge3.fused_edge_step3.launches,
+                 fused_edge3.fused_edge_step3_backward.launches]
+        assert [a - b for a, b in zip(after, before)] == ([2, 2] if impl == "fused3" else [0, 0])
+        assert torch.isfinite(terms["total"])
+    for name, g in grads["fused3"].items():
+        ref = grads["xla"][name]
+        assert torch.isfinite(g).all(), name
+        assert float((g - ref).norm()) <= 2e-4 * float(ref.norm()) + 1e-12, name

@@ -402,16 +402,23 @@ def test_dispatch_rejects_mixed_devices(op):
 
 
 def test_library_name_follows_its_shared_header(monkeypatch, tmp_path):
-    """The edge-step sources share csrc/edge_common.cuh: an edit of the
-    header renames (so rebuilds) each library that includes it, and no
-    other."""
+    """An edit of a shared header renames (so rebuilds) each library that
+    includes it, and no other: the two v2 forwards share
+    csrc/edge_common.cuh, the three backwards csrc/bwd_common.cuh, the v2
+    and the pair-blocked backward csrc/v2_bwd_tile.cuh."""
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, csrc)
     monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
     names = ("fused_edge_fwd", "fused_edge_bwd", "fused_edge2_fwd", "fused_edge2_bwd",
-             "fused_edge3_fwd")
-    before = {n: cuda_build.library_path(n) for n in names}
-    header = csrc / "edge_common.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {n: cuda_build.library_path(n) for n in names}
-    assert [n for n in names if before[n] != after[n]] == list(names[:4])
+             "fused_edge3_fwd", "fused_edge3_bwd")
+    includers = {
+        "edge_common.cuh": ["fused_edge_fwd", "fused_edge2_fwd"],
+        "bwd_common.cuh": ["fused_edge_bwd", "fused_edge2_bwd", "fused_edge3_bwd"],
+        "v2_bwd_tile.cuh": ["fused_edge_bwd", "fused_edge2_bwd"],
+    }
+    for name, want in includers.items():
+        before = {n: cuda_build.library_path(n) for n in names}
+        header = csrc / name
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {n: cuda_build.library_path(n) for n in names}
+        assert [n for n in names if before[n] != after[n]] == want, name
