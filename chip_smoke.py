@@ -22,11 +22,13 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    training batch's sender view in run order; the pair segment sum (fp32) on both training batches'
    sender views, as fused and fused2 call it; the pair-blocked ("fused2")
    edge step's forward and backward on the pair-blocked training batch, in
-   fp32 and bf16 streams (the v2 and pair-blocked backwards also print
-   their ptxas figures at each width and dtype and the device time of each
-   sub-kernel: tile, weight grads, reduce); then every fused kernel once at
-   L = 16 (zero-padded to a width it is built for) and 256, both dtypes,
-   against its plain version on a batch of 2 meshes (ROADMAP C1);
+   fp32 and bf16 streams (the v2 and pair-blocked forwards and backwards
+   also print their ptxas figures at each width and dtype and the device
+   time of each sub-kernel; the forwards must give two bit-equal calls
+   and, in fp32, z_upd bit-equal to the plain version); then every fused
+   kernel once at L = 16 (zero-padded to a width it is built for) and 256,
+   both dtypes, against its plain version on a batch of 2 meshes (ROADMAP
+   C1);
 3. serve: the committed checkpoint answers 3 requests of 16 meshes each
    through ``Predictor`` with fused3, fused and fused2 (fp32 streams); each
    path's forward kernel must launch exactly 10 times per request and no
@@ -541,14 +543,55 @@ def v2_step_inputs(batch, gen, L: int = LATENT):
     }
 
 
-def v2_kernel_phase(batch) -> dict:
-    """Hold the v2 edge step's forward kernel (fused_edge_fwd) against its
-    plain version on the card at the batch's shapes, in both stream dtypes;
-    time both."""
+# the sub-kernels of a v2 forward's launch (csrc/v2_fwd_tile.cuh,
+# fwd_common.cuh): R's memset, the pair-blocked layout's zero rows, the fp32
+# weight copy of the FMA kernel, the tile kernel (v2_... for #5, pair_...
+# for #7), the moments reduce
+V2_FWD_SUBS = ("Memset", "zero_z_rows_kernel", "copy_weights_kernel", "fwd_tile_fma_kernel",
+               "fwd_tile_mma_kernel", "moments_reduce_kernel")
+
+
+def v2_forward_held(name: str, sd_name: str, kern, plain) -> dict:
+    """Hold a v2 forward (#5 or #7) against its plain version: two calls
+    bit-equal, in fp32 z_upd bit-equal to the plain version, each output
+    within KERNEL_TOL; print the sub-kernels' device times. Returns each
+    output's (max abs err, share of the allowance)."""
     import torch
 
-    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step, fused_edge_step_reference
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{name} {sd_name}: two calls differ")
+    same = torch.equal(got[0], want[0])
+    if sd_name == "float32":
+        check(same, f"{name} float32: z_upd is not bit-equal to the plain version")
+    checked = {n: held(f"{name} {sd_name} {n}", a, b, KERNEL_TOL[sd_name][n])
+               for n, a, b in zip(("z_upd", "R", "M"), got, want)}
+    del got, again, want
+    split = sub_kernel_ms(kern, V2_FWD_SUBS)
+    say(f"kernel {name} {sd_name} split: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items() if v)
+        + f"; two calls bit-equal; z_upd bit-equal to the plain version: {same}")
+    return checked
 
+
+def v2_kernel_phase(batch) -> dict:
+    """Hold the v2 edge step's forward kernel (fused_edge_fwd) against its
+    plain version on the card at the batch's shapes, in both stream dtypes
+    (two calls bit-equal, fp32 z_upd bit-equal to the plain version); print
+    its ptxas figures and sub-kernel times; time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge import (
+        _library,
+        fused_edge_step,
+        fused_edge_step_reference,
+    )
+
+    built = _library()
+    for fig in ptxas_figures(built, built.lib.pdg_fused_edge_fwd_smem):
+        say(f"kernel fused_edge_fwd ptxas: {fig}")
+    say(f"kernel fused_edge_fwd: {built.lib.pdg_fused_edge_fwd_parts()} parts "
+        "(one CTA per SM)")
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
@@ -562,15 +605,12 @@ def v2_kernel_phase(batch) -> dict:
             *args, batch.receivers, aux, batch.n_graphs, batch.tile)
         plain = lambda: fused_edge_step_reference(  # noqa: E731
             *args, batch.receivers, batch.edge_gid, batch.n_graphs)
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        checked = {name: held(f"fused_edge_fwd {sd_name} {name}", a, b,
-                              KERNEL_TOL[sd_name][name])
-                   for name, a, b in zip(("z_upd", "R", "M"), got, want)}
+        checked = v2_forward_held("fused_edge_fwd", sd_name, kern, plain)
         s = torch.finfo(sd).bits // 8
-        # reads a_u, a_v, g_v, g_u, e, the weights (stream dtype) and the
-        # indices; writes z_upd (stream dtype), R and M (fp32)
-        n_bytes = (s * (2 * Np * L + 4 * Ep * L + 2 * L * L + 2 * L)
+        # reads a_u, a_v, the weights (stream dtype), g_v, g_u and e of the
+        # real slots (a padding slot's rows change no output) and the
+        # indices; writes z_upd over all slots (stream dtype), R and M (fp32)
+        n_bytes = (s * (2 * Np * L + 3 * e_real * L + Ep * L + 2 * L * L + 2 * L)
                    + 4 * (2 * Ep + NB) + 4 * (Np * L + 8 * L))
         flops = 2 * 3 * L * L * e_real
         b_ms, b_by = bound(flops, n_bytes, sd_name)
@@ -731,11 +771,20 @@ def pair_aux(batch) -> tuple:
 def fused2_kernel_phase(batch) -> dict:
     """Hold the fused2 edge step's forward kernel (fused_edge2_fwd) against
     its plain version on the card at the pair-blocked batch's shapes, in
-    both stream dtypes; time both."""
+    both stream dtypes (two calls bit-equal, fp32 z_upd bit-equal to the
+    plain version); print its ptxas figures and sub-kernel times; time
+    both."""
     import torch
 
-    from p_div_gnn_tpu_torch.ops.fused_edge import fused_edge_step2, fused_edge_step2_reference
+    from p_div_gnn_tpu_torch.ops.fused_edge import (
+        _library2,
+        fused_edge_step2,
+        fused_edge_step2_reference,
+    )
 
+    built = _library2()
+    for fig in ptxas_figures(built, built.lib.pdg_fused_edge2_fwd_smem):
+        say(f"kernel fused_edge2_fwd ptxas: {fig}")
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     NB = int(batch.edge_block_tile.shape[0])
@@ -748,12 +797,7 @@ def fused2_kernel_phase(batch) -> dict:
         args = [base[k].to(sd).contiguous() for k in base]
         kern = lambda: fused_edge_step2(*args, *idx)  # noqa: E731
         plain = lambda: fused_edge_step2_reference(*args, *idx)  # noqa: E731
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        checked = {name: held(f"fused_edge2_fwd {sd_name} {name}", a, b,
-                              KERNEL_TOL[sd_name][name])
-                   for name, a, b in zip(("z_upd", "R", "M"), got, want)}
-        del got, want
+        checked = v2_forward_held("fused_edge2_fwd", sd_name, kern, plain)
         s = torch.finfo(sd).bits // 8
         # reads proj_u, proj_v, the weights (stream dtype), e of the real
         # slots (a padding slot's row changes no output), the three index
@@ -847,8 +891,8 @@ def fused2_backward_kernel_phase(batch) -> dict:
 
 
 # the width phase: every fused kernel at a width its tiles are not laid out
-# for (16, through the zero padding; the v2 forwards natively) and at the
-# widest they are (256), on a cut batch
+# for (16, through the zero padding) and at the widest they are (256), on a
+# cut batch
 WIDTHS = (16, 256)
 WIDTH_MESHES = 2
 

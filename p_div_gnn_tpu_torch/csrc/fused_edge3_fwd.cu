@@ -61,10 +61,12 @@
 //   not bit-equality. The products accumulate in the MMAs themselves
 //   (mma_chunk's DIRECT): 16 registers fewer than summing each k16 block
 //   apart, which took the kernel to 255 registers and spills.
-// - R and M: the step's z_msg and z_upd (fp32, masked) pass through shared
-//   memory; the thread of column c of z_msg sums it, rounded to the stream
-//   dtype, over each receiver run in slot order in fp64 and writes the run's
-//   sum once (no atomics, no R tile: the plain version's fp64 segment sum);
+// - R and M (fwd_common.cuh's column walks, shared with the v2 and
+//   pair-blocked forwards): the step's z_msg and z_upd (fp32, masked) pass
+//   through shared memory; the thread of column c of z_msg sums it, rounded
+//   to the stream dtype, over each receiver run in slot order in fp64 and
+//   writes the run's sum once (no atomics, no R tile: the plain version's
+//   fp64 segment sum);
 //   the threads of the z_msg and z_upd columns sum Σz and Σz² (the
 //   unrounded fp32 z) in fp64; a one-CTA kernel adds the parts' sums in
 //   order and rounds once. Every sum runs in a fixed order: two calls give
@@ -81,6 +83,7 @@
 
 #include "mma_sm90.cuh"
 #include "fused3_tile.cuh"
+#include "fwd_common.cuh"
 
 namespace {
 
@@ -97,33 +100,6 @@ struct FwdArgs {
   double* mpart;       // (gridDim.x, 4, L) each part's moment sums
   int64_t n_nodes, n_edges, n_graphs, part;  // part: nominal slots of a CTA
 };
-
-#if PDG_PART_CLOCK
-// Each CTA's first and last %globaltimer reading (ns) of the last launch:
-// built only by scripts/port_fwd_ablation.py, which weighs the parts'
-// balance with them.
-__device__ unsigned long long part_clock[2 * 1024];
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-struct PartClock {
-  unsigned long long t0;
-  __device__ __forceinline__ PartClock() : t0(global_ns()) {}
-  __device__ __forceinline__ void stop() {
-    __syncthreads();
-    if (threadIdx.x == 0 && blockIdx.x < 1024) {
-      part_clock[2 * blockIdx.x] = t0;
-      part_clock[2 * blockIdx.x + 1] = global_ns();
-    }
-  }
-};
-#else
-struct PartClock {
-  __device__ __forceinline__ void stop() {}
-};
-#endif
 
 // The MS slots of a step, held by warp 0 (lane i holds rows i, i + 32, ...):
 // their receivers (-1 outside [0, n_nodes)) and masks. A step's slots are
@@ -165,102 +141,6 @@ struct SlotIndex {
     }
     const unsigned live = __ballot_sync(FULL, any);
     if (threadIdx.x == 0) *live_s = live != 0u;
-  }
-};
-
-// The column sums of a CTA's slots, from a step's (MS, L + 4) z tiles. Role
-// j of thread t is column q = t + 256·j of [z_msg | z_upd] (one role a
-// thread, two at L = 256, none for q >= 2L): a z_msg column's thread sums
-// each receiver run's z_msg (rounded to the stream dtype) in slot order in
-// fp64, writing the sum once when the run ends, and Σz_msg, Σz_msg²; a
-// z_upd column's thread writes the column of the z_upd rows and sums
-// Σz_upd, Σz_upd². A step of only padding writes zero z_upd rows and adds
-// nothing (its z are zeros). The z_msg column of thread t is t.
-template <typename T, int L, int MS>
-struct ColumnSums {
-  static constexpr int NR = 2 * L > THREADS ? 2 * L / THREADS : 1;
-  static constexpr int ZS = L + 4, CH = MS < 32 ? MS : 32;  // rows read before their adds
-  double s0[NR], s1[NR];  // Σz, Σz² of each role's column
-  double run = 0.0;       // the open receiver run's sum (z_msg role)
-  int run_r = -1;         // its receiver
-
-  __device__ __forceinline__ ColumnSums() {
-#pragma unroll
-    for (int j = 0; j < NR; ++j) s0[j] = s1[j] = 0.0;
-  }
-  __device__ __forceinline__ void flush(float* R) {
-    if (run_r >= 0) R[static_cast<int64_t>(run_r) * L + threadIdx.x] = static_cast<float>(run);
-  }
-  __device__ __forceinline__ void step(const float* zm_s, const float* zu_s, const int* rcv_s,
-                                       int n, bool live, int64_t base, T* z_upd, float* R) {
-    if constexpr (!keep(WITHOUT_COLUMNS)) return;
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const int q = static_cast<int>(threadIdx.x) + THREADS * j;
-      // the column's values (and the receivers) are read before the adds,
-      // so the loads overlap; the adds then run in slot order
-      float z[CH];
-      if (q < L) {
-        if (!live) continue;
-#pragma unroll 1
-        for (int i0 = 0; i0 < MS; i0 += CH) {
-          int rr[CH];
-#pragma unroll
-          for (int i = 0; i < CH; ++i) {
-            z[i] = zm_s[(i0 + i) * ZS + q];
-            rr[i] = rcv_s[i0 + i];
-          }
-#pragma unroll
-          for (int i = 0; i < CH; ++i) {
-            if (i0 + i < n) {
-              if constexpr (keep(WITHOUT_RUNS)) {
-                if (rr[i] != run_r) {
-                  flush(R);
-                  run = 0.0;
-                  run_r = rr[i];
-                }
-                run += static_cast<double>(round_sd<T>(z[i]));
-              }
-              if constexpr (keep(WITHOUT_MOMENTS)) {
-                s0[j] += static_cast<double>(z[i]);
-                s1[j] += static_cast<double>(z[i]) * z[i];
-              }
-            }
-          }
-        }
-      } else if (q < 2 * L) {
-        const int c = q - L;
-#pragma unroll 1
-        for (int i0 = 0; i0 < MS; i0 += CH) {
-#pragma unroll
-          for (int i = 0; i < CH; ++i) z[i] = live ? zu_s[(i0 + i) * ZS + c] : 0.f;
-#pragma unroll
-          for (int i = 0; i < CH; ++i) {
-            if (i0 + i < n) {
-              z_upd[(base + i0 + i) * L + c] = from_f<T>(z[i]);
-              if constexpr (keep(WITHOUT_MOMENTS)) {
-                s0[j] += static_cast<double>(z[i]);
-                s1[j] += static_cast<double>(z[i]) * z[i];
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-  // the last run's sum and this CTA's moment sums (rows 0, 1: z_msg; 2, 3:
-  // z_upd)
-  __device__ __forceinline__ void finish(float* R, double* mpart) {
-    if (static_cast<int>(threadIdx.x) < L) flush(R);
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const int q = static_cast<int>(threadIdx.x) + THREADS * j;
-      if (q < 2 * L) {
-        const int row = q < L ? 0 : 2, c = q % L;
-        mpart[row * L + c] = s0[j];
-        mpart[(row + 1) * L + c] = s1[j];
-      }
-    }
   }
 };
 
@@ -602,40 +482,10 @@ __global__ void __launch_bounds__(THREADS, 1) step3_fwd_mma_kernel(const FwdArgs
   timer.stop();
 }
 
-// wfma[w] = weight w in fp32 (the FMA kernel's ring source).
-template <typename T>
-__global__ void copy_weights_kernel(const FwdArgs a, int64_t L, float* __restrict__ wfma) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t LL = L * L;
-  if (idx < N_W * LL) wfma[idx] = to_f(static_cast<const T*>(a.w[idx / LL])[idx % LL]);
-}
-
-// M[j] = Σ_p mpart[p][j] for j < 4, in part order; rows 4..7 are zero. One
-// thread per (j, column): 4L threads; the loads of 8 parts go out before
-// their adds.
-__global__ void moments_reduce_kernel(const double* __restrict__ mpart, int64_t n_parts,
-                                      int64_t L, float* __restrict__ M) {
-  const int64_t j = threadIdx.x / L, c = threadIdx.x % L;
-  double s = 0.0;
-  int64_t p = 0;
-  for (; p + 8 <= n_parts; p += 8) {
-    double v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = mpart[((p + u) * 4 + j) * L + c];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s += v[u];
-  }
-  for (; p < n_parts; ++p) s += mpart[(p * 4 + j) * L + c];
-  M[j * L + c] = static_cast<float>(s);
-  M[(4 + j) * L + c] = 0.f;
-}
-
 template <typename T, int L>
 cudaError_t launch_fma(const FwdArgs& a, unsigned grid, cudaStream_t s) {
-  constexpr int64_t n_w = N_W * L * L;
-  copy_weights_kernel<T><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, s>>>(
-      a, L, const_cast<float*>(a.wfma));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = copy_weights<T>(WeightList{{a.w[0], a.w[1], a.w[2], a.w[3]}}, N_W, L,
+                                    const_cast<float*>(a.wfma), s);
   if (err != cudaSuccess) return err;
   const int smem = static_cast<int>(fma_smem_bytes<L>());
   err = cudaFuncSetAttribute(step3_fwd_fma_kernel<T, L>,
@@ -660,14 +510,7 @@ cudaError_t launch_mma(const FwdArgs& a, unsigned grid, cudaStream_t s) {
 extern "C" {
 
 // Parts (CTAs) of a launch on the current device: one per SM; 0 on error.
-int64_t pdg_fused_edge3_fwd_parts() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return 0;
-  }
-  return sms;
-}
+int64_t pdg_fused_edge3_fwd_parts() { return sm_parts(); }
 
 // Whether a launch at width L with bf16 (1) or fp32 (0) streams runs the
 // FMA kernel, which reads the fp32 weight copy wfma.
@@ -701,20 +544,9 @@ int pdg_fused_edge3_fwd(int bf16, const void* x, const void* g, const void* e, c
   else if (L == 128) err = bf16 ? launch_mma<128>(a, grid, s) : launch_fma<float, 128>(a, grid, s);
   else err = bf16 ? launch_fma<__nv_bfloat16, 256>(a, grid, s) : launch_fma<float, 256>(a, grid, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  moments_reduce_kernel<<<1, static_cast<unsigned>(4 * L), 0, s>>>(
-      static_cast<double*>(mpart), n_parts, L, static_cast<float*>(M));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      moments_reduce(static_cast<double*>(mpart), n_parts, L, static_cast<float*>(M), s));
 }
-
-#if PDG_PART_CLOCK
-// Copies the last launch's per-CTA clock readings (2 per CTA, n_parts <=
-// 1024 CTAs) to host memory.
-int pdg_fused_edge3_fwd_part_clock(unsigned long long* host, int64_t n_parts) {
-  if (n_parts < 1 || n_parts > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaMemcpyFromSymbol(host, part_clock,
-                                               static_cast<size_t>(2 * n_parts) * 8));
-}
-#endif
 
 const char* pdg_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -64,11 +64,10 @@ from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_su
 from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
-# the widths the kernels are built for: the forwards (#5, #7; a column per
-# thread) take any multiple of 4, the backwards (#6, #8; fused3_tile.cuh's
-# register tile) 64, 128 and 256; any other L <= 256 runs at the next one,
-# zero-padded (ops/widths.py)
-FWD_WIDTHS = tuple(range(4, 257, 4))
+# the widths the kernels are built for (fused3_tile.cuh's register tile):
+# the forwards (#5, #7) and the backwards (#6, #8) take 64, 128 and 256;
+# any other L <= 256 runs at the next one, zero-padded (ops/widths.py)
+FWD_WIDTHS = (64, 128, 256)
 BWD_WIDTHS = (64, 128, 256)
 
 
@@ -132,7 +131,7 @@ def fused_edge_step_reference(
 def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
                   tile, widths, extra_sd=(), extra_f32=()):
     """Shapes, dtypes, devices and layout of a kernel call built for
-    ``widths``; returns (Np, Ep, L, Lp, n_blocks), Lp the width it runs at."""
+    ``widths``; returns (Np, Ep, L, Lp), Lp the width it runs at."""
     Np, L = a_u.shape
     Ep = g_v.shape[0]
     sd = g_v.dtype
@@ -158,18 +157,47 @@ def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, b
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
     Lp = padded_width(L, widths, "fused_edge_step")
     _check(5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31, "arrays too large")
-    return Np, Ep, L, Lp, n_blocks
+    return Np, Ep, L, Lp
+
+
+def _bind_forward(built: CudaLibrary, name: str, n_ptr: int, n_int: int) -> CudaLibrary:
+    """Argument types of a v2 forward library's entry points (``name``:
+    its launch function's prefix)."""
+    fn = getattr(built.lib, name)
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    getattr(built.lib, f"{name}_parts").argtypes = []
+    getattr(built.lib, f"{name}_parts").restype = ctypes.c_int64
+    getattr(built.lib, f"{name}_needs_wfma").argtypes = [ctypes.c_int, ctypes.c_int64]
+    getattr(built.lib, f"{name}_needs_wfma").restype = ctypes.c_int
+    getattr(built.lib, f"{name}_smem").argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+    getattr(built.lib, f"{name}_smem").restype = ctypes.c_int64
+    return built
+
+
+def _forward_scratch(built: CudaLibrary, name: str, sd: torch.dtype, L: int,
+                     dev: torch.device) -> tuple:
+    """A v2 forward's scratch: (n_parts, wfma or None, mpart); n_parts is
+    the persistent grid's CTAs, one per SM."""
+    n_parts = int(getattr(built.lib, f"{name}_parts")())
+    if n_parts < 1:
+        raise RuntimeError(f"{name}: no CUDA device to size the grid on")
+    wfma = None
+    if getattr(built.lib, f"{name}_needs_wfma")(int(sd == torch.bfloat16), L):
+        wfma = torch.empty((2, L, L), dtype=torch.float32, device=dev)
+    mpart = torch.empty((n_parts, 4, L), dtype=torch.float64, device=dev)
+    return n_parts, wfma, mpart
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 @functools.cache
 def _library() -> CudaLibrary:
-    built = load_cuda_library("fused_edge_fwd")
-    fn = built.lib.pdg_fused_edge_fwd
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return built
+    return _bind_forward(load_cuda_library("fused_edge_fwd"), "pdg_fused_edge_fwd", 16, 5)
 
 
 def _fused_edge_step_cuda(
@@ -179,8 +207,10 @@ def _fused_edge_step_cuda(
     n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     built = _library()
-    Np, Ep, L, Lp, n_blocks = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2,
-                                            receivers, edge_gid, block_tile, tile, FWD_WIDTHS)
+    Np, Ep, L, Lp = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers,
+                                  edge_gid, block_tile, tile, FWD_WIDTHS)
+    # one writer per R row: each receiver's slots must be one run
+    require_consecutive_runs(receivers, Np, "fused_edge_step")
     if Lp != L:
         padded = pad_args((a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2), "cccccwcwc", Lp)
         out = _fused_edge_step_cuda(*padded, receivers, edge_gid, block_tile, n_graphs, tile)
@@ -188,16 +218,16 @@ def _fused_edge_step_cuda(
     sd = g_v.dtype
     dev = a_u.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
-    r = torch.zeros((Np, L), dtype=torch.float32, device=dev)
-    mpart = torch.empty((Np // tile, 4, L), dtype=torch.float64, device=dev)
+    r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        n_parts, wfma, mpart = _forward_scratch(built, "pdg_fused_edge_fwd", sd, L, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_fused_edge_fwd(
             int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (a_u, a_v, g_v, g_u, e, receivers, edge_gid, block_tile,
-                                     w_e, w2, b0, b2, z_upd, r, mpart, m)),
-            Np, Ep, L, tile, n_blocks, int(n_graphs), stream,
+            *(_ptr(t) for t in (a_u, a_v, g_v, g_u, e, receivers, edge_gid, w_e, w2, b0, b2,
+                                z_upd, r, wfma, mpart, m)),
+            Np, Ep, L, int(n_graphs), n_parts, stream,
         )
     check_launch(built, err, "fused_edge_fwd")
     fused_edge_step.launches += 1
@@ -285,7 +315,7 @@ def _fused_edge_step_backward_cuda(
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
     built = _bwd_library()
-    Np, Ep, L, Lp, n_blocks = _check_inputs(
+    Np, Ep, L, Lp = _check_inputs(
         a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile, tile,
         BWD_WIDTHS, (z_upd, dz_upd), (dr, dm))
     _check(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
@@ -421,8 +451,11 @@ def fused_edge_step(
     """The v2 edge step: (z_upd, R, M), differentiable in a_u, a_v, g_v,
     g_u, e and the weights. CUDA tensors go to the kernels
     (``fused_edge_step.launches`` counts the forward's launches,
-    ``fused_edge_step_backward.launches`` the backward's), CPU tensors to
-    the plain versions; anything else raises."""
+    ``fused_edge_step_backward.launches`` the backward's), which take L <=
+    256 (64, 128 and 256 natively, any other width zero-padded to the next)
+    and each receiver's slots consecutive (the receiver-major layout; a
+    pair-blocked batch's is not) and raise otherwise; CPU tensors go to the
+    plain versions; anything else raises."""
     edge_gid, block_tile = aux
     return _FusedEdgeStep.apply(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid,
                                 block_tile, n_graphs, tile)
@@ -492,7 +525,7 @@ def fused_edge_step2_reference(
 def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid,
                        block_tile, block_snd_tile, tile, widths, extra_sd=(), extra_f32=()):
     """Shapes, dtypes, devices and layout of a fused2 kernel call built for
-    ``widths``; returns (Np, Ep, L, Lp, n_blocks), Lp the width it runs at."""
+    ``widths``; returns (Np, Ep, L, Lp), Lp the width it runs at."""
     Np, L = proj_u.shape
     Ep = e.shape[0]
     sd = e.dtype
@@ -520,18 +553,12 @@ def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, e
     _check2(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
     Lp = padded_width(L, widths, "fused_edge_step2")
     _check2(5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31, "arrays too large")
-    return Np, Ep, L, Lp, n_blocks
+    return Np, Ep, L, Lp
 
 
 @functools.cache
 def _library2() -> CudaLibrary:
-    built = load_cuda_library("fused_edge2_fwd")
-    fn = built.lib.pdg_fused_edge2_fwd
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return built
+    return _bind_forward(load_cuda_library("fused_edge2_fwd"), "pdg_fused_edge2_fwd", 16, 6)
 
 
 def _fused_edge_step2_cuda(
@@ -541,7 +568,7 @@ def _fused_edge_step2_cuda(
     block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     built = _library2()
-    Np, Ep, L, Lp, n_blocks = _check_pair_inputs(
+    Np, Ep, L, Lp = _check_pair_inputs(
         proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
         block_snd_tile, tile, FWD_WIDTHS)
     if Lp != L:
@@ -549,21 +576,21 @@ def _fused_edge_step2_cuda(
         out = _fused_edge_step2_cuda(*padded, receivers, senders, edge_gid, block_tile,
                                      block_snd_tile, n_graphs, tile)
         return unpad_args(out, "ccc", L)
+    slot, rcv, snd, pad = pair_entries(receivers, senders, edge_gid, block_tile,
+                                       block_snd_tile, n_graphs, tile)
     sd = e.dtype
     dev = e.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
-    r = torch.empty((Np, L), dtype=torch.float32, device=dev)
-    r64 = torch.empty((Np, L), dtype=torch.float64, device=dev)
-    mpart = torch.empty((Np // tile, 4, L), dtype=torch.float64, device=dev)
+    r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        n_parts, wfma, mpart = _forward_scratch(built, "pdg_fused_edge2_fwd", sd, L, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_fused_edge2_fwd(
             int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (proj_u, proj_v, e, receivers, senders, edge_gid,
-                                     block_tile, block_snd_tile, w_e, w2, b0, b2, z_upd, r,
-                                     r64, mpart, m)),
-            Np, Ep, L, tile, n_blocks, int(n_graphs), stream,
+            *(_ptr(t) for t in (proj_u, proj_v, e, slot, rcv, snd, pad, w_e, w2, b0, b2, z_upd,
+                                r, wfma, mpart, m)),
+            Np, Ep, slot.shape[0], pad.shape[0], L, n_parts, stream,
         )
     check_launch(built, err, "fused_edge2_fwd")
     fused_edge_step2.launches += 1
@@ -650,21 +677,21 @@ def _bwd_library2() -> CudaLibrary:
     return built
 
 
-def pair_bwd_entries(
+def pair_entries(
     receivers: torch.Tensor, senders: torch.Tensor, edge_gid: torch.Tensor,
     block_tile: torch.Tensor, block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The pair-blocked backward kernel's entries: (slot, rcv, snd) of the
-    real slots, stably sorted by receiver, so each receiver's slots are one
-    run of the list in slot order (the layout meets a receiver in up to ~4
-    runs, one per sender tile of its receiver tile); rcv and snd are -1
-    where the endpoint lies outside its block's tile (the layout never makes
-    one). Then the padding slots. int32, on the layout's device; kept on
-    ``edge_gid`` for the layout's later calls (one device sync per
-    layout)."""
+    """The pair-blocked kernels' entries (the forward's and the backward's):
+    (slot, rcv, snd) of the real slots, stably sorted by receiver, so each
+    receiver's slots are one run of the list in slot order (the layout meets
+    a receiver in up to ~4 runs, one per sender tile of its receiver tile);
+    rcv and snd are -1 where the endpoint lies outside its block's tile (the
+    layout never makes one). Then the padding slots. int32, on the layout's
+    device; kept on ``edge_gid`` for the layout's later calls (one device
+    sync per layout)."""
     key = tuple((t.data_ptr(), t._version) for t in
                 (receivers, senders, edge_gid, block_tile, block_snd_tile)) + (n_graphs, tile)
-    cached = getattr(edge_gid, "_pdg_pair_bwd_entries", None)
+    cached = getattr(edge_gid, "_pdg_pair_entries", None)
     if cached is not None and cached[0] == key:
         return cached[1]
     in_r, in_s = _pair_in_tile(receivers, senders, block_tile, block_snd_tile, tile)
@@ -675,7 +702,7 @@ def pair_bwd_entries(
     slots = slots[torch.sort(rcv[slots], stable=True).indices]
     entries = (slots.int(), rcv[slots].int(), snd[slots].int(),
                torch.nonzero(~real).flatten().int())
-    edge_gid._pdg_pair_bwd_entries = (key, entries)
+    edge_gid._pdg_pair_entries = (key, entries)
     return entries
 
 
@@ -687,7 +714,7 @@ def _fused_edge2_bwd_cuda(
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
     built = _bwd_library2()
-    Np, Ep, L, Lp, n_blocks = _check_pair_inputs(
+    Np, Ep, L, Lp = _check_pair_inputs(
         proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
         block_snd_tile, tile, BWD_WIDTHS, (z_upd, dz_upd), (dr, dm))
     _check2(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
@@ -697,8 +724,8 @@ def _fused_edge2_bwd_cuda(
             senders, edge_gid, block_tile, block_snd_tile, n_graphs, tile,
             *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
         return unpad_args(out, "cccccwcwc", L)
-    slot, rcv, snd, pad = pair_bwd_entries(receivers, senders, edge_gid, block_tile,
-                                           block_snd_tile, n_graphs, tile)
+    slot, rcv, snd, pad = pair_entries(receivers, senders, edge_gid, block_tile,
+                                       block_snd_tile, n_graphs, tile)
     n_real = slot.shape[0]
     sd = e.dtype
     dev = e.device

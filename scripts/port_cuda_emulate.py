@@ -21,11 +21,13 @@ at L = 64 and 256; the v2 (#6) and pair-blocked (#8) backwards at L = 64
 and 128 on layouts with a tile of only padding (#6: a receiver run across a
 part's nominal end; #8: receivers met in several runs of their tile, stray
 endpoints), twice, bit-equal, their fp32 FMA-chain outputs (dg_v, dg_u;
-dpre1, dpre2) equal to the plain version's; the v2 forwards; the segment
-sum on both callers' layouts, twice, bit-equal; then each fused kernel once
-(fp32) at a width it is not built for, through the wrappers' zero padding.
+dpre1, dpre2) equal to the plain version's; the v2 (#5) and pair-blocked
+(#7) forwards at 64, 128 and 256 on the same layouts, twice, bit-equal,
+their fp32 z_upd equal to the plain version's; the segment sum on both
+callers' layouts, twice, bit-equal; then each fused kernel once (fp32) at a
+width it is not built for, through the wrappers' zero padding.
 Tolerances are ``chip_smoke.py``'s; the script exits 1 if one disagrees.
-The emulated card has 5 SMs (the fused3 forward's persistent grid).
+The emulated card has 5 SMs (the forwards' persistent grids).
 
 It checks what a kernel computes (indexing, synchronization, the order of
 its sums, the wrapper's argument list), not its speed, and not whether
@@ -425,6 +427,22 @@ def pair_case(L: int, n_tiles: int = 2):
     return arrays, idx, pair_indices(idx)
 
 
+def run_forward(name: str, sd_name: str, sd, make, L: int, call, plain) -> list[float]:
+    """A v2 forward kernel against its plain version on ``make(L)``'s
+    problem: two calls bit-equal, in fp32 z_upd bit-equal to the plain
+    version; its outputs' shares of the allowance."""
+    arrays, idx, ix = make(L)
+    a = [T(v).to(sd) for v in arrays.values()]
+    got = [call(a, ix) for _ in range(2)]
+    assert all(torch.equal(u, v) for u, v in zip(*got)), f"{name} L={L}: two calls differ"
+    want = plain(a, ix)
+    if sd == torch.float32:
+        assert torch.equal(got[0][0], want[0]), f"{name} fp32 L={L}: z_upd not bit-equal"
+    ftol = chip_smoke.KERNEL_TOL[sd_name]
+    return [report(f"{name} {sd_name} L={L} {n}", x, y, ftol[n])
+            for n, x, y in zip(FWD_NAMES, got[0], want)]
+
+
 def fused3_case(L: int, n_tiles: int = 2, degree: int = 6):
     arrays, idx = _edge_problem(6, n_tiles, L, degree=degree)
     return arrays, idx, tuple(T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
@@ -433,14 +451,16 @@ def fused3_case(L: int, n_tiles: int = 2, degree: int = 6):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
-    ap.add_argument("--L", type=int, default=16,
-                    help="width of the v2 and fused2 forwards (fused3's: 64, 128, 256)")
+    ap.add_argument("--L", type=int, default=16, help="width of the segment sums' rows")
     args = ap.parse_args()
     shares = []
     f3_fwd = lambda a, ix: fused_edge3.fused_edge_step3_reference(*a, ix[0], ix[1], 1)  # noqa: E731
     v2_fwd = lambda a, ix: fused_edge.fused_edge_step_reference(*a, ix[0], ix[1], 1)  # noqa: E731
     p2_fwd = lambda a, ix: fused_edge.fused_edge_step2_reference(  # noqa: E731
         *a, *ix[:2], ix[2:], 1, NODE_TILE)
+    v2_call = lambda a, ix: fused_edge._fused_edge_step_cuda(*a, *ix, 1, NODE_TILE)  # noqa: E731
+    p2_call = lambda a, ix: fused_edge._fused_edge_step2_cuda(  # noqa: E731
+        *a, *ix, 1, NODE_TILE)
     f3_bwd = (lambda a, ix, z, c: fused_edge3._fused_edge_step3_backward_cuda(
                   *a, *ix, 1, NODE_TILE, z, *c),
               lambda a, ix, z, c: fused_edge3.fused_edge_step3_backward_reference(
@@ -488,21 +508,14 @@ def main() -> int:
                                        lambda L: pair_case(L, args.tiles), L, *p2_bwd,
                                        fwd_plain=p2_fwd, bit_equal=(1, 2), twice=True)
 
-            arrays, idx = _v2_problem(5, args.tiles, args.L)
-            a = [T(v).to(sd) for v in arrays.values()]
-            rcv, gid, bt = (T(idx[k]) for k in ("receivers", "edge_gid", "block_tile"))
-            got = fused_edge._fused_edge_step_cuda(*a, rcv, gid, bt, 1, NODE_TILE)
-            want = fused_edge.fused_edge_step_reference(*a, rcv, gid, 1)
-            shares += [report(f"fused_edge_fwd {sd_name} {n}", x, y, ftol[n])
-                       for n, x, y in zip(FWD_NAMES, got, want)]
-
-            arrays, idx = _pair_problem(5, args.tiles, args.L)
-            a = [T(v).to(sd) for v in arrays.values()]
-            ix = pair_indices(idx)
-            got = fused_edge._fused_edge_step2_cuda(*a, *ix, 1, NODE_TILE)
-            want = fused_edge.fused_edge_step2_reference(*a, *ix[:2], ix[2:], 1, NODE_TILE)
-            shares += [report(f"fused_edge2_fwd {sd_name} {n}", x, y, ftol[n])
-                       for n, x, y in zip(FWD_NAMES, got, want)]
+            # the redesigned v2 (#5) and pair-blocked (#7) forwards at each of
+            # their widths (bf16: the tensor cores at 64 and 128, the FMA
+            # chains at 256)
+            for L in fused_edge.FWD_WIDTHS:
+                shares += run_forward("fused_edge_fwd", sd_name, sd,
+                                      lambda L: v2_case(L, args.tiles), L, v2_call, v2_fwd)
+                shares += run_forward("fused_edge2_fwd", sd_name, sd,
+                                      lambda L: pair_case(L, args.tiles), L, p2_call, p2_fwd)
 
             rows, layouts = _segment_problem(8, args.tiles, args.L)
             n_nodes = args.tiles * NODE_TILE
@@ -529,8 +542,8 @@ def main() -> int:
                            for i, (x, y) in enumerate(zip(got, want))]
 
         # one width each fused kernel is not built for, through the zero
-        # padding (fp32, one node tile): 16 for fused3 and the backwards (run
-        # at 64), 18 for the v2 forwards (run at 20)
+        # padding (fp32, one node tile): 16 for fused3 and the backwards, 18
+        # for the v2 forwards (each run at 64)
         sd_name, sd = "float32", torch.float32
         ftol = chip_smoke.KERNEL_TOL[sd_name]
         arrays, idx, ix = fused3_case(16, 1)

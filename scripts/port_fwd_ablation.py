@@ -1,21 +1,27 @@
-"""Where the fused3 forward's time goes on the card: the tile kernel's device
-time with one part of its work taken out, and how evenly its parts end.
+"""Where an edge-step forward's time goes on the card: the tile kernel's
+device time with one part of its work taken out, and how evenly its parts
+end.
 
     PYTHONPATH=. python scripts/port_fwd_ablation.py
+        [--kernel fused_edge3_fwd|fused_edge_fwd|fused_edge2_fwd]
 
-Builds ``p_div_gnn_tpu_torch/csrc/fused_edge3_fwd.cu`` as it is ("base") and
-in variants with one part of its work taken out by a preprocessor switch
-(``-DPDG_WITHOUT=<part>``, a name of ``csrc/fused3_tile.cuh``'s ``enum
-Part``), with the port's nvcc flags, into ``build/port_fwd_ablation/``
-(``port_bwd_ablation.build_variants``): without the FMA chains (fp32: the
-FMAs, and the shared loads that feed them), without staging the step's rows
-(fp32), without the MMAs (bf16), without copying the step's rows (bf16),
-and, in both, without the R run sums, without the moment sums, and without
-the column walks (R, M and the z_upd stores). Each runs chip_smoke.py's
-kernel phase inputs (the serving batch of request 0, generator seed 0) in
-fp32 and bf16 streams, five calls under ``torch.profiler``, and prints the
-mean device time of each sub-kernel in ms. The variants compute wrong
-values; only their times are read.
+Builds ``p_div_gnn_tpu_torch/csrc/<kernel>.cu`` (default the fused3
+forward, #1; the v2 forward #5, the pair-blocked forward #7) as it is
+("base") and in variants with one part of its work taken out by a
+preprocessor switch (``-DPDG_WITHOUT=<part>``, a name of
+``csrc/fused3_tile.cuh``'s ``enum Part``), with the port's nvcc flags, into
+``build/port_fwd_ablation/`` (``port_bwd_ablation.build_variants``):
+without the FMA chains (fp32: the FMAs, and the shared loads that feed
+them), without staging the step's rows (fp32), without the MMAs (bf16),
+without copying the step's rows (bf16), for #5 and #7 without gathering the
+first layer's receiver and sender rows (fp32), and, in both dtypes, without
+the R run sums, without the moment sums, and without the column walks (R,
+M and the z_upd stores). Each runs chip_smoke.py's kernel phase inputs for
+that kernel (#1 and #5: the serving batch of request 0; #7: the
+pair-blocked training batch; that phase's generator seed) in fp32 and bf16
+streams, five calls under ``torch.profiler``, and prints the mean device
+time of each sub-kernel in ms. The variants compute wrong values; only
+their times are read.
 
 Then a build with ``-DPDG_PART_CLOCK=1`` (the outputs unchanged) records
 each CTA's first and last ``%globaltimer`` reading of a call: the script
@@ -27,6 +33,7 @@ longest). Needs a CUDA card and nvcc.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import statistics
 import subprocess
@@ -41,12 +48,14 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.batching import pack_batch  # noqa: E402
-from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge3  # noqa: E402
+from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3  # noqa: E402
 from port_bwd_ablation import build_variants  # noqa: E402
 
 OUT = ROOT / "build" / "port_fwd_ablation"
-SUBS = ("copy_weights_kernel", "step3_fwd_fma_kernel", "step3_fwd_mma_kernel",
-        "moments_reduce_kernel")
+SUBS = {"fused_edge3_fwd": ("copy_weights_kernel", "step3_fwd_fma_kernel",
+                            "step3_fwd_mma_kernel", "moments_reduce_kernel"),
+        "fused_edge_fwd": chip_smoke.V2_FWD_SUBS,
+        "fused_edge2_fwd": chip_smoke.V2_FWD_SUBS}
 # variant: the part it is built without (csrc/fused3_tile.cuh, enum Part)
 VARIANTS = {
     "base": None,
@@ -59,13 +68,19 @@ VARIANTS = {
     "without the column walks": "WITHOUT_COLUMNS",
     "part clock": None,
 }
+V2_VARIANTS = {**VARIANTS, "without the row gathers": "WITHOUT_GATHER"}
 EXTRA = {"part clock": ["-DPDG_PART_CLOCK=1"]}
 
 
-def load(path: Path) -> cuda_build.CudaLibrary:
+def load(path: Path, kernel: str) -> cuda_build.CudaLibrary:
     lib = ctypes.CDLL(str(path))
     lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pdg_cuda_error_string.restype = ctypes.c_char_p
+    built = cuda_build.CudaLibrary(lib, path, 0.0, "")
+    if kernel == "fused_edge_fwd":
+        return fused_edge._bind_forward(built, "pdg_fused_edge_fwd", 16, 5)
+    if kernel == "fused_edge2_fwd":
+        return fused_edge._bind_forward(built, "pdg_fused_edge2_fwd", 16, 6)
     fn = lib.pdg_fused_edge3_fwd
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -73,17 +88,28 @@ def load(path: Path) -> cuda_build.CudaLibrary:
     lib.pdg_fused_edge3_fwd_parts.restype = ctypes.c_int64
     lib.pdg_fused_edge3_fwd_needs_wfma.argtypes = [ctypes.c_int, ctypes.c_int64]
     lib.pdg_fused_edge3_fwd_needs_wfma.restype = ctypes.c_int
-    return cuda_build.CudaLibrary(lib, path, 0.0, "")
+    return built
 
 
-def part_times(built: cuda_build.CudaLibrary, call) -> str:
+def use(kernel: str, built: cuda_build.CudaLibrary) -> None:
+    """Make the kernel's wrapper launch ``built``."""
+    if kernel == "fused_edge3_fwd":
+        fused_edge3._library = lambda: built
+    elif kernel == "fused_edge_fwd":
+        fused_edge._library = lambda: built
+    else:
+        fused_edge._library2 = lambda: built
+
+
+def part_times(built: cuda_build.CudaLibrary, kernel: str, call) -> str:
     """One call's CTA times from the part clock build."""
-    n_parts = int(built.lib.pdg_fused_edge3_fwd_parts())
+    n_parts = int(getattr(built.lib, f"pdg_{kernel}_parts")())
     call()
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * (2 * n_parts))()
-    err = built.lib.pdg_fused_edge3_fwd_part_clock(buf, ctypes.c_int64(n_parts))
-    cuda_build.check_launch(built, err, "pdg_fused_edge3_fwd_part_clock")
+    built.lib.pdg_part_clock.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+    err = built.lib.pdg_part_clock(buf, ctypes.c_int64(n_parts))
+    cuda_build.check_launch(built, err, "pdg_part_clock")
     starts, ends = buf[0::2], buf[1::2]
     spans = [(e - s) / 1e6 for s, e in zip(starts, ends)]
     mean = statistics.fmean(spans)
@@ -92,31 +118,53 @@ def part_times(built: cuda_build.CudaLibrary, call) -> str:
             f"longest / mean {max(spans) / mean:.3f}")
 
 
+def calls(kernel: str):
+    """(dtype name, call) pairs: the kernel's wrapper on its chip_smoke
+    phase's inputs, in fp32 and bf16 streams."""
+    if kernel == "fused_edge2_fwd":
+        from p_div_gnn_tpu_torch.datagen.workload import build_workload
+
+        batch = build_workload(chip_smoke.N_MESHES, seed=0, pair_blocks=True)[0].to("cuda")
+        base = chip_smoke.pair_step_inputs(batch, torch.Generator(device="cuda").manual_seed(6))
+        idx = (batch.receivers, batch.senders, chip_smoke.pair_aux(batch), batch.n_graphs,
+               batch.tile)
+        step = lambda args: fused_edge.fused_edge_step2(*args, *idx)  # noqa: E731
+    else:
+        batch = pack_batch(chip_smoke.build_request(0), reorder="rcm", sender_view=False,
+                           div_ell=False).to("cuda")
+        gen = torch.Generator(device="cuda")
+        aux = (batch.receivers, (batch.edge_gid, batch.edge_block_tile), batch.n_graphs,
+               batch.tile)
+        if kernel == "fused_edge3_fwd":
+            base = chip_smoke.edge_step_inputs(batch, gen.manual_seed(0))
+            step = lambda args: fused_edge3.fused_edge_step3(*args, *aux)  # noqa: E731
+        else:
+            base = chip_smoke.v2_step_inputs(batch, gen.manual_seed(3))
+            step = lambda args: fused_edge.fused_edge_step(*args, *aux)  # noqa: E731
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        args = [base[k].to(sd).contiguous() for k in base]
+        yield sd_name, lambda args=args: step(args)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", default="fused_edge3_fwd", choices=tuple(SUBS))
+    kernel = ap.parse_args().kernel
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    libs = build_variants("fused_edge3_fwd", VARIANTS, OUT, EXTRA)
-    batch = pack_batch(chip_smoke.build_request(0), reorder="rcm", sender_view=False,
-                       div_ell=False).to("cuda")
-    base = chip_smoke.edge_step_inputs(batch, torch.Generator(device="cuda").manual_seed(0))
-    aux = (batch.edge_gid, batch.edge_block_tile)
+    variants = VARIANTS if kernel == "fused_edge3_fwd" else V2_VARIANTS
+    libs = build_variants(kernel, variants, OUT / kernel, EXTRA)
+    subs = SUBS[kernel]
+    cases = list(calls(kernel))
     for name, path in libs.items():
-        built = load(path)
-        fused_edge3._library = lambda built=built: built
-        for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            args = [base[k].to(sd).contiguous() for k in base]
-
-            def call():
-                return fused_edge3.fused_edge_step3(*args, batch.receivers, aux, batch.n_graphs,
-                                                    batch.tile)
-
+        built = load(path, kernel)
+        use(kernel, built)
+        for sd_name, call in cases:
             if name == "part clock":
-                built.lib.pdg_fused_edge3_fwd_part_clock.argtypes = [ctypes.c_void_p,
-                                                                     ctypes.c_int64]
-                print(f"{name} {sd_name}: {part_times(built, call)}", flush=True)
+                print(f"{name} {sd_name}: {part_times(built, kernel, call)}", flush=True)
                 continue
             for _ in range(2):
                 call()
@@ -125,9 +173,9 @@ def main() -> None:
                 for _ in range(5):
                     call()
                 torch.cuda.synchronize()
-            times = {sub: 0.0 for sub in SUBS}
+            times = {sub: 0.0 for sub in subs}
             for e in prof.key_averages():
-                for sub in SUBS:
+                for sub in subs:
                     if sub in e.key:
                         times[sub] += e.device_time_total / 5e3
             print(f"{name} {sd_name}: " + " ".join(f"{k} {v:.3f}" for k, v in times.items() if v)

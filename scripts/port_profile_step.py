@@ -36,7 +36,7 @@ from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
 
 # sub-kernel names of each ported kernel's library (csrc/*.cu), its own tile
 # kernels first; the three backwards share the others (csrc/bwd_common.cuh)
-# and the two v2 forwards theirs (csrc/edge_common.cuh), which go to the
+# and the three forwards theirs (csrc/fwd_common.cuh), which go to the
 # kernel whose tile kernel ran in the step
 _BWD_SHARED = ("prepare_weights_kernel", "bwd_wgrad_kernel", "bwd_reduce_kernel")
 GROUPS = {
@@ -45,9 +45,12 @@ GROUPS = {
     "fused_edge3_bwd (#2)": ("step3_bwd_tile_kernel",) + _BWD_SHARED,
     "segment_sum_csr (#3)": ("run_chunk_kernel", "run_merge_kernel"),
     "segment_sum_csr_pair (#4)": ("pair_partial_kernel", "pair_merge_kernel"),
-    "fused_edge_fwd (#5)": ("v2_fwd_tile_kernel", "edge_moments_kernel"),
+    "fused_edge_fwd (#5)": ("v2_fwd_tile_fma_kernel", "v2_fwd_tile_mma_kernel",
+                            "copy_weights_kernel", "moments_reduce_kernel"),
     "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel",) + _BWD_SHARED,
-    "fused_edge2_fwd (#7)": ("pair_fwd_tile_kernel", "edge_moments_kernel"),
+    "fused_edge2_fwd (#7)": ("pair_fwd_tile_fma_kernel", "pair_fwd_tile_mma_kernel",
+                             "zero_z_rows_kernel", "copy_weights_kernel",
+                             "moments_reduce_kernel"),
     "fused_edge2_bwd (#8)": ("pair_bwd_tile_kernel", "zero_rows_kernel") + _BWD_SHARED,
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")

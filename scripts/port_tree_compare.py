@@ -1,8 +1,8 @@
-"""Hold the fused3 edge step's kernels and the v2 and pair-blocked backwards
-of this checkout against another checkout's on the card, bit for bit, and
-time the three backwards in both: for example against the parent commit,
-unpacked with ``git archive`` into a directory that .gitignore lists (the
-port's package is all it needs).
+"""Hold the fused3 edge step's kernels and the v2 and pair-blocked kernels of
+this checkout against another checkout's on the card, and time them in
+both: for example against the parent commit, unpacked with ``git archive``
+into a directory that .gitignore lists (the port's package is all it
+needs).
 
     git archive HEAD p_div_gnn_tpu_torch | tar -x -C build/parent
     python3 scripts/port_tree_compare.py --other build/parent [--require bwd ...]
@@ -14,15 +14,18 @@ draws seeded random inputs on the card (as chip_smoke.py's kernel phases
 do: node rows, e ~ N(0, 1), sender gathers of the node rows, weights ~
 N(0, 1/L), biases and the cotangents ~ N(0, 1)), then runs the fused3
 forward and backward (#1, #2; the backward on the plain version's z_upd),
-the v2 backward (#6) and the pair-blocked backward kernel (#8), in fp32 and
-bf16 streams, and writes a SHA-256 of each output's bytes and the
-backwards' times (CUDA events, mean of 5 calls after 2) to
-``build/port_tree_compare/``. The trees run in the order other, this,
-this, other; this process prints, per output, whether the two trees agree,
-each backward's times in both, and exits 1 if an output whose name starts
-with one of ``--require`` differs (default: the fused3 backward's outputs,
-and in fp32 #6's dg_v, dg_u and #8's dpre1, dpre2, the FMA chains' results).
-Needs one CUDA card and nvcc; it imports nothing of JAX.
+the v2 forward and backward (#5, #6) and the pair-blocked forward and
+backward kernel (#7, #8), in fp32 and bf16 streams, and writes a SHA-256 of
+each output's bytes and the kernels' times (CUDA events, mean of 5 calls
+after 2) to ``build/port_tree_compare/``; the first run of the other tree
+also saves #5's and #7's outputs there, and each run of this tree reports
+their largest absolute difference from them. The trees run in the order
+other, this, this, other; this process prints, per output, whether the two
+trees agree (and for #5 and #7 the largest difference), each kernel's
+times in both, and exits 1 if an output whose name starts with one of
+``--require`` differs (default: the fused3 forward's and backward's
+outputs, and in fp32 #6's dg_v, dg_u and #8's dpre1, dpre2, the FMA
+chains' results). Needs one CUDA card and nvcc; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "port_tree_compare"
 
 
-def worker(out: Path) -> None:
-    """Run in the tree at the current directory; write the output hashes."""
+def worker(out: Path, save: Path | None, ref: Path | None) -> None:
+    """Run in the tree at the current directory; write the output hashes
+    and times; save #5's and #7's outputs to ``save``, or compare them with
+    those saved in ``ref``."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -61,7 +66,7 @@ def worker(out: Path) -> None:
             randn(L, L, scale=L**-0.5), randn(L)]
     dz, dr, dm = randn(Ep, L), randn(Np, L), randn(8, L)
     aux = (batch.edge_gid, batch.edge_block_tile)
-    hashes, times = {}, {}
+    hashes, times, fwd_out = {}, {}, {}
 
     def put(name: str, t: torch.Tensor) -> None:
         hashes[name] = hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
@@ -98,6 +103,8 @@ def worker(out: Path) -> None:
                                            batch.tile)
         for name, t in zip(("z_upd", "R", "M"), fwd):
             put(f"fwd {sd_name} {name}", t)
+        timed(f"fwd {sd_name}", lambda: fused_edge3.fused_edge_step3(
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile))
         z_upd = fused_edge3.fused_edge_step3_reference(*args, batch.receivers, batch.edge_gid,
                                                        batch.n_graphs)[0]
         bwd = fused_edge3.fused_edge_step3_backward(
@@ -110,6 +117,12 @@ def worker(out: Path) -> None:
         args = [t.to(sd).contiguous() for t in v2_base]
         z_upd = fused_edge.fused_edge_step_reference(*args, batch.receivers, batch.edge_gid,
                                                      batch.n_graphs)[0]
+        v2f = lambda: fused_edge.fused_edge_step(  # noqa: E731
+            *args, batch.receivers, aux, batch.n_graphs, batch.tile)
+        for name, t in zip(("z_upd", "R", "M"), v2f()):
+            put(f"v2fwd {sd_name} {name}", t)
+            fwd_out[f"v2fwd {sd_name} {name}"] = t.float().cpu()
+        timed(f"v2fwd {sd_name}", v2f)
         cots = (z_upd, v2_cots[0].to(sd), *v2_cots[1:])
         v2 = lambda: fused_edge.fused_edge_step_backward(  # noqa: E731
             *args, batch.receivers, aux, batch.n_graphs, batch.tile, *cots)
@@ -120,6 +133,12 @@ def worker(out: Path) -> None:
         args = [t.to(sd).contiguous() for t in pair_base]
         z_upd = fused_edge.fused_edge_step2_reference(*args, pair.receivers, pair.senders,
                                                       pair_aux, pair.n_graphs, pair.tile)[0]
+        p2f = lambda: fused_edge.fused_edge_step2(  # noqa: E731
+            *args, pair.receivers, pair.senders, pair_aux, pair.n_graphs, pair.tile)
+        for name, t in zip(("z_upd", "R", "M"), p2f()):
+            put(f"pairfwd {sd_name} {name}", t)
+            fwd_out[f"pairfwd {sd_name} {name}"] = t.float().cpu()
+        timed(f"pairfwd {sd_name}", p2f)
         cots = (z_upd, pair_cots[0].to(sd), *pair_cots[1:])
         p2 = lambda: fused_edge.fused_edge2_bwd(  # noqa: E731
             *args, pair.receivers, pair.senders, pair_aux, pair.n_graphs, pair.tile, *cots)
@@ -129,32 +148,45 @@ def worker(out: Path) -> None:
         timed(f"pairbwd {sd_name}", p2)
         del args, z_upd, cots
         torch.cuda.empty_cache()
-    out.write_text(json.dumps({"hashes": hashes, "times": times}, indent=1))
+    diffs = {}
+    if save is not None:
+        torch.save(fwd_out, save)
+    if ref is not None:
+        other = torch.load(ref)
+        diffs = {k: float((v - other[k]).abs().max()) for k, v in fwd_out.items()}
+    out.write_text(json.dumps({"hashes": hashes, "times": times, "diffs": diffs}, indent=1))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="root of the other checkout")
     ap.add_argument("--require", nargs="*",
-                    default=["bwd ", "v2bwd float32 dg_", "pairbwd float32 dpre"],
+                    default=["fwd ", "bwd ", "v2bwd float32 dg_", "pairbwd float32 dpre"],
                     help="output name prefixes that must be bit-equal")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--save", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--ref", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.save, args.ref)
         return 0
     OUT.mkdir(parents=True, exist_ok=True)
     runs: dict[str, list] = {"this": [], "other": []}
     trees = {"this": ROOT, "other": args.other.resolve()}
+    saved = OUT / "other_forwards.pt"
     for i, label in enumerate(("other", "this", "this", "other")):
         out = OUT / f"{label}{i}.json"
-        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(out)],
-                       cwd=trees[label], check=True)
+        extra = (["--save", str(saved)] if i == 0 else
+                 ["--ref", str(saved)] if label == "this" else [])
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", str(out),
+                        *extra], cwd=trees[label], check=True)
         runs[label].append(json.loads(out.read_text()))
     bad = []
     for name, h in runs["this"][0]["hashes"].items():
         same = runs["other"][0]["hashes"].get(name) == h
-        print(f"{name}: {'bit-equal' if same else 'differs'}", flush=True)
+        diff = runs["this"][0]["diffs"].get(name)
+        print(f"{name}: {'bit-equal' if same else 'differs'}"
+              + ("" if diff is None else f", largest difference {diff:.3e}"), flush=True)
         if not same and any(name.startswith(p) for p in args.require):
             bad.append(name)
     for name in runs["this"][0]["times"]:

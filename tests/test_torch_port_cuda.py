@@ -3,10 +3,12 @@ the fused3 edge step's forward (its parts, its layout check, two calls
 bit-equal) and backward, the block-CSR segment sum, the
 v2 ("fused") edge step's forward and backward, the pair segment sum and the
 pair-blocked ("fused2") edge step's forward and backward; every fused
-kernel at widths it is not built for (zero-padded) and the backwards at
-each width they are built for. It
-imports neither JAX nor the JAX package, so it runs where the card is (that
-machine has no JAX; skip the repo's conftest there):
+kernel at widths it is not built for (zero-padded), the redesigned v2 and
+pair-blocked forwards and backwards at each width they are built for (two
+calls bit-equal, the forwards' fp32 z_upd bit-equal to the plain version)
+and the split receiver layout the v2 kernels refuse. It imports neither
+JAX nor the JAX package, so it runs where the card is (that machine has no
+JAX; skip the repo's conftest there):
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -q
 
@@ -609,11 +611,13 @@ def _cots(seed: int, Ep: int, Np: int, L: int, dtype):
     return dz, dr, dm
 
 
-def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3):
+def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3,
+                 empty_tile: int | None = None):
     """One fused kernel on the card at width L against its plain version:
     (counter, call, plain, tolerances); ``call()`` launches the kernel
     through its wrapper, ``plain()`` runs the plain version on the same
-    inputs."""
+    inputs. With ``empty_tile`` (the v2 and pair-blocked steps), no real
+    edge receives in that node tile."""
     if kernel.startswith("fused3"):
         args, (rcv, gid, bt) = _on_cuda(*_edge_problem(seed, n_tiles, L=L), dtype)
         if kernel == "fused3_fwd":
@@ -630,7 +634,8 @@ def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3):
                                                                         *cots),
                 (BWD_TOLS[dtype],) * 9)
     if kernel.startswith("v2"):
-        args, (rcv, gid, bt) = _on_cuda(*_v2_problem(seed, n_tiles, L=L), dtype)
+        args, (rcv, gid, bt) = _on_cuda(*_v2_problem(seed, n_tiles, L=L,
+                                                     empty_tile=empty_tile), dtype)
         if kernel == "v2_fwd":
             return (fused_edge.fused_edge_step,
                     lambda: fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE),
@@ -643,7 +648,8 @@ def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3):
                                                             *cots),
                 lambda: fused_edge.fused_edge_step_backward_reference(*args, rcv, gid, 1, *cots),
                 (BWD_TOLS[dtype],) * 9)
-    args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(seed, n_tiles, L=L), dtype)
+    args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(seed, n_tiles, L=L,
+                                                       empty_tile=empty_tile), dtype)
     if kernel == "pair_fwd":
         return (fused_edge.fused_edge_step2,
                 lambda: fused_edge.fused_edge_step2(*args, rcv, snd, aux, 1, NODE_TILE),
@@ -685,16 +691,61 @@ def test_kernels_take_other_widths_through_padding_on_cuda(dtype, kernel, L):
     _held(*_kernel_case(kernel, L, dtype))
 
 
-@pytest.mark.parametrize("L", [64, 256])
+@pytest.mark.parametrize("L", [64, 128, 256])
 @pytest.mark.parametrize("kernel", ["v2_fwd", "pair_fwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_v2_forward_kernels_other_widths_on_cuda(dtype, kernel, L):
-    """The v2 (#5) and pair-blocked (#7) forwards, built for every multiple
-    of 4, at L = 64 and 256 over three node tiles, against their plain
-    versions, with one launch."""
+def test_v2_forward_kernels_widths_and_determinism_on_cuda(dtype, kernel, L):
+    """The redesigned v2 (#5) and pair-blocked (#7) forwards at each width
+    they are built for (bf16 at 64 and 128 on the tensor cores, at 256 on
+    the FMA chains), over four node tiles, one without a real edge (#5: its
+    block is all padding): several parts (one per SM), a receiver run across
+    a part's nominal end (#5), receivers met in several runs of their tile
+    and a slot whose receiver and one whose sender lie outside their
+    block's tiles (#7). In fp32 z_upd equals the plain version exactly (the
+    same FMA chains); every output holds at the JAX op tolerances; two
+    calls are bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    _held(*_kernel_case(kernel, L, dtype))
+    from p_div_gnn_tpu_torch.ops.segment import runs_are_consecutive
+
+    counter, call, plain, tols = _kernel_case(kernel, L, dtype, seed=8, n_tiles=4,
+                                              empty_tile=2)
+    if kernel == "v2_fwd":
+        _, idx = _v2_problem(8, 4, L=L, empty_tile=2)
+        rcv = idx["receivers"]
+        n_parts = int(fused_edge._library().lib.pdg_fused_edge_fwd_parts())
+        nominal = np.arange(1, n_parts) * -(-len(rcv) // n_parts)
+        nominal = nominal[nominal < len(rcv)]
+        assert len(nominal) > 1, "several parts"
+        assert (rcv[nominal] == rcv[nominal - 1]).any(), "a run crosses a part's nominal end"
+    else:
+        _, idx = _pair_problem(8, 4, L=L, empty_tile=2)
+        assert not runs_are_consecutive(T(idx["receivers"]), 4 * NODE_TILE), "split runs"
+    got, want = _held(counter, call, plain, tols)
+    if dtype == torch.float32:
+        assert torch.equal(got[0], want[0])
+    for a, b in zip(got, call()):
+        assert torch.equal(a, b)
+
+
+def test_v2_forward_kernel_refuses_split_receiver_runs_on_cuda():
+    """The v2 forward writes each receiver's R row once, from one run: on a
+    pair-blocked layout, which splits a receiver's slots over several
+    blocks, it raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, idx = _pair_problem(13, 3, L=128, stray=False)
+    rng = np.random.default_rng(15)
+    Np, Ep, L = 3 * NODE_TILE, len(idx["receivers"]), 128
+    f32 = lambda *s: T(rng.normal(size=s).astype(np.float32)).cuda()  # noqa: E731
+    args = (f32(Np, L), f32(Np, L), f32(Ep, L), f32(Ep, L), f32(Ep, L), f32(L, L), f32(L),
+            f32(L, L), f32(L))
+    rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
+                    for k in ("receivers", "edge_gid", "block_tile"))
+    before = fused_edge.fused_edge_step.launches
+    with pytest.raises(ValueError, match="not consecutive"):
+        fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE)
+    assert fused_edge.fused_edge_step.launches == before
 
 
 @pytest.mark.parametrize("L", [64, 256])

@@ -403,18 +403,22 @@ def test_dispatch_rejects_mixed_devices(op):
 
 def test_library_name_follows_its_shared_header(monkeypatch, tmp_path):
     """An edit of a shared header renames (so rebuilds) each library that
-    includes it, and no other: the two v2 forwards share
-    csrc/edge_common.cuh, the three backwards csrc/bwd_common.cuh, the v2
-    and the pair-blocked backward csrc/v2_bwd_tile.cuh."""
+    includes it, and no other: the three forwards share
+    csrc/fwd_common.cuh, the v2 and the pair-blocked forward
+    csrc/v2_fwd_tile.cuh, the three backwards csrc/bwd_common.cuh, the v2
+    and the pair-blocked backward csrc/v2_bwd_tile.cuh, all six fused
+    kernels csrc/fused3_tile.cuh."""
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, csrc)
     monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
     names = ("fused_edge_fwd", "fused_edge_bwd", "fused_edge2_fwd", "fused_edge2_bwd",
              "fused_edge3_fwd", "fused_edge3_bwd")
     includers = {
-        "edge_common.cuh": ["fused_edge_fwd", "fused_edge2_fwd"],
+        "fwd_common.cuh": ["fused_edge_fwd", "fused_edge2_fwd", "fused_edge3_fwd"],
+        "v2_fwd_tile.cuh": ["fused_edge_fwd", "fused_edge2_fwd"],
         "bwd_common.cuh": ["fused_edge_bwd", "fused_edge2_bwd", "fused_edge3_bwd"],
         "v2_bwd_tile.cuh": ["fused_edge_bwd", "fused_edge2_bwd"],
+        "fused3_tile.cuh": list(names),
     }
     for name, want in includers.items():
         before = {n: cuda_build.library_path(n) for n in names}

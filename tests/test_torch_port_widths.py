@@ -6,10 +6,9 @@ tests hold the padding itself: for the six fused steps (#1, #2 the fused3
 forward and backward, #5, #6 the v2 ones, #7, #8 the pair-blocked ones)
 the plain version run through ``pad_args`` / ``unpad_args`` equals the
 unpadded plain version bit for bit in fp32 at L = 16, 20, 96 and 192 (each
-padded to the next of the backwards' widths 64, 128, 256, the forwards' too,
-which the card's v2 forwards would not need), and, at L = 20, equals the
-JAX function (Pallas interpret mode) at its own tolerance: the fused3 op's
-(tests/test_fused3_op.py:65-70, :87-95) and the v2 op's
+padded to the next of the kernels' widths 64, 128, 256), and, at L = 20,
+equals the JAX function (Pallas interpret mode) at its own tolerance: the
+fused3 op's (tests/test_fused3_op.py:65-70, :87-95) and the v2 op's
 (tests/test_fused_op.py:86-91, :116-120), as rtol = atol. A width above
 256 raises a ValueError naming ROADMAP C1."""
 
@@ -176,7 +175,7 @@ def test_widths_above_256_raise():
         assert widths.padded_width(256, table, "a kernel") == 256
     assert widths.padded_width(16, fused_edge3.BWD_WIDTHS, "k") == 64
     assert widths.padded_width(96, fused_edge.BWD_WIDTHS, "k") == 128
-    assert widths.padded_width(18, fused_edge.FWD_WIDTHS, "k") == 20
+    assert widths.padded_width(18, fused_edge.FWD_WIDTHS, "k") == 64
     w = torch.arange(6.0).reshape(2, 3)
     p = widths.pad_args([w, w, w], "cw-", 4)
     assert p[0].shape == (2, 4) and p[1].shape == (4, 4) and p[2] is w
