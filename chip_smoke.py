@@ -19,16 +19,20 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    sums also beside ``index_add_``): the fused3 and the v2 ("fused") edge
    steps' forwards on a serving request's batch, in fp32 and bf16 streams;
    their backwards and the block-CSR segment sum (fp32, bf16) on the
-   training batch's sender view in run order; the pair segment sum (fp32) on both training batches'
-   sender views, as fused and fused2 call it; the pair-blocked ("fused2")
+   training batch's sender view in run order; the pair segment sum (fp32,
+   bf16) on both training batches' sender views in run order, as fused and
+   fused2 call it; the pair-blocked ("fused2")
    edge step's forward and backward on the pair-blocked training batch, in
    fp32 and bf16 streams (the v2 and pair-blocked forwards and backwards
    also print their ptxas figures at each width and dtype and the device
    time of each sub-kernel; the forwards must give two bit-equal calls
-   and, in fp32, z_upd bit-equal to the plain version); then every fused
-   kernel once at L = 16 (zero-padded to a width it is built for) and 256,
-   both dtypes, against its plain version on a batch of 2 meshes (ROADMAP
-   C1);
+   and, in fp32, z_upd bit-equal to the plain version); the two segment
+   sums also once at L = 18 and the pair sum with bf16 rows and both ways
+   of laying its streams on the warps; then every fused kernel once at L =
+   16 (zero-padded to a width it is built for), 256, 320 and 512 (the wide
+   variant), both dtypes, against its plain version on a batch of 2
+   meshes, and one fp32 fused3 train step at latent 384 on that batch
+   against xla;
 3. serve: the committed checkpoint answers 3 requests of 16 meshes each
    through ``Predictor`` with fused3, fused and fused2 (fp32 streams); each
    path's forward kernel must launch exactly 10 times per request and no
@@ -47,8 +51,9 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    sums per pallas step and 19 per hybrid step (the last step's edge
    update gets no gradient), none per xla step;
 5. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
-   pair segment sum's row also has each sender view's numbers and launches
-   under ``views``), then the last line ``{"ok": true, "device": {...}}``.
+   pair segment sum's row also has its bf16 numbers under ``bfloat16`` and
+   each sender view's numbers and launches under ``views``), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Everything it builds goes to ``build/``.
 """
@@ -496,6 +501,12 @@ def segment_sum_kernel_phase(batch) -> dict:
         library = lambda: torch.zeros((Np, L), device=dev).index_add_(  # noqa: E731
             0, snd, rows.float())
         err = held(f"segment_sum_csr {sd_name}", kern(), plain(), CSR_TOL[sd_name])[0]
+        narrow = rows[:, :18].contiguous()
+        held(f"segment_sum_csr {sd_name} L=18",
+             csr_segment_sum(narrow, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
+                             perm=batch.snd_run_perm),
+             csr_segment_sum_reference(narrow, batch.snd_run_sorted, Np, batch.snd_run_perm),
+             CSR_TOL[sd_name])
         # the JAX package's order of the same view splits a sender's slots
         # into several runs: the kernel must refuse it, not sum it wrongly
         try:
@@ -696,13 +707,14 @@ def v2_backward_kernel_phase(batch) -> dict:
 
 
 def pair_kernel_phase(batch, view: str) -> dict:
-    """Hold the pair segment sum against its plain version on ``batch``'s
-    sender view, as the path named ``view`` calls it with two fp32 streams
-    read through snd_run_perm: the pair sender gather's backward (fused) on the
-    receiver-major training batch, the sender-side adds of dpre1 / dpre2
-    (fused2, which casts them to fp32) on the pair-blocked one. Time both
-    and two ``index_add_`` calls, the PyTorch calls that compute the same
-    sums."""
+    """Hold the pair segment sum (#4) against its plain version on
+    ``batch``'s sender view in run order, as the path named ``view`` calls
+    it with two streams read through snd_run_perm: the pair sender gather's
+    backward (fused) on the receiver-major training batch, the sender-side
+    adds of dpre1 / dpre2 (fused2) on the pair-blocked one; fp32 and bf16
+    rows, read as stored (two calls bit-equal), and once at L = 18. Time
+    both and two ``index_add_`` calls (the PyTorch calls that compute the
+    same sums)."""
     import torch
 
     from p_div_gnn_tpu_torch.ops.scatter_csr import (
@@ -714,33 +726,53 @@ def pair_kernel_phase(batch, view: str) -> dict:
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     Ep2 = int(batch.snd_perm.shape[0])
     NB2 = int(batch.snd_block_tile.shape[0])
+    # the rows that change an output: a slot of the view whose sender is a
+    # node (not -1) and whose source slot holds a real edge (a padding
+    # edge's cotangent rows are zero: the least work skips them)
+    real = int(((batch.snd_run_sorted >= 0)
+                & (batch.edge_gid[batch.snd_run_perm.long()] < batch.n_graphs)).sum())
     gen = torch.Generator(device=dev).manual_seed(5)
-    g_v, g_u = (torch.randn((Ep, L), generator=gen, device=dev) for _ in range(2))
+    base = [torch.randn((Ep, L), generator=gen, device=dev) for _ in range(2)]
     snd = batch.senders.long()
-    kern = lambda: csr_segment_sum_pair(  # noqa: E731
-        g_v, g_u, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
-        perm=batch.snd_run_perm)
-    plain = lambda: csr_segment_sum_pair_reference(  # noqa: E731
-        g_v, g_u, batch.snd_run_sorted, Np, batch.snd_run_perm)
-    library = lambda: tuple(  # noqa: E731
-        torch.zeros((Np, L), device=dev).index_add_(0, snd, g) for g in (g_v, g_u))
-    got, want = kern(), plain()
-    checked = [held(f"segment_sum_csr_pair float32 {view} {n}", a, b, CSR_TOL["float32"])
-               for n, a, b in zip(("out_v", "out_u"), got, want)]
-    # reads each source row of both streams once and the view's indices;
-    # writes both sums
-    n_bytes = 2 * 4 * Ep * L + 4 * (2 * Ep2 + NB2) + 2 * 4 * Np * L
-    b_ms, b_by = bound(2 * Ep * L, n_bytes, "float32")
-    res = {"max_abs_err": max(c[0] for c in checked), "ms": cuda_ms(kern, 20),
-           "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 20),
-           "bound_ms": b_ms, "bound_by": b_by, "Ep2": Ep2}
-    say(f"kernel segment_sum_csr_pair float32 {view}: Np={Np} Ep2={Ep2} L={L} blocks={NB2} "
-        f"max_abs_err={res['max_abs_err']:.3e} share of the allowance "
-        + " ".join(f"{c[1]:.3f}" for c in checked)
-        + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-        f"two_index_add_ms={res['library_ms']:.4f} bound_ms={b_ms:.4f} "
-        f"({b_by}: {n_bytes / 1e9:.3f} GB)")
-    return {"float32": res}
+    view_idx = (batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile)
+    results = {}
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        g_v, g_u = (t.to(sd) for t in base)
+        kern = lambda: csr_segment_sum_pair(  # noqa: E731
+            g_v, g_u, *view_idx, perm=batch.snd_run_perm)
+        plain = lambda: csr_segment_sum_pair_reference(  # noqa: E731
+            g_v, g_u, batch.snd_run_sorted, Np, batch.snd_run_perm)
+        library = lambda: tuple(  # noqa: E731
+            torch.zeros((Np, L), device=dev).index_add_(0, snd, g.float()) for g in (g_v, g_u))
+        got, again, want = kern(), kern(), plain()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"segment_sum_csr_pair {sd_name} {view}: two calls differ")
+        checked = [held(f"segment_sum_csr_pair {sd_name} {view} {n}", x, y, CSR_TOL[sd_name])
+                   for n, x, y in zip(("out_v", "out_u"), got, want)]
+        narrow = [t[:, :18].contiguous() for t in (g_v, g_u)]
+        held(f"segment_sum_csr_pair {sd_name} {view} L=18",
+             csr_segment_sum_pair(*narrow, *view_idx, perm=batch.snd_run_perm)[0],
+             csr_segment_sum_pair_reference(*narrow, batch.snd_run_sorted, Np,
+                                            batch.snd_run_perm)[0], CSR_TOL[sd_name])
+        del got, again, want
+        s = torch.finfo(sd).bits // 8
+        # reads the real rows of both streams once and the view's two
+        # indices per slot; writes both sums
+        n_bytes = 2 * s * real * L + 4 * 2 * Ep2 + 2 * 4 * Np * L
+        b_ms, b_by = bound(2 * real * L, n_bytes, sd_name)
+        res = {"max_abs_err": max(c[0] for c in checked), "ms": cuda_ms(kern, 20),
+               "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 20),
+               "bound_ms": b_ms, "bound_by": b_by, "Ep2": Ep2, "real_rows": real}
+        results[sd_name] = res
+        say(f"kernel segment_sum_csr_pair {sd_name} {view}: Np={Np} Ep2={Ep2} real_rows={real} "
+            f"L={L} blocks={NB2} max_abs_err={res['max_abs_err']:.3e} share of the allowance "
+            + " ".join(f"{c[1]:.3f}" for c in checked)
+            + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+            f"two_index_add_ms={res['library_ms']:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {n_bytes / 1e9:.3f} GB), share of the bound "
+            f"{b_ms / res['ms']:.3f}; two calls bit-equal")
+        torch.cuda.empty_cache()
+    return results
 
 
 def pair_step_inputs(batch, gen, L: int = LATENT):
@@ -891,17 +923,20 @@ def fused2_backward_kernel_phase(batch) -> dict:
 
 
 # the width phase: every fused kernel at a width its tiles are not laid out
-# for (16, through the zero padding) and at the widest they are (256), on a
-# cut batch
-WIDTHS = (16, 256)
+# for (16, through the zero padding), at the widest they are (256) and at
+# two widths of the wide variant (320, 512), on a cut batch
+WIDTHS = (16, 256, 320, 512)
+WIDE_LATENT = 384  # the fused3 train step of the width phase
 WIDTH_MESHES = 2
 
 
-def width_phase() -> None:
-    """ROADMAP C1: hold each fused kernel (#1, #2, #5-#8) against its plain
-    version once at L = 16 and 256, in both stream dtypes, with random
-    inputs and nonzero cotangents, on a batch of WIDTH_MESHES meshes
-    (receiver-major and pair-blocked), at the JAX op tolerances."""
+def width_phase() -> dict:
+    """Hold each fused kernel (#1, #2, #5-#8) against its plain version once
+    at each of WIDTHS, in both stream dtypes, with random inputs and
+    nonzero cotangents, on a batch of WIDTH_MESHES meshes (receiver-major
+    and pair-blocked), at the JAX op tolerances; time each call at L = 512
+    (fp32). Then one fp32 fused3 train step at WIDE_LATENT on the
+    receiver-major batch against xla. Returns the L = 512 times."""
     import torch
 
     from p_div_gnn_tpu_torch.datagen.workload import build_workload
@@ -913,6 +948,7 @@ def width_phase() -> None:
     rcv, gid, n_graphs, tile = batch.receivers, batch.edge_gid, batch.n_graphs, batch.tile
     rm = (rcv, (gid, batch.edge_block_tile), n_graphs, tile)
     pidx = (pair.receivers, pair.senders, pair_aux(pair), pair.n_graphs, pair.tile)
+    wide_ms = {}
     for L in WIDTHS:
         for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             def cast(d):
@@ -962,9 +998,56 @@ def width_phase() -> None:
                 torch.cuda.synchronize()
                 shares = [held(f"width {name} {sd_name} L={L} output {i}", a, b, tol)[1]
                           for i, (a, b, tol) in enumerate(zip(got, want, tols, strict=True))]
+                timed = ""
+                if L == max(WIDTHS):
+                    check(all(torch.equal(a, b) for a, b in zip(got, kern())),
+                          f"width {name} {sd_name} L={L}: two calls differ")
+                    wide_ms[f"{name} {sd_name}"] = ms = cuda_ms(kern, 3)
+                    timed = f", two calls bit-equal, kernel_ms={ms:.4f}"
                 say(f"width {name} {sd_name} L={L}: {len(shares)} outputs held, largest share "
-                    f"of the allowance {max(shares):.3f}")
+                    f"of the allowance {max(shares):.3f}{timed}")
+                del got, want
             torch.cuda.empty_cache()
+    say(f"width phase batch: Np={batch.num_nodes_padded} Ep={batch.num_edges_padded}; "
+        f"pair-blocked Ep={pair.num_edges_padded}")
+    wide_train_step(batch)
+    return wide_ms
+
+
+def wide_train_step(batch) -> None:
+    """One fp32 fused3 train step at WIDE_LATENT (the wide variant of #1
+    and #2; #3 at that width) against xla from the same init: the step-1
+    loss within LOSS_RTOL, each parameter's gradient within GRAD_RTOL, and
+    the fused3 step's launches."""
+    import torch
+
+    grads, losses = {}, {}
+    for impl in ("fused3", "xla"):
+        trainer = make_trainer(impl, "float32", "cuda", latent=WIDE_LATENT)
+        reset_launch_counts()
+        aux, g = trainer.loss_and_grads(batch)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        want = {"fused3": {"fused_edge3_fwd": STEPS, "fused_edge3_bwd": STEPS,
+                           "segment_sum_csr": STEPS}, "xla": {}}[impl]
+        check(launches == want, f"wide train {impl}: launches {launches}, expected {want}")
+        losses[impl] = float(aux["total"])
+        grads[impl] = {n: t.detach().clone() for n, t in g.items()}
+        del trainer
+    l_f, l_x = losses["fused3"], losses["xla"]
+    check(abs(l_f - l_x) <= LOSS_RTOL * abs(l_x),
+          f"wide train step: fused3 loss {l_f!r} vs xla {l_x!r} outside rtol {LOSS_RTOL}")
+    rel = {n: float(torch.linalg.vector_norm(grads["fused3"][n].double() - g.double())
+                    / torch.linalg.vector_norm(g.double()).clamp_min(1e-300))
+           for n, g in grads["xla"].items()}
+    worst = max(rel, key=rel.get)
+    check(all(bool(torch.isfinite(g).all()) for g in grads["fused3"].values()),
+          "wide train step: non-finite fused3 gradients")
+    check(rel[worst] <= GRAD_RTOL,
+          f"wide train step: gradient of {worst} fused3 vs xla {rel[worst]:.3e} > {GRAD_RTOL:g}")
+    say(f"wide train step L={WIDE_LATENT}: loss fused3 {l_f!r} xla {l_x!r} (rel "
+        f"{abs(l_f - l_x) / abs(l_x):.3e}); gradients ||fused3 - xla|| / ||xla|| max "
+        f"{rel[worst]:.3e} ({worst}), tolerance {GRAD_RTOL:g}")
+    torch.cuda.empty_cache()
 
 
 def counted_wrappers() -> dict:
@@ -990,9 +1073,10 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def make_trainer(impl: str, stream_dtype: str, device):
+def make_trainer(impl: str, stream_dtype: str, device, latent: int = LATENT):
     """The benchmark's model and trainer (bench.py:166-178) from a seeded
-    random init, on ``device``: the same weights for every impl and dtype."""
+    random init, on ``device``: the same weights for every impl and dtype
+    (at ``latent``, LATENT unless the width phase asks another)."""
     import torch
 
     from p_div_gnn_tpu_torch.graphs.container import NormStats
@@ -1000,7 +1084,7 @@ def make_trainer(impl: str, stream_dtype: str, device):
     from p_div_gnn_tpu_torch.train.loop import Trainer
 
     model = EncodeProcessDecode(
-        latent_size=LATENT, message_passing_steps=STEPS, scatter_impl=impl,
+        latent_size=latent, message_passing_steps=STEPS, scatter_impl=impl,
         stream_dtype=stream_dtype, generator=torch.Generator().manual_seed(0),
         remat_steps=False,
     )
@@ -1224,13 +1308,14 @@ def main() -> int:
     bwd = backward_kernel_phase(train_batch)
     v2_bwd = v2_backward_kernel_phase(train_batch)
     csr = segment_sum_kernel_phase(train_batch)
-    pair = {view: pair_kernel_phase(b, view)["float32"]
+    pair = {view: pair_kernel_phase(b, view)
             for view, b in (("fused", train_batch), ("fused2", pair_batch))}
     f2 = fused2_kernel_phase(pair_batch)
     f2_bwd = fused2_backward_kernel_phase(pair_batch)
     t0 = time.perf_counter()
-    width_phase()
-    say(f"width phase: {time.perf_counter() - t0:.1f} s")
+    wide_ms = width_phase()
+    say(f"width phase: {time.perf_counter() - t0:.1f} s; fused kernels at L={max(WIDTHS)} "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in wide_ms.items()))
     serve = serve_phase(requests)
     train = train_phase(train_batch, pair_batch, n_real_edges, smi)
 
@@ -1247,9 +1332,11 @@ def main() -> int:
         for k, v in impl["launches"].items():
             launches[k] += v
     # #4 runs on two sender views: its row gives the receiver-major one's
-    # numbers (the largest error of both), and each view's in "views"
+    # fp32 numbers (the largest fp32 error of both), its bf16 numbers under
+    # "bfloat16", and each view's in "views"
     by_impl = train["launches_by_impl"]
-    pair_row = dict(pair["fused"], max_abs_err=max(v["max_abs_err"] for v in pair.values()))
+    pair_row = dict(pair["fused"]["float32"],
+                    max_abs_err=max(v["float32"]["max_abs_err"] for v in pair.values()))
     pair_views = [dict(res, view=view, launches=by_impl[view]["segment_sum_csr_pair"])
                   for view, res in pair.items()]
     rows = (
@@ -1267,7 +1354,10 @@ def main() -> int:
     kernel_rows = [
         row(name, f"p_div_gnn_tpu_torch/csrc/{src}", replaces, launches[name], res["float32"])
         for name, src, replaces, res in rows]
-    next(r for r in kernel_rows if r["name"] == "segment_sum_csr_pair")["views"] = pair_views
+    pair_out = next(r for r in kernel_rows if r["name"] == "segment_sum_csr_pair")
+    pair_out["bfloat16"] = {k: pair["fused"]["bfloat16"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    pair_out["views"] = pair_views
     say(json.dumps({"kernels": kernel_rows}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"ok": True, "device": {

@@ -83,6 +83,7 @@
 #include "fused3_tile.cuh"
 #include "bwd_common.cuh"
 #include "v2_bwd_tile.cuh"
+#include "wide_tile.cuh"
 
 extern "C" {
 
@@ -145,6 +146,21 @@ int pdg_fused_edge2_bwd(int bf16, const void* proj_u, const void* proj_v, const 
            : v2_bwd_launch_width<float, 3, true>(ta, ws, wf, sp, i32(pad), n_pad, i32(slot),
                                                  n_edges, wp, n_chunks, o, L, s);
   return static_cast<int>(err);
+}
+
+// Launches the wide variant (wide_tile.cuh) on `stream`: L > 256, a
+// multiple of 64; `step` points to a WideStep whose tensors are fp32
+// (bf16 == 0) or bf16 (bf16 == 1) streams. Returns a cudaError_t value (0
+// on success).
+int pdg_fused_edge2_bwd_wide(int bf16, const void* step, void* stream) {
+  const auto& s = *static_cast<const WideStep*>(step);
+  if (s.L <= 256 || s.L % wide::WN != 0 || s.n < 0 || s.splits < 1 ||
+      s.splits > wide::MAX_SPLITS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? wide::wide_backward<__nv_bfloat16, wide::P2>(s, st)
+                               : wide::wide_backward<float, wide::P2>(s, st));
 }
 
 const char* pdg_cuda_error_string(int err) {

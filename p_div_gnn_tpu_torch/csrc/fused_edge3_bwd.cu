@@ -123,6 +123,7 @@
 #include "mma_sm90.cuh"
 #include "fused3_tile.cuh"
 #include "bwd_common.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -563,6 +564,21 @@ int pdg_fused_edge3_bwd(int bf16, const void* x, const void* g, const void* e,
   const cudaError_t err = bf16 ? launch_width<__nv_bfloat16, 1>(ta, wa, ws, sp, n_chunks, o, L, s)
                                : launch_width<float, 3>(ta, wa, ws, sp, n_chunks, o, L, s);
   return static_cast<int>(err);
+}
+
+// Launches the wide variant (wide_tile.cuh) on `stream`: L > 256, a
+// multiple of 64; `step` points to a WideStep whose tensors are fp32
+// (bf16 == 0) or bf16 (bf16 == 1) streams. Returns a cudaError_t value (0
+// on success).
+int pdg_fused_edge3_bwd_wide(int bf16, const void* step, void* stream) {
+  const auto& s = *static_cast<const WideStep*>(step);
+  if (s.L <= 256 || s.L % wide::WN != 0 || s.n < 0 || s.splits < 1 ||
+      s.splits > wide::MAX_SPLITS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? wide::wide_backward<__nv_bfloat16, wide::F3>(s, st)
+                               : wide::wide_backward<float, wide::F3>(s, st));
 }
 
 const char* pdg_cuda_error_string(int err) {

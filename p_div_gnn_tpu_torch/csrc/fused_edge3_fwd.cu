@@ -84,6 +84,7 @@
 #include "mma_sm90.cuh"
 #include "fused3_tile.cuh"
 #include "fwd_common.cuh"
+#include "wide_tile.cuh"
 
 namespace {
 
@@ -546,6 +547,21 @@ int pdg_fused_edge3_fwd(int bf16, const void* x, const void* g, const void* e, c
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       moments_reduce(static_cast<double*>(mpart), n_parts, L, static_cast<float*>(M), s));
+}
+
+// Launches the wide variant (wide_tile.cuh) on `stream`: L > 256, a
+// multiple of 64; `step` points to a WideStep whose tensors are fp32
+// (bf16 == 0) or bf16 (bf16 == 1) streams. Returns a cudaError_t value (0
+// on success).
+int pdg_fused_edge3_fwd_wide(int bf16, const void* step, void* stream) {
+  const auto& s = *static_cast<const WideStep*>(step);
+  if (s.L <= 256 || s.L % wide::WN != 0 || s.n < 0 || s.splits < 1 ||
+      s.splits > wide::MAX_SPLITS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? wide::wide_forward<__nv_bfloat16, wide::F3>(s, st)
+                               : wide::wide_forward<float, wide::F3>(s, st));
 }
 
 const char* pdg_cuda_error_string(int err) {

@@ -58,6 +58,7 @@
 #include "fused3_tile.cuh"
 #include "fwd_common.cuh"
 #include "v2_fwd_tile.cuh"
+#include "wide_tile.cuh"
 
 extern "C" {
 
@@ -111,6 +112,21 @@ int pdg_fused_edge_fwd(int bf16, const void* a_u, const void* a_v, const void* g
     err = bf16 ? v2_fwd_launch<B, 256, false>(a, nullptr, 0, n_parts, s)
                : v2_fwd_launch<float, 256, false>(a, nullptr, 0, n_parts, s);
   return static_cast<int>(err);
+}
+
+// Launches the wide variant (wide_tile.cuh) on `stream`: L > 256, a
+// multiple of 64; `step` points to a WideStep whose tensors are fp32
+// (bf16 == 0) or bf16 (bf16 == 1) streams. Returns a cudaError_t value (0
+// on success).
+int pdg_fused_edge_fwd_wide(int bf16, const void* step, void* stream) {
+  const auto& s = *static_cast<const WideStep*>(step);
+  if (s.L <= 256 || s.L % wide::WN != 0 || s.n < 0 || s.splits < 1 ||
+      s.splits > wide::MAX_SPLITS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(bf16 ? wide::wide_forward<__nv_bfloat16, wide::V2>(s, st)
+                               : wide::wide_forward<float, wide::V2>(s, st));
 }
 
 const char* pdg_cuda_error_string(int err) {

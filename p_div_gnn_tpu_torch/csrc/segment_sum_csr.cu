@@ -56,41 +56,23 @@
 // The pair entry point `pdg_segment_sum_csr_pair` replaces the Pallas TPU
 // kernel `_kernel_pair` of the same file (launched by
 // `pallas_segment_sum_pair`, the backward of `ops/gather.py`'s
-// `sender_gather_pair`): two fp32 streams a and b (read through the same
-// `perm`) summed over one layout in one pass, into out_a and out_b. It
-// takes any slot order within a block's tile. What bounds it: bytes, twice
-// over. Design, in two launches: `pair_partial_kernel`, one CTA per (block,
-// part of `part_rows` node rows of the block's tile), 2L threads (thread
-// (s, c) owns column c of stream s, so each slot's two rows are read by one
-// CTA), sums the block's slots whose receiver lies in its part into a
-// shared (part_rows, L) fp32 accumulator per stream, a run of consecutive
-// slots with the same receiver first in an fp64 register, and writes it as
-// a partial tile; `pair_merge_kernel` merges the partial tiles of both
-// streams in block order, in fp64. A slot whose receiver is -1 or lies
-// outside its block's tile adds nothing. With parts of 64 rows (64 KB at L
-// 128) three CTAs share an SM; the partial tiles cost
-// 2·n_blocks·tile·L·4 bytes of scratch. The register runs and the merge add
-// in fp64: the batch's last node sends every padding slot of the receiver
-// layout (~1.6e4 at the flagship size), and fp32 running sums over those
-// put its sum at 0.78 of the 1e-4 check against the plain fp64 sum.
+// `sender_gather_pair` and the sender-side sums of the fused2 backward): two
+// streams a and b (fp32 or bf16, read through the same `perm`) summed over
+// one layout into out_a and out_b. It is the same streaming reduction over
+// the same runs, twice: what bounds it is bytes, each slot's two rows read
+// once and each output row written once. Both callers pass the sender view
+// in run order, as #3's. Both streams go to one warp (NS = 2): it reads a
+// chunk's indices once and keeps 2 x 8 rows in flight; one warp a stream
+// (grid.z = 2) was 3-10 % slower on both callers' views in fp32 and bf16
+// (PERF.md §6). The pieces of the split runs are kept per stream, the
+// flag words once (they depend on the layout only); every sum is in a
+// fixed order in fp64, so two calls give bit-equal outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int UNROLL = 32;  // row reads in flight per thread (pair kernel)
-
-// First index in the sorted array a[0, n) whose value is >= key.
-__device__ __forceinline__ int64_t first_not_less(const int32_t* a, int64_t n, int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) / 2;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 constexpr int RUN_CHUNK = 64;    // slots per warp in run_chunk_kernel
 constexpr int RUN_STEP = 8;      // row loads in flight per lane
@@ -132,13 +114,20 @@ __device__ __forceinline__ void store4(float* p, const double (&a)[4]) {
                                               static_cast<float>(a[2]), static_cast<float>(a[3]));
 }
 
-// Warp (blockIdx.x·RUN_WARPS + warp) sums chunk c = slots [c·64, c·64 + 64)
-// over columns [blockIdx.y·128, +128): complete runs into out, split runs'
-// pieces into pieces[c][0] (first run) and pieces[c][1] (last run), and
-// chunk c's flag word into kind[c].
+// The rows of up to two streams (#3 sums one, the pair sum two).
 template <typename T>
+struct Streams {
+  const T* rows[2];
+};
+
+// Warp (blockIdx.x·RUN_WARPS + warp) sums chunk c = slots [c·64, c·64 + 64)
+// over columns [blockIdx.y·128, +128) of the NS streams: complete runs into
+// out, split runs' pieces into pieces[c][0] (first run) and pieces[c][1]
+// (last run), and chunk c's flag word into kind[c]. Stream k's out and
+// pieces lie k·num_nodes·L and k·n_chunks·2·L elements after stream 0's.
+template <typename T, int NS>
 __global__ void __launch_bounds__(RUN_WARPS * 32) run_chunk_kernel(
-    const T* __restrict__ rows, const int32_t* __restrict__ perm,
+    Streams<T> streams, const int32_t* __restrict__ perm,
     const int32_t* __restrict__ rcv, float* __restrict__ out, double* __restrict__ pieces,
     int32_t* __restrict__ kind, int64_t n_src, int64_t n_slots, int64_t L, int64_t num_nodes) {
   const int lane = static_cast<int>(threadIdx.x % 32);
@@ -149,6 +138,15 @@ __global__ void __launch_bounds__(RUN_WARPS * 32) run_chunk_kernel(
   const int n = static_cast<int>(n_slots - s0 < RUN_CHUNK ? n_slots - s0 : RUN_CHUNK);
   const int64_t col = static_cast<int64_t>(blockIdx.y) * GROUP_COLS + 4 * lane;
   const bool col_ok = col < L;
+  const T* rows[NS];
+  float* outs[NS];
+  double* pcs[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    rows[k] = streams.rows[k];
+    outs[k] = out + k * num_nodes * L;
+    pcs[k] = pieces + k * n_chunks * 2 * L;
+  }
 
   // the chunk's receivers and source rows (-1 where the slot adds
   // nothing): lane j holds slot j in word 0 and slot 32 + j in word 1
@@ -167,63 +165,75 @@ __global__ void __launch_bounds__(RUN_WARPS * 32) run_chunk_kernel(
   const bool cont_out =
       last_r >= 0 && s0 + n < n_slots && node_of(rcv, s0 + n, num_nodes) == last_r;
 
-  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  double acc[NS][4] = {};
   int cur = first_r;
   bool first = true;  // cur is the chunk's first run
   int flags = 0;
   for (int i0 = 0; i0 < n; i0 += RUN_STEP) {
     const int r_h = i0 < 32 ? r_w[0] : r_w[1];
     const int p_h = i0 < 32 ? p_w[0] : p_w[1];
-    float4 v[RUN_STEP];
+    float4 v[NS][RUN_STEP];
     int r[RUN_STEP];
 #pragma unroll
     for (int u = 0; u < RUN_STEP; ++u) {
       r[u] = __shfl_sync(FULL, r_h, (i0 + u) % 32);
       const int src = __shfl_sync(FULL, p_h, (i0 + u) % 32);
-      v[u] = r[u] >= 0 && src >= 0 && col_ok ? load4(rows + static_cast<int64_t>(src) * L + col)
-                                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      const bool ok = r[u] >= 0 && src >= 0 && col_ok;
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+        v[k][u] = ok ? load4(rows[k] + static_cast<int64_t>(src) * L + col)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int u = 0; u < RUN_STEP; ++u) {
       if (i0 + u >= n) break;
       if (r[u] != cur) {  // the run of cur ended inside the chunk
-        if (cur >= 0 && col_ok) {
-          if (first && cont_in) store4(pieces + (c * 2) * L + col, acc);
-          else store4(out + static_cast<int64_t>(cur) * L + col, acc);
+#pragma unroll
+        for (int k = 0; k < NS; ++k) {
+          if (cur >= 0 && col_ok) {
+            if (first && cont_in) store4(pcs[k] + (c * 2) * L + col, acc[k]);
+            else store4(outs[k] + static_cast<int64_t>(cur) * L + col, acc[k]);
+          }
+          acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.0;
         }
         if (first && cont_in) flags |= PIECE_HEAD;
         cur = r[u];
         first = false;
-        acc[0] = acc[1] = acc[2] = acc[3] = 0.0;
       }
-      acc[0] += v[u].x;
-      acc[1] += v[u].y;
-      acc[2] += v[u].z;
-      acc[3] += v[u].w;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        acc[k][0] += v[k][u].x;
+        acc[k][1] += v[k][u].y;
+        acc[k][2] += v[k][u].z;
+        acc[k][3] += v[k][u].w;
+      }
     }
   }
   // the chunk's last run
   if (cur >= 0) {
-    if (first && cont_in) {
-      if (col_ok) store4(pieces + (c * 2) * L + col, acc);
-      flags |= PIECE_HEAD | (cont_out ? PIECE_CONT : 0);
-    } else if (cont_out) {
-      if (col_ok) store4(pieces + (c * 2 + 1) * L + col, acc);
-      flags |= PIECE_TAIL;
-    } else if (col_ok) {
-      store4(out + static_cast<int64_t>(cur) * L + col, acc);
+    if (first && cont_in) flags |= PIECE_HEAD | (cont_out ? PIECE_CONT : 0);
+    else if (cont_out) flags |= PIECE_TAIL;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      if (!col_ok) continue;
+      if (first && cont_in) store4(pcs[k] + (c * 2) * L + col, acc[k]);
+      else if (cont_out) store4(pcs[k] + (c * 2 + 1) * L + col, acc[k]);
+      else store4(outs[k] + static_cast<int64_t>(cur) * L + col, acc[k]);
     }
   }
   if (lane == 0 && blockIdx.y == 0) kind[c] = flags;
 }
 
-// CTA c (grid (n_chunks, column groups), RUN_WARPS warps): if chunk c
-// holds the first piece of a split run, out[run's node] = that piece +
-// the first-run pieces of the chunks the run goes on into, summed as
-// Σ_w (Σ pieces j ≡ w mod RUN_WARPS) in that fixed order, rounded once.
+// CTA c (grid (n_chunks, column groups, streams), RUN_WARPS warps): if
+// chunk c holds the first piece of a split run, out[run's node] = that
+// piece + the first-run pieces of the chunks the run goes on into, summed
+// as Σ_w (Σ pieces j ≡ w mod RUN_WARPS) in that fixed order, rounded once;
+// for stream blockIdx.z, whose out and pieces lie as run_chunk_kernel
+// lays them.
 __global__ void __launch_bounds__(RUN_WARPS * 32) run_merge_kernel(
     const double* __restrict__ pieces, const int32_t* __restrict__ kind,
-    const int32_t* __restrict__ rcv, float* __restrict__ out, int64_t n_slots, int64_t L) {
+    const int32_t* __restrict__ rcv, float* __restrict__ out, int64_t n_slots, int64_t L,
+    int64_t num_nodes) {
   __shared__ double part[RUN_WARPS][GROUP_COLS];
   __shared__ int64_t last_s;
   const int64_t c = blockIdx.x;
@@ -233,6 +243,8 @@ __global__ void __launch_bounds__(RUN_WARPS * 32) run_merge_kernel(
   const int warp = static_cast<int>(threadIdx.x / 32);
   const int64_t col = static_cast<int64_t>(blockIdx.y) * GROUP_COLS + 4 * lane;
   const bool col_ok = col < L;
+  pieces += static_cast<int64_t>(blockIdx.z) * n_chunks * 2 * L;
+  out += static_cast<int64_t>(blockIdx.z) * num_nodes * L;
 
   // the run ends in the first chunk after c without PIECE_CONT
   if (warp == 0) {
@@ -286,130 +298,25 @@ __global__ void __launch_bounds__(RUN_WARPS * 32) run_merge_kernel(
   }
 }
 
-// Two fp32 streams over one layout: CTA (b, p) sums the slots of block b
-// whose receiver lies in node rows [p·part_rows, (p+1)·part_rows) of the
-// block's tile into partial[s][b] (s = 0 for a, 1 for b); thread (s, c)
-// owns column c of stream s. A run of consecutive slots with the same
-// receiver is summed in an fp64 register first.
-__global__ void pair_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                    const int32_t* __restrict__ perm,
-                                    const int32_t* __restrict__ rcv,
-                                    const int32_t* __restrict__ block_tile,
-                                    float* __restrict__ partial, int64_t n_src, int64_t L,
-                                    int64_t tile, int64_t block, int64_t n_blocks,
-                                    int64_t part_rows) {
-  extern __shared__ float4 smem4[];
-  const int nt = blockDim.x;  // == 2L
-  int64_t* src_s = reinterpret_cast<int64_t*>(smem4);  // (nt,) source row per slot
-  float* acc = reinterpret_cast<float*>(src_s + nt);    // (2, part_rows, L) accumulators
-  int* rl_s = reinterpret_cast<int*>(acc + 2 * part_rows * L);  // (nt,) local row or -1
-
-  const int s = static_cast<int>(threadIdx.x / L);
-  const int c = static_cast<int>(threadIdx.x % L);
-  const float* rows = s ? b : a;
-  float* acc_s = acc + s * part_rows * L;
-  const int64_t bi = blockIdx.x;
-  const int64_t row_lo = static_cast<int64_t>(blockIdx.y) * part_rows;
-  const int64_t n_rows = tile - row_lo < part_rows ? tile - row_lo : part_rows;
-  const int64_t node_lo = static_cast<int64_t>(block_tile[bi]) * tile + row_lo;
-  const int64_t s_lo = bi * block, s_hi = s_lo + block;
-
-  for (int64_t r = 0; r < n_rows; ++r) acc_s[r * L + c] = 0.f;
-  double run = 0.0;
-  int run_rl = -1;
-  for (int64_t base = s_lo; base < s_hi; base += nt) {
-    __syncthreads();  // the previous stage's indices are consumed
-    {
-      const int64_t sl = base + threadIdx.x;
-      int rl = -1;
-      int64_t src = 0;
-      if (sl < s_hi) {
-        const int64_t r = rcv[sl];
-        src = perm != nullptr ? static_cast<int64_t>(perm[sl]) : sl;
-        if (r >= node_lo && r < node_lo + n_rows && src >= 0 && src < n_src)
-          rl = static_cast<int>(r - node_lo);
-      }
-      rl_s[threadIdx.x] = rl;
-      src_s[threadIdx.x] = src;
-    }
-    __syncthreads();
-    const int n = static_cast<int>(s_hi - base < nt ? s_hi - base : nt);
-    for (int i0 = 0; i0 < n; i0 += UNROLL) {
-      float v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = i0 + u;
-        v[u] = (i < n && rl_s[i] >= 0) ? rows[src_s[i] * L + c] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int i = i0 + u;
-        const int rl = i < n ? rl_s[i] : -1;
-        if (rl < 0) continue;
-        if (rl != run_rl) {
-          if (run_rl >= 0) acc_s[run_rl * L + c] += static_cast<float>(run);
-          run = 0.0;
-          run_rl = rl;
-        }
-        run += v[u];
-      }
-    }
-  }
-  if (run_rl >= 0) acc_s[run_rl * L + c] += static_cast<float>(run);
-  // column c of acc_s was written by this thread only: no barrier needed
-  float* out = partial + ((s * n_blocks + bi) * tile + row_lo) * L;
-  for (int64_t r = 0; r < n_rows; ++r) out[r * L + c] = acc_s[r * L + c];
-}
-
-// out[z][t·tile + r][c] = Σ partial[z][b][r][c] over the blocks b of tile t,
-// in block order (fp64), for both streams z; grid (n_tiles,
-// tile / rows_per_cta, 2), L threads.
-__global__ void pair_merge_kernel(const float* __restrict__ partial,
-                                  const int32_t* __restrict__ block_tile, int64_t n_blocks,
-                                  float* __restrict__ out, int64_t L, int64_t tile,
-                                  int64_t rows_per_cta) {
-  const int64_t t = blockIdx.x;
-  const int64_t z = blockIdx.z;
-  const int64_t num_nodes = static_cast<int64_t>(gridDim.x) * tile;
-  const int64_t b_lo = first_not_less(block_tile, n_blocks, t);
-  const int64_t b_hi = first_not_less(block_tile, n_blocks, t + 1);
-  const float* pz = partial + z * n_blocks * tile * L;
-  float* oz = out + z * num_nodes * L;
-  const int c = threadIdx.x;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_cta;
-  for (int64_t r = r0; r < r0 + rows_per_cta && r < tile; ++r) {
-    double s = 0.0;
-    for (int64_t bb = b_lo; bb < b_hi; ++bb) s += pz[(bb * tile + r) * L + c];
-    oz[(t * tile + r) * L + c] = static_cast<float>(s);
-  }
-}
-
-constexpr int64_t MERGE_ROWS = 16;  // output rows per merge CTA
-// accumulator bytes of one pair_partial_kernel CTA, at most
-constexpr int64_t PAIR_ACC_BYTES = 64 * 1024;
-
-int64_t pair_part_rows(int64_t L, int64_t tile) {
-  int64_t rows = PAIR_ACC_BYTES / (2 * L * static_cast<int64_t>(sizeof(float)));
-  if (rows < 1) rows = 1;
-  return rows < tile ? rows : tile;
-}
-
-template <typename T>
-cudaError_t launch_runs(const void* rows, const int32_t* perm, const int32_t* rcv,
+// The run kernels over the NS streams of `streams` (1 or 2): the memset of
+// out, run_chunk_kernel, run_merge_kernel.
+template <typename T, int NS>
+cudaError_t launch_runs(Streams<T> streams, const int32_t* perm, const int32_t* rcv,
                         double* pieces, int32_t* kind, float* out, int64_t n_src,
                         int64_t n_slots, int64_t L, int64_t num_nodes, cudaStream_t stream) {
   const int64_t n_chunks = (n_slots + RUN_CHUNK - 1) / RUN_CHUNK;
   const unsigned groups = static_cast<unsigned>((L + GROUP_COLS - 1) / GROUP_COLS);
-  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(num_nodes * L) * sizeof(float),
-                                    stream);
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, static_cast<size_t>(NS * num_nodes * L) * sizeof(float), stream);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((n_chunks + RUN_WARPS - 1) / RUN_WARPS), groups);
-  run_chunk_kernel<T><<<grid, RUN_WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(rows), perm, rcv, out, pieces, kind, n_src, n_slots, L, num_nodes);
+  run_chunk_kernel<T, NS><<<grid, RUN_WARPS * 32, 0, stream>>>(
+      streams, perm, rcv, out, pieces, kind, n_src, n_slots, L, num_nodes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  run_merge_kernel<<<dim3(static_cast<unsigned>(n_chunks), groups), RUN_WARPS * 32, 0,
-                     stream>>>(pieces, kind, rcv, out, n_slots, L);
+  run_merge_kernel<<<dim3(static_cast<unsigned>(n_chunks), groups, NS), RUN_WARPS * 32, 0,
+                     stream>>>(
+      pieces, kind, rcv, out, n_slots, L, num_nodes);
   return cudaGetLastError();
 }
 
@@ -440,51 +347,38 @@ int pdg_segment_sum_csr(int bf16, const void* rows, const void* perm, const void
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      bf16 ? launch_runs<__nv_bfloat16>(rows, p, r, pc, k, o, n_src, n_slots, L, num_nodes, s)
-           : launch_runs<float>(rows, p, r, pc, k, o, n_src, n_slots, L, num_nodes, s);
+      bf16 ? launch_runs<__nv_bfloat16, 1>({{static_cast<const __nv_bfloat16*>(rows), nullptr}},
+                                           p, r, pc, k, o, n_src, n_slots, L, num_nodes, s)
+           : launch_runs<float, 1>({{static_cast<const float*>(rows), nullptr}}, p, r, pc, k, o,
+                                   n_src, n_slots, L, num_nodes, s);
   return static_cast<int>(err);
 }
 
-// Shared memory one CTA of the pair partial kernel needs (2L threads).
-int64_t pdg_segment_sum_csr_pair_smem_bytes(int64_t L, int64_t tile) {
-  return 2 * L * static_cast<int64_t>(sizeof(int64_t) + sizeof(int)) +
-         2 * pair_part_rows(L, tile) * L * static_cast<int64_t>(sizeof(float));
-}
-
-// Launches the pair segment sum on `stream`. a and b (n_src, L) are fp32;
-// perm (n_slots,) int32 or null; rcv (n_slots,) and block_tile (n_blocks,)
-// int32; partial (2, n_blocks, tile, L) fp32 scratch; out (2, num_nodes, L)
-// fp32, out[0] the sums of a and out[1] those of b. Returns a cudaError_t
-// value (0 on success).
-int pdg_segment_sum_csr_pair(const void* a, const void* b, const void* perm, const void* rcv,
-                             const void* block_tile, void* partial, void* out, int64_t n_src,
-                             int64_t n_slots, int64_t L, int64_t num_nodes, int64_t tile,
-                             int64_t n_blocks, void* stream) {
-  if (L < 1 || L > 512 || tile <= 0 || num_nodes % tile != 0 || n_blocks <= 0 ||
-      n_slots % n_blocks != 0) {
+// Launches the pair segment sum on `stream`: a and b (n_src, L) both fp32
+// (bf16 == 0) or both bf16 (bf16 == 1), L a multiple of 4; perm, rcv as
+// for pdg_segment_sum_csr; pieces (2, n_chunks, 2, L) fp64 and kind
+// (n_chunks,) int32 scratch; out (2, num_nodes, L) fp32, out[0] the sums
+// of a and out[1] those of b. Returns a cudaError_t value (0 on success).
+int pdg_segment_sum_csr_pair(int bf16, const void* a, const void* b, const void* perm,
+                             const void* rcv, void* pieces, void* kind, void* out,
+                             int64_t n_src, int64_t n_slots, int64_t L, int64_t num_nodes,
+                             void* stream) {
+  if (L < 4 || L % 4 != 0 || n_slots < 1 || num_nodes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t part_rows = pair_part_rows(L, tile);
-  const size_t smem = static_cast<size_t>(pdg_segment_sum_csr_pair_smem_bytes(L, tile));
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      pair_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* bt = static_cast<const int32_t*>(block_tile);
-  auto* part = static_cast<float*>(partial);
-  const dim3 grid(static_cast<unsigned>(n_blocks),
-                  static_cast<unsigned>((tile + part_rows - 1) / part_rows));
-  pair_partial_kernel<<<grid, static_cast<unsigned>(2 * L), smem, st>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const int32_t*>(perm), static_cast<const int32_t*>(rcv), bt, part, n_src, L,
-      tile, n_slots / n_blocks, n_blocks, part_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 mgrid(static_cast<unsigned>(num_nodes / tile),
-                   static_cast<unsigned>((tile + MERGE_ROWS - 1) / MERGE_ROWS), 2);
-  pair_merge_kernel<<<mgrid, static_cast<unsigned>(L), 0, st>>>(
-      part, bt, n_blocks, static_cast<float*>(out), L, tile, MERGE_ROWS);
-  return static_cast<int>(cudaGetLastError());
+  const auto* p = static_cast<const int32_t*>(perm);
+  const auto* r = static_cast<const int32_t*>(rcv);
+  auto* pc = static_cast<double*>(pieces);
+  auto* k = static_cast<int32_t*>(kind);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      bf16 ? launch_runs<__nv_bfloat16, 2>(
+                 {{static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b)}},
+                 p, r, pc, k, o, n_src, n_slots, L, num_nodes, s)
+           : launch_runs<float, 2>({{static_cast<const float*>(a), static_cast<const float*>(b)}},
+                                   p, r, pc, k, o, n_src, n_slots, L, num_nodes, s);
+  return static_cast<int>(err);
 }
 
 const char* pdg_cuda_error_string(int err) {

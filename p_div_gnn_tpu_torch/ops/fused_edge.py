@@ -61,12 +61,14 @@ import torch
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum_pair
 from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
-from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args
+from p_div_gnn_tpu_torch.ops import wide
+from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
-# the widths the kernels are built for (fused3_tile.cuh's register tile):
-# the forwards (#5, #7) and the backwards (#6, #8) take 64, 128 and 256;
-# any other L <= 256 runs at the next one, zero-padded (ops/widths.py)
+# the widths the tile kernels are built for (fused3_tile.cuh's register
+# tile): the forwards (#5, #7) and the backwards (#6, #8) take 64, 128 and
+# 256; any other L <= 256 runs at the next one, zero-padded, and a wider L
+# at the wide variant (ops/widths.py)
 FWD_WIDTHS = (64, 128, 256)
 BWD_WIDTHS = (64, 128, 256)
 
@@ -156,7 +158,7 @@ def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, b
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
     Lp = padded_width(L, widths, "fused_edge_step")
-    _check(5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31, "arrays too large")
+    _check(wide_strips(Lp) or (5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31), "arrays too large")
     return Np, Ep, L, Lp
 
 
@@ -217,6 +219,12 @@ def _fused_edge_step_cuda(
         return unpad_args(out, "ccc", L)
     sd = g_v.dtype
     dev = a_u.device
+    if wide_strips(L):
+        out = wide.forward(built, "fused_edge_fwd", sd, Ep, Np, Ep, n_graphs, {
+            "na": a_u, "nb": a_v, "ga": g_v, "gb": g_u, "e": e, "we": w_e, "w2": w2, "b0": b0,
+            "b2": b2, "rcv": receivers, "gid": edge_gid})
+        fused_edge_step.launches += 1
+        return out
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
@@ -330,6 +338,15 @@ def _fused_edge_step_backward_cuda(
     sd = g_v.dtype
     dev = a_u.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
+    if wide_strips(L):
+        o = wide.backward(built, "fused_edge_bwd", wide.V2, sd, Ep, Np, Ep, n_graphs, {
+            "na": a_u, "nb": a_v, "ga": g_v, "gb": g_u, "e": e, "we": w_e, "w2": w2,
+            "weT": weT, "w2T": w2T, "b0": b0, "b2": b2, "z_upd": z_upd, "dz": dz_upd,
+            "dr": dr, "dm": dm, "rcv": receivers, "gid": edge_gid})
+        fused_edge_step_backward.launches += 1
+        dw2, dwe = o["w_out"].unbind(0)
+        return (o["r_out"], o["r_out2"], o["dg1"], o["dg2"], o["de"], dwe, o["m_out"][1], dw2,
+                o["m_out"][0])
     dg_v = torch.empty((Ep, L), dtype=sd, device=dev)
     dg_u = torch.empty((Ep, L), dtype=sd, device=dev)
     de = torch.empty((Ep, L), dtype=sd, device=dev)
@@ -375,11 +392,11 @@ def fused_edge_step_backward(
     """The v2 edge step's VJP: (da_u, da_v, dg_v, dg_u, de, dWe, db0, dW2,
     db2), dg_v, dg_u and de in the stream dtype, the rest fp32. CUDA
     tensors go to the kernel (``fused_edge_step_backward.launches`` counts
-    its launches), which takes L <= 256 (64, 128 and 256 natively, any
-    other width zero-padded to the next) and each receiver's slots
-    consecutive (the receiver-major layout; a pair-blocked batch's is not)
-    and raises otherwise; CPU tensors go to the plain version; anything
-    else raises."""
+    its launches), which takes any L (64, 128 and 256 natively, another
+    L <= 256 zero-padded to the next, a wider one in the wide variant) and
+    each receiver's slots consecutive (the receiver-major layout; a
+    pair-blocked batch's is not) and raises otherwise; CPU tensors go to
+    the plain version; anything else raises."""
     edge_gid, block_tile = aux
     args = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers)
     cots = (z_upd, dz_upd, dr, dm)
@@ -451,11 +468,11 @@ def fused_edge_step(
     """The v2 edge step: (z_upd, R, M), differentiable in a_u, a_v, g_v,
     g_u, e and the weights. CUDA tensors go to the kernels
     (``fused_edge_step.launches`` counts the forward's launches,
-    ``fused_edge_step_backward.launches`` the backward's), which take L <=
-    256 (64, 128 and 256 natively, any other width zero-padded to the next)
-    and each receiver's slots consecutive (the receiver-major layout; a
-    pair-blocked batch's is not) and raise otherwise; CPU tensors go to the
-    plain versions; anything else raises."""
+    ``fused_edge_step_backward.launches`` the backward's), which take any
+    L (64, 128 and 256 natively, another L <= 256 zero-padded to the next,
+    a wider one in the wide variant) and each receiver's slots consecutive
+    (the receiver-major layout; a pair-blocked batch's is not) and raise
+    otherwise; CPU tensors go to the plain versions; anything else raises."""
     edge_gid, block_tile = aux
     return _FusedEdgeStep.apply(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid,
                                 block_tile, n_graphs, tile)
@@ -552,7 +569,7 @@ def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, e
             "edge slots must split into whole blocks, each with a receiver and a sender tile")
     _check2(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
     Lp = padded_width(L, widths, "fused_edge_step2")
-    _check2(5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31, "arrays too large")
+    _check2(wide_strips(Lp) or (5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31), "arrays too large")
     return Np, Ep, L, Lp
 
 
@@ -580,6 +597,12 @@ def _fused_edge_step2_cuda(
                                        block_snd_tile, n_graphs, tile)
     sd = e.dtype
     dev = e.device
+    if wide_strips(L):
+        out = wide.forward(built, "fused_edge2_fwd", sd, slot.shape[0], Np, Ep, n_graphs, {
+            "na": proj_u, "nb": proj_v, "e": e, "we": w_e, "w2": w2, "b0": b0, "b2": b2,
+            "slot": slot, "rcv": rcv, "snd": snd})
+        fused_edge_step2.launches += 1
+        return out
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
@@ -730,6 +753,15 @@ def _fused_edge2_bwd_cuda(
     sd = e.dtype
     dev = e.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
+    if wide_strips(L):
+        o = wide.backward(built, "fused_edge2_bwd", wide.P2, sd, n_real, Np, Ep, n_graphs, {
+            "na": proj_u, "nb": proj_v, "e": e, "we": w_e, "w2": w2, "weT": weT, "w2T": w2T,
+            "b0": b0, "b2": b2, "z_upd": z_upd, "dz": dz_upd, "dr": dr, "dm": dm,
+            "slot": slot, "rcv": rcv, "snd": snd})
+        fused_edge2_bwd.launches += 1
+        dw2, dwe = o["w_out"].unbind(0)
+        return (o["de"], o["dg1"], o["dg2"], o["r_out"], o["r_out2"], dwe, o["m_out"][1], dw2,
+                o["m_out"][0])
     dpre1 = torch.empty((Ep, L), dtype=sd, device=dev)
     dpre2 = torch.empty((Ep, L), dtype=sd, device=dev)
     de = torch.empty((Ep, L), dtype=sd, device=dev)
@@ -767,8 +799,8 @@ def fused_edge2_bwd(
     """The pair-blocked backward kernel's outputs (de, dpre1, dpre2, du_r,
     dv_r, dWe, db0, dW2, db2), before the sender-side sums. CUDA tensors go
     to the kernel (``fused_edge2_bwd.launches`` counts its launches), which
-    takes L <= 256 (64, 128 and 256 natively, any other width zero-padded to
-    the next) and raises otherwise, CPU tensors to
+    takes any L (64, 128 and 256 natively, another L <= 256 zero-padded to
+    the next, a wider one in the wide variant), CPU tensors to
     ``fused_edge2_bwd_reference``; anything else raises."""
     edge_gid, block_tile, block_snd_tile = aux[:3]
     args = (proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders)
@@ -827,8 +859,8 @@ def fused_edge_step2_backward(
         proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, aux, n_graphs, tile,
         z_upd, dz_upd, dr, dm)
     snd_perm, snd_sorted, snd_block_tile = aux[3:6]
-    s_u, s_v = csr_segment_sum_pair(dpre2.float(), dpre1.float(), snd_sorted, snd_block_tile,
-                                    du_r.shape[0], tile, perm=snd_perm)
+    s_u, s_v = csr_segment_sum_pair(dpre2, dpre1, snd_sorted, snd_block_tile, du_r.shape[0],
+                                    tile, perm=snd_perm)
     return du_r + s_u, dv_r + s_v, de, dwe, db0, dw2, db2
 
 

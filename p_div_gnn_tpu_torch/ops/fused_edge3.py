@@ -39,7 +39,8 @@ import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
-from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args
+from p_div_gnn_tpu_torch.ops import wide
+from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -88,8 +89,8 @@ def _library() -> CudaLibrary:
     return built
 
 
-# the widths the kernels are built for; any other L <= 256 runs at the next
-# one, zero-padded (ops/widths.py)
+# the widths the tile kernels are built for; any other L <= 256 runs at the
+# next one, zero-padded, and a wider L at the wide variant (ops/widths.py)
 FWD_WIDTHS = (64, 128, 256)
 BWD_WIDTHS = (64, 128, 256)
 
@@ -126,12 +127,18 @@ def _fused_edge_step3_cuda(
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
     Lp = padded_width(L, FWD_WIDTHS, "fused_edge_step3")
-    _check(Np * Lp < 2**31 and Ep * Lp < 2**31, "arrays too large")
+    _check(wide_strips(Lp) or (Np * Lp < 2**31 and Ep * Lp < 2**31), "arrays too large")
     # one writer per R row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step3")
     if Lp != L:
         out = _fused_edge_step3_cuda(*pad_args(floats, "cccwwwcwc", Lp), *ints, n_graphs, tile)
         return unpad_args(out, "ccc", L)
+    if wide_strips(L):
+        out = wide.forward(built, "fused_edge3_fwd", sd, Ep, Np, Ep, n_graphs, {
+            "na": x, "ga": g_x, "e": e, "wu": w_u, "wv": w_v, "we": w_e, "w2": w2, "b0": b0,
+            "b2": b2, "rcv": receivers, "gid": edge_gid})
+        fused_edge_step3.launches += 1
+        return out
 
     dev = x.device
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
@@ -267,7 +274,7 @@ def _fused_edge_step3_backward_cuda(
            "edge slots must split into whole blocks")
     _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
     Lp = padded_width(L, BWD_WIDTHS, "fused_edge_step3_backward")
-    _check(7 * Ep * Lp < 2**31 and Np * Lp < 2**31, "arrays too large")
+    _check(wide_strips(Lp) or (7 * Ep * Lp < 2**31 and Np * Lp < 2**31), "arrays too large")
     # one writer per dx row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step3_backward")
     if Lp != L:
@@ -278,6 +285,15 @@ def _fused_edge_step3_backward_cuda(
 
     dev = x.device
     transposed = [w.t().contiguous() for w in (w_u, w_v, w_e, w2)]
+    if wide_strips(L):
+        o = wide.backward(built, "fused_edge3_bwd", wide.F3, sd, Ep, Np, Ep, n_graphs, {
+            "na": x, "ga": g_x, "e": e, "wu": w_u, "wv": w_v, "we": w_e, "w2": w2,
+            **dict(zip(("wuT", "wvT", "weT", "w2T"), transposed)), "b0": b0, "b2": b2,
+            "z_upd": z_upd, "dz": dz_upd, "dr": dr, "dm": dm, "rcv": receivers,
+            "gid": edge_gid})
+        fused_edge_step3_backward.launches += 1
+        dw2, dwe, dwu, dwv = o["w_out"].unbind(0)
+        return o["r_out"], o["dg"], o["de"], dwu, dwv, dwe, o["m_out"][1], dw2, o["m_out"][0]
     dg = torch.empty((Ep, L), dtype=sd, device=dev)
     de = torch.empty((Ep, L), dtype=sd, device=dev)
     dx = torch.zeros((Np, L), dtype=torch.float32, device=dev)
@@ -323,10 +339,11 @@ def fused_edge_step3_backward(
     """The fused3 edge step's VJP: fp32 (dx, dg, de, dWu, dWv, dWe, db0,
     dW2, db2), dg and de in the stream dtype. CUDA tensors go to the kernel
     (``fused_edge_step3_backward.launches`` counts its launches), which
-    takes L <= 256 (64, 128 and 256 natively, any other width zero-padded to
-    the next) and each receiver's slots consecutive (the receiver-major
-    layout; a pair-blocked batch's is not) and raises otherwise; CPU tensors
-    go to the plain version; anything else raises."""
+    takes any L (64, 128 and 256 natively, another L <= 256 zero-padded to
+    the next, a wider one in the wide variant) and each receiver's slots
+    consecutive (the receiver-major layout; a pair-blocked batch's is not)
+    and raises otherwise; CPU tensors go to the plain version; anything
+    else raises."""
     edge_gid, block_tile = aux
     args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
     cots = (z_upd, dz_upd, dr, dm)
@@ -399,10 +416,11 @@ def fused_edge_step3(
     the weights. CUDA tensors go to the kernels (``fused_edge_step3.launches``
     counts the forward's launches, ``fused_edge_step3_backward.launches``
     the backward's), which take each receiver's slots consecutive (the
-    receiver-major layout; a pair-blocked batch's is not) and L <= 256 (64,
-    128 and 256 natively, any other width zero-padded to the next, which is
-    exact: ``ops/widths.py``), and raise otherwise; CPU
-    tensors go to the plain versions; anything else raises."""
+    receiver-major layout; a pair-blocked batch's is not) and any L (64,
+    128 and 256 natively, another L <= 256 zero-padded to the next, a wider
+    one in the wide variant, ``ops/wide.py``; the padding is exact:
+    ``ops/widths.py``), and raise otherwise; CPU tensors go to the plain
+    versions; anything else raises."""
     edge_gid, block_tile = aux
     return _FusedEdgeStep3.apply(x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid,
                                  block_tile, n_graphs, tile)

@@ -14,11 +14,11 @@ The sums run in a fixed order, so the gradient is the same in every run,
 and in bf16 stream mode it is accumulated in fp32, not bf16.
 
 ``sender_gather_pair`` gathers two node projections at once and returns
-``(proj_v[senders], proj_u[senders])``; its backward casts both cotangents
-to fp32 and sums them in one pass of the pair segment sum over the sender
-view in the same run order (the pair sum takes any slot order within a
-tile; the run order holds each tile's (slot, sender) pairs of ``snd_perm``),
-returning ``(d proj_u, d proj_v)`` in the order of its inputs.
+``(proj_v[senders], proj_u[senders])``; its backward sums both cotangents,
+in their own dtype (the kernel widens bf16 rows as it reads them, the plain
+version casts them), in one pass of the pair segment sum over the sender
+view in the same run order, returning ``(d proj_u, d proj_v)`` in the order
+of its inputs.
 
 Without the sender view there is no such backward: the gathers are then
 forward-only and raise when a gradient would be needed.
@@ -88,8 +88,8 @@ class _SenderGatherPair(torch.autograd.Function):
         # proj_u[snd]; the gradients go back in the order (proj_u, proj_v)
         snd_perm, snd_sorted, snd_block_tile = ctx.saved_tensors
         dv, du = csr_segment_sum_pair(
-            g_v.float().contiguous(), g_u.float().contiguous(), snd_sorted, snd_block_tile,
-            ctx.num_nodes, ctx.tile, perm=snd_perm)
+            g_v.contiguous(), g_u.contiguous(), snd_sorted, snd_block_tile, ctx.num_nodes,
+            ctx.tile, perm=snd_perm)
         return du.to(ctx.dtypes[0]), dv.to(ctx.dtypes[1]), None, None, None, None, None
 
 

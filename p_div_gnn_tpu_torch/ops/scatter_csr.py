@@ -23,10 +23,16 @@ JAX function does. ``block_tile`` and ``tile`` name the layout's blocks, as
 the JAX function takes them; neither the kernel nor the plain version reads
 them. Its backward is a plain gather, as in the JAX package.
 
-``csr_segment_sum_pair`` sums two fp32 streams over one layout in one launch
-of its own kernel (same source; any slot order within a block's tile), or
-``csr_segment_sum_pair_reference`` on the CPU; it runs inside the pair
-sender gather's backward and has no backward of its own.
+``csr_segment_sum_pair`` sums two streams (fp32 or bf16, read as stored)
+over one layout with the same kernel design, both streams in one launch
+(same source), or ``csr_segment_sum_pair_reference`` on the CPU, which casts
+the rows to fp32 inside as the JAX function does; it needs each receiver's
+slots consecutive on CUDA tensors, as the segment sum does, and both of its
+callers (the pair sender gather's backward and the fused2 backward's
+sender-side sums) pass the sender view in run order. It has no backward of
+its own. Both kernels take any L: the wrapper zero-pads the columns to a
+multiple of 4 (the kernels' four-column loads), which is exact for a sum,
+and slices the sums back.
 """
 
 from __future__ import annotations
@@ -38,8 +44,14 @@ import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
+from p_div_gnn_tpu_torch.ops.widths import pad_width, unpad
 
 ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _cols4(L: int) -> int:
+    """L rounded up to the kernels' four-column loads."""
+    return -(-L // 4) * 4
 
 
 def csr_segment_sum_reference(
@@ -63,7 +75,8 @@ def _library() -> CudaLibrary:
     fn.restype = ctypes.c_int
     built.lib.pdg_segment_sum_csr_chunk_slots.restype = ctypes.c_int64
     pair = built.lib.pdg_segment_sum_csr_pair
-    pair.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
+    pair.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4
+                     + [ctypes.c_void_p])
     pair.restype = ctypes.c_int
     return built
 
@@ -87,10 +100,13 @@ def _csr_segment_sum_cuda(
     _check(receivers.dim() == 1 and n_slots > 0 and (perm is None or perm.shape == receivers.shape),
            "receivers (and perm) must be (Ep2,)")
     _check(perm is not None or n_src == n_slots, "rows must be (Ep2, L) without perm")
-    _check(L >= 4 and L % 4 == 0, f"L={L} must be a multiple of 4")
+    _check(L >= 1, f"L={L} is not a width")
     _check(n_src * L < 2**31 and num_nodes * L < 2**31 and 2 * n_slots * L < 2**31,
            "arrays too large")
     require_consecutive_runs(receivers, num_nodes, "csr_segment_sum")
+    if _cols4(L) != L:
+        return unpad(_csr_segment_sum_cuda(pad_width(rows, _cols4(L)), receivers, num_nodes,
+                                           perm), L)
 
     dev = rows.device
     n_chunks = -(-n_slots // built.lib.pdg_segment_sum_csr_chunk_slots())
@@ -179,30 +195,41 @@ def _csr_segment_sum_pair_cuda(
     n_src, L = a.shape
     n_slots = receivers.shape[0]
     ints = (receivers, block_tile) + (() if perm is None else (perm,))
-    _check(a.dtype == b.dtype == torch.float32, "the pair sum takes two float32 streams")
+    _check(a.dtype == b.dtype and a.dtype in ROW_DTYPES,
+           "the pair sum takes two float32 or two bfloat16 streams")
     _check(a.shape == b.shape, "the two streams must have one shape")
     _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
     _check(len({t.device for t in (a, b) + ints}) == 1, "tensors on several devices")
     _check(all(t.is_contiguous() for t in (a, b) + ints), "tensors must be contiguous")
-    _check(receivers.dim() == 1 and (perm is None or perm.shape == receivers.shape),
+    _check(receivers.dim() == 1 and n_slots > 0 and (perm is None or perm.shape == receivers.shape),
            "receivers (and perm) must be (Ep2,)")
     _check(perm is not None or n_src == n_slots, "rows must be (Ep2, L) without perm")
     n_blocks = block_tile.shape[0]
     _check(block_tile.dim() == 1 and n_blocks > 0 and n_slots % n_blocks == 0,
            "slots must split into whole blocks")
-    _check(tile > 0 and num_nodes % tile == 0, f"num_nodes={num_nodes} is not a multiple of tile={tile}")
-    _check(1 <= L <= 512, f"L={L} must be in [1, 512]")
-    _check(n_src * L < 2**31 and 2 * n_blocks * tile * L < 2**31, "arrays too large")
+    _check(tile > 0 and num_nodes % tile == 0,
+           f"num_nodes={num_nodes} is not a multiple of tile={tile}")
+    _check(L >= 1, f"L={L} is not a width")
+    _check(n_src * L < 2**31 and 2 * num_nodes * L < 2**31 and 4 * n_slots * L < 2**31,
+           "arrays too large")
+    require_consecutive_runs(receivers, num_nodes, "csr_segment_sum_pair")
+    if _cols4(L) != L:
+        Lq = _cols4(L)
+        out = _csr_segment_sum_pair_cuda(pad_width(a, Lq), pad_width(b, Lq), receivers,
+                                         block_tile, num_nodes, tile, perm)
+        return unpad(out[0], L), unpad(out[1], L)
 
     dev = a.device
-    partial = torch.empty((2, n_blocks, tile, L), dtype=torch.float32, device=dev)
+    n_chunks = -(-n_slots // built.lib.pdg_segment_sum_csr_chunk_slots())
+    pieces = torch.empty((2, n_chunks, 2, L), dtype=torch.float64, device=dev)
+    kind = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     out = torch.empty((2, num_nodes, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = built.lib.pdg_segment_sum_csr_pair(
-            a.data_ptr(), b.data_ptr(), None if perm is None else perm.data_ptr(),
-            receivers.data_ptr(), block_tile.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_src, n_slots, L, num_nodes, tile, n_blocks, stream,
+            int(a.dtype == torch.bfloat16), a.data_ptr(), b.data_ptr(),
+            None if perm is None else perm.data_ptr(), receivers.data_ptr(), pieces.data_ptr(),
+            kind.data_ptr(), out.data_ptr(), n_src, n_slots, L, num_nodes, stream,
         )
     check_launch(built, err, "segment_sum_csr_pair")
     csr_segment_sum_pair.launches += 1
@@ -210,19 +237,21 @@ def _csr_segment_sum_pair_cuda(
 
 
 def csr_segment_sum_pair(
-    a: torch.Tensor,  # (Ep2, L) f32; (n_src, L) with perm
-    b: torch.Tensor,  # the second stream, shaped as a
+    a: torch.Tensor,  # (Ep2, L) f32 or bf16; (n_src, L) with perm
+    b: torch.Tensor,  # the second stream, shaped and typed as a
     receivers: torch.Tensor,  # (Ep2,) i32 node id per slot, −1 for padding
     block_tile: torch.Tensor,  # (Ep2 / block,) i32 node tile per block, sorted
     num_nodes: int,
     tile: int,  # node tile of the layout (GraphBatch.tile)
     perm: torch.Tensor | None = None,  # (Ep2,) i32 source row of each slot
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two (num_nodes, L) fp32 segment sums of two fp32 streams over one
-    block-CSR layout, in one pass. CUDA tensors go to the kernel
-    (``csr_segment_sum_pair.launches`` counts its launches), CPU tensors to
-    the plain version; anything else raises. It has no backward: it raises
-    where a gradient would be needed."""
+    """Two (num_nodes, L) fp32 segment sums of two streams over one
+    block-CSR layout, in one pass, the rows read as stored and summed in
+    fp64. CUDA tensors go to the kernel (``csr_segment_sum_pair.launches``
+    counts its launches), which needs each receiver's slots consecutive
+    and raises otherwise; CPU tensors go to the plain version, which takes
+    any order; anything else raises. It has no backward: it raises where a
+    gradient would be needed."""
     tensors = (a, b, receivers, block_tile) + (() if perm is None else (perm,))
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise ValueError("csr_segment_sum_pair has no backward; call it where no "

@@ -1,16 +1,22 @@
-"""Latent widths of the fused kernels: each is built for a few widths L (its
-tiles are laid out for them), and its wrapper runs any other L <= 256 at
-the next width it is built for, with the widened columns, weight rows and
-weight columns zero.
+"""Latent widths of the fused kernels: each tile kernel is built for a few
+widths L (its tiles are laid out for them), and its wrapper runs any other
+L <= 256 at the next width it is built for, with the widened columns,
+weight rows and weight columns zero. Above 256 the wrapper runs the
+kernel's wide variant (``csrc/wide_tile.cuh``, ``ops/wide.py``), which
+tiles the output columns in strips of 64 and runs every k sum over the
+whole width: an L that is not a multiple of 64 is zero-padded to the next
+one the same way.
 
-The zero padding changes no output, in either stream dtype: a padded
-column's pre-activation, h, z, dy and dpre are all +0 (every product into
-it has a zero weight, and its bias is 0); each sum over k adds the padded
-k after the real ones, and each of those addends is an exact zero; the
-moment and weight-grad entries of the padded rows and columns are sliced
-away. So the padded call is the kernel's own result at the narrower width,
-not an approximation and not a plain-version fallback. No configuration of
-the repo uses a width other than 128.
+The zero padding changes no output, in either stream dtype and in either
+kind of kernel: a padded column's pre-activation, h, z, dy and dpre are
+all +0 (every product into it has a zero weight, and its bias is 0); each
+sum over k adds the padded k after the real ones, and each of those
+addends is an exact zero (in the wide variant too: its chains run k in
+order over the padded width, and the strip a padded column falls in is
+computed like any other); the moment and weight-grad entries of the padded
+rows and columns are sliced away. So the padded call is the kernel's own
+result at the narrower width, not an approximation and not a plain-version
+fallback. No configuration of the repo uses a width other than 128.
 """
 
 from __future__ import annotations
@@ -18,19 +24,28 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# the widest any fused kernel is built for
+# the widest any tile kernel is built for; wider runs the wide variant
 MAX_WIDTH = 256
+# the wide variant's column strip (csrc/wide_tile.cuh WN)
+WIDE_STRIP = 64
 
 
 def padded_width(L: int, widths: tuple[int, ...], who: str) -> int:
-    """The smallest width in ``widths`` that is at least ``L``; raises for
-    an L that no build takes (ROADMAP C1)."""
+    """The width a call at L runs at: the smallest width in ``widths``
+    (the tile kernel's builds) that is at least ``L``, or above them the
+    next multiple of WIDE_STRIP (the wide variant)."""
+    if L < 1:
+        raise ValueError(f"{who}: L={L} is not a width")
     for w in sorted(widths):
         if w >= L:
             return w
-    raise ValueError(
-        f"{who}: L={L} is wider than any width its kernel is built for "
-        f"({max(widths)}); widths above {MAX_WIDTH} are ROADMAP C1, still open")
+    return -(-L // WIDE_STRIP) * WIDE_STRIP
+
+
+def wide_strips(Lp: int) -> int:
+    """The column strips of the wide variant at the run width ``Lp``; 0
+    where a tile build takes it."""
+    return Lp // WIDE_STRIP if Lp > MAX_WIDTH else 0
 
 
 def pad_width(t: torch.Tensor, Lp: int, dims: tuple[int, ...] = (-1,)) -> torch.Tensor:

@@ -452,7 +452,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
     ap.add_argument("--L", type=int, default=16, help="width of the segment sums' rows")
+    ap.add_argument("--only", choices=("wide", "sums"),
+                    help="run only the wide variants (L = 320) or only the segment sums")
     args = ap.parse_args()
+    if args.only:
+        with emulated_kernels():
+            shares = wide_cases() if args.only == "wide" else segment_sum_cases(args.tiles,
+                                                                                args.L)
+        worst = max(shares)
+        print(f"largest share of an allowance: {worst:.3f}", flush=True)
+        return 0 if worst <= 1.0 else 1
     shares = []
     f3_fwd = lambda a, ix: fused_edge3.fused_edge_step3_reference(*a, ix[0], ix[1], 1)  # noqa: E731
     v2_fwd = lambda a, ix: fused_edge.fused_edge_step_reference(*a, ix[0], ix[1], 1)  # noqa: E731
@@ -517,29 +526,7 @@ def main() -> int:
                 shares += run_forward("fused_edge2_fwd", sd_name, sd,
                                       lambda L: pair_case(L, args.tiles), L, p2_call, p2_fwd)
 
-            rows, layouts = _segment_problem(8, args.tiles, args.L)
-            n_nodes = args.tiles * NODE_TILE
-            tol = chip_smoke.CSR_TOL[sd_name]
-            for layout, (rcv, bt, perm) in layouts.items():
-                got = [scatter_csr._csr_segment_sum_cuda(rows.to(sd), rcv, n_nodes, perm)
-                       for _ in range(2)]
-                assert torch.equal(got[0], got[1]), f"segment_sum_csr {layout}: two calls differ"
-                want = scatter_csr.csr_segment_sum_reference(rows.to(sd), rcv, n_nodes, perm)
-                shares.append(report(f"segment_sum_csr {sd_name} {layout} (longest run "
-                                     f"{_longest_run(rcv)})", got[0], want, tol))
-            # the pair sum takes the sender view as the JAX package lays it out
-            rng = np.random.default_rng(8)
-            perm, srt, sbt = (T(v) for v in build_sender_view(
-                rng.integers(0, n_nodes, size=6 * n_nodes), n_nodes))
-            rows = T(rng.normal(size=(6 * n_nodes, args.L)).astype(np.float32))
-            if sd == torch.float32:
-                other = T(rng.normal(size=rows.shape).astype(np.float32))
-                got = scatter_csr._csr_segment_sum_pair_cuda(rows, other, srt, sbt, n_nodes,
-                                                             NODE_TILE, perm)
-                want = scatter_csr.csr_segment_sum_pair_reference(rows, other, srt, n_nodes,
-                                                                  perm)
-                shares += [report(f"segment_sum_csr_pair {i}", x, y, tol)
-                           for i, (x, y) in enumerate(zip(got, want))]
+            shares += segment_sum_cases(args.tiles, args.L, (sd_name,))
 
         # one width each fused kernel is not built for, through the zero
         # padding (fp32, one node tile): 16 for fused3 and the backwards, 18
@@ -570,9 +557,94 @@ def main() -> int:
         got = fused_edge._fused_edge_step2_cuda(*a, *ix, 1, NODE_TILE)
         shares += [report(f"fused_edge2_fwd padded L=18 {n}", x, y, ftol[n])
                    for n, x, y in zip(FWD_NAMES, got, p2_fwd(a, ix))]
+        shares += wide_cases()
     worst = max(shares)
     print(f"largest share of an allowance: {worst:.3f}", flush=True)
     return 0 if worst <= 1.0 else 1
+
+
+def segment_sum_cases(n_tiles: int, L: int,
+                      dtypes: tuple[str, ...] = ("float32", "bfloat16")) -> list[float]:
+    """The segment sum (#3) and the pair sum (#4) on both callers' layouts,
+    at L and at L + 2 (columns padded to a multiple of 4), twice,
+    bit-equal."""
+    shares = []
+    n_nodes = n_tiles * NODE_TILE
+    for sd_name in dtypes:
+        sd = getattr(torch, sd_name)
+        tol = chip_smoke.CSR_TOL[sd_name]
+        for width in (L, L + 2):
+            rows, layouts = _segment_problem(8, n_tiles, width)
+            other = torch.flip(rows, (0,)).contiguous()
+            for layout, (rcv, bt, perm) in layouts.items():
+                got = [scatter_csr._csr_segment_sum_cuda(rows.to(sd), rcv, n_nodes, perm)
+                       for _ in range(2)]
+                assert torch.equal(got[0], got[1]), f"segment_sum_csr {layout}: two calls differ"
+                want = scatter_csr.csr_segment_sum_reference(rows.to(sd), rcv, n_nodes, perm)
+                shares.append(report(f"segment_sum_csr {sd_name} {layout} L={width} (longest "
+                                     f"run {_longest_run(rcv)})", got[0], want, tol))
+                want = scatter_csr.csr_segment_sum_pair_reference(rows.to(sd), other.to(sd), rcv,
+                                                                  n_nodes, perm)
+                got = [scatter_csr._csr_segment_sum_pair_cuda(
+                    rows.to(sd), other.to(sd), rcv, bt, n_nodes, NODE_TILE, perm)
+                    for _ in range(2)]
+                assert all(torch.equal(u, v) for u, v in zip(*got)), \
+                    f"segment_sum_csr_pair {layout}: two calls differ"
+                shares += [report(f"segment_sum_csr_pair {sd_name} {layout} L={width} {i}",
+                                  x, y, tol) for i, (x, y) in enumerate(zip(got[0], want))]
+    return shares
+
+
+def wide_cases(L: int = 320) -> list[float]:
+    """Each fused kernel's wide variant at L (and its wrapper's padding at
+    L - 30) against its plain version, in both stream dtypes, on one node
+    tile (fused3 and v2 with a receiver run of padding slots; fused2 with
+    stray endpoints), twice, bit-equal."""
+    shares = []
+    f3 = lambda L: fused3_case(L, 1, 2)  # noqa: E731
+    cases = {
+        "fused_edge3_fwd": (f3, lambda a, ix: fused_edge3._fused_edge_step3_cuda(
+            *a, *ix, 1, NODE_TILE), lambda a, ix: fused_edge3.fused_edge_step3_reference(
+            *a, ix[0], ix[1], 1)),
+        "fused_edge_fwd": (lambda L: v2_case(L, 1), lambda a, ix: fused_edge._fused_edge_step_cuda(
+            *a, *ix, 1, NODE_TILE), lambda a, ix: fused_edge.fused_edge_step_reference(
+            *a, ix[0], ix[1], 1)),
+        "fused_edge2_fwd": (lambda L: pair_case(L, 2), lambda a, ix:
+                            fused_edge._fused_edge_step2_cuda(*a, *ix, 1, NODE_TILE),
+                            lambda a, ix: fused_edge.fused_edge_step2_reference(
+                                *a, *ix[:2], ix[2:], 1, NODE_TILE)),
+    }
+    bwd = {
+        "fused_edge3_bwd": (f3, "fused_edge3_fwd", lambda a, ix, z, c:
+                            fused_edge3._fused_edge_step3_backward_cuda(
+                                *a, *ix, 1, NODE_TILE, z, *c),
+                            lambda a, ix, z, c: fused_edge3.fused_edge_step3_backward_reference(
+                                *a, ix[0], ix[1], 1, z, *c)),
+        "fused_edge_bwd": (lambda L: v2_case(L, 1), "fused_edge_fwd", lambda a, ix, z, c:
+                           fused_edge._fused_edge_step_backward_cuda(*a, *ix, 1, NODE_TILE, z, *c),
+                           lambda a, ix, z, c: fused_edge.fused_edge_step_backward_reference(
+                               *a, ix[0], ix[1], 1, z, *c)),
+        "fused_edge2_bwd": (lambda L: pair_case(L, 2), "fused_edge2_fwd", lambda a, ix, z, c:
+                            fused_edge._fused_edge2_bwd_cuda(*a, *ix, 1, NODE_TILE, z, *c),
+                            lambda a, ix, z, c: fused_edge.fused_edge2_bwd_reference(
+                                *a, *ix[:2], ix[2:], 1, NODE_TILE, z, *c)),
+    }
+    for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ftol = chip_smoke.KERNEL_TOL[sd_name]
+        for width in (L, L - 30):
+            for name, (make, call, plain) in cases.items():
+                arrays, idx, ix = make(width)
+                a = [T(v).to(sd) for v in arrays.values()]
+                got = [call(a, ix) for _ in range(2)]
+                assert all(torch.equal(u, v) for u, v in zip(*got)), \
+                    f"{name} wide: two calls differ"
+                shares += [report(f"{name} wide {sd_name} L={width} {n}", x, y, ftol[n])
+                           for n, x, y in zip(FWD_NAMES, got[0], plain(a, ix))]
+            for name, (make, fwd, call, plain) in bwd.items():
+                fwd_plain = cases[fwd][2]
+                shares += run_backward(f"{name} wide", sd_name, sd, make, width, call, plain,
+                                       fwd_plain=fwd_plain, twice=True)
+    return shares
 
 
 if __name__ == "__main__":

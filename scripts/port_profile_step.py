@@ -43,8 +43,10 @@ GROUPS = {
     "fused_edge3_fwd (#1)": ("step3_fwd_fma_kernel", "step3_fwd_mma_kernel",
                              "copy_weights_kernel", "moments_reduce_kernel"),
     "fused_edge3_bwd (#2)": ("step3_bwd_tile_kernel",) + _BWD_SHARED,
-    "segment_sum_csr (#3)": ("run_chunk_kernel", "run_merge_kernel"),
-    "segment_sum_csr_pair (#4)": ("pair_partial_kernel", "pair_merge_kernel"),
+    # #3 and #4 run the same two kernels; a step runs one of them (#3:
+    # fused3, pallas, hybrid; #4: fused, fused2)
+    "segment_sum_csr (#3) / segment_sum_csr_pair (#4)": ("run_chunk_kernel",
+                                                          "run_merge_kernel"),
     "fused_edge_fwd (#5)": ("v2_fwd_tile_fma_kernel", "v2_fwd_tile_mma_kernel",
                             "copy_weights_kernel", "moments_reduce_kernel"),
     "fused_edge_bwd (#6)": ("v2_bwd_tile_kernel",) + _BWD_SHARED,

@@ -15,17 +15,20 @@ do: node rows, e ~ N(0, 1), sender gathers of the node rows, weights ~
 N(0, 1/L), biases and the cotangents ~ N(0, 1)), then runs the fused3
 forward and backward (#1, #2; the backward on the plain version's z_upd),
 the v2 forward and backward (#5, #6) and the pair-blocked forward and
-backward kernel (#7, #8), in fp32 and bf16 streams, and writes a SHA-256 of
-each output's bytes and the kernels' times (CUDA events, mean of 5 calls
-after 2) to ``build/port_tree_compare/``; the first run of the other tree
-also saves #5's and #7's outputs there, and each run of this tree reports
-their largest absolute difference from them. The trees run in the order
-other, this, this, other; this process prints, per output, whether the two
-trees agree (and for #5 and #7 the largest difference), each kernel's
-times in both, and exits 1 if an output whose name starts with one of
-``--require`` differs (default: the fused3 forward's and backward's
-outputs, and in fp32 #6's dg_v, dg_u and #8's dpre1, dpre2, the FMA
-chains' results). Needs one CUDA card and nvcc; it imports nothing of JAX.
+backward kernel (#7, #8), in fp32 and bf16 streams, the block-CSR segment
+sum (#3) and the pair segment sum (#4, on both batches' sender views in run
+order; in bf16 only where the tree's wrapper takes bf16 rows), and writes a
+SHA-256 of each output's bytes and the kernels' times (CUDA events, mean of
+5 calls after 2, of 50 for the segment sums, which also get their device
+time from torch.profiler) to ``build/port_tree_compare/``; the first run of
+the other tree also saves #5's and #7's outputs there, and each run of
+this tree reports their largest absolute difference from them. The trees
+run in the order other, this, this, other; this process prints, per
+output, whether the two trees agree (and for #5 and #7 the largest
+difference), each kernel's times in both, and exits 1 if an output whose
+name starts with one of ``--require`` differs (default: every output of
+#1, #2, #3 and #5-#8). Needs one CUDA card and nvcc; it imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def worker(out: Path, save: Path | None, ref: Path | None) -> None:
     import torch
 
     from p_div_gnn_tpu_torch.datagen.workload import build_workload
-    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3
+    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
 
     batch = build_workload(16, seed=0)[0].to("cuda")
     pair = build_workload(16, seed=0, pair_blocks=True)[0].to("cuda")
@@ -72,16 +75,28 @@ def worker(out: Path, save: Path | None, ref: Path | None) -> None:
         hashes[name] = hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
                                       .numpy().tobytes()).hexdigest()
 
-    def timed(name: str, fn) -> None:
+    def timed(name: str, fn, iters: int = 5) -> None:
         for _ in range(2):
             fn()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(5):
+        for _ in range(iters):
             fn()
         stop.record()
         torch.cuda.synchronize()
-        times[name] = start.elapsed_time(stop) / 5
+        times[name] = start.elapsed_time(stop) / iters
+
+    def device_timed(name: str, fn, iters: int = 50) -> None:
+        """The device time of one call (its kernels and memsets, from
+        torch.profiler), which the host's launch rate does not blur."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages())
+        times[f"{name} device"] = total / iters / 1e3
 
     # the v2 step's inputs on the receiver-major batch and the fused2 step's on
     # the pair-blocked one: node rows, their sender gathers, e, We, b0, W2, b2
@@ -147,6 +162,25 @@ def worker(out: Path, save: Path | None, ref: Path | None) -> None:
             put(f"pairbwd {sd_name} {name}", t)
         timed(f"pairbwd {sd_name}", p2)
         del args, z_upd, cots
+        rows = base[2].to(sd)
+        csr = lambda: scatter_csr.csr_segment_sum(  # noqa: E731
+            rows, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
+            perm=batch.snd_run_perm)
+        put(f"csr {sd_name}", csr())
+        timed(f"csr {sd_name}", csr, 50)
+        device_timed(f"csr {sd_name}", csr)
+        for view, b in (("fused", batch), ("fused2", pair)):
+            streams = [randn(b.num_edges_padded, L).to(sd) for _ in range(2)]
+            ps = lambda b=b, streams=streams: scatter_csr.csr_segment_sum_pair(  # noqa: E731
+                *streams, b.snd_run_sorted, b.snd_block_tile, b.num_nodes_padded, b.tile,
+                perm=b.snd_run_perm)
+            try:
+                got = ps()
+            except ValueError:  # a tree whose pair sum takes fp32 streams only
+                continue
+            put(f"pair {view} {sd_name}", torch.stack(got))
+            timed(f"pair {view} {sd_name}", ps, 50)
+            device_timed(f"pair {view} {sd_name}", ps)
         torch.cuda.empty_cache()
     diffs = {}
     if save is not None:
@@ -161,7 +195,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="root of the other checkout")
     ap.add_argument("--require", nargs="*",
-                    default=["fwd ", "bwd ", "v2bwd float32 dg_", "pairbwd float32 dpre"],
+                    default=["fwd ", "bwd ", "v2fwd ", "v2bwd ", "pairfwd ", "pairbwd ",
+                             "csr "],
                     help="output name prefixes that must be bit-equal")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--save", type=Path, help=argparse.SUPPRESS)
@@ -190,9 +225,11 @@ def main() -> int:
         if not same and any(name.startswith(p) for p in args.require):
             bad.append(name)
     for name in runs["this"][0]["times"]:
-        t = {k: [r["times"][name] for r in v] for k, v in runs.items()}
-        print(f"time {name}: other {t['other'][0]:.4f} / {t['other'][1]:.4f} ms, "
-              f"this {t['this'][0]:.4f} / {t['this'][1]:.4f} ms", flush=True)
+        t = {k: [r["times"].get(name) for r in v] for k, v in runs.items()}
+        other = ("-" if t["other"][0] is None else
+                 f"{t['other'][0]:.4f} / {t['other'][1]:.4f} ms")
+        print(f"time {name}: other {other}, this {t['this'][0]:.4f} / {t['this'][1]:.4f} ms",
+              flush=True)
     if bad:
         print(f"port_tree_compare: required outputs differ: {bad}", flush=True)
     return 1 if bad else 0

@@ -460,15 +460,18 @@ def test_v2_backward_kernel_matches_reference_on_cuda(dtype):
 
 
 def test_pair_segment_sum_kernel_matches_reference_on_cuda():
-    """Two fp32 streams over the sender view of three node tiles, L = 128,
-    read through the permutation; the launch count rises by one per call."""
+    """Two fp32 streams over the sender view of three node tiles in run
+    order, L = 128, read through the permutation; the launch count rises by
+    one per call. The same view in the JAX package's order, whose senders'
+    slots are not consecutive, is refused before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(9)
     num_nodes = 3 * NODE_TILE
     E = 6 * num_nodes
-    perm, srt, sbt = (T(v).cuda() for v in build_sender_view(
-        rng.integers(0, num_nodes, size=E), num_nodes))
+    view = [T(v) for v in build_sender_view(rng.integers(0, num_nodes, size=E), num_nodes)]
+    perm, srt = (t.cuda() for t in sender_run_order(*view))
+    sbt = view[2].cuda()
     a, b = (T(rng.normal(size=(E, 128)).astype(np.float32)).cuda() for _ in range(2))
     before = scatter_csr.csr_segment_sum_pair.launches
     got = scatter_csr.csr_segment_sum_pair(a, b, srt, sbt, num_nodes, NODE_TILE, perm=perm)
@@ -476,6 +479,77 @@ def test_pair_segment_sum_kernel_matches_reference_on_cuda():
     want = scatter_csr.csr_segment_sum_pair_reference(a, b, srt, num_nodes, perm)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="not consecutive"):
+        scatter_csr.csr_segment_sum_pair(a, b, view[1].cuda(), sbt, num_nodes, NODE_TILE,
+                                         perm=view[0].cuda())
+    assert scatter_csr.csr_segment_sum_pair.launches == before + 1
+
+
+def _pair_sum_views(L: int) -> dict:
+    """The pair sum's two callers' layouts, each a sender view in run order
+    with its permutation over two streams of rows (Ep, L) fp32: "fused",
+    the receiver-major layout's (the pair sender gather's backward; its
+    padding slots all send from the last node), and "fused2", the
+    pair-blocked layout's (the fused2 backward's sender-side sums). Values
+    (a, b, run_sorted, snd_block_tile, run_perm, num_nodes) on the card."""
+    views = {}
+    rows, layouts = _segment_problem(12, 3, L)
+    rcv, sbt, perm = layouts["sender"]
+    views["fused"] = (rows, torch.flip(rows, (0,)).contiguous(), rcv, sbt, perm, 3 * NODE_TILE)
+    _, idx = _pair_problem(12, 3, L=4, stray=False)
+    run_perm, run_sorted = sender_run_order(*(T(np.asarray(idx[k])) for k in (
+        "snd_perm", "snd_sorted", "snd_block_tile")))
+    rng = np.random.default_rng(13)
+    Ep = len(idx["receivers"])
+    a, b = (T(rng.normal(size=(Ep, L)).astype(np.float32)) for _ in range(2))
+    views["fused2"] = (a, b, run_sorted, T(np.asarray(idx["snd_block_tile"])), run_perm,
+                       3 * NODE_TILE)
+    return {k: tuple(t.cuda() if isinstance(t, torch.Tensor) else t for t in v)
+            for k, v in views.items()}
+
+
+@pytest.mark.parametrize("L", [6, 128, 600])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_sum_redesign_on_both_views_on_cuda(dtype, L):
+    """The redesigned pair sum (#4) on both callers' sender views in run
+    order, at L = 6 (columns padded to 8), 128 and 600, fp32 and bf16 rows
+    read as stored: within the segment-sum tolerance of the plain version
+    (which casts the rows), one launch a call, two calls bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for view, (a, b, srt, sbt, perm, num_nodes) in _pair_sum_views(L).items():
+        a, b = a.to(dtype), b.to(dtype)
+        before = scatter_csr.csr_segment_sum_pair.launches
+        got = [scatter_csr.csr_segment_sum_pair(a, b, srt, sbt, num_nodes, NODE_TILE, perm=perm)
+               for _ in range(2)]
+        assert scatter_csr.csr_segment_sum_pair.launches == before + 2, view
+        want = scatter_csr.csr_segment_sum_pair_reference(a, b, srt, num_nodes, perm)
+        for x, y, z in zip(got[0], got[1], want):
+            assert x.dtype == torch.float32 and x.shape == (num_nodes, L)
+            assert torch.equal(x, y), view
+            torch.testing.assert_close(x, z, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_at_width_18_on_cuda(dtype):
+    """The segment sum (#3) at L = 18 (columns padded to 20) on both
+    callers' layouts: within the tolerance of the plain version, one launch
+    a call, two calls bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rows, layouts = _segment_problem(14, 3, L=18)
+    rows = rows.to("cuda", dtype)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for layout in layouts.values():
+        rcv, bt, perm = (None if t is None else t.cuda() for t in layout)
+        before = scatter_csr.csr_segment_sum.launches
+        got = [scatter_csr.csr_segment_sum(rows, rcv, bt, 3 * NODE_TILE, NODE_TILE, perm=perm)
+               for _ in range(2)]
+        assert scatter_csr.csr_segment_sum.launches == before + 2
+        assert torch.equal(got[0], got[1]) and got[0].shape == (3 * NODE_TILE, 18)
+        want = scatter_csr.csr_segment_sum_reference(rows, rcv, 3 * NODE_TILE, perm)
+        torch.testing.assert_close(got[0], want, rtol=tol, atol=tol)
 
 
 def test_fused_v2_training_step_is_deterministic_on_cuda():
@@ -508,10 +582,15 @@ def test_fused_v2_training_step_is_deterministic_on_cuda():
 
 
 def _pair_on_cuda(arrays, idx, dtype):
+    """The fused2 step's inputs on the card, with the sender view in run
+    order (as ``GraphBatch.to`` derives it: the pair sum's kernel needs
+    each sender's slots consecutive)."""
     args = [T(a).to("cuda", dtype) for a in arrays.values()]
     ix = {k: T(np.array(v)).cuda() for k, v in idx.items()}
-    aux = tuple(ix[k] for k in ("edge_gid", "block_tile", "block_snd_tile", "snd_perm",
-                                "snd_sorted", "snd_block_tile"))
+    run_perm, run_sorted = sender_run_order(ix["snd_perm"], ix["snd_sorted"],
+                                            ix["snd_block_tile"])
+    aux = (ix["edge_gid"], ix["block_tile"], ix["block_snd_tile"], run_perm, run_sorted,
+           ix["snd_block_tile"])
     return args, ix["receivers"], ix["senders"], aux
 
 
@@ -811,17 +890,19 @@ def test_v2_backward_kernel_refuses_split_receiver_runs_on_cuda():
     assert fused_edge.fused_edge_step_backward.launches == before
 
 
-def test_kernels_refuse_widths_above_256_on_cuda():
-    """L = 257 is wider than any build: each fused wrapper raises a
-    ValueError that names ROADMAP C1, before any launch."""
+@pytest.mark.parametrize("L", [320, 512])
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_wide_widths_on_cuda(dtype, kernel, L):
+    """Each fused kernel above 256 runs its wide variant
+    (csrc/wide_tile.cuh) and matches its plain version at the JAX op
+    tolerances, with one launch; two calls are bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for kernel in KERNELS:
-        counter, call, _, _ = _kernel_case(kernel, 257, torch.float32, n_tiles=1)
-        before = counter.launches
-        with pytest.raises(ValueError, match="C1"):
-            call()
-        assert counter.launches == before, kernel
+    counter, call, plain, tols = _kernel_case(kernel, L, dtype, n_tiles=2)
+    got, _ = _held(counter, call, plain, tols)
+    for a, b in zip(got, call()):
+        assert torch.equal(a, b)
 
 
 def test_fused3_training_step_at_width_64_on_cuda():
@@ -830,6 +911,17 @@ def test_fused3_training_step_at_width_64_on_cuda():
     within 2e-4 (relative, per parameter) of the plain xla path's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    _fused3_training_step_matches_xla(64)
+
+
+def test_fused3_training_step_at_width_384_on_cuda():
+    """The same at latent 384, through the kernels' wide variant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _fused3_training_step_matches_xla(384)
+
+
+def _fused3_training_step_matches_xla(latent: int) -> None:
     from p_div_gnn_tpu_torch.datagen.workload import build_workload
     from p_div_gnn_tpu_torch.graphs.container import NormStats
     from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
@@ -838,7 +930,7 @@ def test_fused3_training_step_at_width_64_on_cuda():
     batch = build_workload(n_graphs=2, seed=0)[0].to("cuda")
     grads = {}
     for impl in ("fused3", "xla"):
-        model = EncodeProcessDecode(64, 2, scatter_impl=impl, remat_steps=False,
+        model = EncodeProcessDecode(latent, 2, scatter_impl=impl, remat_steps=False,
                                     generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
         before = [fused_edge3.fused_edge_step3.launches,

@@ -407,7 +407,8 @@ def test_library_name_follows_its_shared_header(monkeypatch, tmp_path):
     csrc/fwd_common.cuh, the v2 and the pair-blocked forward
     csrc/v2_fwd_tile.cuh, the three backwards csrc/bwd_common.cuh, the v2
     and the pair-blocked backward csrc/v2_bwd_tile.cuh, all six fused
-    kernels csrc/fused3_tile.cuh."""
+    kernels csrc/fused3_tile.cuh and csrc/wide_tile.cuh (their wide
+    variant)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(cuda_build.CSRC_DIR, csrc)
     monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
@@ -419,6 +420,7 @@ def test_library_name_follows_its_shared_header(monkeypatch, tmp_path):
         "bwd_common.cuh": ["fused_edge_bwd", "fused_edge2_bwd", "fused_edge3_bwd"],
         "v2_bwd_tile.cuh": ["fused_edge_bwd", "fused_edge2_bwd"],
         "fused3_tile.cuh": list(names),
+        "wide_tile.cuh": list(names),
     }
     for name, want in includers.items():
         before = {n: cuda_build.library_path(n) for n in names}

@@ -1,16 +1,18 @@
-"""The zero padding of the latent width (``ops/widths.py``, ROADMAP C1):
-each fused kernel's wrapper runs a width L it is not built for at the next
-width it is, with zero columns, weight rows and weight columns, and slices
+"""The zero padding of the latent width (``ops/widths.py``): each fused
+kernel's wrapper runs a width L <= 256 it is not built for at the next
+width it is, and a wider L at its wide variant on the next multiple of the
+strip (64), with zero columns, weight rows and weight columns, and slices
 the outputs back. On the CPU the wrappers take the plain versions, so these
 tests hold the padding itself: for the six fused steps (#1, #2 the fused3
 forward and backward, #5, #6 the v2 ones, #7, #8 the pair-blocked ones)
 the plain version run through ``pad_args`` / ``unpad_args`` equals the
 unpadded plain version bit for bit in fp32 at L = 16, 20, 96 and 192 (each
-padded to the next of the kernels' widths 64, 128, 256), and, at L = 20,
-equals the JAX function (Pallas interpret mode) at its own tolerance: the
-fused3 op's (tests/test_fused3_op.py:65-70, :87-95) and the v2 op's
-(tests/test_fused_op.py:86-91, :116-120), as rtol = atol. A width above
-256 raises a ValueError naming ROADMAP C1."""
+padded to the next of the kernels' widths 64, 128, 256) and 290 and 320
+(the wide variant's 320), and, at L = 20, equals the JAX function (Pallas
+interpret mode) at its own tolerance: the fused3 op's
+(tests/test_fused3_op.py:65-70, :87-95) and the v2 op's
+(tests/test_fused_op.py:86-91, :116-120), as rtol = atol. Every width
+resolves to a tile build or the wide variant: none raises."""
 
 import jax
 import jax.numpy as jnp
@@ -92,7 +94,7 @@ def _padded_plain(kernel: str, args, idx, cots, L: int):
     return widths.unpad_args(out, outs, L)
 
 
-@pytest.mark.parametrize("L", [16, 20, 96, 192])
+@pytest.mark.parametrize("L", [16, 20, 96, 192, 290, 320])
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_padding_is_exact_in_the_plain_versions(kernel, L):
     """Every output through the padding equals the unpadded plain version
@@ -164,18 +166,23 @@ def test_padded_plain_versions_match_jax(kernel):
                                    atol=GRAD_TOL, err_msg=f"{kernel} grad {i}")
 
 
-def test_widths_above_256_raise():
-    """No kernel is built above 256: the width resolution of every fused
-    wrapper raises a ValueError naming ROADMAP C1; up to 256 it picks the
-    next width built."""
+def test_widths_resolve_to_a_tile_build_or_the_wide_variant():
+    """Every fused wrapper's width table: L <= 256 runs at the next width a
+    tile kernel is built for (no strips); L = 257, 320 and 512 run at the
+    wide variant on the next multiple of 64, in 5, 5 and 8 strips; no
+    width raises."""
     for table in (fused_edge3.FWD_WIDTHS, fused_edge3.BWD_WIDTHS, fused_edge.FWD_WIDTHS,
                   fused_edge.BWD_WIDTHS):
-        with pytest.raises(ValueError, match="C1"):
-            widths.padded_width(257, table, "a kernel")
-        assert widths.padded_width(256, table, "a kernel") == 256
-    assert widths.padded_width(16, fused_edge3.BWD_WIDTHS, "k") == 64
-    assert widths.padded_width(96, fused_edge.BWD_WIDTHS, "k") == 128
-    assert widths.padded_width(18, fused_edge.FWD_WIDTHS, "k") == 64
+        assert max(table) == widths.MAX_WIDTH == 256
+        for L, want in ((1, 64), (16, 64), (64, 64), (96, 128), (128, 128), (200, 256),
+                        (256, 256)):
+            Lp = widths.padded_width(L, table, "a kernel")
+            assert Lp == want and Lp in table and widths.wide_strips(Lp) == 0
+        for L, want, strips in ((257, 320, 5), (320, 320, 5), (512, 512, 8), (600, 640, 10)):
+            Lp = widths.padded_width(L, table, "a kernel")
+            assert (Lp, widths.wide_strips(Lp)) == (want, strips)
+    with pytest.raises(ValueError, match="not a width"):
+        widths.padded_width(0, fused_edge.FWD_WIDTHS, "a kernel")
     w = torch.arange(6.0).reshape(2, 3)
     p = widths.pad_args([w, w, w], "cw-", 4)
     assert p[0].shape == (2, 4) and p[1].shape == (4, 4) and p[2] is w
