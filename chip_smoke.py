@@ -50,7 +50,28 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    three kernels per fused3, fused or fused2 step, 10 block-CSR segment
    sums per pallas step and 19 per hybrid step (the last step's edge
    update gets no gradient), none per xla step;
-5. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
+5. cli: the user's path at the flagship width. An on-disk dataset of 32
+   train and 16 test meshes (the benchmark's mesher parameters, a
+   learnable target) is written with the port (``write_vtk``,
+   ``save_sample_npz``, ``configio.write_csv``); ``cli.train_main`` trains
+   fused3 fp32 and bf16 for 3 epochs on configs derived from the committed
+   ``config_train_div_flagship{,_bf16}.yml`` (config → dataset →
+   bucketed ``GraphLoader`` → ``Trainer.fit`` with checkpoints), and
+   ``cli.infer_main`` runs the committed ``config_inference_div.yml`` with
+   fused3 on the fp32 run's last checkpoint. The train loss must fall, the
+   logged tags be there, the checkpoints read back (the last one's params
+   bit-equal to the trained model's), #2 and #3 launch 10 times per train
+   step and #1 20 (the runner keeps the JAX default ``remat_steps=True``,
+   which runs each step's forward again in the backward) and 10 per eval
+   or inference batch, and the inferred fields
+   match ``Predictor`` on the plain xla path at the serve tolerance; #1, #2
+   and #3 must match their plain versions on the first loader batch (whose
+   trailing padding the fused3 wrappers trim) at the kernel phases'
+   tolerances; it prints the dataset's write and load seconds, seconds per
+   epoch, the median step of the CLI run's trainer (remat on) on the
+   loader's bucketed batches, edges/s, peak memory and the batches'
+   padding;
+6. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
    pair segment sum's row also has its bf16 numbers under ``bfloat16`` and
    each sender view's numbers and launches under ``views``), then the last
    line ``{"ok": true, "device": {...}}``.
@@ -61,6 +82,7 @@ Everything it builds goes to ``build/``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1237,6 +1259,352 @@ def train_phase(batch, pair_batch, n_real_edges: int, card: str) -> dict:
             "breakdown_ms": breakdown}
 
 
+# --- the cli phase: the user's path, config -> dataset -> loader -> fit -> infer
+CLI_TRAIN_MESHES, CLI_TEST_MESHES, CLI_EPOCHS = 32, 16, 3
+CLI_CONFIGS = {"float32": "config_train_div_flagship.yml",
+               "bfloat16": "config_train_div_flagship_bf16.yml"}
+CLI_TAGS = {"Loss/MSE Train", "Loss/Loss Train", "Loss/MSE Test", "Loss/Divergence Train",
+            "Loss/Divergence test value"}
+
+
+def write_cli_dataset(root: Path) -> dict:
+    """The train and test ``dataset.csv`` tables of plate-with-hole meshes
+    drawn as ``datagen/workload.py::build_samples`` draws them, written with
+    the port only: a ``.vtk`` and a sample ``.npz`` per mesh (divergence
+    operator, node labels, the learnable target mean_stress · (1 + 0.2
+    sin(x/20)) of the JAX package's toy dataset, tests/test_train_e2e.py)."""
+    import numpy as np
+
+    from p_div_gnn_tpu_torch.datagen.mesher import hole_plate_mesh
+    from p_div_gnn_tpu_torch.datagen.opdiv import compute_op_div_matrix
+    from p_div_gnn_tpu_torch.graphs.labels import compute_node_labels
+    from p_div_gnn_tpu_torch.graphs.meshio import save_sample_npz, write_vtk
+    from p_div_gnn_tpu_torch.utils.configio import write_csv
+
+    rng = np.random.default_rng(0)
+    csvs = {}
+    mesh_id = 0
+    for split, count in (("train", CLI_TRAIN_MESHES), ("test", CLI_TEST_MESHES)):
+        folder = root / split
+        (folder / "meshes").mkdir(parents=True)
+        (folder / "fields").mkdir()
+        rows = {k: [] for k in ("mesh_filename", "data_filename", "mean_stress_x",
+                                "mean_stress_y", "mean_stress_xy", "hole_plate_radius")}
+        for i in range(count):
+            radius = float(rng.uniform(15, 30))
+            mesh = hole_plate_mesh(100.0, 100.0, radius=radius, hole_center=(50.0, 50.0),
+                                   hole_refinement_factor=8.0, global_mesh_refinement_size=2.5,
+                                   seed=mesh_id)
+            mesh_id += 1
+            n = mesh.n_points
+            op = compute_op_div_matrix(mesh.points[:, :2], mesh.faces)
+            mean_stress = rng.normal(size=3)
+            stress = mean_stress[None, :] * (1.0 + 0.2 * np.sin(mesh.points[:, :1] / 20.0))
+            mesh_fn = folder / "meshes" / f"hole_plate_mesh_{i}.vtk"
+            data_fn = folder / "fields" / f"hole_plate_mesh_{i}.npz"
+            write_vtk(mesh_fn, mesh)
+            save_sample_npz(
+                data_fn, stress_field=stress.astype(np.float32),
+                mean_stress=mean_stress.astype(np.float32),
+                mean_strain=rng.normal(size=3).astype(np.float32),
+                op_div_matrix_data=op.data.astype(np.float32),
+                op_div_matrix_row_indices=op.row.astype(np.int64),
+                op_div_matrix_col_indices=op.col.astype(np.int64),
+                op_div_matrix_shape=np.array(op.shape),
+                op_mean_stress=np.zeros((3, n), np.float32),
+                node_labels=compute_node_labels(mesh),
+            )
+            for k, v in zip(rows, (str(mesh_fn), str(data_fn), *mean_stress, radius)):
+                rows[k].append(v)
+        csvs[split] = folder / "dataset.csv"
+        write_csv(csvs[split], rows)
+    return csvs
+
+
+def cli_train(sd: str, csvs: dict, root: Path) -> dict:
+    """``cli.train_main`` on a config derived from the committed flagship
+    config of ``sd``: the launch counts from 0 just before and read just
+    after, the trained model kept (a recording Trainer) and the run's
+    checkpoints, losses and logged tags checked."""
+    import json
+
+    import torch
+
+    from p_div_gnn_tpu_torch import cli
+    from p_div_gnn_tpu_torch.train import runner
+    from p_div_gnn_tpu_torch.train.checkpoint import (
+        BEST_CHECKPOINT,
+        LAST_CHECKPOINT,
+        load_checkpoint,
+        read_msgpack,
+    )
+    from p_div_gnn_tpu_torch.utils.configio import read_config
+
+    cfg = read_config(ROOT / "scripts" / "configs_train" / CLI_CONFIGS[sd])
+    check(cfg["latent_size"] == LATENT and cfg["message_passing_steps"] == STEPS
+          and cfg["batch_size"] == 16 and cfg["scatter_impl"] == "fused3"
+          and cfg.get("stream_dtype", "float32") == sd and cfg["train_all_epochs"],
+          f"{CLI_CONFIGS[sd]} is no longer the flagship configuration: {cfg}")
+    results = root / f"run_{sd}"
+    cfg.update(dataset_train_csv=str(csvs["train"]), dataset_test_csv=str(csvs["test"]),
+               results_folder=str(results), epochs=CLI_EPOCHS)
+    config = root / f"train_{sd}.yml"
+    config.write_text("".join(f"{k}: {v}\n" for k, v in cfg.items()))
+
+    trained = []
+
+    class Recording(runner.Trainer):
+        def fit(self, *args, **kwargs):
+            trained.append(self)
+            return super().fit(*args, **kwargs)
+
+    plain_trainer, runner.Trainer = runner.Trainer, Recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.train_main(["--config_path", str(config)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        runner.Trainer = plain_trainer
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    name = f"cli train fused3 {sd}"
+    check(len(trained) == 1, f"{name}: {len(trained)} trainers")
+    train_batches = -(-CLI_TRAIN_MESHES // cfg["batch_size"])
+    test_batches = -(-CLI_TEST_MESHES // cfg["batch_size"])
+    steps = CLI_EPOCHS * train_batches
+    # the runner keeps the JAX package's default remat_steps=True: each
+    # step's forward runs again in the backward
+    fwd_per_step = STEPS * (2 if trained[0].model.remat_steps else 1)
+    expect = {k: 0 for k in launches}
+    expect.update(fused_edge3_fwd=fwd_per_step * steps + STEPS * CLI_EPOCHS * test_batches,
+                  fused_edge3_bwd=STEPS * steps, segment_sum_csr=STEPS * steps)
+    check(launches == expect, f"{name}: kernel launches {launches}, expected {expect}")
+
+    records = [json.loads(line) for line in
+               (results / "train_logs" / "metrics.jsonl").read_text().splitlines()]
+    scalars = [r for r in records if "value" in r]
+    check({r["tag"] for r in scalars} == CLI_TAGS,
+          f"{name}: logged tags {sorted({r['tag'] for r in scalars})}")
+    losses = [r["value"] for r in scalars if r["tag"] == "Loss/Loss Train"]
+    test_losses = [r["value"] for r in scalars if r["tag"] == "Loss/MSE Test"]
+    stamps = [r["time"] for r in scalars if r["tag"] == "Loss/MSE Train"]
+    check(len(losses) == CLI_EPOCHS and all(map(math.isfinite, losses + test_losses)),
+          f"{name}: epoch losses {losses}, test {test_losses}")
+    check(losses[-1] < losses[0], f"{name}: epoch-{CLI_EPOCHS} train loss {losses[-1]} is not "
+          f"below epoch 1's {losses[0]}")
+
+    model = {k: v.detach().cpu() for k, v in trained[0].model.state_dict().items()}
+    best_epoch = 1 + min(range(CLI_EPOCHS), key=test_losses.__getitem__)
+    for ckpt, epoch in ((LAST_CHECKPOINT, CLI_EPOCHS), (BEST_CHECKPOINT, best_epoch)):
+        state_dict, got_epoch, _ = load_checkpoint(results / "weights" / ckpt)
+        count = int(read_msgpack((results / "weights" / ckpt).read_bytes())
+                    ["optimizer_state_dict"]["0"]["count"])
+        check(got_epoch == epoch and count == epoch * train_batches,
+              f"{name}: {ckpt} epoch {got_epoch} Adam count {count}, expected {epoch}, "
+              f"{epoch * train_batches}")
+        if epoch == CLI_EPOCHS:
+            bad = [k for k in model if not torch.equal(state_dict[k], model[k])]
+            check(not bad, f"{name}: {ckpt} params differ from the trained model's: {bad}")
+    epoch_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    say(f"{name}: {seconds:.1f} s for {CLI_EPOCHS} epochs of {train_batches} steps + "
+        f"{test_batches} eval batch; epoch losses " + " ".join(f"{v:.6f}" for v in losses)
+        + ", test " + " ".join(f"{v:.6f}" for v in test_losses)
+        + f"; s per epoch after the first {' '.join(f'{s:.3f}' for s in epoch_s)}; "
+        f"peak memory {peak_gb:.2f} GB; launches {launches}; checkpoints read back "
+        f"(last: epoch {CLI_EPOCHS}, params bit-equal to the trained model's; best: epoch "
+        f"{best_epoch})")
+    return {"launches": launches, "last": results / "weights" / LAST_CHECKPOINT,
+            "epoch_s": epoch_s, "seconds": seconds, "peak_gb": peak_gb, "trainer": trained[0]}
+
+
+def loader_batch_kernels(batch, sd_name: str) -> dict:
+    """Hold #1, #2 and #3 against their plain versions on a loader batch
+    on the card, in ``sd_name``: its bucketed capacities end in a long run
+    of padding slots, which the fused3 wrappers do not hand to their
+    kernels (``ops/segment.py::live_slots``) but must still return as the
+    plain versions do. Random inputs as in the kernel phases; the kernel
+    phases' tolerances. Returns each kernel's max abs err."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.fused_edge3 import (
+        fused_edge_step3,
+        fused_edge_step3_backward,
+        fused_edge_step3_backward_reference,
+        fused_edge_step3_reference,
+    )
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_reference
+
+    dev = batch.receivers.device
+    Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
+    sd = getattr(torch, sd_name)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base = edge_step_inputs(batch, gen)
+    args = [base[k].to(sd).contiguous() for k in base]
+    aux = (batch.edge_gid, batch.edge_block_tile)
+    name = f"cli loader batch {sd_name}"
+    got = fused_edge_step3(*args, batch.receivers, aux, batch.n_graphs, batch.tile)
+    want = fused_edge_step3_reference(*args, batch.receivers, batch.edge_gid, batch.n_graphs)
+    fwd = max(held(f"{name} fused_edge3_fwd {k}", a, b, KERNEL_TOL[sd_name][k])[0]
+              for k, a, b in zip(("z_upd", "R", "M"), got, want))
+    z_upd = want[0]
+    del got, want
+    dz, dr, dm = (torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((Ep, L), (Np, L), (8, L)))
+    dz = dz.to(sd)
+    got = fused_edge_step3_backward(*args, batch.receivers, aux, batch.n_graphs, batch.tile,
+                                    z_upd, dz, dr, dm)
+    want = fused_edge_step3_backward_reference(*args, batch.receivers, batch.edge_gid,
+                                               batch.n_graphs, z_upd, dz, dr, dm)
+    bwd = max(held(f"{name} fused_edge3_bwd {k}", a, b, BWD_TOL[sd_name])[0]
+              for k, a, b in zip(("dx", "dg", "de", "dWu", "dWv", "dWe", "db0", "dW2", "db2"),
+                                 got, want))
+    del got, want
+    rows = torch.randn((Ep, L), generator=gen, device=dev).to(sd)
+    csr = held(f"{name} segment_sum_csr",
+               csr_segment_sum(rows, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
+                               perm=batch.snd_run_perm),
+               csr_segment_sum_reference(rows, batch.snd_run_sorted, Np, batch.snd_run_perm),
+               CSR_TOL[sd_name])[0]
+    torch.cuda.empty_cache()
+    return {"fused_edge3_fwd": fwd, "fused_edge3_bwd": bwd, "segment_sum_csr": csr}
+
+
+def cli_step_time(samples: list, trainer, sd: str) -> dict:
+    """On the loader's bucketed batches of the train set (as the CLI run
+    caches them): #1-#3 held against their plain versions on the first
+    batch, then the median step (CUDA events, steps 2-4) of the CLI run's
+    own trainer (remat on), against the same meshes packed as ``bench.py``
+    packs them (no capacities)."""
+    import torch
+
+    from p_div_gnn_tpu_torch.datagen.workload import pack_workload
+    from p_div_gnn_tpu_torch.train.data import GraphLoader
+    from p_div_gnn_tpu_torch.train.runner import SEED
+
+    loader = GraphLoader(samples, 16, shuffle=True, seed=SEED, cache_groups=True,
+                         device="cuda")
+    batches = list(loader)
+    errs = loader_batch_kernels(batches[0], sd)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    step_ms = []
+    for i in range(4):
+        start.record()
+        trainer.train_step(batches[i % len(batches)])
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+    # the first 16 meshes packed as the loader packs them and as bench.py does
+    group, bench = loader._pack(range(16)), pack_workload(samples[:16])[0]
+    real_nodes = int(group.graph_node_count.sum())
+    real_edges = int((group.edge_gid < group.n_graphs).sum())
+    check(real_edges == int((bench.edge_gid < bench.n_graphs).sum()),
+          "cli: the loader's and bench.py's packing of the same meshes differ in edges")
+    return {"step_ms": statistics.median(step_ms[1:]), "edges": real_edges,
+            "np": group.num_nodes_padded, "ep": group.num_edges_padded, "nodes": real_nodes,
+            "bench_np": bench.num_nodes_padded, "bench_ep": bench.num_edges_padded,
+            "errs": errs, "remat": trainer.model.remat_steps}
+
+
+def cli_phase(card: str) -> dict:
+    """The user's path on the card: write an on-disk dataset with the port,
+    train fused3 in fp32 and bf16 through ``cli.train_main`` (configs from
+    the committed flagship ones, cut to 3 epochs of 32 meshes), then
+    ``cli.infer_main`` from the committed inference config on the fp32
+    run's last checkpoint, held against ``Predictor`` on the plain xla
+    path; #1-#3 held against their plain versions on a loader batch."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from p_div_gnn_tpu_torch import cli
+    from p_div_gnn_tpu_torch.graphs.dataset import MeshStressFieldDataset
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.utils.configio import read_config, read_csv
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="cli_phase_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        csvs = write_cli_dataset(root)
+        t1 = time.perf_counter()
+        train_ds = MeshStressFieldDataset(read_csv(csvs["train"]))
+        test_ds = MeshStressFieldDataset(read_csv(csvs["test"]))
+        t2 = time.perf_counter()
+        say(f"cli dataset: {CLI_TRAIN_MESHES} train + {CLI_TEST_MESHES} test meshes written "
+            f"in {t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s "
+            f"({sum(s.num_nodes for s in train_ds.samples)} train nodes)")
+        runs = {sd: cli_train(sd, csvs, root) for sd in CLI_CONFIGS}
+
+        cfg = read_config(ROOT / "scripts" / "configs_inference" / "config_inference_div.yml")
+        cfg.update(dataset_csv=str(csvs["test"]), results_folder=str(root / "infer"),
+                   model_weights_path=str(runs["float32"]["last"]), scatter_impl="fused3")
+        config = root / "infer.yml"
+        config.write_text("".join(f"{k}: {v}\n" for k, v in cfg.items()))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.infer_main(["--config_path", str(config)])
+        infer_s = time.perf_counter() - t0
+        launches = launch_counts()
+        batches = -(-CLI_TEST_MESHES // cfg["batch_size"])
+        expect = {k: 0 for k in launches}
+        expect["fused_edge3_fwd"] = STEPS * batches
+        check(launches == expect, f"cli infer: kernel launches {launches}, expected {expect}")
+
+        table = read_csv(root / "infer" / "dataset.csv")
+        norm = json.loads((root / "infer" / "normalize_params.json").read_text())
+        predictor = Predictor(runs["float32"]["last"], cfg["latent_size"],
+                              cfg["message_passing_steps"], scatter_impl="xla",
+                              device="cuda")
+        want = predictor.predict(test_ds.samples)
+        worst = ratio = 0.0
+        for path, ref, s in zip(table["data_filename"], want, test_ds.samples, strict=True):
+            got = np.load(path)["stress_field"]
+            check(got.shape == (s.num_nodes, 3) and bool(np.isfinite(got).all()),
+                  f"cli infer: field {path} shape {got.shape} or non-finite")
+            z_got = (got - norm["mean_local_stress"]) / norm["std_local_stress"]
+            z_ref = (ref - norm["mean_local_stress"]) / norm["std_local_stress"]
+            err = np.abs(z_got - z_ref)
+            share = float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(z_ref))).max())
+            worst, ratio = max(worst, float(err.max())), max(ratio, share)
+        check(ratio <= 1.0, f"cli infer vs Predictor xla: max abs err {worst:.3e} "
+              f"(standardized) outside rtol={SERVE_RTOL} atol={SERVE_ATOL} "
+              f"({ratio:.2f} of the allowance)")
+        say(f"cli infer fused3: {CLI_TEST_MESHES} meshes in {infer_s:.1f} s, launches "
+            f"{launches}; vs Predictor xla max abs err (standardized) {worst:.3e}, "
+            f"{ratio:.2f} of the allowance")
+
+        steps = {sd: cli_step_time(train_ds.samples, runs[sd]["trainer"], sd)
+                 for sd in CLI_CONFIGS}
+        for sd, v in steps.items():
+            say(f"cli loader batch {sd}: #1-#3 vs plain max abs err "
+                + " ".join(f"{k}={e:.3e}" for k, e in v["errs"].items()))
+        s = steps["float32"]
+        say(f"cli on {card}: loader batch of 16 meshes Np={s['np']} Ep={s['ep']} "
+            f"({s['nodes']} nodes, {s['edges']} edges: padding {1 - s['nodes'] / s['np']:.3f} "
+            f"of node slots, {1 - s['edges'] / s['ep']:.3f} of edge slots) against bench.py's "
+            f"unbucketed Np={s['bench_np']} Ep={s['bench_ep']}; median train step of the "
+            f"CLI run's trainer (remat {'on' if s['remat'] else 'off'}) "
+            + "; ".join(f"{sd} {v['step_ms']:.3f} ms, {v['edges'] / v['step_ms'] * 1e3:.0f} "
+                        f"edges/s" for sd, v in steps.items())
+            + "; s per epoch " + "; ".join(
+                f"{sd} {' '.join(f'{x:.3f}' for x in r['epoch_s'])}" for sd, r in runs.items())
+            + "; peak memory " + ", ".join(f"{sd} {r['peak_gb']:.2f} GB"
+                                          for sd, r in runs.items()))
+        total = {k: sum(r["launches"][k] for r in runs.values()) + launches[k]
+                 for k in launches}
+        torch.cuda.empty_cache()
+        return {"launches": total}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1318,6 +1686,9 @@ def main() -> int:
         + ", ".join(f"{k} {v:.4f} ms" for k, v in wide_ms.items()))
     serve = serve_phase(requests)
     train = train_phase(train_batch, pair_batch, n_real_edges, smi)
+    t0 = time.perf_counter()
+    cli = cli_phase(smi)
+    say(f"cli phase: {time.perf_counter() - t0:.1f} s")
 
     def row(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1325,11 +1696,11 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
-    # launches: the serve paths' and the train paths' runs, each counted
-    # from 0 (serving launches only the forwards)
+    # launches: the serve paths', the train paths' and the cli runs, each
+    # counted from 0 (serving launches only the forwards)
     launches = dict(train["launches"])
-    for impl in serve["impls"].values():
-        for k, v in impl["launches"].items():
+    for counts in [impl["launches"] for impl in serve["impls"].values()] + [cli["launches"]]:
+        for k, v in counts.items():
             launches[k] += v
     # #4 runs on two sender views: its row gives the receiver-major one's
     # fp32 numbers (the largest fp32 error of both), its bf16 numbers under

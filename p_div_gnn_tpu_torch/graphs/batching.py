@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from p_div_gnn_tpu_torch.graphs.build import MeshGraph
 from p_div_gnn_tpu_torch.graphs.container import (
@@ -354,10 +355,36 @@ def _reorder_sample(s: GraphSample) -> tuple[GraphSample, np.ndarray]:
     )
 
 
+def _bucket(x: int, m: int, buckets: tuple[int, ...] | None) -> int:
+    """``x`` rounded up to a multiple of ``m``, then up to the first bucket
+    that holds it (itself when none does)."""
+    x = _round_up(x, m)
+    for b in buckets or ():
+        if x <= b:
+            return b
+    return x
+
+
+def default_node_buckets(max_nodes: int = 1 << 17) -> tuple[int, ...]:
+    """The loader's node-capacity ladder: 1024, 1536, 2048, 3072, ... up to
+    ``max_nodes``, two rungs per octave (at most ~1/3 padding)."""
+    buckets = []
+    b = 1024
+    while b <= max_nodes:
+        buckets += [b, b + b // 2]
+        b *= 2
+    return tuple(buckets)
+
+
 def pack_batch(
     samples: list[GraphSample],
     n_graphs: int | None = None,
+    pad_nodes: int | None = None,
+    pad_edges: int | None = None,
+    pad_div: int | None = None,
     tile: int = NODE_TILE,
+    node_buckets: tuple[int, ...] | None = None,
+    edge_buckets: tuple[int, ...] | None = None,
     pair_blocks: bool = False,
     sender_view: bool = True,
     div_ell: bool = True,
@@ -372,6 +399,13 @@ def pack_batch(
     ``edge_block_snd_tile``); padding edges are masked by
     ``edge_gid == n_graphs``. ``sender_view`` (built over the layout's
     senders) and ``div_ell`` build the views that only training reads.
+
+    Capacities: ``pad_nodes`` / ``pad_edges`` / ``pad_div`` fix the node,
+    edge-slot and divergence-entry counts (``GraphLoader`` sets them from
+    its bucket ladder); unset, they are the content rounded up (nodes + 1 to
+    the tile, then the first of ``node_buckets`` that holds it; edges to 512,
+    then ``edge_buckets``; entries to 512). The edge capacity is then rounded
+    up to whole edge blocks.
     """
     G = n_graphs if n_graphs is not None else len(samples)
     if len(samples) > G:
@@ -387,9 +421,15 @@ def pack_batch(
     tot_edges = sum(s.num_edges for s in samples)
     tot_div = sum(s.num_div_entries for s in samples)
 
-    Np = _round_up(tot_nodes + 1, tile)
-    Ep = _round_up(_round_up(max(tot_edges, 1), 512), EDGE_BLOCK)
-    Kp = _round_up(max(tot_div, 1), 512)
+    Np = pad_nodes if pad_nodes is not None else _bucket(tot_nodes + 1, tile, node_buckets)
+    Ep = pad_edges if pad_edges is not None else _bucket(max(tot_edges, 1), 512, edge_buckets)
+    Ep = _round_up(Ep, EDGE_BLOCK)
+    Kp = pad_div if pad_div is not None else _round_up(max(tot_div, 1), 512)
+    if Np <= tot_nodes:
+        raise ValueError(f"pad_nodes {Np} leaves no padding node for {tot_nodes} nodes")
+    if Ep < tot_edges or Kp < tot_div:
+        raise ValueError(f"capacities Ep={Ep}, Kp={Kp} below the content's "
+                         f"{tot_edges} edges, {tot_div} divergence entries")
 
     pos = np.zeros((Np, 2), np.float32)
     mean_stress = np.zeros((Np, 3), np.float32)
@@ -503,13 +543,18 @@ def pack_batch(
     )
 
 
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def unpack_predictions(batch: GraphBatch, prediction: np.ndarray) -> list[np.ndarray]:
     """Slice a (Np, C) node prediction back into per-graph arrays in each
-    mesh's original node order (`data_utils.py:36-43`)."""
+    mesh's original node order (`data_utils.py:36-43`). The batch may be
+    on the host or on a device."""
     out = []
-    counts = np.asarray(batch.graph_node_count)
-    offsets = np.asarray(batch.graph_node_offset)
-    order = None if batch.node_order is None else np.asarray(batch.node_order)
+    counts = _host(batch.graph_node_count)
+    offsets = _host(batch.graph_node_offset)
+    order = None if batch.node_order is None else _host(batch.node_order)
     for g in range(batch.n_graphs):
         n = int(counts[g])
         if n == 0:

@@ -103,12 +103,34 @@ class GraphBatch:
             if f.name not in ("n_graphs", "tile", "snd_run_perm", "snd_run_sorted")
         ]
 
-    def to(self, device: str | torch.device) -> "GraphBatch":
+    def is_on(self, device: str | torch.device) -> bool:
+        """Whether every array is already a tensor on ``device`` (with the
+        sender view's run order derived)."""
+        device = torch.device(device)
+        arrays = [v for name in self.array_fields() if (v := getattr(self, name)) is not None]
+        return (self.snd_perm is None or self.snd_run_perm is not None) and all(
+            isinstance(v, torch.Tensor) and v.device.type == device.type
+            and (device.index is None or v.device.index == device.index)
+            for v in arrays)
+
+    def to(self, device: str | torch.device, non_blocking: bool = False) -> "GraphBatch":
         """A copy with every array as a torch tensor on ``device``, and the
-        sender view's run order derived there."""
+        sender view's run order derived there; the batch itself when it is
+        there already, so a layout kept on the device keeps its tensors (and
+        the run checks cached on them). ``non_blocking`` copies host arrays
+        to a CUDA device from pinned memory without waiting."""
+        if self.is_on(device):
+            return self
+        pin = non_blocking and torch.device(device).type == "cuda"
+
+        def move(v: Array) -> torch.Tensor:
+            t = torch.as_tensor(v)
+            if pin and t.device.type == "cpu":
+                t = t.pin_memory()
+            return t.to(device, non_blocking=non_blocking)
+
         moved = {
-            name: None if (v := getattr(self, name)) is None
-            else torch.as_tensor(v).to(device)
+            name: None if (v := getattr(self, name)) is None else move(v)
             for name in self.array_fields()
         }
         if moved["snd_perm"] is not None:

@@ -89,3 +89,8 @@ def compute_node_labels(mesh: SurfaceMesh) -> np.ndarray:
     labels[comp == external] = int(NodeType.EXTERNAL_BOUNDARY)
     labels[comp == internal] = int(NodeType.INTERNAL_BOUNDARY)
     return labels
+
+
+def von_mises_stress(sx: np.ndarray, sy: np.ndarray, sxy: np.ndarray) -> np.ndarray:
+    """Von Mises from 2D components (`datasets.py:216-229`)."""
+    return np.sqrt(0.5 * ((sx - sy) ** 2 + sx**2 + sy**2 + 6 * sxy**2))

@@ -1,6 +1,7 @@
-"""Standalone legacy-VTK mesh reader and sample npz reader (numpy only).
+"""Standalone legacy-VTK mesh reader and writer, and the sample npz files
+(numpy only).
 
-Copy of ``p_div_gnn_tpu/graphs/meshio.py`` (reader side): the legacy
+Copy of ``p_div_gnn_tpu/graphs/meshio.py``: the legacy
 ``.vtk`` format in ASCII and big-endian binary, both the classic
 ``POLYGONS n size`` cell layout and the VTK>=5.1 ``OFFSETS``/
 ``CONNECTIVITY`` layout, so meshes produced by the reference tooling or the
@@ -187,8 +188,43 @@ def read_vtk(path: str | Path) -> SurfaceMesh:
     return SurfaceMesh(points=points, faces=faces)
 
 
+def write_vtk(
+    path: str | Path, mesh: SurfaceMesh, binary: bool = True, title: str = "mesh"
+) -> None:
+    """Write a legacy .vtk POLYDATA file (classic cell layout), byte for byte
+    as the JAX package's ``write_vtk``."""
+    pts = np.ascontiguousarray(mesh.points, dtype=np.float64)
+    faces = np.ascontiguousarray(mesh.faces, dtype=np.int64)
+    f_count, k = faces.shape
+    cells = np.empty((f_count, k + 1), dtype=np.int64)
+    cells[:, 0] = k
+    cells[:, 1:] = faces
+    with open(path, "wb") as fh:
+        fh.write(b"# vtk DataFile Version 4.2\n")
+        fh.write(title.encode("ascii") + b"\n")
+        fh.write(b"BINARY\n" if binary else b"ASCII\n")
+        fh.write(b"DATASET POLYDATA\n")
+        fh.write(f"POINTS {pts.shape[0]} double\n".encode())
+        if binary:
+            fh.write(pts.astype(">f8").tobytes())
+            fh.write(b"\n")
+        else:
+            np.savetxt(fh, pts, fmt="%.17g")
+        fh.write(f"POLYGONS {f_count} {cells.size}\n".encode())
+        if binary:
+            fh.write(cells.astype(">i4").tobytes())
+            fh.write(b"\n")
+        else:
+            np.savetxt(fh, cells, fmt="%d")
+
+
 def load_sample_npz(path: str | Path) -> dict[str, np.ndarray]:
     """Load a per-sample field .npz (same keys as the reference generator,
     `generate_dataset.py:586-598`)."""
     with np.load(path) as data:
         return dict(data)
+
+
+def save_sample_npz(path: str | Path, **arrays: np.ndarray) -> None:
+    """Write a per-sample field .npz (the keys ``load_sample_npz`` reads)."""
+    np.savez(path, **arrays)

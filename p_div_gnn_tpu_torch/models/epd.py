@@ -236,9 +236,11 @@ class EncodeProcessDecode(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         L = latent_size
+        self.latent_size = latent_size
         self.message_passing_steps = message_passing_steps
         self.remat_steps = remat_steps
         self.scatter_impl = scatter_impl
+        self.stream_dtype = stream_dtype
         self.node_encoder = MLPBlock(NODE_FEATURES, L, generator)
         self.edge_encoder = MLPBlock(EDGE_FEATURES, L, generator)
         self.processor = Processor(L, generator, scatter_impl, stream_dtype)

@@ -60,7 +60,12 @@ import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
 from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum_pair
-from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
+from p_div_gnn_tpu_torch.ops.segment import (
+    live_slots,
+    require_consecutive_runs,
+    segment_sum,
+    slot_outputs,
+)
 from p_div_gnn_tpu_torch.ops import wide
 from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
 
@@ -219,13 +224,16 @@ def _fused_edge_step_cuda(
         return unpad_args(out, "ccc", L)
     sd = g_v.dtype
     dev = a_u.device
+    # the kernel runs the slots up to the last real one; the padding after
+    # them has zero z_upd, messages and moments
+    n = live_slots(edge_gid, n_graphs, Ep // block_tile.shape[0])
     if wide_strips(L):
-        out = wide.forward(built, "fused_edge_fwd", sd, Ep, Np, Ep, n_graphs, {
+        out = wide.forward(built, "fused_edge_fwd", sd, n, Np, Ep, n_graphs, {
             "na": a_u, "nb": a_v, "ga": g_v, "gb": g_u, "e": e, "we": w_e, "w2": w2, "b0": b0,
             "b2": b2, "rcv": receivers, "gid": edge_gid})
         fused_edge_step.launches += 1
         return out
-    z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
+    (z_upd,) = slot_outputs(n, 1, Ep, L, sd, dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -235,7 +243,7 @@ def _fused_edge_step_cuda(
             int(sd == torch.bfloat16),
             *(_ptr(t) for t in (a_u, a_v, g_v, g_u, e, receivers, edge_gid, w_e, w2, b0, b2,
                                 z_upd, r, wfma, mpart, m)),
-            Np, Ep, L, int(n_graphs), n_parts, stream,
+            Np, n, L, int(n_graphs), n_parts, stream,
         )
     check_launch(built, err, "fused_edge_fwd")
     fused_edge_step.launches += 1
@@ -338,8 +346,11 @@ def _fused_edge_step_backward_cuda(
     sd = g_v.dtype
     dev = a_u.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
+    # the padding slots after the last real one have zero cotangents in
+    # every product: dg_v, dg_u and de are zero there, and they add nothing
+    n = live_slots(edge_gid, n_graphs, Ep // block_tile.shape[0])
     if wide_strips(L):
-        o = wide.backward(built, "fused_edge_bwd", wide.V2, sd, Ep, Np, Ep, n_graphs, {
+        o = wide.backward(built, "fused_edge_bwd", wide.V2, sd, n, Np, Ep, n_graphs, {
             "na": a_u, "nb": a_v, "ga": g_v, "gb": g_u, "e": e, "we": w_e, "w2": w2,
             "weT": weT, "w2T": w2T, "b0": b0, "b2": b2, "z_upd": z_upd, "dz": dz_upd,
             "dr": dr, "dm": dm, "rcv": receivers, "gid": edge_gid})
@@ -347,21 +358,19 @@ def _fused_edge_step_backward_cuda(
         dw2, dwe = o["w_out"].unbind(0)
         return (o["r_out"], o["r_out2"], o["dg1"], o["dg2"], o["de"], dwe, o["m_out"][1], dw2,
                 o["m_out"][0])
-    dg_v = torch.empty((Ep, L), dtype=sd, device=dev)
-    dg_u = torch.empty((Ep, L), dtype=sd, device=dev)
-    de = torch.empty((Ep, L), dtype=sd, device=dev)
+    dg_v, dg_u, de = slot_outputs(n, 3, Ep, L, sd, dev)
     da = torch.zeros((2, Np, L), dtype=torch.float32, device=dev)
-    scratch = torch.empty((5, Ep, L), dtype=sd, device=dev)
+    scratch = torch.empty((5, n, L), dtype=sd, device=dev)
     # We, W2, W2ᵀ in fp32 for the FMA chains; Weᵀ as bf16 terms for the
     # tensor cores, 3 in fp32 mode
     wfma = torch.empty((3, L, L), dtype=torch.float32, device=dev)
     n_terms = 1 if sd == torch.bfloat16 else 3
     wsplit = torch.empty((1, n_terms, L, L), dtype=torch.int16, device=dev)
-    bpart = torch.empty((built.lib.pdg_fused_edge_bwd_parts(Ep), 2, L), dtype=torch.float64,
+    bpart = torch.empty((built.lib.pdg_fused_edge_bwd_parts(n), 2, L), dtype=torch.float64,
                         device=dev)
     # weight-grad partial sums: slots are cut into chunks, each summed by
     # CTAs of 64 rows of dW2 or dWe
-    n_chunks = built.lib.pdg_fused_edge_bwd_chunks(Ep)
+    n_chunks = built.lib.pdg_fused_edge_bwd_chunks(n)
     wpart = torch.empty((n_chunks, 2, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -371,7 +380,7 @@ def _fused_edge_step_backward_cuda(
             *(t.data_ptr() for t in (a_u, a_v, g_v, g_u, e, z_upd, dz_upd, dr, dm, receivers,
                                      edge_gid, w_e, w2, w2T, weT, b0, b2, dg_v, dg_u, de, da,
                                      scratch, wfma, wsplit, bpart, wpart, wb)),
-            Np, Ep, L, int(n_graphs), n_chunks, stream,
+            Np, n, L, int(n_graphs), n_chunks, stream,
         )
     check_launch(built, err, "fused_edge_bwd")
     fused_edge_step_backward.launches += 1

@@ -38,7 +38,12 @@ import functools
 import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
-from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
+from p_div_gnn_tpu_torch.ops.segment import (
+    live_slots,
+    require_consecutive_runs,
+    segment_sum,
+    slot_outputs,
+)
 from p_div_gnn_tpu_torch.ops import wide
 from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
 
@@ -133,15 +138,18 @@ def _fused_edge_step3_cuda(
     if Lp != L:
         out = _fused_edge_step3_cuda(*pad_args(floats, "cccwwwcwc", Lp), *ints, n_graphs, tile)
         return unpad_args(out, "ccc", L)
+    # the kernel runs the slots up to the last real one; the padding after
+    # them has zero z_upd, messages and moments
+    n = live_slots(edge_gid, n_graphs, Ep // n_blocks)
     if wide_strips(L):
-        out = wide.forward(built, "fused_edge3_fwd", sd, Ep, Np, Ep, n_graphs, {
+        out = wide.forward(built, "fused_edge3_fwd", sd, n, Np, Ep, n_graphs, {
             "na": x, "ga": g_x, "e": e, "wu": w_u, "wv": w_v, "we": w_e, "w2": w2, "b0": b0,
             "b2": b2, "rcv": receivers, "gid": edge_gid})
         fused_edge_step3.launches += 1
         return out
 
     dev = x.device
-    z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
+    (z_upd,) = slot_outputs(n, 1, Ep, L, sd, dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
     bf16 = int(sd == torch.bfloat16)
@@ -158,7 +166,7 @@ def _fused_edge_step3_cuda(
             *(t.data_ptr() for t in (x, g_x, e, receivers, edge_gid, w_u, w_v, w_e, w2, b0, b2,
                                      z_upd, r)),
             None if wfma is None else wfma.data_ptr(), mpart.data_ptr(), m.data_ptr(),
-            Np, Ep, L, int(n_graphs), n_parts, stream,
+            Np, n, L, int(n_graphs), n_parts, stream,
         )
     check_launch(built, err, "fused_edge3_fwd")
     fused_edge_step3.launches += 1
@@ -285,8 +293,11 @@ def _fused_edge_step3_backward_cuda(
 
     dev = x.device
     transposed = [w.t().contiguous() for w in (w_u, w_v, w_e, w2)]
+    # the padding slots after the last real one have zero cotangents in
+    # every product: dg and de are zero there, and they add nothing
+    n = live_slots(edge_gid, n_graphs, Ep // n_blocks)
     if wide_strips(L):
-        o = wide.backward(built, "fused_edge3_bwd", wide.F3, sd, Ep, Np, Ep, n_graphs, {
+        o = wide.backward(built, "fused_edge3_bwd", wide.F3, sd, n, Np, Ep, n_graphs, {
             "na": x, "ga": g_x, "e": e, "wu": w_u, "wv": w_v, "we": w_e, "w2": w2,
             **dict(zip(("wuT", "wvT", "weT", "w2T"), transposed)), "b0": b0, "b2": b2,
             "z_upd": z_upd, "dz": dz_upd, "dr": dr, "dm": dm, "rcv": receivers,
@@ -294,20 +305,19 @@ def _fused_edge_step3_backward_cuda(
         fused_edge_step3_backward.launches += 1
         dw2, dwe, dwu, dwv = o["w_out"].unbind(0)
         return o["r_out"], o["dg"], o["de"], dwu, dwv, dwe, o["m_out"][1], dw2, o["m_out"][0]
-    dg = torch.empty((Ep, L), dtype=sd, device=dev)
-    de = torch.empty((Ep, L), dtype=sd, device=dev)
+    dg, de = slot_outputs(n, 2, Ep, L, sd, dev)
     dx = torch.zeros((Np, L), dtype=torch.float32, device=dev)
-    scratch = torch.empty((7, Ep, L), dtype=sd, device=dev)
+    scratch = torch.empty((7, n, L), dtype=sd, device=dev)
     # Wu, Wv, We, W2, W2ᵀ in fp32 for the FMA chains; Weᵀ, Wuᵀ, Wvᵀ as bf16
     # terms for the tensor cores, 3 per weight in fp32 mode
     wfma = torch.empty((5, L, L), dtype=torch.float32, device=dev)
     n_terms = 1 if sd == torch.bfloat16 else 3
     wsplit = torch.empty((3, n_terms, L, L), dtype=torch.int16, device=dev)
-    bpart = torch.empty((built.lib.pdg_fused_edge3_bwd_parts(Ep), 2, L), dtype=torch.float64,
+    bpart = torch.empty((built.lib.pdg_fused_edge3_bwd_parts(n), 2, L), dtype=torch.float64,
                         device=dev)
     # weight-grad partial sums: slots are cut into chunks, each summed by 8
     # CTAs (4 weight grads x 2 row halves)
-    n_chunks = built.lib.pdg_fused_edge3_bwd_chunks(Ep)
+    n_chunks = built.lib.pdg_fused_edge3_bwd_chunks(n)
     wpart = torch.empty((n_chunks, 4, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((4 * L + 2, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -317,7 +327,7 @@ def _fused_edge_step3_backward_cuda(
             *(t.data_ptr() for t in (x, g_x, e, z_upd, dz_upd, dr, dm, receivers, edge_gid,
                                      w_u, w_v, w_e, w2, *transposed, b0, b2,
                                      dg, de, dx, scratch, wsplit, wfma, bpart, wpart, wb)),
-            Np, Ep, L, int(n_graphs), n_chunks, stream,
+            Np, n, L, int(n_graphs), n_chunks, stream,
         )
     check_launch(built, err, "fused_edge3_bwd")
     fused_edge_step3_backward.launches += 1

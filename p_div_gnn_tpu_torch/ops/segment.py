@@ -54,3 +54,35 @@ def require_consecutive_runs(segment_ids: torch.Tensor, num_segments: int, who: 
             "run order: GraphBatch.snd_run_perm / snd_run_sorted)"
         )
     segment_ids._pdg_runs_checked = key
+
+
+def live_slots(edge_gid: torch.Tensor, n_graphs: int, block: int) -> int:
+    """The edge slots up to the last real one (``edge_gid < n_graphs``),
+    rounded up to whole blocks (at least one). The fused edge steps mask
+    the messages, updates and cotangents of padding slots to zero, so the
+    slots after these need not run: a loader's bucketed batch gives its
+    spare capacity to its last node tile, as one receiver run of padding
+    (119,040 slots of 393,216 in a flagship batch), which the kernels'
+    run-aligned parts would hand to one CTA. Kept on the tensor with its
+    version counter, as the run check is: reading it synchronizes."""
+    key = (edge_gid._version, n_graphs, block)
+    cached = getattr(edge_gid, "_pdg_live_slots", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    n = edge_gid.shape[0]
+    slot = torch.arange(n, device=edge_gid.device)
+    end = int(torch.where(edge_gid < n_graphs, slot, -1).max()) + 1 if n else 0
+    live = min(max(-(-end // block), 1) * block, n)
+    edge_gid._pdg_live_slots = (key, live)
+    return live
+
+
+def slot_outputs(n: int, count: int, Ep: int, L: int, dtype: torch.dtype,
+                 device: torch.device) -> list[torch.Tensor]:
+    """``count`` (Ep, L) per-slot outputs of a kernel that writes only the
+    first ``n`` slots (``live_slots``): the slots after them are zero, as
+    the plain versions leave padding."""
+    outs = [torch.empty((Ep, L), dtype=dtype, device=device) for _ in range(count)]
+    for t in outs:
+        t[n:].zero_()
+    return outs

@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from p_div_gnn_tpu_torch.ops.segment import slot_outputs
 
 # csrc/wide_tile.cuh: slots of a CTA's tile, slot ranges of a weight grad
 WM = 32
@@ -53,12 +54,14 @@ def _launch(built: CudaLibrary, name: str, sd: torch.dtype, dev: torch.device,
 def forward(built: CudaLibrary, name: str, sd: torch.dtype, n: int, Np: int, Ep: int,
             n_graphs: int, inputs: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(z_upd (Ep, L) stream dtype, R (Np, L), M (8, L)) of a wide forward
-    over n entries; ``inputs`` names the WideStep fields the mode reads."""
+    over n entries; ``inputs`` names the WideStep fields the mode reads.
+    z_upd is zeroed from slot n on before the launch: the F3 and V2 modes
+    write only the first n slots (``segment.live_slots``)."""
     L = inputs["b0"].shape[0]
     dev = inputs["b0"].device
     h = torch.empty((3, n, L), dtype=torch.float32, device=dev)
     out = {
-        "z_out": torch.empty((Ep, L), dtype=sd, device=dev),
+        "z_out": slot_outputs(n, 1, Ep, L, sd, dev)[0],
         "r_out": torch.empty((Np, L), dtype=torch.float32, device=dev),
         "m_out": torch.empty((8, L), dtype=torch.float32, device=dev),
     }
@@ -73,7 +76,8 @@ def backward(built: CudaLibrary, name: str, mode: int, sd: torch.dtype, n: int, 
              Ep: int, n_graphs: int, inputs: dict) -> dict:
     """A wide backward over n entries: its outputs by WideStep field (r_out,
     r_out2, m_out (db2, db0), dg, dg1, dg2, de, w_out (dW2, dWe[, dWu,
-    dWv])), those the mode writes."""
+    dWv])), those the mode writes; the per-slot ones are zeroed from slot
+    n on before the launch, as in ``forward``."""
     L = inputs["b0"].shape[0]
     dev = inputs["b0"].device
     rows = torch.empty((7, n, L), dtype=torch.float32, device=dev)
@@ -81,21 +85,16 @@ def backward(built: CudaLibrary, name: str, mode: int, sd: torch.dtype, n: int, 
     scratch = dict(zip(("h1", "h2", "s1", "s2", "s3", "s4", "s5"), rows.unbind(0)))
     scratch["part"] = torch.empty((-(-n // WM), 2, L), dtype=torch.float64, device=dev)
     scratch["wpart"] = torch.empty((splits, L, L), dtype=torch.float64, device=dev)
-
-    def slots() -> torch.Tensor:
-        return torch.empty((Ep, L), dtype=sd, device=dev)
-
     out = {
         "r_out": torch.empty((Np, L), dtype=torch.float32, device=dev),
         "m_out": torch.empty((2, L), dtype=torch.float32, device=dev),
-        "de": slots(),
         "w_out": torch.empty((4 if mode == F3 else 2, L, L), dtype=torch.float32, device=dev),
     }
     if mode == F3:
-        out["dg"] = slots()
+        out.update(zip(("dg", "de"), slot_outputs(n, 2, Ep, L, sd, dev)))
     else:
-        out.update(r_out2=torch.empty((Np, L), dtype=torch.float32, device=dev),
-                   dg1=slots(), dg2=slots())
+        out.update(zip(("dg1", "dg2", "de"), slot_outputs(n, 3, Ep, L, sd, dev)),
+                   r_out2=torch.empty((Np, L), dtype=torch.float32, device=dev))
     _launch(built, name, sd, dev, {**inputs, **scratch, **out}, n=n, L=L, Np=Np, Ep=Ep,
             n_graphs=n_graphs, splits=splits)
     return out

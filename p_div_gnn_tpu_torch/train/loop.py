@@ -1,32 +1,61 @@
-"""The training step — the counterpart of the step half of
-``p_div_gnn_tpu/train/loop.py`` (``Trainer``: ``init``, ``_loss_fn``,
-``_train_step_impl``, ``_eval_metrics``).
+"""The training loop — the counterpart of ``p_div_gnn_tpu/train/loop.py``
+(``Trainer``: the step, the eval metrics, skipping non-finite updates and
+``fit``).
 
 The loss standardizes the target, not the prediction (the model runs with
 ``scale_output=False``), and is ``batch_loss``: mean per-graph NMSE plus
 λ·mean divergence penalty when ``optimize_divergence``. The update is Adam
 with the reference's torch defaults, which ``optax.adam`` matches: betas
-(0.9, 0.999), eps 1e-8 added outside the square root, bias correction. The
-epoch loop, checkpoint writing, skipping non-finite updates and data
-parallelism are not ported yet.
+(0.9, 0.999), eps 1e-8 added outside the square root, bias correction.
+
+``fit`` runs the JAX loop's epochs: train steps over the prefetched train
+loader, eval over the test loader, the metrics summed on the device and
+read once per epoch, the scalars logged, the best-on-test and last-epoch
+checkpoints written every epoch, early stopping unless
+``train_all_epochs``, and ``start_epoch`` to resume. Not ported yet:
+``flatten_optimizer`` (it changes only the checkpoint's layout) and the
+data-parallel ``mesh`` mode.
 """
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterable
 
 import torch
 
 from p_div_gnn_tpu_torch.graphs.container import GraphBatch, NormStats
 from p_div_gnn_tpu_torch.losses import batch_loss, per_graph_divergence
 from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+from p_div_gnn_tpu_torch.train.checkpoint import (
+    BEST_CHECKPOINT,
+    LAST_CHECKPOINT,
+    save_checkpoint,
+    set_adam_state,
+)
+from p_div_gnn_tpu_torch.train.data import prefetch
+from p_div_gnn_tpu_torch.train.logging import MetricsWriter
+
+_INT32_MAX = 2**31 - 1
 
 
 @dataclass
 class Trainer:
     """Single-device trainer of an ``EncodeProcessDecode``. The model is
     moved to ``device`` (the card unless the caller asks for the CPU) and
-    every batch, host-packed or already there, goes to it too."""
+    every batch, host-packed or already there, goes to it too.
+
+    ``skip_nonfinite_updates`` does what ``optax.apply_if_finite`` does
+    around Adam: a step whose gradients hold an inf or a NaN leaves the
+    parameters, the moments and the step count as they were, and counts
+    itself in ``nonfinite`` (``notfinite_count`` consecutive,
+    ``total_notfinite`` in all, ``last_finite``), all on the device, so a
+    step never waits for the host. After ``_max_consecutive_nonfinite``
+    such steps in a row the update would be applied, as optax gives up;
+    ``fit`` aborts the run at half of that, after saving the last
+    checkpoint (whose parameters are then still finite)."""
 
     model: EncodeProcessDecode
     stats: NormStats
@@ -35,17 +64,32 @@ class Trainer:
     optimize_divergence: bool = True
     monitor_divergence_in_test: bool = False
     device: str | torch.device = "cuda"
+    skip_nonfinite_updates: bool = False
+    _max_consecutive_nonfinite: int = 100
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)
         self.model.to(self.device)
         self.optimizer: torch.optim.Adam | None = None
+        self.nonfinite: dict[str, torch.Tensor] | None = None
 
     def init(self) -> torch.optim.Adam:
-        """Fresh Adam state over the model's parameters."""
+        """Fresh Adam state over the model's parameters (step 0, zero
+        moments, as optax's ``adam.init``) and zeroed non-finite counters.
+        With ``skip_nonfinite_updates`` on the card the step count lives on
+        the device (``capturable``), so a skipped step can keep it without
+        a sync."""
+        capturable = self.skip_nonfinite_updates and self.device.type == "cuda"
         self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8
+            self.model.parameters(), lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            capturable=capturable,
         )
+        for p in self.model.parameters():
+            set_adam_state(self.optimizer, p, 0, torch.zeros_like(p), torch.zeros_like(p))
+        if self.skip_nonfinite_updates:
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            self.nonfinite = {"notfinite_count": zero.clone(), "total_notfinite": zero.clone(),
+                              "last_finite": torch.ones((), dtype=torch.bool, device=self.device)}
         return self.optimizer
 
     def _target(self, batch: GraphBatch) -> torch.Tensor:
@@ -80,8 +124,33 @@ class Trainer:
         if self.optimizer is None:
             self.init()
         aux, _ = self.loss_and_grads(batch)
-        self.optimizer.step()
+        if self.nonfinite is None:
+            self.optimizer.step()
+        else:
+            self._step_if_finite()
         return aux
+
+    def _step_if_finite(self) -> None:
+        """optax.apply_if_finite around Adam, on the device: the update runs,
+        and where the gradients were not all finite (and the consecutive
+        count has not passed the limit) the parameters, moments and step
+        count get their old values back."""
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
+        nf = self.nonfinite
+        count = torch.where(finite, torch.zeros_like(nf["notfinite_count"]),
+                            _safe_increment(nf["notfinite_count"]))
+        apply = finite | (count > self._max_consecutive_nonfinite)
+        tensors = [p.data for p in params] + [
+            self.optimizer.state[p][k] for p in params for k in ("step", "exp_avg", "exp_avg_sq")]
+        before = [t.clone() for t in tensors]
+        self.optimizer.step()
+        for t, old in zip(tensors, before):
+            t.copy_(torch.where(apply.to(t.device), t, old))
+        nf["total_notfinite"].copy_(torch.where(finite, nf["total_notfinite"],
+                                                _safe_increment(nf["total_notfinite"])))
+        nf["notfinite_count"].copy_(count)
+        nf["last_finite"].copy_(finite)
 
     @torch.no_grad()
     def eval_step(self, batch: GraphBatch) -> dict[str, torch.Tensor]:
@@ -97,3 +166,129 @@ class Trainer:
             total = total + aux["divergence"]
         aux["total"] = total
         return aux
+
+    def save(self, path: str | Path, epoch: int) -> None:
+        """The JAX package's checkpoint of the model, Adam and the stats."""
+        if self.optimizer is None:
+            self.init()
+        save_checkpoint(path, self.model, self.optimizer, epoch, self.stats, self.nonfinite)
+
+    def _nonfinite_abort_check(self, weights_folder: Path, epoch: int) -> None:
+        """Abort once the consecutive non-finite count reaches half the
+        give-up limit: between two checks (every limit/2 steps and at each
+        epoch's end) it grows by at most limit/2, so the run stops before
+        an update with non-finite gradients could be applied, and the last
+        checkpoint it saves is finite. Reads the count (one sync)."""
+        threshold = self._max_consecutive_nonfinite // 2
+        nf_run = int(self.nonfinite["notfinite_count"])
+        if nf_run >= threshold:
+            self.save(weights_folder / LAST_CHECKPOINT, epoch + 1)
+            raise RuntimeError(
+                f"training diverged: {nf_run} consecutive nonfinite updates — aborting "
+                "before apply_if_finite gives up and applies a NaN update")
+
+    def fit(
+        self,
+        train_loader: Iterable[GraphBatch],
+        test_loader: Iterable[GraphBatch],
+        epochs: int,
+        weights_folder: str | Path,
+        writer: MetricsWriter | None = None,
+        early_stopping_limit: int = 10,
+        train_all_epochs: bool = False,
+        verbose: bool = True,
+        start_epoch: int = 0,
+    ) -> tuple[list[float], list[float]]:
+        """Train; returns the per-epoch train and test losses. A fresh run
+        (``start_epoch == 0``) fails on an existing ``weights_folder``, as
+        the reference's ``mkdir(exist_ok=False)``; ``start_epoch > 0``
+        resumes into it."""
+        if self.optimizer is None:
+            self.init()
+        weights_folder = Path(weights_folder)
+        weights_folder.mkdir(parents=True, exist_ok=start_epoch > 0)
+        best_loss = sys.float_info.max
+        train_losses: list[float] = []
+        test_losses: list[float] = []
+        early_stopping_counter = 0
+        epoch = start_epoch
+        half = self._max_consecutive_nonfinite // 2
+        for epoch in range(start_epoch, epochs):
+            if not train_all_epochs and early_stopping_counter >= early_stopping_limit:
+                if verbose:
+                    print("Training early stopped")
+                break
+            # summed on the device and read once per epoch: a read per step
+            # would make every step wait for the card
+            zero = torch.zeros((), device=self.device)
+            tr_nmse, tr_div, tr_total = zero.clone(), zero.clone(), zero.clone()
+            n_tr = 0
+            for batch in prefetch(train_loader, self.device):
+                aux = self.train_step(batch)
+                tr_nmse += aux["nmse"]
+                tr_total += aux["total"]
+                if self.optimize_divergence:
+                    tr_div += aux["divergence"]
+                n_tr += 1
+                # a liveness line that counts steps issued, without a sync
+                if verbose and n_tr % 100 == 0:
+                    print(f"  epoch {epoch + 1}: {n_tr} steps dispatched", flush=True)
+                if self.skip_nonfinite_updates and n_tr % half == 0:
+                    self._nonfinite_abort_check(weights_folder, epoch)
+            te_div, te_total = zero.clone(), zero.clone()
+            n_te = 0
+            for batch in test_loader:
+                aux = self.eval_step(batch)
+                te_total += aux["total"]
+                if self.monitor_divergence_in_test:
+                    te_div += aux["divergence"]
+                n_te += 1
+            tr_nmse, tr_div, tr_total, te_div, te_total = (
+                float(tr_nmse), float(tr_div), float(tr_total), float(te_div), float(te_total))
+            if self.skip_nonfinite_updates:
+                nf_run = int(self.nonfinite["notfinite_count"])
+                nf_total = int(self.nonfinite["total_notfinite"])
+                if nf_total and verbose:
+                    print(f"  nonfinite updates skipped: {nf_total} total, "
+                          f"{nf_run} consecutive", flush=True)
+                if writer is not None and nf_total:
+                    writer.add_scalar("Steps skipped (nonfinite)", nf_total, epoch + 1)
+                self._nonfinite_abort_check(weights_folder, epoch)
+
+            train_loss = tr_total / max(n_tr, 1)
+            test_loss = te_total / max(n_te, 1)
+            if writer is not None:
+                writer.add_scalar("Loss/MSE Train", tr_nmse / max(n_tr, 1), epoch + 1)
+                writer.add_scalar("Loss/Loss Train", train_loss, epoch + 1)
+                writer.add_scalar("Loss/MSE Test", test_loss, epoch + 1)
+                if self.optimize_divergence:
+                    writer.add_scalar("Loss/Divergence Train", tr_div / max(n_tr, 1), epoch + 1)
+                if self.monitor_divergence_in_test:
+                    writer.add_scalar("Loss/Divergence test value", te_div / max(n_te, 1),
+                                      epoch + 1)
+                writer.flush()
+            if test_loss < best_loss:
+                self.save(weights_folder / BEST_CHECKPOINT, epoch + 1)
+                best_loss = test_loss
+                early_stopping_counter = 0
+                if verbose:
+                    print(f"Checkpoint saved at {weights_folder / BEST_CHECKPOINT}")
+            else:
+                early_stopping_counter += 1
+            if verbose:
+                print(f"Epoch: {epoch + 1} / {epochs}, \nTotal train Loss : {train_loss}"
+                      f"\nMSE train Loss : {tr_nmse / max(n_tr, 1)} \nTest Loss : {test_loss}",
+                      flush=True)
+            train_losses.append(train_loss)
+            test_losses.append(test_loss)
+            # fresh every epoch, so an interrupted run resumes from it
+            self.save(weights_folder / LAST_CHECKPOINT, epoch + 1)
+        # as the JAX loop: after an early stop, numbered one past the last
+        # trained epoch
+        self.save(weights_folder / LAST_CHECKPOINT, epoch + 1)
+        return train_losses, test_losses
+
+
+def _safe_increment(x: torch.Tensor) -> torch.Tensor:
+    """``x + 1`` saturating at the int32 maximum (optax's safe_increment)."""
+    return torch.where(x < _INT32_MAX, x + 1, x)

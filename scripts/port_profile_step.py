@@ -2,9 +2,11 @@
 
     PYTHONPATH=. python scripts/port_profile_step.py
         [--impl fused3|fused|fused2|hybrid|pallas|xla] [--stream-dtype float32|bfloat16]
-        [--trace build/step_trace.json]
+        [--loader] [--trace build/step_trace.json]
 
-Builds ``chip_smoke.py``'s training batch (pair-blocked for fused2) and model (the benchmark's step:
+Builds ``chip_smoke.py``'s training batch (pair-blocked for fused2; with
+``--loader`` the same 16 meshes packed as ``GraphLoader`` packs them, at
+its bucketed capacities) and model (the benchmark's step:
 latent 128, 10 message-passing steps, no remat, NMSE + 10 x divergence,
 Adam), takes two warm-up ``Trainer.train_step``s, then traces a third with
 ``torch.profiler`` (CPU and CUDA activity). It prints the step's wall time,
@@ -31,8 +33,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
-from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
+from p_div_gnn_tpu_torch.datagen.workload import build_samples, build_workload  # noqa: E402
 from p_div_gnn_tpu_torch.models.epd import SCATTER_IMPLS  # noqa: E402
+from p_div_gnn_tpu_torch.train.data import GraphLoader  # noqa: E402
 
 # sub-kernel names of each ported kernel's library (csrc/*.cu), its own tile
 # kernels first; the three backwards share the others (csrc/bwd_common.cuh)
@@ -69,6 +72,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", default="fused3", choices=SCATTER_IMPLS)
     ap.add_argument("--stream-dtype", default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--loader", action="store_true",
+                    help="pack the meshes at GraphLoader's bucketed capacities")
     ap.add_argument("--trace", default=None, help="also write the chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -78,8 +83,15 @@ def main() -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
 
-    host, n_edges, _ = build_workload(chip_smoke.N_MESHES, seed=0,
-                                      pair_blocks=args.impl == "fused2")
+    pair = args.impl == "fused2"
+    if args.loader:
+        samples = build_samples(chip_smoke.N_MESHES, seed=0)
+        loader = GraphLoader(samples, len(samples), pair_blocks=pair, device="cuda")
+        host, n_edges = loader._pack(range(len(samples))), sum(s.num_edges for s in samples)
+    else:
+        host, n_edges, _ = build_workload(chip_smoke.N_MESHES, seed=0, pair_blocks=pair)
+    print(f"batch: Np={host.num_nodes_padded} Ep={host.num_edges_padded}"
+          + (" (GraphLoader's capacities)" if args.loader else ""), flush=True)
     batch = host.to("cuda")
     trainer = chip_smoke.make_trainer(args.impl, args.stream_dtype, "cuda")
     for _ in range(2):

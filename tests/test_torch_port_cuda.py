@@ -6,7 +6,8 @@ pair-blocked ("fused2") edge step's forward and backward; every fused
 kernel at widths it is not built for (zero-padded), the redesigned v2 and
 pair-blocked forwards and backwards at each width they are built for (two
 calls bit-equal, the forwards' fp32 z_upd bit-equal to the plain version)
-and the split receiver layout the v2 kernels refuse. It imports neither
+and the split receiver layout the v2 kernels refuse; the fused3 and v2
+kernels on a batch at GraphLoader's bucketed capacities. It imports neither
 JAX nor the JAX package, so it runs where the card is (that machine has no
 JAX; skip the repo's conftest there):
 
@@ -944,3 +945,54 @@ def _fused3_training_step_matches_xla(latent: int) -> None:
         ref = grads["xla"][name]
         assert torch.isfinite(g).all(), name
         assert float((g - ref).norm()) <= 2e-4 * float(ref.norm()) + 1e-12, name
+
+
+# --- the loader's bucketed batches
+
+@pytest.mark.parametrize("kernel", ["fused3_fwd", "fused3_bwd", "v2_fwd", "v2_bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_a_loader_batch_on_cuda(dtype, kernel):
+    """A batch at GraphLoader's bucketed capacities gives its spare edge
+    capacity to its last node tile: one padding run at its last node
+    (~18,000 slots for two flagship meshes), which the kernels' run-aligned
+    parts would hand to one CTA. The fused3 and v2 wrappers run their
+    kernels up to the last real slot only (``ops/segment.py::live_slots``)
+    and match the plain versions over every slot, with one launch; two
+    calls are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples
+    from p_div_gnn_tpu_torch.train.data import GraphLoader
+
+    b = GraphLoader(build_samples(2, seed=0), 2, device="cuda")._pack(range(2)).to("cuda")
+    assert _longest_run(b.receivers) > 10_000
+    rng = np.random.default_rng(3)
+    L, Np, Ep = 128, b.num_nodes_padded, b.num_edges_padded
+    f32 = lambda *s, scale=1.0: T((rng.normal(size=s) * scale).astype(np.float32))  # noqa: E731
+    w = lambda: f32(L, L, scale=L**-0.5)  # noqa: E731
+    x = f32(Np, L)
+    snd = b.senders.cpu().long()
+    if kernel.startswith("fused3"):
+        step, reference = fused_edge3.fused_edge_step3, fused_edge3.fused_edge_step3_reference
+        bwd = fused_edge3.fused_edge_step3_backward
+        bwd_reference = fused_edge3.fused_edge_step3_backward_reference
+        inputs = (x, x[snd], f32(Ep, L), w(), w(), w(), f32(L), w(), f32(L))
+    else:
+        step, reference = fused_edge.fused_edge_step, fused_edge.fused_edge_step_reference
+        bwd = fused_edge.fused_edge_step_backward
+        bwd_reference = fused_edge.fused_edge_step_backward_reference
+        a_u, a_v = f32(Np, L), f32(Np, L)
+        inputs = (a_u, a_v, a_v[snd], a_u[snd], f32(Ep, L), w(), f32(L), w(), f32(L))
+    args = [t.to("cuda", dtype) for t in inputs]
+    rcv, gid, bt, G = b.receivers, b.edge_gid, b.edge_block_tile, b.n_graphs
+    if kernel.endswith("fwd"):
+        case = (step, lambda: step(*args, rcv, (gid, bt), G, b.tile),
+                lambda: reference(*args, rcv, gid, G), FWD_TOLS[dtype])
+    else:
+        z, _, _ = reference(*args, rcv, gid, G)
+        cots = (z, *_cots(4, Ep, Np, L, dtype))
+        case = (bwd, lambda: bwd(*args, rcv, (gid, bt), G, b.tile, *cots),
+                lambda: bwd_reference(*args, rcv, gid, G, *cots), (BWD_TOLS[dtype],) * 9)
+    got, _ = _held(*case)
+    for a, c in zip(got, case[1]()):
+        assert torch.equal(a, c)

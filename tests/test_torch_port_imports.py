@@ -54,7 +54,11 @@ def test_port_sources_are_found():
             "p_div_gnn_tpu_torch/ops/scatter_csr.py", "p_div_gnn_tpu_torch/losses.py",
             "p_div_gnn_tpu_torch/train/loop.py", "p_div_gnn_tpu_torch/models/epd.py",
             "p_div_gnn_tpu_torch/ops/fused_edge.py", "p_div_gnn_tpu_torch/ops/scatter.py",
-            "p_div_gnn_tpu_torch/ops/gather.py", "tests/test_torch_port_cuda.py"} <= names
+            "p_div_gnn_tpu_torch/ops/gather.py", "tests/test_torch_port_cuda.py",
+            "p_div_gnn_tpu_torch/utils/configio.py", "p_div_gnn_tpu_torch/graphs/dataset.py",
+            "p_div_gnn_tpu_torch/train/data.py", "p_div_gnn_tpu_torch/train/logging.py",
+            "p_div_gnn_tpu_torch/train/runner.py", "p_div_gnn_tpu_torch/cli.py",
+            "p_div_gnn_tpu_torch/models/summary.py"} <= names
     assert {p.name for p in SOURCES} >= {
         "fused_edge3_fwd.cu", "fused_edge3_bwd.cu", "segment_sum_csr.cu",
         "fused_edge_fwd.cu", "fused_edge_bwd.cu"}
