@@ -71,10 +71,29 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    epoch, the median step of the CLI run's trainer (remat on) on the
    loader's bucketed batches, edges/s, peak memory and the batches'
    padding;
-6. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
+6. parallel: the parallel tier at full width over 2 spawned ranks (NCCL
+   with a card per rank, else gloo with both ranks on card 0 and their
+   collectives staged through host memory; the phase prints which, and its
+   gloo times are no scaling or collective times). #1-#3 are held against
+   their plain versions on a partitioned shard's extended ``[local ++
+   ghost]`` layout; then (a) data-parallel fused3 (``Trainer(group=)``, 8
+   meshes a rank, 5 fp32 steps and 2 bf16 ones): the step-1 loss, the
+   gradients averaged over the ranks and the parameters after Adam must
+   match the single-process step on the 16 meshes, the loss must fall and
+   bf16 stay near fp32; (b) the 16 meshes edge-partitioned over the ranks
+   (``partition_batch``) in both halo modes: the committed checkpoint's
+   forward against its single-process forward at the serve tolerance, one
+   fused3 fp32 and one bf16 train step, and (c) one fused fp32 step (a2a),
+   each held the same way; every counted run must launch exactly its
+   path's kernels on each rank (10 of #1, #2 and #3 a fused3 step, 10 of
+   #1 a forward). It prints the plans (Nl, El, Ep2, D·Hp per rank, halo
+   bytes per step), per-rank step ms, peak memory, and the rows of
+   ``measure_dp_scaling`` at the rank counts the cards allow;
+7. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
    pair segment sum's row also has its bf16 numbers under ``bfloat16`` and
-   each sender view's numbers and launches under ``views``), then the last
-   line ``{"ok": true, "device": {...}}``.
+   each sender view's numbers and launches under ``views``; the launches
+   count every phase's runs, the parallel ranks' too), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Everything it builds goes to ``build/``.
 """
@@ -274,9 +293,11 @@ def ptxas_figures(built, smem=None) -> list[str]:
     return out
 
 
-def edge_step_inputs(batch, gen, L: int = LATENT):
+def edge_step_inputs(batch, gen, L: int = LATENT, n_ext: int | None = None):
     """Random inputs of the fused edge step at the batch's shapes: x and e
-    ~ N(0, 1), g_x = x[senders], weights ~ N(0, 1/L), biases ~ N(0, 1)."""
+    ~ N(0, 1), g_x = x[senders], weights ~ N(0, 1/L), biases ~ N(0, 1).
+    ``n_ext``: the senders address that many rows, x being the first Np
+    (an edge-partitioned shard's ``[local ++ ghost]`` rows)."""
     import torch
 
     dev = batch.receivers.device
@@ -285,10 +306,11 @@ def edge_step_inputs(batch, gen, L: int = LATENT):
     def randn(*shape: int, scale: float = 1.0) -> torch.Tensor:
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    x = randn(Np, L)
+    x_ext = randn(n_ext or Np, L)
+    x = x_ext[:Np]
     return {
         "x": x,
-        "g_x": x.index_select(0, batch.senders),
+        "g_x": x_ext.index_select(0, batch.senders),
         "e": randn(Ep, L),
         "w_u": randn(L, L, scale=L**-0.5), "w_v": randn(L, L, scale=L**-0.5),
         "w_e": randn(L, L, scale=L**-0.5), "b0": randn(L),
@@ -1095,10 +1117,11 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def make_trainer(impl: str, stream_dtype: str, device, latent: int = LATENT):
+def make_trainer(impl: str, stream_dtype: str, device, latent: int = LATENT, group=None):
     """The benchmark's model and trainer (bench.py:166-178) from a seeded
     random init, on ``device``: the same weights for every impl and dtype
-    (at ``latent``, LATENT unless the width phase asks another)."""
+    (at ``latent``, LATENT unless the width phase asks another); ``group``:
+    data parallelism over those ranks."""
     import torch
 
     from p_div_gnn_tpu_torch.graphs.container import NormStats
@@ -1111,7 +1134,8 @@ def make_trainer(impl: str, stream_dtype: str, device, latent: int = LATENT):
         remat_steps=False,
     )
     trainer = Trainer(model, NormStats.ones(), learning_rate=LEARNING_RATE,
-                      divergence_penalty=DIV_PENALTY, optimize_divergence=True, device=device)
+                      divergence_penalty=DIV_PENALTY, optimize_divergence=True, device=device,
+                      group=group)
     trainer.init()
     return trainer
 
@@ -1420,13 +1444,16 @@ def cli_train(sd: str, csvs: dict, root: Path) -> dict:
             "epoch_s": epoch_s, "seconds": seconds, "peak_gb": peak_gb, "trainer": trained[0]}
 
 
-def loader_batch_kernels(batch, sd_name: str) -> dict:
+def loader_batch_kernels(batch, sd_name: str, n_ext: int | None = None,
+                         name: str = "cli loader batch") -> dict:
     """Hold #1, #2 and #3 against their plain versions on a loader batch
     on the card, in ``sd_name``: its bucketed capacities end in a long run
     of padding slots, which the fused3 wrappers do not hand to their
     kernels (``ops/segment.py::live_slots``) but must still return as the
     plain versions do. Random inputs as in the kernel phases; the kernel
-    phases' tolerances. Returns each kernel's max abs err."""
+    phases' tolerances. Returns each kernel's max abs err. ``n_ext``: an
+    edge-partitioned shard, whose senders address its ``[local ++ ghost]``
+    rows: #1 gathers g_x from them and #3 sums into them."""
     import torch
 
     from p_div_gnn_tpu_torch.ops.fused_edge3 import (
@@ -1441,10 +1468,11 @@ def loader_batch_kernels(batch, sd_name: str) -> dict:
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
     sd = getattr(torch, sd_name)
     gen = torch.Generator(device=dev).manual_seed(3)
-    base = edge_step_inputs(batch, gen)
+    base = edge_step_inputs(batch, gen, n_ext=n_ext)
     args = [base[k].to(sd).contiguous() for k in base]
     aux = (batch.edge_gid, batch.edge_block_tile)
-    name = f"cli loader batch {sd_name}"
+    name = f"{name} {sd_name}"
+    n_rows = n_ext or Np
     got = fused_edge_step3(*args, batch.receivers, aux, batch.n_graphs, batch.tile)
     want = fused_edge_step3_reference(*args, batch.receivers, batch.edge_gid, batch.n_graphs)
     fwd = max(held(f"{name} fused_edge3_fwd {k}", a, b, KERNEL_TOL[sd_name][k])[0]
@@ -1464,9 +1492,9 @@ def loader_batch_kernels(batch, sd_name: str) -> dict:
     del got, want
     rows = torch.randn((Ep, L), generator=gen, device=dev).to(sd)
     csr = held(f"{name} segment_sum_csr",
-               csr_segment_sum(rows, batch.snd_run_sorted, batch.snd_block_tile, Np, batch.tile,
-                               perm=batch.snd_run_perm),
-               csr_segment_sum_reference(rows, batch.snd_run_sorted, Np, batch.snd_run_perm),
+               csr_segment_sum(rows, batch.snd_run_sorted, batch.snd_block_tile, n_rows,
+                               batch.tile, perm=batch.snd_run_perm),
+               csr_segment_sum_reference(rows, batch.snd_run_sorted, n_rows, batch.snd_run_perm),
                CSR_TOL[sd_name])[0]
     torch.cuda.empty_cache()
     return {"fused_edge3_fwd": fwd, "fused_edge3_bwd": bwd, "segment_sum_csr": csr}
@@ -1605,6 +1633,337 @@ def cli_phase(card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- the parallel phase: data-parallel and edge-partitioned training over ranks
+PAR_RANKS = 2
+HALO_MODES = ("a2a", "all_gather")
+PAR_DP_STEPS, PAR_BF16_STEPS = 5, 2
+# tests/test_dp.py's tolerances (step-1 loss rtol 2e-4, parameters after
+# Adam rtol 5e-3 / atol 2e-5) and tests/test_partition.py's (total and nmse
+# rtol 5e-4, divergence 5e-3, parameters rtol 5e-3 / atol 5e-5); raw
+# gradients at GRAD_RTOL, bf16 losses at BF16_LOSS_RTOL of fp32's
+DP_LOSS_RTOL, PART_LOSS_RTOL, PART_DIV_RTOL = 2e-4, 5e-4, 5e-3
+PARAM_RTOL, DP_PARAM_ATOL, PART_PARAM_ATOL = 5e-3, 2e-5, 5e-5
+SCALING_ITERS = 3
+
+
+def parallel_backend() -> str:
+    """NCCL with a card per rank; with fewer cards gloo, every rank's model,
+    batch and kernels on card 0 (NCCL refuses two ranks on one card), its
+    collectives staged through host memory."""
+    import torch
+
+    return "nccl" if torch.cuda.device_count() >= PAR_RANKS else "gloo"
+
+
+def reference_step(impl: str, batch) -> dict:
+    """One single-process fp32 train step from the seeded init on the whole
+    batch: loss terms, gradients and parameters after Adam, on the host."""
+    trainer = make_trainer(impl, "float32", batch.receivers.device)
+    aux, grads = trainer.loss_and_grads(batch)
+    grads = {n: g.detach().cpu() for n, g in grads.items()}
+    trainer.optimizer.step()
+    params = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+    return {"aux": {k: float(v) for k, v in aux.items()}, "grads": grads, "params": params}
+
+
+def parallel_rank(rank: int, world: int, group, job: dict) -> dict:
+    """One rank of the parallel phase (spawned). Each training step's kernel
+    launches are counted from 0 and must be its path's; returns what the
+    parent holds against the single-process steps."""
+    import torch
+    import torch.distributed as dist
+
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.models.epd import Halo
+    from p_div_gnn_tpu_torch.parallel.dp import shard_of
+    from p_div_gnn_tpu_torch.parallel.partition import (
+        make_partitioned_forward,
+        make_partitioned_train_step,
+    )
+
+    dev = torch.device("cuda", rank if dist.get_backend(group) == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    total = {k: 0 for k in launch_counts()}
+
+    def counted(fn, impl: str, name: str, per_step: dict | None = None):
+        """fn() with its launches held to one step of ``impl`` (or
+        ``per_step``); returns its result and its device ms."""
+        expect = {k: (per_step or step_launches(impl)).get(k, 0) for k in total}
+        reset_launch_counts()
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        check(got == expect, f"parallel rank {rank} {name}: kernel launches {got}, "
+              f"expected {expect}")
+        for k, v in got.items():
+            total[k] += v
+        return out, start.elapsed_time(stop)
+
+    def host(model) -> tuple[dict, dict]:
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        return grads, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+    def loss_terms(aux: dict) -> dict:
+        out = {k: float(v) for k, v in aux.items()}
+        check(all(math.isfinite(v) for v in out.values()),
+              f"parallel rank {rank}: non-finite loss {out}")
+        return out
+
+    out = {"part": {}}
+    # #1-#3 against their plain versions on this shard's extended layout
+    # (before the counted runs)
+    stacked, send_idx = job["plans"]["a2a"]
+    local = shard_of(stacked, rank).to(dev)
+    n_ext = local.num_nodes_padded + send_idx.shape[0] * send_idx.shape[-1]
+    out["kernel_errs"] = {sd: loader_batch_kernels(local, sd, n_ext, f"parallel rank {rank}")
+                          for sd in ("float32", "bfloat16")}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) data parallel: this rank's 8 meshes, Trainer(group=)
+    batch = shard_of(job["dp"], rank).to(dev)
+    trainer = make_trainer("fused3", "float32", dev, group=group)
+    losses, ms = [], []
+    for step in range(PAR_DP_STEPS):
+        aux, t = counted(lambda: trainer.train_step(batch), "fused3", f"dp step {step + 1}")
+        losses.append(loss_terms(aux))
+        ms.append(t)
+        if step == 0:
+            grads, params = host(trainer.model)
+    out["dp"] = {"losses": losses, "ms": ms, "grads": grads, "params": params}
+    trainer = make_trainer("fused3", "bfloat16", dev, group=group)
+    runs = [counted(lambda: trainer.train_step(batch), "fused3", f"dp bf16 step {i + 1}")
+            for i in range(PAR_BF16_STEPS)]
+    out["dp_bf16"] = {"losses": [loss_terms(a) for a, _ in runs], "ms": [t for _, t in runs]}
+    del trainer, batch
+
+    # (b, c) edge partitioning of the whole batch
+    stats = NormStats.ones()
+    served = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device=dev)
+    for mode in HALO_MODES:
+        stacked, send_idx = job["plans"][mode]
+        local = shard_of(stacked, rank).to(dev)
+        halo = Halo(torch.as_tensor(send_idx[rank]).to(dev), group)
+        fwd = make_partitioned_forward(served.model, served.stats, group, scale_output=False)
+        fwd(local, halo)  # uncounted: NCCL sets up its peer connections at first use
+        pred, fwd_ms = counted(lambda: fwd(local, halo), "fused3", f"{mode} forward",
+                               {k: STEPS * v for k, v in SERVE_LAUNCHES["fused3"].items()})
+        res = {"forward": pred.cpu(), "forward_ms": fwd_ms}
+        for impl, sd in (("fused3", "float32"), ("fused3", "bfloat16"), ("fused", "float32")):
+            if impl == "fused" and mode != "a2a":
+                continue
+            trainer = make_trainer(impl, sd, dev)
+            step = make_partitioned_train_step(trainer.model, stats, trainer.optimizer, group,
+                                               DIV_PENALTY, optimize_divergence=True)
+            aux, t = counted(lambda: step(local, halo), impl, f"{mode} {impl} {sd} step")
+            grads, params = host(trainer.model)
+            res[(impl, sd)] = {"aux": loss_terms(aux), "ms": t, "grads": grads,
+                               "params": params}
+            del trainer, step
+        out["part"][mode] = res
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["launches"] = total
+    out["staged"] = str(dist.get_backend(group)) == "gloo"
+    return out
+
+
+def rel_norms(got: dict, want: dict) -> dict:
+    import torch
+
+    return {n: float(torch.linalg.vector_norm(got[n].double() - w.double())
+                     / torch.linalg.vector_norm(w.double()).clamp_min(1e-300))
+            for n, w in want.items()}
+
+
+def hold_step(name: str, got: dict, want: dict, loss_rtol: float, div_rtol: float,
+              param_atol: float) -> list[str]:
+    """A parallel train step against the single-process one: loss terms,
+    raw gradients (averaged over the ranks), parameters after Adam. Prints
+    the numbers and returns the checks it fails.
+
+    Adam's first step moves every entry by lr·g / (|g| + eps) ≈ lr·sign(g).
+    Where an entry's single-process gradient is smaller than the two
+    gradients' difference (both inside GRAD_RTOL), its sign is not fixed
+    by the fp32 gradient: those entries are held to one Adam step either
+    way (|Δp| ≤ 2·lr + the tolerance), every other entry to rtol / atol."""
+    rel = rel_norms(got["grads"], want["grads"])
+    worst = max(rel, key=rel.get)
+    outside, loose = {}, {}
+    for n, w in want["params"].items():
+        g = want["grads"][n]
+        free = g.abs() <= (got["grads"][n] - g).abs()
+        tol = param_atol + PARAM_RTOL * w.abs()
+        dp = (got["params"][n] - w).abs()
+        off = (dp > tol) & ~free | (dp > tol + 2 * LEARNING_RATE) & free
+        if bool(off.any()):
+            outside[n] = int(off.sum())
+        if bool((free & (dp > tol)).any()):
+            loose[n] = int((free & (dp > tol)).sum())
+    a, b = got["aux"]["total"], want["aux"]["total"]
+    say(f"parallel {name}: loss {a!r} vs single {b!r} (rel {abs(a - b) / abs(b):.3e}), "
+        f"gradients max rel {rel[worst]:.3e} ({worst}), parameters after Adam outside rtol "
+        f"{PARAM_RTOL} / atol {param_atol}: {outside or 'none'}; entries whose gradient is "
+        f"inside the two gradients' difference and moved the other way: {loose or 'none'}")
+    failed = [f"{name}: {k} {got['aux'][k]!r} vs single {want['aux'][k]!r} outside rtol {rtol}"
+              for k, rtol in (("total", loss_rtol), ("nmse", loss_rtol),
+                              ("divergence", div_rtol))
+              if abs(got["aux"][k] - want["aux"][k]) > rtol * abs(want["aux"][k])]
+    if rel[worst] > GRAD_RTOL:
+        failed.append(f"{name}: gradient of {worst} vs single {rel[worst]:.3e} > {GRAD_RTOL:g}")
+    if outside:
+        failed.append(f"{name}: parameters after Adam outside rtol {PARAM_RTOL} / atol "
+                      f"{param_atol}: {outside}")
+    return failed
+
+
+def parallel_phase(samples: list, host_train, train_batch, card: str) -> dict:
+    """Data-parallel and edge-partitioned fused3 (and one fused) training at
+    full width over PAR_RANKS spawned ranks, each held against the
+    single-process step on the whole batch (``train_batch``, on the card, of
+    the host batch ``host_train``); the committed checkpoint's partitioned
+    forward against its single-process forward; the weak-scaling rows at
+    the rank counts the cards allow."""
+    import numpy as np
+    import torch
+
+    from p_div_gnn_tpu_torch.graphs.batching import pack_batch
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.parallel.dp import pack_sharded_batch, shard_assignment
+    from p_div_gnn_tpu_torch.parallel.launch import run_ranks
+    from p_div_gnn_tpu_torch.parallel.partition import partition_batch
+    from p_div_gnn_tpu_torch.parallel.scaling import measure_dp_scaling
+
+    t_start = time.perf_counter()
+    backend = parallel_backend()
+    say(f"parallel: {PAR_RANKS} ranks over {backend}, {torch.cuda.device_count()} card(s)"
+        + ("; every rank on card 0, collectives staged through host memory (gloo): no "
+           "number of this phase is a scaling or collective time" if backend == "gloo" else ""))
+    refs = {impl: reference_step(impl, train_batch) for impl in ("fused3", "fused")}
+    # the data-parallel step's reference: the same meshes packed whole in the
+    # order the shards hold them (RCM would reorder every graph's nodes)
+    gps = len(samples) // PAR_RANKS
+    order = [i for idx in shard_assignment(samples, PAR_RANKS, gps) for i in idx]
+    refs["dp"] = reference_step("fused3", pack_batch(
+        [samples[i] for i in order], n_graphs=len(samples)).to("cuda"))
+    served = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device="cuda")
+    with torch.no_grad():
+        want_fwd = served.model(train_batch, served.stats, scale_output=False).cpu().numpy()
+    del served
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dp = pack_sharded_batch(samples, PAR_RANKS, gps)
+    plans = {mode: partition_batch(host_train, PAR_RANKS, halo_mode=mode)
+             for mode in HALO_MODES}
+    plan_s = time.perf_counter() - t0
+    for mode, (stacked, send_idx) in plans.items():
+        rows = PAR_RANKS * send_idx.shape[-1]
+        say(f"parallel plan {mode}: per rank Nl={stacked.pos.shape[1]} "
+            f"El={stacked.senders.shape[1]} Ep2={stacked.snd_perm.shape[1]} D*Hp={rows} "
+            f"(real nodes {(stacked.node_gid < stacked.n_graphs).sum(1).tolist()}, real edges "
+            f"{(stacked.edge_gid < stacked.n_graphs).sum(1).tolist()}); halo bytes per fp32 "
+            f"step {halo_bytes(rows, 4)} received per rank ({halo_bytes(rows, 2)} in bf16)")
+    say(f"parallel: DP shards Np={dp.pos.shape[1]} Ep={dp.senders.shape[1]}; planned in "
+        f"{plan_s:.2f} s")
+    try:
+        ranks = run_ranks(parallel_rank, PAR_RANKS, {"dp": dp, "plans": plans},
+                          backend=backend)
+    except Exception as exc:  # a rank's failure, with its traceback
+        raise SmokeFailure(f"parallel ranks failed: {exc}") from exc
+
+    for r, res in enumerate(ranks):
+        errs = res["kernel_errs"]
+        say(f"parallel rank {r}: #1-#3 vs plain on the extended layout, max abs err "
+            + "; ".join(f"{sd} " + " ".join(f"{k}={e:.3e}" for k, e in v.items())
+                        for sd, v in errs.items()))
+    # (a) data parallel against the single-process step on all 16 meshes;
+    # every check's numbers are printed before the phase fails on any
+    failed = []
+    for r, res in enumerate(ranks):
+        step1 = dict(res["dp"], aux=res["dp"]["losses"][0])
+        failed += hold_step(f"dp fused3 fp32 rank {r}", step1, refs["dp"], DP_LOSS_RTOL,
+                            PART_DIV_RTOL, DP_PARAM_ATOL)
+        rcm = rel_norms(step1["grads"], refs["fused3"]["grads"])
+        say(f"parallel dp rank {r}: gradients vs the single step on the RCM-ordered batch: "
+            f"max rel {max(rcm.values()):.3e}")
+        losses = [x["total"] for x in res["dp"]["losses"]]
+        if not losses[-1] < losses[0]:
+            failed.append(f"dp rank {r}: loss {losses} does not fall")
+        l16, l32 = res["dp_bf16"]["losses"][0]["total"], losses[0]
+        if abs(l16 - l32) > BF16_LOSS_RTOL * abs(l32):
+            failed.append(f"dp rank {r}: bf16 step-1 loss {l16!r} vs fp32 {l32!r}")
+        say(f"parallel dp rank {r}: fp32 losses " + " ".join(f"{v:.6f}" for v in losses)
+            + ", step ms " + " ".join(f"{v:.3f}" for v in res["dp"]["ms"])
+            + f"; bf16 step-1 loss {l16:.6f} (rel {abs(l16 - l32) / abs(l32):.3e}), step ms "
+            + " ".join(f"{v:.3f}" for v in res["dp_bf16"]["ms"]))
+    # (b, c) edge partitioning against the single-process step and forward
+    ref = refs["fused3"]
+    for mode in HALO_MODES:
+        stacked = plans[mode][0]
+        Np = train_batch.num_nodes_padded
+        per = stacked.pos.shape[1] - train_batch.tile
+        got_fwd = np.zeros_like(want_fwd)
+        for r, res in enumerate(ranks):
+            lo, hi = r * per, min((r + 1) * per, Np)
+            if hi > lo:
+                got_fwd[lo:hi] = res["part"][mode]["forward"].numpy()[:hi - lo]
+        real = host_train.node_gid < host_train.n_graphs
+        err = np.abs(got_fwd[real] - want_fwd[real])
+        share = float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(want_fwd[real]))).max())
+        if share > 1.0:
+            failed.append(f"{mode} forward vs single: max abs err {err.max():.3e} "
+                          f"(standardized), {share:.2f} of the serve allowance")
+        say(f"parallel {mode} checkpoint forward vs single fused3: max abs err "
+            f"{float(err.max()):.3e} (standardized), {share:.2f} of the allowance; forward ms "
+            + " ".join(f"{res['part'][mode]['forward_ms']:.3f}" for res in ranks))
+        for r, res in enumerate(ranks):
+            part = res["part"][mode]
+            failed += hold_step(f"{mode} fused3 fp32 rank {r}", part[("fused3", "float32")],
+                                ref, PART_LOSS_RTOL, PART_DIV_RTOL, PART_PARAM_ATOL)
+            l16 = part[("fused3", "bfloat16")]["aux"]["total"]
+            l32 = part[("fused3", "float32")]["aux"]["total"]
+            if abs(l16 - l32) > BF16_LOSS_RTOL * abs(l32):
+                failed.append(f"{mode} rank {r}: bf16 loss {l16!r} vs fp32 {l32!r}")
+            say(f"parallel {mode} rank {r}: step ms fused3 fp32 "
+                f"{part[('fused3', 'float32')]['ms']:.3f}, bf16 "
+                f"{part[('fused3', 'bfloat16')]['ms']:.3f} (loss {l16:.6f}, rel "
+                f"{abs(l16 - l32) / abs(l32):.3e} from fp32)"
+                + (f", fused fp32 {part[('fused', 'float32')]['ms']:.3f}"
+                   if mode == "a2a" else ""))
+            if mode == "a2a":
+                failed += hold_step(f"{mode} fused fp32 rank {r}", part[("fused", "float32")],
+                                    refs["fused"], PART_LOSS_RTOL, PART_DIV_RTOL,
+                                    PART_PARAM_ATOL)
+    say("parallel: peak memory per rank " + ", ".join(f"{res['peak_gb']:.2f} GB"
+                                                      for res in ranks))
+    launches = {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]}
+    say(f"parallel: kernel launches over the ranks' counted runs {launches}")
+    check(not failed, "parallel: " + "; ".join(failed))
+
+    t0 = time.perf_counter()
+    rows = measure_dp_scaling(samples[:len(samples) // PAR_RANKS], iters=SCALING_ITERS)
+    for row in rows:
+        say(f"parallel scaling on {card}: devices={row['devices']} step "
+            f"{row['step_s'] * 1e3:.3f} ms, {row['edges_per_s']:.0f} edges/s, efficiency "
+            f"{row['efficiency']:.3f} (measure_dp_scaling, xla, remat on, "
+            f"{len(samples) // PAR_RANKS} meshes per card; {time.perf_counter() - t0:.1f} s)")
+    say(f"parallel phase: {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def halo_bytes(ghost_rows: int, itemsize: int) -> int:
+    """Bytes of ghost rows one rank receives in one train step: each of the
+    STEPS message-passing steps exchanges LATENT-wide rows forward and their
+    cotangents backward, and the loss exchanges the 3-wide prediction
+    (fp32) once each way."""
+    return 2 * STEPS * ghost_rows * LATENT * itemsize + 2 * ghost_rows * 3 * 4
+
+
 def main() -> int:
     import torch
 
@@ -1689,6 +2048,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cli = cli_phase(smi)
     say(f"cli phase: {time.perf_counter() - t0:.1f} s")
+    parallel = parallel_phase(samples, host_train, train_batch, smi)
 
     def row(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1696,10 +2056,11 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
-    # launches: the serve paths', the train paths' and the cli runs, each
-    # counted from 0 (serving launches only the forwards)
+    # launches: the serve paths', the train paths', the cli runs' and the
+    # parallel ranks', each counted from 0 (serving launches only the forwards)
     launches = dict(train["launches"])
-    for counts in [impl["launches"] for impl in serve["impls"].values()] + [cli["launches"]]:
+    for counts in [impl["launches"] for impl in serve["impls"].values()] + [
+            cli["launches"], parallel["launches"]]:
         for k, v in counts.items():
             launches[k] += v
     # #4 runs on two sender views: its row gives the receiver-major one's

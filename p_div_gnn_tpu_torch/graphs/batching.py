@@ -247,6 +247,32 @@ def build_sender_view(
     return snd_perm, snd_sorted, snd_block_tile
 
 
+def pad_sender_view(
+    snd_perm: np.ndarray,
+    snd_sorted: np.ndarray,
+    snd_block_tile: np.ndarray,
+    target_capacity: int,
+    num_nodes: int,
+    tile: int = NODE_TILE,
+    edge_block: int = SND_BLOCK,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Grow a sender view to a common capacity (whole padding blocks on the
+    last tile, which add nothing) so that views stack across shards."""
+    cur = len(snd_perm)
+    if target_capacity % edge_block or target_capacity < cur:
+        raise ValueError(f"target capacity {target_capacity} is below {cur} or not a "
+                         f"multiple of {edge_block}")
+    if cur == target_capacity:
+        return snd_perm, snd_sorted, snd_block_tile
+    extra = target_capacity - cur
+    last_tile = num_nodes // tile - 1
+    return (
+        np.concatenate([snd_perm, np.full(extra, PAD_SLOT, np.int32)]),
+        np.concatenate([snd_sorted, np.full(extra, PAD_NODE, np.int32)]),
+        np.concatenate([snd_block_tile, np.full(extra // edge_block, last_tile, np.int32)]),
+    )
+
+
 def _ell_from_coo(
     key: np.ndarray,
     payloads: tuple[np.ndarray, ...],

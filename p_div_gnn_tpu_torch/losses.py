@@ -1,6 +1,6 @@
 """Per-graph NMSE and the divergence penalty — the counterpart of
 ``p_div_gnn_tpu/losses.py`` (``per_graph_nmse``, ``divergence_field``,
-``per_graph_divergence``, ``batch_loss``).
+``per_graph_divergence``, ``batch_loss``, ``partitioned_batch_loss``).
 
 Every per-graph quantity is a segment reduction keyed by graph id over the
 padded batch (padding nodes carry graph id ``n_graphs`` and fall into an
@@ -8,6 +8,11 @@ extra segment that is dropped). The divergence operator is applied through
 its gather-only ELL views when the batch has them (forward: the row view;
 backward: the transpose view, an ``autograd.Function``), else through the
 padded COO.
+
+Under data parallelism (``batch_loss(..., group=)``) the per-graph sums and
+the real-graph counts are summed over the ranks, so every rank holds the
+whole batch's loss; under edge partitioning (``partitioned_batch_loss``) the
+same graphs are split across the ranks, so every per-graph segment sum is.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 
 from p_div_gnn_tpu_torch.graphs.container import GraphBatch
 from p_div_gnn_tpu_torch.ops.segment import segment_sum
+from p_div_gnn_tpu_torch.parallel.collectives import Group, psum
 
 
 class _DivEllApply(torch.autograd.Function):
@@ -121,19 +127,72 @@ def batch_loss(
     ground_truth: torch.Tensor,
     divergence_penalty: float = 0.0,
     optimize_divergence: bool = False,
+    group: Group | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Total batch loss = mean-over-real-graphs NMSE (+ λ·mean divergence);
     the reference sums per-graph losses and divides by the number of graphs
-    in the batch."""
+    in the batch. With ``group`` the batch is this rank's shard, and the
+    sums and counts are summed over the ranks: the whole batch's loss."""
     gmask = batch.graph_mask.to(prediction.dtype)
-    nmse_sum = (per_graph_nmse(batch, prediction, ground_truth) * gmask).sum()
-    n_real = torch.clamp(gmask.sum(), min=1.0)
+    nmse_sum = psum((per_graph_nmse(batch, prediction, ground_truth) * gmask).sum(), group)
+    n_real = torch.clamp(psum(gmask.sum(), group), min=1.0)
     nmse = nmse_sum / n_real
     aux = {"nmse": nmse}
     total = nmse
     if optimize_divergence:
-        div_sum = (per_graph_divergence(batch, prediction) * gmask).sum()
+        div_sum = psum((per_graph_divergence(batch, prediction) * gmask).sum(), group)
         div = (div_sum / n_real) * divergence_penalty
         aux["divergence"] = div
         total = total + div
+    return total, aux
+
+
+def partitioned_batch_loss(
+    batch: GraphBatch,
+    prediction: torch.Tensor,
+    ground_truth: torch.Tensor,
+    halo,
+    group: Group,
+    divergence_penalty: float = 0.0,
+    optimize_divergence: bool = False,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """``batch_loss`` under edge partitioning (``parallel/partition.py``):
+    ``batch`` is this rank's node range of the same graphs, so the per-graph
+    segment sums (counts, target means, NMSE numerators and denominators,
+    divergence partials) are summed over the ranks before the ratios. The
+    divergence operator's columns (``div_col_node``) address the extended
+    ``[local ++ ghost]`` rows: the prediction is exchanged once
+    (``halo.exchange``). Returns the whole batch's loss on every rank."""
+    G = batch.n_graphs
+    gid = batch.node_gid.long()
+    mask = batch.node_mask.to(prediction.dtype)[:, None]
+
+    gt = ground_truth * mask
+    pred = prediction * mask
+    count = psum(segment_sum(mask, gid, G + 1), group)
+    mean_gt = psum(segment_sum(gt, gid, G + 1), group) / torch.clamp(count, min=1.0)
+    num = psum(segment_sum((gt - pred) ** 2 * mask, gid, G + 1), group)
+    den = psum(segment_sum((gt - mean_gt[gid]) ** 2 * mask, gid, G + 1), group)
+    nmse_per_graph = (num / torch.where(den == 0, torch.ones_like(den), den)).mean(-1)[:G]
+
+    gmask = (count[:G, 0] > 0).to(prediction.dtype)
+    n_real = torch.clamp(gmask.sum(), min=1.0)
+    nmse = (nmse_per_graph * gmask).sum() / n_real
+    aux = {"nmse": nmse}
+    total = nmse
+    if optimize_divergence:
+        pred_ext = halo.exchange(prediction)
+        is_y = batch.div_col_is_y == 1
+        src = batch.div_col_node.long()
+        v0 = torch.where(is_y, pred_ext[src, 2], pred_ext[src, 0])
+        v1 = torch.where(is_y, pred_ext[src, 1], pred_ext[src, 2])
+        contrib = batch.div_data[:, None] * torch.stack([v0, v1], dim=-1)
+        div = segment_sum(contrib, batch.div_row.long(), prediction.shape[0])
+        keep = (batch.node_type[:, 0] == 0)[:, None]
+        div = torch.where(keep, div, torch.zeros_like(div))
+        per_graph = psum(segment_sum(div * div * mask, gid, G + 1), group)[:G]
+        div_per_graph = per_graph.sum(-1) / torch.clamp(count[:G, 0], min=1.0)
+        div_loss = ((div_per_graph * gmask).sum() / n_real) * divergence_penalty
+        aux["divergence"] = div_loss
+        total = total + div_loss
     return total, aux

@@ -2,6 +2,8 @@
 (in, out) kernel layout, graph-mode LayerNorm and the MLP block — the
 counterparts of ``p_div_gnn_tpu/models/blocks.py``.
 
+Under sharding (``group``) the graph-LN statistics span every rank's rows.
+
 Parameter names follow the flax tree (``lin0/kernel``, ``ln/weight``) so a
 JAX checkpoint maps 1:1 onto the state_dict (``models/params.py``).
 """
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from p_div_gnn_tpu_torch.ops.layernorm import masked_graph_layernorm
+from p_div_gnn_tpu_torch.parallel.collectives import Group
 
 
 def uniform_param(shape: tuple[int, ...], bound: float, generator: torch.Generator) -> nn.Parameter:
@@ -43,8 +46,10 @@ class GraphLayerNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return masked_graph_layernorm(x, mask, self.weight, self.bias, eps=self.eps)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                group: Group | None = None) -> torch.Tensor:
+        return masked_graph_layernorm(x, mask, self.weight, self.bias, eps=self.eps,
+                                      group=group)
 
 
 class MLPBlock(nn.Module):
@@ -65,10 +70,11 @@ class MLPBlock(nn.Module):
         self.lin1 = TorchDense(latent_size, out, generator)
         self.ln = GraphLayerNorm(out) if layer_norm else None
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                group: Group | None = None) -> torch.Tensor:
         out = self.lin1(torch.relu(self.lin0(x)))
         if self.ln is None:
             return out
         if mask is None:
             raise ValueError("graph-LN needs a row mask")
-        return self.ln(torch.relu(out), mask)
+        return self.ln(torch.relu(out), mask, group)

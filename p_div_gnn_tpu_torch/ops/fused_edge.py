@@ -68,6 +68,7 @@ from p_div_gnn_tpu_torch.ops.segment import (
 )
 from p_div_gnn_tpu_torch.ops import wide
 from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
+from p_div_gnn_tpu_torch.parallel.collectives import Group, psum64
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 # the widths the tile kernels are built for (fused3_tile.cuh's register
@@ -79,16 +80,21 @@ BWD_WIDTHS = (64, 128, 256)
 
 
 def moments_from_partials(
-    m_sum: torch.Tensor, m_sumsq: torch.Tensor, edge_mask: torch.Tensor
+    m_sum: torch.Tensor, m_sumsq: torch.Tensor, edge_mask: torch.Tensor,
+    group: Group | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-tensor mean/std from per-lane partial sums (padding rows
-    contribute exactly 0)."""
+    contribute exactly 0). Under sharding (``group``) the count and the two
+    sums are summed over the ranks in fp64, so the graph-LN spans the whole
+    batch."""
     L = m_sum.shape[-1]
-    count = torch.clamp(edge_mask.to(m_sum.dtype).sum() * L, min=1.0)
-    mean = m_sum.sum() / count
+    count, total, total_sq = psum64(
+        torch.stack([edge_mask.to(m_sum.dtype).sum() * L, m_sum.sum(), m_sumsq.sum()]), group)
+    count = torch.clamp(count, min=1.0)
+    mean = total / count
     # One-pass variance E[z²] − mean² can cancel to ≤ 0 in fp32; the 1e-12
     # floor is far below any healthy variance and keeps sqrt finite.
-    var = torch.clamp(m_sumsq.sum() / count - mean * mean, min=1e-12)
+    var = torch.clamp(total_sq / count - mean * mean, min=1e-12)
     return mean, torch.sqrt(var)
 
 

@@ -13,8 +13,15 @@ loader, eval over the test loader, the metrics summed on the device and
 read once per epoch, the scalars logged, the best-on-test and last-epoch
 checkpoints written every epoch, early stopping unless
 ``train_all_epochs``, and ``start_epoch`` to resume. Not ported yet:
-``flatten_optimizer`` (it changes only the checkpoint's layout) and the
-data-parallel ``mesh`` mode.
+``flatten_optimizer`` (it changes only the checkpoint's layout).
+
+``group`` is the JAX ``mesh=`` mode: data parallelism over a process group
+(``parallel/dp.py``). Each rank runs the same ``Trainer`` on its own shards
+(``DPGraphLoader``); the loss and the eval metrics are the whole batch's on
+every rank, the gradients are averaged over the ranks before Adam (and
+before the finite check, so every rank skips the same steps), rank 0 alone
+writes the checkpoints, in the single-card format, and every rank may read
+them back to resume.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from p_div_gnn_tpu_torch.graphs.container import GraphBatch, NormStats
 from p_div_gnn_tpu_torch.losses import batch_loss, per_graph_divergence
 from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+from p_div_gnn_tpu_torch.parallel.collectives import Group, barrier, pmean_, psum, rank
 from p_div_gnn_tpu_torch.train.checkpoint import (
     BEST_CHECKPOINT,
     LAST_CHECKPOINT,
@@ -43,7 +51,8 @@ _INT32_MAX = 2**31 - 1
 
 @dataclass
 class Trainer:
-    """Single-device trainer of an ``EncodeProcessDecode``. The model is
+    """Trainer of an ``EncodeProcessDecode`` on one device, or on this
+    rank's shards under ``group`` (the module docstring). The model is
     moved to ``device`` (the card unless the caller asks for the CPU) and
     every batch, host-packed or already there, goes to it too.
 
@@ -66,6 +75,7 @@ class Trainer:
     device: str | torch.device = "cuda"
     skip_nonfinite_updates: bool = False
     _max_consecutive_nonfinite: int = 100
+    group: Group | None = None  # data parallelism over this process group
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)
@@ -98,21 +108,25 @@ class Trainer:
     def loss(self, batch: GraphBatch) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """(total, {"nmse", "divergence"}) of the training objective."""
         batch = batch.to(self.device)
-        pred = self.model(batch, self.stats, scale_input=True, scale_output=False)
+        pred = self.model(batch, self.stats, scale_input=True, scale_output=False,
+                          group=self.group)
         return batch_loss(
             batch, pred, self._target(batch),
             divergence_penalty=self.divergence_penalty,
             optimize_divergence=self.optimize_divergence,
+            group=self.group,
         )
 
     def loss_and_grads(
         self, batch: GraphBatch
     ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
         """The loss terms (with "total") and the gradient of every parameter
-        by name, leaving ``.grad`` set; parameters are not updated."""
+        by name (averaged over the ranks under ``group``), leaving ``.grad``
+        set; parameters are not updated."""
         self.model.zero_grad(set_to_none=True)
         total, aux = self.loss(batch)
         total.backward()
+        pmean_([p.grad for p in self.model.parameters()], self.group)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["total"] = total.detach()
         grads = {n: p.grad for n, p in self.model.named_parameters()}
@@ -157,21 +171,28 @@ class Trainer:
         """NMSE (and the divergence when ``monitor_divergence_in_test``) of
         the current parameters, as the JAX ``_eval_metrics`` reports them."""
         batch = batch.to(self.device)
-        pred = self.model(batch, self.stats, scale_input=True, scale_output=False)
-        total, aux = batch_loss(batch, pred, self._target(batch), 0.0, False)
+        pred = self.model(batch, self.stats, scale_input=True, scale_output=False,
+                          group=self.group)
+        total, aux = batch_loss(batch, pred, self._target(batch), 0.0, False, group=self.group)
         if self.monitor_divergence_in_test:
             gmask = batch.graph_mask.to(pred.dtype)
-            div_sum = (per_graph_divergence(batch, pred) * gmask).sum()
-            aux["divergence"] = div_sum / torch.clamp(gmask.sum(), min=1.0)
+            div_sum = psum((per_graph_divergence(batch, pred) * gmask).sum(), self.group)
+            n_real = psum(gmask.sum(), self.group)
+            aux["divergence"] = div_sum / torch.clamp(n_real, min=1.0)
             total = total + aux["divergence"]
         aux["total"] = total
         return aux
 
     def save(self, path: str | Path, epoch: int) -> None:
-        """The JAX package's checkpoint of the model, Adam and the stats."""
+        """The JAX package's checkpoint of the model, Adam and the stats
+        (under ``group``: written by rank 0, read by none before it is
+        complete)."""
         if self.optimizer is None:
             self.init()
-        save_checkpoint(path, self.model, self.optimizer, epoch, self.stats, self.nonfinite)
+        if rank(self.group) == 0:
+            save_checkpoint(path, self.model, self.optimizer, epoch, self.stats,
+                            self.nonfinite)
+        barrier(self.group)
 
     def _nonfinite_abort_check(self, weights_folder: Path, epoch: int) -> None:
         """Abort once the consecutive non-finite count reaches half the
@@ -206,7 +227,10 @@ class Trainer:
         if self.optimizer is None:
             self.init()
         weights_folder = Path(weights_folder)
-        weights_folder.mkdir(parents=True, exist_ok=start_epoch > 0)
+        lead = rank(self.group) == 0  # writes the folder, logs and prints
+        verbose = verbose and lead
+        if lead:
+            weights_folder.mkdir(parents=True, exist_ok=start_epoch > 0)
         best_loss = sys.float_info.max
         train_losses: list[float] = []
         test_losses: list[float] = []
@@ -251,13 +275,13 @@ class Trainer:
                 if nf_total and verbose:
                     print(f"  nonfinite updates skipped: {nf_total} total, "
                           f"{nf_run} consecutive", flush=True)
-                if writer is not None and nf_total:
+                if writer is not None and lead and nf_total:
                     writer.add_scalar("Steps skipped (nonfinite)", nf_total, epoch + 1)
                 self._nonfinite_abort_check(weights_folder, epoch)
 
             train_loss = tr_total / max(n_tr, 1)
             test_loss = te_total / max(n_te, 1)
-            if writer is not None:
+            if writer is not None and lead:
                 writer.add_scalar("Loss/MSE Train", tr_nmse / max(n_tr, 1), epoch + 1)
                 writer.add_scalar("Loss/Loss Train", train_loss, epoch + 1)
                 writer.add_scalar("Loss/MSE Test", test_loss, epoch + 1)

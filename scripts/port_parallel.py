@@ -1,0 +1,55 @@
+"""Run ``chip_smoke.py``'s ``parallel`` phase alone: data-parallel and
+edge-partitioned training of the port at full width over spawned ranks,
+each held against the single-process step, the committed checkpoint's
+partitioned forward, and the weak-scaling rows (``chip_smoke.py::
+parallel_phase``). From the repo root, on a machine with a CUDA card and
+nvcc:
+
+    python3 scripts/port_parallel.py
+
+It builds the kernels of the fused3 and fused paths first (nvcc, in
+parallel), then draws the benchmark's 16 meshes (seed 0) and packs them as
+``chip_smoke.py`` does. It imports nothing of JAX. Exits 1 on any failed
+check.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    import chip_smoke
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples, pack_workload
+    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    loaders = (fused_edge3._library, fused_edge3._bwd_library, scatter_csr._library,
+               fused_edge._library, fused_edge._bwd_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        list(pool.map(lambda load: load(), loaders))
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    samples = build_samples(chip_smoke.N_MESHES, seed=0)
+    host_train = pack_workload(samples)[0]
+    try:
+        chip_smoke.parallel_phase(samples, host_train, host_train.to("cuda"), smi)
+    except chip_smoke.SmokeFailure as exc:
+        print(f"port_parallel: FAILED: {exc}", file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

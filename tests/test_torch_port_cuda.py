@@ -7,7 +7,9 @@ kernel at widths it is not built for (zero-padded), the redesigned v2 and
 pair-blocked forwards and backwards at each width they are built for (two
 calls bit-equal, the forwards' fp32 z_upd bit-equal to the plain version)
 and the split receiver layout the v2 kernels refuse; the fused3 and v2
-kernels on a batch at GraphLoader's bucketed capacities. It imports neither
+kernels on a batch at GraphLoader's bucketed capacities; an edge-partitioned
+fused3 train step over two ranks (#1-#3 on a shard's extended layout)
+against the single-card step. It imports neither
 JAX nor the JAX package, so it runs where the card is (that machine has no
 JAX; skip the repo's conftest there):
 
@@ -996,3 +998,67 @@ def test_kernels_on_a_loader_batch_on_cuda(dtype, kernel):
     got, _ = _held(*case)
     for a, c in zip(got, case[1]()):
         assert torch.equal(a, c)
+
+
+# --- the parallel tier: an edge-partitioned step over two ranks
+
+def _partitioned_rank(rank, world, group, plan, state):
+    """One fused3 fp32 edge-partitioned train step on this rank's shard:
+    its loss terms, the gradients averaged over the ranks and the launches
+    of #1-#3. NCCL puts rank r on card r; gloo puts every rank on card 0."""
+    import torch.distributed as dist
+
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode, Halo
+    from p_div_gnn_tpu_torch.parallel.dp import shard_of
+    from p_div_gnn_tpu_torch.parallel.partition import make_partitioned_train_step
+
+    dev = torch.device("cuda", rank if dist.get_backend(group) == "nccl" else 0)
+    model = EncodeProcessDecode(128, 2, scatter_impl="fused3", remat_steps=False)
+    model.load_state_dict(state)
+    model.to(dev)
+    step = make_partitioned_train_step(model, NormStats.ones(), torch.optim.Adam(
+        model.parameters(), lr=1e-3), group, divergence_penalty=10.0, optimize_divergence=True)
+    stacked, send_idx = plan
+    counters = (fused_edge3.fused_edge_step3, fused_edge3.fused_edge_step3_backward,
+                scatter_csr.csr_segment_sum)
+    before = [c.launches for c in counters]
+    aux = step(shard_of(stacked, rank).to(dev), Halo(torch.as_tensor(send_idx[rank]).to(dev),
+                                                     group))
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "launches": [c.launches - b for c, b in zip(counters, before)],
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
+
+
+def test_partitioned_fused3_step_over_two_ranks_on_cuda():
+    """Two meshes of the benchmark split over two ranks (NCCL with two
+    cards, else gloo with both ranks on card 0, as chip_smoke.py chooses):
+    #1-#3 run on each shard's extended [local ++ ghost] layout, twice a
+    step each, and the step gives the single-card step's loss terms (rtol
+    5e-4, divergence 5e-3: tests/test_partition.py) and gradients (2e-4
+    relative, per parameter)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.datagen.workload import build_workload
+    from p_div_gnn_tpu_torch.graphs.container import NormStats
+    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
+    from p_div_gnn_tpu_torch.parallel.launch import run_ranks
+    from p_div_gnn_tpu_torch.parallel.partition import partition_batch
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    host = build_workload(n_graphs=2, seed=0)[0]
+    model = EncodeProcessDecode(128, 2, scatter_impl="fused3", remat_steps=False,
+                                generator=torch.Generator().manual_seed(0))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    want, grads = Trainer(model, NormStats.ones(), divergence_penalty=10.0).loss_and_grads(
+        host.to("cuda"))
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    ranks = run_ranks(_partitioned_rank, 2, partition_batch(host, 2), state, backend=backend)
+    for r in ranks:
+        assert r["launches"] == [2, 2, 2]
+        for k, rtol in (("total", 5e-4), ("nmse", 5e-4), ("divergence", 5e-3)):
+            assert abs(r["aux"][k] - float(want[k])) <= rtol * abs(float(want[k])), k
+        for name, g in grads.items():
+            got = r["grads"][name].to(g.device)
+            assert torch.isfinite(got).all(), name
+            assert float((got - g).norm()) <= 2e-4 * float(g.norm()) + 1e-12, name

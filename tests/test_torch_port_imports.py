@@ -5,7 +5,8 @@ none of them). Module names are matched whole, so the port's own name,
 which begins with the JAX package's, is allowed. The kernel sources
 (csrc/*.cu) and the headers they share (csrc/*.cuh) include no PyTorch
 header, and the sources export the plain C interface that
-ops/cuda_build.py loads with ctypes."""
+ops/cuda_build.py loads with ctypes. ``torch.distributed`` is imported
+lazily, inside functions, so the package imports without it."""
 
 import ast
 import re
@@ -58,10 +59,35 @@ def test_port_sources_are_found():
             "p_div_gnn_tpu_torch/utils/configio.py", "p_div_gnn_tpu_torch/graphs/dataset.py",
             "p_div_gnn_tpu_torch/train/data.py", "p_div_gnn_tpu_torch/train/logging.py",
             "p_div_gnn_tpu_torch/train/runner.py", "p_div_gnn_tpu_torch/cli.py",
-            "p_div_gnn_tpu_torch/models/summary.py"} <= names
+            "p_div_gnn_tpu_torch/models/summary.py",
+            "p_div_gnn_tpu_torch/parallel/collectives.py", "p_div_gnn_tpu_torch/parallel/dp.py",
+            "p_div_gnn_tpu_torch/parallel/partition.py",
+            "p_div_gnn_tpu_torch/parallel/multihost.py",
+            "p_div_gnn_tpu_torch/parallel/scaling.py",
+            "p_div_gnn_tpu_torch/parallel/launch.py"} <= names
     assert {p.name for p in SOURCES} >= {
         "fused_edge3_fwd.cu", "fused_edge3_bwd.cu", "segment_sum_csr.cu",
         "fused_edge_fwd.cu", "fused_edge_bwd.cu"}
+
+
+def module_level_imports(path: Path) -> set[str]:
+    """The modules a file imports when it is imported (not inside a
+    function)."""
+    names = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if p.name != "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_torch_distributed_lazily(path):
+    """``torch.distributed`` is imported inside the functions that use it,
+    so the package imports where it is unavailable."""
+    assert not [m for m in module_level_imports(path) if m.startswith("torch.distributed")]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
