@@ -86,14 +86,36 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    fused3 fp32 and one bf16 train step, and (c) one fused fp32 step (a2a),
    each held the same way; every counted run must launch exactly its
    path's kernels on each rank (10 of #1, #2 and #3 a fused3 step, 10 of
-   #1 a forward). It prints the plans (Nl, El, Ep2, D·Hp per rank, halo
-   bytes per step), per-rank step ms, peak memory, and the rows of
-   ``measure_dp_scaling`` at the rank counts the cards allow;
-7. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
+   #1 a forward). With four cards the checkpoint's partitioned forward
+   also runs at D = 4 (both halo modes, NCCL) and prints its share of the
+   serve allowance. Freed Adam entries (gradient inside fp32 noise) that
+   moved the other way may number at most 2 a step. It prints the plans
+   (Nl, El, Ep2, D·Hp per rank, halo bytes per step), per-rank step ms, peak
+   memory, and the rows of ``measure_dp_scaling`` at the rank counts the
+   cards allow;
+7. tools: the user's tools through the port's CLI functions, in a
+   temporary directory under ``build/``: ``cli.generate_main`` writes a
+   linear set (40 samples, 32 test), a Neo-Hookean set (10, 8 test), and 4
+   samples each with ``--bc neumann`` and ``--element quad`` (8 worker
+   processes); the native graph library (``graphs/native.py``, g++) must be
+   built and array-equal to the numpy paths on the generated meshes;
+   ``cli.infer_main`` serves the six committed checkpoints with their
+   committed inference configs on fused3 (fp32): #1 launches 10 times a
+   batch and nothing else does, every field within the serve allowance of
+   ``Predictor`` on xla, and ``elast_200e_div_bf16`` also through bf16
+   streams within 3e-2 of xla fp32; ``cli.compare_main`` over the elastic
+   and the hyperelastic folders gives the headline table, held against the
+   JAX package's figures on the same sets (``COMPARE_REFERENCE``, from
+   ``scripts/port_compare_reference.py``); the GNN-vs-FEM sweep (5 factors,
+   means of 5; the plain xla forward, as the JAX package's benchmark runs)
+   gives 303 and 11,436 nodes at factors 1 and 100 and positive times; the
+   committed checkpoint exported to ``.pth`` and read back serves a request
+   bit-equal to the msgpack-loaded model;
+8. a ``{"kernels": [...]}`` line with each ported kernel's numbers (the
    pair segment sum's row also has its bf16 numbers under ``bfloat16`` and
    each sender view's numbers and launches under ``views``; the launches
-   count every phase's runs, the parallel ranks' too), then the last line
-   ``{"ok": true, "device": {...}}``.
+   count every phase's runs, the parallel ranks' and the tools phase's
+   too), then the last line ``{"ok": true, "device": {...}}``.
 
 Everything it builds goes to ``build/``.
 """
@@ -1643,7 +1665,13 @@ PAR_DP_STEPS, PAR_BF16_STEPS = 5, 2
 # gradients at GRAD_RTOL, bf16 losses at BF16_LOSS_RTOL of fp32's
 DP_LOSS_RTOL, PART_LOSS_RTOL, PART_DIV_RTOL = 2e-4, 5e-4, 5e-3
 PARAM_RTOL, DP_PARAM_ATOL, PART_PARAM_ATOL = 5e-3, 2e-5, 5e-5
+# the most entries of one step whose gradient sign is inside fp32 noise and
+# whose Adam step went the other way (the most seen on the card: 2)
+FREED_MAX = 2
 SCALING_ITERS = 3
+# the committed checkpoint's partitioned forward also at this many ranks
+# where the machine has as many cards
+WIDE_RANKS = 4
 
 
 def parallel_backend() -> str:
@@ -1771,6 +1799,113 @@ def parallel_rank(rank: int, world: int, group, job: dict) -> dict:
     return out
 
 
+def served_forward(train_batch):
+    """The committed checkpoint's single-process fused3 forward of
+    ``train_batch`` (standardized, on the host)."""
+    import torch
+
+    from p_div_gnn_tpu_torch.inference import Predictor
+
+    served = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device="cuda")
+    with torch.no_grad():
+        out = served.model(train_batch, served.stats, scale_output=False).cpu().numpy()
+    del served
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_forward_phase(host_train, train_batch, want_fwd) -> tuple[list, dict]:
+    """Where the machine has WIDE_RANKS cards: the committed checkpoint's
+    partitioned forward at D = WIDE_RANKS (NCCL, both halo modes) against
+    its single-process forward ``want_fwd``, with its share of the serve
+    allowance printed. Returns the failed checks and the ranks' launches."""
+    import torch
+
+    from p_div_gnn_tpu_torch.parallel.launch import run_ranks
+    from p_div_gnn_tpu_torch.parallel.partition import partition_batch
+
+    launches = {k: 0 for k in launch_counts()}
+    if torch.cuda.device_count() < WIDE_RANKS:
+        say(f"parallel: {torch.cuda.device_count()} card(s): the D={WIDE_RANKS} partitioned "
+            "forward is not run")
+        return [], launches
+    plans = {mode: partition_batch(host_train, WIDE_RANKS, halo_mode=mode)
+             for mode in HALO_MODES}
+    try:
+        ranks = run_ranks(wide_forward_rank, WIDE_RANKS, plans, backend="nccl")
+    except Exception as exc:  # a rank's failure, with its traceback
+        raise SmokeFailure(f"parallel D={WIDE_RANKS} ranks failed: {exc}") from exc
+    failed = []
+    for mode in HALO_MODES:
+        stacked, send_idx = plans[mode]
+        err, share = forward_share(stacked, [res[mode] for res in ranks], host_train,
+                                   train_batch, want_fwd)
+        say(f"parallel D={WIDE_RANKS} {mode} checkpoint forward vs single fused3: max abs err "
+            f"{err:.3e} (standardized), {share:.2f} of the serve allowance; per rank "
+            f"Nl={stacked.pos.shape[1]} El={stacked.senders.shape[1]} "
+            f"D*Hp={WIDE_RANKS * send_idx.shape[-1]}")
+        if share > 1.0:
+            failed.append(f"D={WIDE_RANKS} {mode} forward vs single: max abs err {err:.3e}, "
+                          f"{share:.2f} of the serve allowance")
+    for res in ranks:
+        for k, v in res["launches"].items():
+            launches[k] += v
+    return failed, launches
+
+
+def wide_forward_rank(rank: int, world: int, group, plans: dict) -> dict:
+    """One rank of the committed checkpoint's partitioned forward at
+    D = ``world`` (spawned; a card per rank), in both halo modes; each
+    counted forward must launch #1 STEPS times and nothing else."""
+    import torch
+
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.models.epd import Halo
+    from p_div_gnn_tpu_torch.parallel.dp import shard_of
+    from p_div_gnn_tpu_torch.parallel.partition import make_partitioned_forward
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    served = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device=dev)
+    out = {"launches": {k: 0 for k in launch_counts()}}
+    expect = {k: STEPS * SERVE_LAUNCHES["fused3"].get(k, 0) for k in out["launches"]}
+    for mode, (stacked, send_idx) in plans.items():
+        local = shard_of(stacked, rank).to(dev)
+        halo = Halo(torch.as_tensor(send_idx[rank]).to(dev), group)
+        fwd = make_partitioned_forward(served.model, served.stats, group, scale_output=False)
+        fwd(local, halo)  # uncounted: NCCL sets up its peer connections at first use
+        reset_launch_counts()
+        pred = fwd(local, halo)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        check(got == expect, f"parallel D={world} rank {rank} {mode} forward: kernel "
+              f"launches {got}, expected {expect}")
+        for k, v in got.items():
+            out["launches"][k] += v
+        out[mode] = pred.cpu()
+    return out
+
+
+def forward_share(stacked, forwards: list, host_train, train_batch, want_fwd) -> tuple:
+    """The partitioned forward (each rank's rows of ``forwards``, laid out
+    by the plan ``stacked``) against the single-process forward
+    ``want_fwd``: (max abs err, share of the serve allowance) over the real
+    nodes, standardized."""
+    import numpy as np
+
+    Np = train_batch.num_nodes_padded
+    per = stacked.pos.shape[1] - train_batch.tile
+    got_fwd = np.zeros_like(want_fwd)
+    for r, rows in enumerate(forwards):
+        lo, hi = r * per, min((r + 1) * per, Np)
+        if hi > lo:
+            got_fwd[lo:hi] = rows.numpy()[:hi - lo]
+    real = host_train.node_gid < host_train.n_graphs
+    err = np.abs(got_fwd[real] - want_fwd[real])
+    share = float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(want_fwd[real]))).max())
+    return float(err.max()), share
+
+
 def rel_norms(got: dict, want: dict) -> dict:
     import torch
 
@@ -1789,7 +1924,10 @@ def hold_step(name: str, got: dict, want: dict, loss_rtol: float, div_rtol: floa
     Where an entry's single-process gradient is smaller than the two
     gradients' difference (both inside GRAD_RTOL), its sign is not fixed
     by the fp32 gradient: those entries are held to one Adam step either
-    way (|Δp| ≤ 2·lr + the tolerance), every other entry to rtol / atol."""
+    way (|Δp| ≤ 2·lr + the tolerance), every other entry to rtol / atol.
+    The freed entries that did move the other way, counted over all the
+    parameters, must be at most FREED_MAX: a fault in the parallel update
+    cannot hide among them."""
     rel = rel_norms(got["grads"], want["grads"])
     worst = max(rel, key=rel.get)
     outside, loose = {}, {}
@@ -1804,10 +1942,12 @@ def hold_step(name: str, got: dict, want: dict, loss_rtol: float, div_rtol: floa
         if bool((free & (dp > tol)).any()):
             loose[n] = int((free & (dp > tol)).sum())
     a, b = got["aux"]["total"], want["aux"]["total"]
+    freed = sum(loose.values())
     say(f"parallel {name}: loss {a!r} vs single {b!r} (rel {abs(a - b) / abs(b):.3e}), "
         f"gradients max rel {rel[worst]:.3e} ({worst}), parameters after Adam outside rtol "
         f"{PARAM_RTOL} / atol {param_atol}: {outside or 'none'}; entries whose gradient is "
-        f"inside the two gradients' difference and moved the other way: {loose or 'none'}")
+        f"inside the two gradients' difference and moved the other way: {freed} (at most "
+        f"{FREED_MAX}) {loose or ''}")
     failed = [f"{name}: {k} {got['aux'][k]!r} vs single {want['aux'][k]!r} outside rtol {rtol}"
               for k, rtol in (("total", loss_rtol), ("nmse", loss_rtol),
                               ("divergence", div_rtol))
@@ -1817,6 +1957,9 @@ def hold_step(name: str, got: dict, want: dict, loss_rtol: float, div_rtol: floa
     if outside:
         failed.append(f"{name}: parameters after Adam outside rtol {PARAM_RTOL} / atol "
                       f"{param_atol}: {outside}")
+    if freed > FREED_MAX:
+        failed.append(f"{name}: {freed} entries inside the gradients' fp32 noise moved the "
+                      f"other way after Adam, more than {FREED_MAX}: {loose}")
     return failed
 
 
@@ -1825,13 +1968,12 @@ def parallel_phase(samples: list, host_train, train_batch, card: str) -> dict:
     full width over PAR_RANKS spawned ranks, each held against the
     single-process step on the whole batch (``train_batch``, on the card, of
     the host batch ``host_train``); the committed checkpoint's partitioned
-    forward against its single-process forward; the weak-scaling rows at
-    the rank counts the cards allow."""
-    import numpy as np
+    forward against its single-process forward (also at D = WIDE_RANKS
+    where the machine has as many cards); the weak-scaling rows at the rank
+    counts the cards allow."""
     import torch
 
     from p_div_gnn_tpu_torch.graphs.batching import pack_batch
-    from p_div_gnn_tpu_torch.inference import Predictor
     from p_div_gnn_tpu_torch.parallel.dp import pack_sharded_batch, shard_assignment
     from p_div_gnn_tpu_torch.parallel.launch import run_ranks
     from p_div_gnn_tpu_torch.parallel.partition import partition_batch
@@ -1849,11 +1991,7 @@ def parallel_phase(samples: list, host_train, train_batch, card: str) -> dict:
     order = [i for idx in shard_assignment(samples, PAR_RANKS, gps) for i in idx]
     refs["dp"] = reference_step("fused3", pack_batch(
         [samples[i] for i in order], n_graphs=len(samples)).to("cuda"))
-    served = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device="cuda")
-    with torch.no_grad():
-        want_fwd = served.model(train_batch, served.stats, scale_output=False).cpu().numpy()
-    del served
-    torch.cuda.empty_cache()
+    want_fwd = served_forward(train_batch)
 
     t0 = time.perf_counter()
     dp = pack_sharded_batch(samples, PAR_RANKS, gps)
@@ -1903,22 +2041,13 @@ def parallel_phase(samples: list, host_train, train_batch, card: str) -> dict:
     # (b, c) edge partitioning against the single-process step and forward
     ref = refs["fused3"]
     for mode in HALO_MODES:
-        stacked = plans[mode][0]
-        Np = train_batch.num_nodes_padded
-        per = stacked.pos.shape[1] - train_batch.tile
-        got_fwd = np.zeros_like(want_fwd)
-        for r, res in enumerate(ranks):
-            lo, hi = r * per, min((r + 1) * per, Np)
-            if hi > lo:
-                got_fwd[lo:hi] = res["part"][mode]["forward"].numpy()[:hi - lo]
-        real = host_train.node_gid < host_train.n_graphs
-        err = np.abs(got_fwd[real] - want_fwd[real])
-        share = float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(want_fwd[real]))).max())
+        err, share = forward_share(plans[mode][0], [res["part"][mode]["forward"] for res in ranks],
+                                   host_train, train_batch, want_fwd)
         if share > 1.0:
-            failed.append(f"{mode} forward vs single: max abs err {err.max():.3e} "
+            failed.append(f"{mode} forward vs single: max abs err {err:.3e} "
                           f"(standardized), {share:.2f} of the serve allowance")
         say(f"parallel {mode} checkpoint forward vs single fused3: max abs err "
-            f"{float(err.max()):.3e} (standardized), {share:.2f} of the allowance; forward ms "
+            f"{err:.3e} (standardized), {share:.2f} of the allowance; forward ms "
             + " ".join(f"{res['part'][mode]['forward_ms']:.3f}" for res in ranks))
         for r, res in enumerate(ranks):
             part = res["part"][mode]
@@ -1941,6 +2070,10 @@ def parallel_phase(samples: list, host_train, train_batch, card: str) -> dict:
     say("parallel: peak memory per rank " + ", ".join(f"{res['peak_gb']:.2f} GB"
                                                       for res in ranks))
     launches = {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]}
+    wide_failed, wide_launches = wide_forward_phase(host_train, train_batch, want_fwd)
+    failed += wide_failed
+    for k, v in wide_launches.items():
+        launches[k] += v
     say(f"parallel: kernel launches over the ranks' counted runs {launches}")
     check(not failed, "parallel: " + "; ".join(failed))
 
@@ -1954,6 +2087,336 @@ def parallel_phase(samples: list, host_train, train_batch, card: str) -> dict:
     say(f"parallel phase: {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+# --- the tools phase: generate -> infer -> compare, the benchmark, .pth
+# the datasets the phase generates (``generate`` command arguments; every
+# run with --max_workers TOOLS_WORKERS)
+TOOLS_GENERATE = {
+    "elastic": dict(n_samples=40, test_size=0.8, seed=2024),
+    "hyperelastic": dict(hyperelastic=True, n_samples=10, test_size=0.8, seed=2024),
+    "neumann": dict(bc="neumann", n_samples=4, seed=2024),
+    "quad": dict(element="quad", n_samples=4, seed=2024),
+}
+TOOLS_WORKERS = 8
+# (committed checkpoint, its committed inference config, the dataset it
+# serves); each is served through ``cli.infer_main`` with fused3
+TOOLS_MODELS = (
+    ("elast_200e_div", "config_inference_div.yml", "elastic"),
+    ("elast_200e_no_div", "config_inference_no_div.yml", "elastic"),
+    ("elast_200e_no_periodic", "config_inference_no_periodic.yml", "elastic"),
+    ("elast_200e_div_bf16", "config_inference_div_bf16.yml", "elastic"),
+    ("hyperelast_200e_div", "config_inference_div_hyperelast.yml", "hyperelastic"),
+    ("hyperelast_200e_no_div", "config_inference_no_div_hyperelast.yml", "hyperelastic"),
+)
+TOOLS_COMPARE = ("elastic", "hyperelastic")
+# the headline table's figures: the means of compare's metric columns
+COMPARE_COLUMNS = {"nmse_std": "nmse_standardized", "r2": "r2",
+                   "div_model_std": "div_model_standardized",
+                   "div_fem_std": "div_fem_standardized"}
+# the JAX package's figures on the same generated sets (JAX generate -> JAX
+# infer on xla -> JAX compare, on the CPU), and each test set's size:
+# printed by scripts/port_compare_reference.py
+COMPARE_REFERENCE = {
+    "elastic": {
+        "elast_200e_div": {
+            "nmse_std": 0.012463762389277067, "r2": 0.990163707132131,
+            "div_model_std": 0.0001691903702308805, "div_fem_std": 0.00031737992478459586},
+        "elast_200e_no_div": {
+            "nmse_std": 0.009838295688137322, "r2": 0.9919592044112756,
+            "div_model_std": 0.0003247833596085077, "div_fem_std": 0.00031737992478459586},
+        "elast_200e_no_periodic": {
+            "nmse_std": 0.04771854344567478, "r2": 0.955754444092814,
+            "div_model_std": 0.00033249669968610587, "div_fem_std": 0.00031737992478459586},
+        "elast_200e_div_bf16": {
+            "nmse_std": 0.00940950751524359, "r2": 0.9923056658189997,
+            "div_model_std": 0.0001905938982250523, "div_fem_std": 0.00031737992478459586},
+        "test_set": {"meshes": 32, "nodes": 12134},
+    },
+    "hyperelastic": {
+        "hyperelast_200e_div": {
+            "nmse_std": 0.015147765926600946, "r2": 0.9870520840628214,
+            "div_model_std": 0.0004104973399014115, "div_fem_std": 0.0010000333601310276},
+        "hyperelast_200e_no_div": {
+            "nmse_std": 0.013667001182913995, "r2": 0.9872822469575668,
+            "div_model_std": 0.0010631319318951797, "div_fem_std": 0.0010000333601310276},
+        "test_set": {"meshes": 8, "nodes": 3224},
+    },
+}
+# the port's figures against them: Div(FEM) comes from the generated data
+# alone; the others from the model's fp32 fields on the card
+COMPARE_RTOL = {"nmse_std": 1e-3, "r2": 1e-3, "div_model_std": 1e-3, "div_fem_std": 1e-6}
+BENCH_STEPS, BENCH_MEAN_STEPS = 5, 5
+# the mesher's node counts at hole refinement factors 1 and 100
+# (docs/evidence/benchmark_data_elast.csv lists the same counts)
+BENCH_NODES = {1.0: 303, 100.0: 11436}
+BF16_SERVE_TOL = 3e-2  # the JAX package's bf16 tolerance, rtol = atol
+
+
+def generate_flags(kw: dict) -> list[str]:
+    """The ``generate`` command's arguments for keyword arguments of
+    ``datagen/generate.py::main``."""
+    out = []
+    for k, v in kw.items():
+        out += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return out
+
+
+def checkpoint_of(cfg: dict, name: str) -> Path:
+    """The committed checkpoint file of ``name`` that its inference config
+    names (``model_weights.ckpt`` or ``last_epoch_model_weights.ckpt``)."""
+    return ROOT / "checkpoints" / name / Path(cfg["model_weights_path"]).name
+
+
+def native_check(meshes: list) -> float:
+    """The native graph library must be built and loaded, and give the
+    numpy paths' edge index, labels and periodic pairs on ``meshes``;
+    returns its g++ seconds in this process."""
+    import numpy as np
+
+    from p_div_gnn_tpu_torch.graphs import native
+    from p_div_gnn_tpu_torch.graphs.build import faces_to_edge_index
+    from p_div_gnn_tpu_torch.graphs.labels import compute_node_labels
+    from p_div_gnn_tpu_torch.graphs.periodic import periodic_boundary_pairs
+
+    check(native.available(), f"tools: the native graph library is unavailable: "
+          f"{native.build_error}")
+    fast = [(native.faces_to_edge_index(m.faces, m.n_points),
+             native.compute_node_labels(m.faces, m.points[:, :2]),
+             native.periodic_pairs(m.points[:, :2])) for m in meshes]
+    with native.disabled():  # the numpy paths
+        slow = [(faces_to_edge_index(m.faces, m.n_points), compute_node_labels(m),
+                 periodic_boundary_pairs(m.points[:, :2])) for m in meshes]
+    for i, (f, s) in enumerate(zip(fast, slow)):
+        same = (np.array_equal(f[0], s[0]) and np.array_equal(f[1], s[1])
+                and all(np.array_equal(a, b) for a, b in zip(f[2], s[2])))
+        check(same, f"tools: native graph library differs from the numpy paths on mesh {i}")
+    return native.build_seconds
+
+
+def tools_generate(root: Path) -> None:
+    """``cli.generate_main`` for each dataset of TOOLS_GENERATE, with each
+    one's seconds and sample counts printed."""
+    from p_div_gnn_tpu_torch import cli
+    from p_div_gnn_tpu_torch.utils.configio import read_csv
+
+    for kind, kw in TOOLS_GENERATE.items():
+        t0 = time.perf_counter()
+        cli.generate_main(["--dataset_path", str(root / kind), "--max_workers",
+                           str(TOOLS_WORKERS), *generate_flags(kw)])
+        seconds = time.perf_counter() - t0
+        counts = {split: len(read_csv(root / kind / split / "dataset.csv")["n_nodes"])
+                  for split in ("train", "test")}
+        n_test = int(kw["n_samples"] * kw.get("test_size", 0.25))
+        expect = {"train": kw["n_samples"] - n_test, "test": n_test}
+        skipped = {s: expect[s] - counts[s] for s in expect}
+        # only a Neo-Hookean solve may fail (and its sample is skipped)
+        check(counts == expect or (kw.get("hyperelastic") and min(counts.values()) > 0),
+              f"tools generate {kind}: {counts} samples, expected {expect}")
+        nodes = sum(read_csv(root / kind / "test" / "dataset.csv")["n_nodes"])
+        say(f"tools generate {kind}: {sum(counts.values())} samples ({counts}, skipped "
+            f"{skipped}) in {seconds:.1f} s, {seconds / sum(counts.values()):.3f} s a sample "
+            f"with {TOOLS_WORKERS} workers; test set {nodes} nodes")
+
+
+def tools_infer(root: Path) -> dict:
+    """``cli.infer_main`` of every committed checkpoint on its dataset's test
+    set with fused3 (fp32): #1 launches 10 times a batch and nothing else
+    does; every field within the serve allowance of ``Predictor`` on xla;
+    the bf16 checkpoint also through ``Predictor`` with bf16 streams."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from p_div_gnn_tpu_torch import cli
+    from p_div_gnn_tpu_torch.graphs.dataset import MeshStressFieldDataset
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.utils.configio import read_config, read_csv
+
+    folders, launches = {}, {k: 0 for k in launch_counts()}
+    for name, config, kind in TOOLS_MODELS:
+        cfg = read_config(ROOT / "scripts" / "configs_inference" / config)
+        check(cfg["latent_size"] == LATENT and cfg["message_passing_steps"] == STEPS,
+              f"{config} is no longer the flagship width: {cfg}")
+        dataset_csv = root / kind / "test" / "dataset.csv"
+        folders[name] = root / "infer" / name
+        cfg.update(dataset_csv=str(dataset_csv), results_folder=str(folders[name]),
+                   model_weights_path=str(checkpoint_of(cfg, name)), scatter_impl="fused3")
+        path = root / f"infer_{name}.yml"
+        path.write_text("".join(f"{k}: {v}\n" for k, v in cfg.items()))
+        n = len(read_csv(dataset_csv)["n_nodes"])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.infer_main(["--config_path", str(path)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = launch_counts()
+        expect = {k: 0 for k in got}
+        expect["fused_edge3_fwd"] = STEPS * -(-n // cfg["batch_size"])
+        check(got == expect, f"tools infer {name}: kernel launches {got}, expected {expect}")
+        for k, v in got.items():
+            launches[k] += v
+
+        samples = MeshStressFieldDataset(read_csv(dataset_csv),
+                                         periodic_graph=cfg["periodic_graph"]).samples
+        ref = Predictor(cfg["model_weights_path"], LATENT, STEPS, scatter_impl="xla",
+                        device="cuda")
+        want = ref.predict(samples)
+        table = read_csv(folders[name] / "dataset.csv")
+        norm = json.loads((folders[name] / "normalize_params.json").read_text())
+        z = lambda f: (f - norm["mean_local_stress"]) / norm["std_local_stress"]  # noqa: E731
+        worst = share = 0.0
+        for field, w, s in zip(table["data_filename"], want, samples, strict=True):
+            g = np.load(field)["stress_field"]
+            check(g.shape == (s.num_nodes, 3) and bool(np.isfinite(g).all()),
+                  f"tools infer {name}: field {field} shape {g.shape} or non-finite")
+            err = np.abs(z(g) - z(w))
+            worst = max(worst, float(err.max()))
+            share = max(share, float((err / (SERVE_ATOL + SERVE_RTOL * np.abs(z(w)))).max()))
+        check(share <= 1.0, f"tools infer {name} fused3 vs Predictor xla: max abs err "
+              f"{worst:.3e} (standardized), {share:.2f} of the allowance")
+        line = (f"tools infer {name} ({config}, {n} meshes): {seconds:.2f} s, launches {got}; "
+                f"vs Predictor xla max abs err {worst:.3e} (standardized), {share:.2f} of "
+                f"the allowance")
+        if name == "elast_200e_div_bf16":
+            bf16 = Predictor(cfg["model_weights_path"], LATENT, STEPS, scatter_impl="fused3",
+                             stream_dtype="bfloat16", device="cuda").predict(samples)
+            err = max(float((np.abs(z(g) - z(w)) / (1.0 + np.abs(z(w)))).max())
+                      for g, w in zip(bf16, want))
+            check(err <= BF16_SERVE_TOL, f"tools {name}: Predictor fused3 bf16 vs xla fp32 "
+                  f"{err:.3e} > {BF16_SERVE_TOL} (rtol = atol, standardized)")
+            line += f"; Predictor fused3 bf16 vs xla fp32 {err:.3e} (rtol = atol {BF16_SERVE_TOL})"
+        say(line)
+        del ref
+        torch.cuda.empty_cache()
+    return {"folders": folders, "launches": launches}
+
+
+def tools_compare(root: Path, folders: dict, card: str) -> None:
+    """``cli.compare_main`` over each dataset's inference folders (no
+    figures), its headline table held against the JAX package's figures."""
+    import numpy as np
+
+    from p_div_gnn_tpu_torch import cli
+    from p_div_gnn_tpu_torch.utils.configio import read_csv
+
+    failed = []
+    for kind in TOOLS_COMPARE:
+        names = [n for n, _, k in TOOLS_MODELS if k == kind]
+        tables = cli.compare_main(["--dataset_csv", str(root / kind / "test" / "dataset.csv"),
+                                   "--inference_folders", *[str(folders[n]) for n in names],
+                                   "--model_names", *names])
+        test_set = COMPARE_REFERENCE[kind]["test_set"]
+        nodes = read_csv(root / kind / "test" / "dataset.csv")["n_nodes"]
+        check({"meshes": len(nodes), "nodes": sum(nodes)} == test_set,
+              f"tools compare {kind}: the generated test set has {len(nodes)} meshes of "
+              f"{sum(nodes)} nodes, the JAX package's reference set {test_set}")
+        for name in names:
+            got = {k: float(np.mean(tables[name][col])) for k, col in COMPARE_COLUMNS.items()}
+            want = COMPARE_REFERENCE[kind][name]
+            rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in got}
+            say(f"tools compare {kind} on {card}: {name}: mean NMSE (std) "
+                f"{got['nmse_std']!r}, mean R2 {got['r2']!r}, mean Div(model) (std) "
+                f"{got['div_model_std']!r}, mean Div(FEM) (std) {got['div_fem_std']!r}; "
+                "rel. from the JAX package's " + " ".join(f"{k}={v:.2e}"
+                                                          for k, v in rel.items()))
+            failed += [f"{kind} {name} {k}: {got[k]!r} vs JAX {want[k]!r}"
+                       for k in got if rel[k] > COMPARE_RTOL[k]]
+    check(not failed, "tools compare outside the tolerance " + str(COMPARE_RTOL) + ": "
+          + "; ".join(failed))
+
+
+def tools_benchmark(card: str) -> None:
+    """The GNN-vs-FEM sweep (linear) on the card: the mesher's node counts at
+    factors 1 and 100, every time finite and positive."""
+    from p_div_gnn_tpu_torch.analysis.benchmark import sweep
+
+    t0 = time.perf_counter()
+    rows = sweep(hyperelastic=False, steps=BENCH_STEPS, n_mean_steps=BENCH_MEAN_STEPS,
+                 device="cuda", verbose=False)
+    nodes = {r["hole_refinement_factor"]: r["n_nodes"] for r in rows}
+    check(all(nodes.get(f) == n for f, n in BENCH_NODES.items()),
+          f"tools benchmark: n_nodes by factor {nodes}, expected {BENCH_NODES} at the ends")
+    for r in rows:
+        check(all(math.isfinite(r[k]) and r[k] > 0 for k in ("gnn_gpu", "gnn_gpu_prepro", "fem")),
+              f"tools benchmark: row {r}")
+        say(f"tools benchmark on {card}: factor {r['hole_refinement_factor']!r} n_nodes "
+            f"{r['n_nodes']} gnn_gpu {r['gnn_gpu'] * 1e3:.3f} ms gnn_gpu_prepro "
+            f"{r['gnn_gpu_prepro'] * 1e3:.3f} ms fem {r['fem'] * 1e3:.3f} ms (xla forward, "
+            f"means of {BENCH_MEAN_STEPS})")
+    say(f"tools benchmark: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+
+
+def tools_pth(root: Path, request: list) -> dict:
+    """The committed checkpoint exported to ``.pth`` by the port, read back,
+    and one request served with fused3: bit-equal to the msgpack-loaded
+    model's answer."""
+    import numpy as np
+
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.models.torch_import import (
+        load_torch_checkpoint,
+        save_torch_checkpoint,
+    )
+
+    served = Predictor(CHECKPOINT, LATENT, STEPS, scatter_impl="fused3", device="cuda")
+    want = served.predict(request)
+    state_dict = {k: v.detach().cpu() for k, v in served.model.state_dict().items()}
+    save_torch_checkpoint(root / "model_weights.pth", state_dict, served.stats, served.epoch)
+    params, stats, epoch = load_torch_checkpoint(root / "model_weights.pth")
+    check(epoch == served.epoch and stats == served.stats,
+          f"tools .pth: epoch {epoch} stats {stats} read back, wrote {served.epoch} "
+          f"{served.stats}")
+    served.model.load_state_dict(params)
+    served.stats = stats
+    reset_launch_counts()
+    got = served.predict(request)
+    launches = launch_counts()
+    same = all(np.array_equal(a, b) for a, b in zip(got, want, strict=True))
+    check(same, "tools .pth: the request served from the .pth differs from the "
+          "msgpack-loaded model's answer")
+    say(f"tools .pth: {CHECKPOINT.parent.name} exported and read back "
+        f"({(root / 'model_weights.pth').stat().st_size} bytes); a request of "
+        f"{len(request)} meshes served with fused3 is bit-equal to the msgpack-loaded model's")
+    return launches
+
+
+def tools_phase(card: str, request: list) -> dict:
+    """The user's tools on the card, through the port's CLI functions, in a
+    temporary directory under build/: the native graph library, generate
+    (four datasets), infer (six checkpoints, fused3), compare (against the
+    JAX package's figures), the GNN-vs-FEM benchmark and the .pth round
+    trip."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from p_div_gnn_tpu_torch.graphs.meshio import read_vtk
+    from p_div_gnn_tpu_torch.utils.configio import read_csv
+
+    t_start = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="tools_phase_", dir=ROOT / "build"))
+    try:
+        tools_generate(root)
+        meshes = [read_vtk(p) for kind in ("elastic", "quad")
+                  for p in read_csv(root / kind / "test" / "dataset.csv")["mesh_filename"][:4]]
+        gxx = native_check(meshes)
+        say(f"tools native: graph library built by g++ in {gxx:.2f} s (0 when built "
+            f"earlier); edges, labels and periodic pairs array-equal to the numpy paths on "
+            f"{len(meshes)} meshes")
+        inferred = tools_infer(root)
+        tools_compare(root, inferred["folders"], card)
+        tools_benchmark(card)
+        pth = tools_pth(root, request)
+        launches = {k: inferred["launches"][k] + pth[k] for k in pth}
+        torch.cuda.empty_cache()
+        say(f"tools phase: {time.perf_counter() - t_start:.1f} s; kernel launches {launches}")
+        return {"launches": launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def halo_bytes(ghost_rows: int, itemsize: int) -> int:
@@ -2049,6 +2512,7 @@ def main() -> int:
     cli = cli_phase(smi)
     say(f"cli phase: {time.perf_counter() - t0:.1f} s")
     parallel = parallel_phase(samples, host_train, train_batch, smi)
+    tools = tools_phase(smi, requests[0])
 
     def row(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2056,11 +2520,12 @@ def main() -> int:
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
-    # launches: the serve paths', the train paths', the cli runs' and the
-    # parallel ranks', each counted from 0 (serving launches only the forwards)
+    # launches: the serve paths', the train paths', the cli runs', the
+    # parallel ranks' and the tools phase's, each counted from 0 (serving
+    # launches only the forwards)
     launches = dict(train["launches"])
     for counts in [impl["launches"] for impl in serve["impls"].values()] + [
-            cli["launches"], parallel["launches"]]:
+            cli["launches"], parallel["launches"], tools["launches"]]:
         for k, v in counts.items():
             launches[k] += v
     # #4 runs on two sender views: its row gives the receiver-major one's

@@ -1,7 +1,8 @@
-"""Plate-with-hole triangle mesher (pure numpy + scipy.spatial).
+"""Plate-with-hole meshers (pure numpy + scipy.spatial).
 
-Copy of ``hole_plate_mesh`` from ``p_div_gnn_tpu/datagen/mesher.py``, so the
-flagship serving requests can be built with no dataset. A standalone
+Copy of ``p_div_gnn_tpu/datagen/mesher.py``: ``hole_plate_mesh`` (P1
+triangles), ``hole_plate_mesh_quad`` (Q4 quads) and the periodicity check
+``is_periodic_mesh``. The triangle mesher is a standalone
 replacement for the reference's gmsh meshing
 (reference `scripts/generate_dataset.py:118-192`): a square RVE with a
 circular hole, graded refinement near the hole
@@ -180,3 +181,112 @@ def hole_plate_mesh(
 
     pts3 = np.concatenate([points, np.zeros((len(points), 1))], axis=1)
     return SurfaceMesh(points=pts3, faces=tris.astype(np.int64))
+
+
+def hole_plate_mesh_quad(
+    width: float,
+    height: float,
+    radius: float,
+    hole_center: tuple[float, float],
+    hole_refinement_factor: float = 10.0,
+    global_mesh_refinement_size: float = 10.0,
+    seed: int = 0,  # unused (deterministic construction); kept for
+    # signature parity with hole_plate_mesh
+) -> SurfaceMesh:
+    """Quad-element plate-with-hole mesh (reference capability:
+    ``hole_plate_mesh_quad``, `generate_dataset_hyperelast.py:106-161`,
+    which recombines a gmsh mesh into quads and asserts periodicity).
+
+    TPU-build construction: a structured O-grid — radial spokes from the
+    hole circle to the square perimeter with geometrically graded ring
+    layers (first layer ≈ ``h_hole = global/hole_refinement_factor``,
+    growing toward ``global``). Opposite sides carry identical uniform
+    subdivisions, so the mesh is periodic by construction; every cell is a
+    quad. The spoke count honors the hole refinement
+    (arc spacing ≤ h_hole at the circle).
+    """
+    h_far = float(global_mesh_refinement_size)
+    h_hole = h_far / float(hole_refinement_factor)
+    cx, cy = hole_center
+    center = np.array([cx, cy])
+
+    # --- perimeter: CCW walk with uniform per-side subdivisions (equal on
+    # opposite sides → periodic). Spoke count satisfies both the hole arc
+    # spacing (h_hole) and the far-field spacing (h_far).
+    per_len = 2.0 * (width + height)
+    n_target = max(
+        int(np.ceil(2 * np.pi * radius / h_hole)),
+        int(np.ceil(per_len / h_far)),
+        8,
+    )
+    nx = max(2, int(round(n_target * width / per_len)))
+    ny = max(2, int(round(n_target * height / per_len)))
+    xs = np.linspace(0.0, width, nx + 1)
+    ys = np.linspace(0.0, height, ny + 1)
+    bottom = np.stack([xs[:-1], np.zeros(nx)], 1)
+    right = np.stack([np.full(ny, width), ys[:-1]], 1)
+    top = np.stack([xs[::-1][:-1], np.full(nx, height)], 1)
+    left = np.stack([np.zeros(ny), ys[::-1][:-1]], 1)
+    perim = np.concatenate([bottom, right, top, left])  # (P, 2), CCW
+    P = len(perim)
+
+    # --- matching circle ring: same angular order as the perimeter walk
+    # (square star-shaped w.r.t. any interior center → spokes never cross)
+    theta = np.arctan2(perim[:, 1] - cy, perim[:, 0] - cx)
+    ring0 = center + radius * np.stack([np.cos(theta), np.sin(theta)], 1)
+
+    # --- graded ring layers: shared normalized stations t_k with first
+    # radial step ≈ h_hole at the typical spoke length, growth 1.35 capped
+    # so the outermost step stays ≈ h_far
+    d_typ = float(np.median(np.linalg.norm(perim - ring0, axis=1)))
+    steps = []
+    h = h_hole
+    while sum(steps) + h < d_typ:
+        steps.append(h)
+        h = min(h * 1.35, h_far)
+    steps.append(d_typ - sum(steps))
+    t = np.concatenate([[0.0], np.cumsum(steps)]) / d_typ  # (K+1,)
+    K = len(t) - 1
+
+    # nodes: layer-major (layer k, spoke i) → index k*P + i; the outermost
+    # layer IS the perimeter (exact coordinates, so periodicity is exact)
+    layers = (
+        ring0[None, :, :] * (1.0 - t[:, None, None])
+        + perim[None, :, :] * t[:, None, None]
+    )
+    layers[-1] = perim
+    points = layers.reshape(-1, 2)
+
+    i = np.arange(P)
+    i_next = (i + 1) % P
+    quads = []
+    for k in range(K):
+        a = k * P + i
+        b = k * P + i_next
+        c = (k + 1) * P + i_next
+        d = (k + 1) * P + i
+        # CCW winding: outward first (a→d), then along the outer ring
+        # (d→c), back inward (c→b) — interior stays to the left
+        quads.append(np.stack([a, d, c, b], 1))
+    faces = np.concatenate(quads)
+
+    pts3 = np.concatenate([points, np.zeros((len(points), 1))], axis=1)
+    return SurfaceMesh(points=pts3, faces=faces.astype(np.int64))
+
+
+def is_periodic_mesh(points2d: np.ndarray, tol: float = 1e-9) -> bool:
+    """Left/right and lower/upper boundary node coordinate sets match
+    (the `microgen.is_periodic` property asserted at
+    `generate_dataset.py:191`)."""
+    min_x, min_y = points2d.min(0)
+    max_x, max_y = points2d.max(0)
+    left_y = np.sort(points2d[points2d[:, 0] == min_x][:, 1])
+    right_y = np.sort(points2d[points2d[:, 0] == max_x][:, 1])
+    bot_x = np.sort(points2d[points2d[:, 1] == min_y][:, 0])
+    top_x = np.sort(points2d[points2d[:, 1] == max_y][:, 0])
+    return (
+        len(left_y) == len(right_y)
+        and len(bot_x) == len(top_x)
+        and np.allclose(left_y, right_y, atol=tol)
+        and np.allclose(bot_x, top_x, atol=tol)
+    )

@@ -1,9 +1,9 @@
 """Host-side mesh→graph construction (numpy).
 
-Copy of the numpy path of ``p_div_gnn_tpu/graphs/build.py`` (the reference's
-`convert_utils.py:47-81` and `datasets.py:182-188`). The JAX package's
-native C++ fast path is left out: the numpy path builds the 16 flagship
-meshes of a serving request in seconds.
+Copy of ``p_div_gnn_tpu/graphs/build.py`` (the reference's
+`convert_utils.py:47-81` and `datasets.py:182-188`): the edge index comes
+from the native C++ library (``graphs/native.py``) when it is available,
+else from the numpy path, which stays the behavioral reference.
 """
 
 from __future__ import annotations
@@ -78,6 +78,11 @@ def faces_to_edge_index(faces: np.ndarray, num_nodes: int) -> np.ndarray:
         pair_slots = [(0, 1), (1, 2), (2, 3), (3, 0)]
     else:
         raise ValueError(f"unsupported cell arity {k}")
+    from p_div_gnn_tpu_torch.graphs import native
+
+    fast = native.faces_to_edge_index(faces, num_nodes)
+    if fast is not None:
+        return fast
     src = np.concatenate([faces[:, a] for a, _ in pair_slots])
     dst = np.concatenate([faces[:, b] for _, b in pair_slots])
     senders = np.concatenate([src, dst])

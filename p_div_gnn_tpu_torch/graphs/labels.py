@@ -1,6 +1,7 @@
-"""Node labeling: INTERNAL / EXTERNAL_BOUNDARY / INTERNAL_BOUNDARY (numpy).
+"""Node labeling: INTERNAL / EXTERNAL_BOUNDARY / INTERNAL_BOUNDARY.
 
-Copy of the numpy path of ``p_div_gnn_tpu/graphs/labels.py``, the twin of
+Copy of ``p_div_gnn_tpu/graphs/labels.py`` (the native C++ library of
+``graphs/native.py`` when it is available, else numpy), the twin of
 the reference's `compute_node_labels` (`datasets.py:122-179`): boundary edges
 are mesh edges incident to exactly one cell; connected components of the
 boundary-edge graph give the regions; the region touching the bounding box
@@ -61,6 +62,11 @@ def _connected_components(edges: np.ndarray, num_nodes: int) -> np.ndarray:
 def compute_node_labels(mesh: SurfaceMesh) -> np.ndarray:
     """Label each node per NodeType; requires exactly 2 boundary regions
     (plate outline + hole), as the reference does (`datasets.py:153-156`)."""
+    from p_div_gnn_tpu_torch.graphs import native
+
+    fast = native.compute_node_labels(mesh.faces, mesh.points[:, :2])
+    if fast is not None:
+        return fast
     comp = _connected_components(boundary_edges(mesh.faces), mesh.n_points)
     region_ids = [r for r in np.unique(comp) if r >= 0]
     if len(region_ids) != 2:

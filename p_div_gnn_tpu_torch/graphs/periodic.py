@@ -1,6 +1,7 @@
-"""Periodic boundary edge construction (numpy).
+"""Periodic boundary edge construction.
 
-Copy of the numpy path of ``p_div_gnn_tpu/graphs/periodic.py``, the twin of
+Copy of ``p_div_gnn_tpu/graphs/periodic.py`` (the native C++ library of
+``graphs/native.py`` when it is available, else numpy), the twin of
 the reference's `compute_periodic_graph` (`datasets.py:39-119`): matches
 left↔right and lower↔upper boundary nodes of a rectangular RVE, adds crossed
 corner links, gives all new edges weight 0, and coalesces.
@@ -20,6 +21,11 @@ def periodic_boundary_pairs(points_2d: np.ndarray) -> tuple[np.ndarray, np.ndarr
     the reference (`datasets.py:44-47`); side node lists are ordered by
     lexsort with y as the primary key and x secondary (`datasets.py:49-63`).
     """
+    from p_div_gnn_tpu_torch.graphs import native
+
+    fast = native.periodic_pairs(points_2d)
+    if fast is not None:
+        return fast
     min_x, min_y = points_2d.min(axis=0)
     max_x, max_y = points_2d.max(axis=0)
     idx = np.arange(len(points_2d))

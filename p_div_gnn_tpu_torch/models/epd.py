@@ -67,8 +67,10 @@ single-shard and raises under a halo. With remat the backward re-runs each
 step's exchange and all-reduces; every rank runs the same steps in the same
 order, so the collectives stay matched.
 
-The JAX package runs fp32 at HIGHEST precision, so importing this module
-turns TF32 off for matmuls and convolutions.
+The JAX package runs fp32 at HIGHEST precision unless
+``PDG_MATMUL_PRECISION`` names another; importing this module applies that
+policy to torch's fp32 products (``utils/precision.py``): by default TF32 is
+off for matmuls and convolutions.
 """
 
 from __future__ import annotations
@@ -103,9 +105,9 @@ from p_div_gnn_tpu_torch.parallel.collectives import (
     start_all_gather,
     start_all_to_all,
 )
+from p_div_gnn_tpu_torch.utils.precision import matmul_precision
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+matmul_precision()
 
 SCATTER_IMPLS = ("xla", "pallas", "hybrid", "fused", "fused2", "fused3")
 FUSED_IMPLS = ("fused", "fused2", "fused3")

@@ -13,14 +13,17 @@ The optimizer state is optax's ``adam`` state, ``{"0": {"count", "mu":
 holds as each parameter's ``step``, ``exp_avg`` and ``exp_avg_sq``; with
 ``skip_nonfinite_updates`` it is wrapped as optax's ``ApplyIfFiniteState``
 (``notfinite_count``, ``last_finite``, ``total_notfinite``,
-``inner_state``).
+``inner_state``). With ``flatten_optimizer`` it is ``optax.flatten(adam)``'s
+state: ``mu`` and ``nu`` are each ONE fp32 vector, the parameters' moments
+raveled and concatenated in the params tree's leaf order (keys sorted at
+every level).
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -202,8 +205,22 @@ def write_msgpack(tree: Any) -> bytes:
     return _write(tree)
 
 
-def _moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict[str, Any]:
-    """optax's adam state from torch Adam's per-parameter state."""
+def flat_order(names: Iterable[str]) -> list[str]:
+    """Parameter names in the params tree's leaf order (``jax.tree.flatten``
+    of nested dicts: keys sorted at every level), the order of
+    ``optax.flatten``'s vector."""
+    return sorted(names, key=lambda n: n.split("."))
+
+
+def _flatten_moment(tensors: dict[str, torch.Tensor]) -> np.ndarray:
+    return np.concatenate([tensors[n].detach().cpu().float().numpy().ravel()
+                           for n in flat_order(tensors)])
+
+
+def _moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+             flat: bool = False) -> dict[str, Any]:
+    """optax's adam state (``optax.flatten(adam)``'s with ``flat``) from
+    torch Adam's per-parameter state."""
     named = dict(model.named_parameters())
     mu, nu, count = {}, {}, 0
     for name, p in named.items():
@@ -213,18 +230,20 @@ def _moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> dict[s
             count = int(state["step"])
         else:
             mu[name] = nu[name] = torch.zeros_like(p)
-    return {"0": {"count": np.asarray(count, np.int32), "mu": params_to_jax(mu),
-                  "nu": params_to_jax(nu)}, "1": {}}
+    pack = _flatten_moment if flat else params_to_jax
+    return {"0": {"count": np.asarray(count, np.int32), "mu": pack(mu), "nu": pack(nu)},
+            "1": {}}
 
 
 def _optimizer_state(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
     nonfinite: dict[str, torch.Tensor] | None = None,
+    flat: bool = False,
 ) -> dict[str, Any]:
     """The optimizer state in optax's layout, wrapped as ApplyIfFiniteState
     when ``nonfinite`` holds its counters."""
-    inner = _moments(model, optimizer)
+    inner = _moments(model, optimizer, flat)
     if nonfinite is None:
         return inner
     out = {k: np.asarray(nonfinite[k].cpu().numpy()) for k in NONFINITE_FIELDS}
@@ -239,14 +258,16 @@ def save_checkpoint(
     epoch: int,
     stats: NormStats,
     nonfinite: dict[str, torch.Tensor] | None = None,
+    flat: bool = False,
 ) -> None:
     """Write the JAX package's checkpoint of ``model`` and ``optimizer``
     (``save_checkpoint`` of ``p_div_gnn_tpu/train/checkpoint.py:25-45``),
     through a ``.tmp`` file replaced atomically: a run killed while saving
-    keeps its previous checkpoint."""
+    keeps its previous checkpoint. ``flat``: the optimizer state in
+    ``optax.flatten(adam)``'s layout (``Trainer(flatten_optimizer=True)``)."""
     payload = {
         "model_state_dict": params_to_jax(model.state_dict()),
-        "optimizer_state_dict": _optimizer_state(model, optimizer, nonfinite),
+        "optimizer_state_dict": _optimizer_state(model, optimizer, nonfinite, flat),
         "epoch": int(epoch),
         "stats": stats.to_dict(),
     }
@@ -260,21 +281,43 @@ def _is_wrapped(sd: Any) -> bool:
     return isinstance(sd, dict) and {*NONFINITE_FIELDS, "inner_state"} <= set(sd)
 
 
-def _restore_adam(saved: Any, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> None:
-    """Set torch Adam's state from optax's adam state; ``ValueError`` when
-    the saved state does not have the model's layout."""
+def _unflatten_moment(vector: np.ndarray, named: dict[str, torch.Tensor],
+                      key: str) -> dict[str, torch.Tensor]:
+    sizes = {n: p.numel() for n, p in named.items()}
+    if vector.shape != (sum(sizes.values()),):
+        raise ValueError(f"checkpoint optimizer {key} does not match the model's parameters: "
+                         f"a vector of {vector.shape}, the model has {sum(sizes.values())} "
+                         "entries")
+    out, at = {}, 0
+    for n in flat_order(named):
+        out[n] = torch.from_numpy(np.array(vector[at:at + sizes[n]], np.float32)).reshape(
+            named[n].shape)
+        at += sizes[n]
+    return out
+
+
+def _restore_adam(saved: Any, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                  flat: bool = False) -> None:
+    """Set torch Adam's state from optax's adam state (``optax.flatten``'s
+    with ``flat``); ``ValueError`` when the saved state does not have the
+    model's layout."""
+    moment_type = np.ndarray if flat else dict
+    layout = "optax.flatten(adam)'s" if flat else "optax adam's"
     if not (isinstance(saved, dict) and set(saved) == {"0", "1"} and saved["1"] == {}
             and isinstance(saved["0"], dict) and set(saved["0"]) == {"count", "mu", "nu"}
-            and all(isinstance(saved["0"][k], dict) for k in ("mu", "nu"))):
-        raise ValueError("checkpoint optimizer state is not optax adam's layout "
+            and all(isinstance(saved["0"][k], moment_type) for k in ("mu", "nu"))):
+        raise ValueError(f"checkpoint optimizer state is not {layout} layout "
                          f"({{'0': {{count, mu, nu}}, '1': {{}}}}): keys {sorted(saved)}")
     named = dict(model.named_parameters())
     moments = {}
     for key in ("mu", "nu"):
-        flat = params_from_jax(saved["0"][key])
-        if set(flat) != set(named) or any(flat[n].shape != named[n].shape for n in named):
+        if flat:
+            moments[key] = _unflatten_moment(saved["0"][key], named, key)
+            continue
+        tree = params_from_jax(saved["0"][key])
+        if set(tree) != set(named) or any(tree[n].shape != named[n].shape for n in named):
             raise ValueError(f"checkpoint optimizer {key} does not match the model's parameters")
-        moments[key] = flat
+        moments[key] = tree
     count = int(np.asarray(saved["0"]["count"]))
     for name, p in named.items():
         set_adam_state(optimizer, p, count, moments["mu"][name], moments["nu"][name])
@@ -305,6 +348,7 @@ def load_checkpoint(
     model: torch.nn.Module | None = None,
     optimizer: torch.optim.Optimizer | None = None,
     nonfinite: dict[str, torch.Tensor] | None = None,
+    flat: bool = False,
 ) -> tuple[dict[str, torch.Tensor], int, NormStats]:
     """Returns (state_dict for EncodeProcessDecode, epoch, stats).
 
@@ -314,7 +358,9 @@ def load_checkpoint(
     checkpoint written with the other ``skip_nonfinite_updates`` setting
     (the wrapper present on one side only) restores nothing of the
     optimizer, with a warning: the run resumes with fresh Adam moments. Any
-    other mismatch raises ``ValueError``."""
+    other mismatch raises ``ValueError``: an optimizer state in
+    ``optax.flatten(adam)``'s layout restores only with ``flat`` (a trainer
+    with ``flatten_optimizer``), and the per-parameter layout only without."""
     payload = read_msgpack(Path(path).read_bytes())
     state_dict = params_from_jax(payload["model_state_dict"])
     if optimizer is not None:
@@ -330,7 +376,7 @@ def load_checkpoint(
             )
         else:
             _restore_adam(saved["inner_state"] if nonfinite is not None else saved,
-                          model, optimizer)
+                          model, optimizer, flat)
             if nonfinite is not None:
                 for k in NONFINITE_FIELDS:
                     nonfinite[k].copy_(torch.as_tensor(np.asarray(saved[k])))

@@ -12,8 +12,7 @@ with the reference's torch defaults, which ``optax.adam`` matches: betas
 loader, eval over the test loader, the metrics summed on the device and
 read once per epoch, the scalars logged, the best-on-test and last-epoch
 checkpoints written every epoch, early stopping unless
-``train_all_epochs``, and ``start_epoch`` to resume. Not ported yet:
-``flatten_optimizer`` (it changes only the checkpoint's layout).
+``train_all_epochs``, and ``start_epoch`` to resume.
 
 ``group`` is the JAX ``mesh=`` mode: data parallelism over a process group
 (``parallel/dp.py``). Each rank runs the same ``Trainer`` on its own shards
@@ -64,7 +63,14 @@ class Trainer:
     step never waits for the host. After ``_max_consecutive_nonfinite``
     such steps in a row the update would be applied, as optax gives up;
     ``fit`` aborts the run at half of that, after saving the last
-    checkpoint (whose parameters are then still finite)."""
+    checkpoint (whose parameters are then still finite).
+
+    ``flatten_optimizer`` is the JAX trainer's ``optax.flatten(adam)``: Adam
+    over one concatenated parameter vector, whose updates are those of the
+    per-parameter Adam entry for entry. Here the update is torch's Adam as
+    without it; what changes is the checkpoint's optimizer layout (one
+    ``mu`` and one ``nu`` vector, ``train/checkpoint.py``), which reads and
+    writes the JAX trainer's flattened checkpoints."""
 
     model: EncodeProcessDecode
     stats: NormStats
@@ -76,6 +82,7 @@ class Trainer:
     skip_nonfinite_updates: bool = False
     _max_consecutive_nonfinite: int = 100
     group: Group | None = None  # data parallelism over this process group
+    flatten_optimizer: bool = False  # optax.flatten(adam)'s checkpoint layout
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)
@@ -191,7 +198,7 @@ class Trainer:
             self.init()
         if rank(self.group) == 0:
             save_checkpoint(path, self.model, self.optimizer, epoch, self.stats,
-                            self.nonfinite)
+                            self.nonfinite, flat=self.flatten_optimizer)
         barrier(self.group)
 
     def _nonfinite_abort_check(self, weights_folder: Path, epoch: int) -> None:

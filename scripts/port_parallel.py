@@ -5,9 +5,11 @@ partitioned forward, and the weak-scaling rows (``chip_smoke.py::
 parallel_phase``). From the repo root, on a machine with a CUDA card and
 nvcc:
 
-    python3 scripts/port_parallel.py
+    python3 scripts/port_parallel.py [--wide-only]
 
-It builds the kernels of the fused3 and fused paths first (nvcc, in
+With ``--wide-only`` it runs only the committed checkpoint's partitioned
+forward at D = 4 (``chip_smoke.py::wide_forward_phase``, which needs four
+cards) against the single-process forward. It builds the kernels of the fused3 and fused paths first (nvcc, in
 parallel), then draws the benchmark's 16 meshes (seed 0) and packs them as
 ``chip_smoke.py`` does. It imports nothing of JAX. Exits 1 on any failed
 check.
@@ -44,6 +46,13 @@ def main() -> int:
     samples = build_samples(chip_smoke.N_MESHES, seed=0)
     host_train = pack_workload(samples)[0]
     try:
+        if "--wide-only" in sys.argv[1:]:
+            train_batch = host_train.to("cuda")
+            failed, launches = chip_smoke.wide_forward_phase(
+                host_train, train_batch, chip_smoke.served_forward(train_batch))
+            print(f"parallel D={chip_smoke.WIDE_RANKS}: launches {launches}", flush=True)
+            chip_smoke.check(not failed, "; ".join(failed))
+            return 0
         chip_smoke.parallel_phase(samples, host_train, host_train.to("cuda"), smi)
     except chip_smoke.SmokeFailure as exc:
         print(f"port_parallel: FAILED: {exc}", file=sys.stderr, flush=True)

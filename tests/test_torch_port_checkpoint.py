@@ -22,6 +22,7 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
+from jax.flatten_util import ravel_pytree
 
 from p_div_gnn_tpu.graphs import MeshStressFieldDataset as JaxDataset
 from p_div_gnn_tpu.models import EncodeProcessDecode as JaxEPD
@@ -259,3 +260,123 @@ def test_committed_checkpoint_resumes_in_port(toy):
     moved = [n for n, p in model.named_parameters() if not torch.equal(p, before[n])]
     assert moved and all(bool(torch.isfinite(p).all()) for p in model.parameters())
     assert params_from_jax(raw["model_state_dict"]).keys() == before.keys()
+
+
+def _raveled_moments(trainer):
+    """The port trainer's Adam moments raveled by JAX
+    (``jax.flatten_util.ravel_pytree``, as ``optax.flatten`` does) from the
+    params tree: the vectors of optax.flatten's layout, in JAX's own leaf
+    order rather than the port's ``flat_order``."""
+    named = dict(trainer.model.named_parameters())
+    st = trainer.optimizer.state
+    return tuple(np.asarray(ravel_pytree(params_to_jax({n: st[p][k] for n, p in named.items()}))[0])
+                 for k in ("exp_avg", "exp_avg_sq"))
+
+
+def _unraveled(params, adam):
+    """JAX's flat mu and nu vectors unraveled onto ``params``'s tree, as
+    ``{leaf path: array}``."""
+    unravel = ravel_pytree(params)[1]
+    return _leaves(unravel(adam.mu)), _leaves(unravel(adam.nu))
+
+
+def _assert_resumed_step_matches(trainer, port_batch, jt, params, opt_state, jax_batch):
+    """One more step from the same checkpoint in both packages: the loss at
+    rtol 1e-5 and the parameters at rtol 1e-5 / atol 1e-4, the tolerances of
+    ``test_torch_port_train.py::test_three_adam_steps_match_jax``."""
+    got = trainer.train_step(port_batch)
+    params, opt_state, want = jt._train_step(params, opt_state, jax_batch)
+    np.testing.assert_allclose(float(got["total"]), float(want["total"]), rtol=1e-5)
+    got_p, want_p = _leaves(params_to_jax(trainer.model.state_dict())), _leaves(params)
+    assert got_p.keys() == want_p.keys()
+    for k in want_p:
+        np.testing.assert_allclose(got_p[k], want_p[k], rtol=1e-5, atol=1e-4, err_msg=k)
+
+
+def test_flatten_optimizer_identical_updates(toy, tmp_path):
+    """Trainer(flatten_optimizer=True) updates as the per-parameter trainer
+    does (tests/test_train_e2e.py::test_flatten_optimizer_identical_updates
+    for the JAX trainer); its checkpoint holds optax.flatten(adam)'s layout,
+    one mu and one nu vector in the params tree's leaf order (JAX's
+    ``ravel_pytree`` of the per-parameter moments)."""
+    port_batches, _, port_stats, _, _ = toy
+    plain, flat = _port_trainer(port_stats), _port_trainer(port_stats)
+    flat.flatten_optimizer = True
+    for b in port_batches * 2:
+        a, f = plain.train_step(b), flat.train_step(b)
+        assert float(a["total"]) == float(f["total"])
+    for (n, p), q in zip(plain.model.named_parameters(), flat.model.parameters()):
+        assert torch.equal(p, q), n
+    flat.save(tmp_path / "flat.ckpt", epoch=2)
+    saved = read_msgpack((tmp_path / "flat.ckpt").read_bytes())["optimizer_state_dict"]["0"]
+    mu, nu = _raveled_moments(plain)
+    assert saved["mu"].shape == (sum(p.numel() for p in plain.model.parameters()),)
+    np.testing.assert_array_equal(saved["mu"], mu)
+    np.testing.assert_array_equal(saved["nu"], nu)
+    assert int(saved["count"]) == 2 * len(port_batches)
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["adam", "apply_if_finite"])
+def test_jax_flattened_checkpoint_resumes_in_port(toy, jax_params, tmp_path, skip):
+    """Each parameter's moments, by name, are JAX's flat vectors unraveled
+    onto JAX's params tree; the next step matches JAX's next step."""
+    port_batches, jax_batches, port_stats, jax_stats, _ = toy
+    jt = _jax_trainer(jax_stats, skip, flatten_optimizer=True)
+    params, opt_state = _jax_state(jt, jax_params)
+    for b in jax_batches:
+        params, opt_state, _ = jt._train_step(params, opt_state, b)
+    jax_save(tmp_path / "jax.ckpt", params, opt_state, 4, jax_stats)
+
+    trainer = _port_trainer(port_stats, skip)
+    trainer.flatten_optimizer = True
+    state_dict, epoch, _ = load_checkpoint(tmp_path / "jax.ckpt", trainer.model,
+                                           trainer.optimizer, trainer.nonfinite, flat=True)
+    trainer.model.load_state_dict(state_dict)
+    assert epoch == 4
+    adam = (opt_state.inner_state if skip else opt_state)[0]
+    count, p_mu, p_nu, _ = _port_adam(trainer)
+    mu, nu = _unraveled(params, adam)
+    _assert_same(p_mu, mu)
+    _assert_same(p_nu, nu)
+    assert count == int(adam.count) == len(jax_batches)
+    # the port writes back the bytes JAX wrote, and resumes from them as JAX does
+    trainer.save(tmp_path / "again.ckpt", epoch=4)
+    assert (tmp_path / "again.ckpt").read_bytes() == (tmp_path / "jax.ckpt").read_bytes()
+    _assert_resumed_step_matches(trainer, port_batches[0], jt, params, opt_state,
+                                 jax_batches[0])
+    assert _port_adam(trainer)[0] == len(jax_batches) + 1
+
+
+@pytest.mark.parametrize("skip", [False, True], ids=["adam", "apply_if_finite"])
+def test_port_flattened_checkpoint_resumes_in_jax(toy, jax_params, tmp_path, skip):
+    """JAX's flat vectors, unraveled onto the loaded params tree, hold each
+    parameter's moments of the port, by name; JAX's next step from them
+    matches the port's."""
+    port_batches, jax_batches, port_stats, jax_stats, _ = toy
+    trainer = _port_trainer(port_stats, skip)
+    trainer.flatten_optimizer = True
+    for b in port_batches:
+        trainer.train_step(b)
+    trainer.save(tmp_path / "port.ckpt", epoch=3)
+
+    jt = _jax_trainer(jax_stats, skip, flatten_optimizer=True)
+    params_t, opt_t = _jax_state(jt, jax_params)
+    params, opt_state, epoch, _ = jax_load(tmp_path / "port.ckpt", params_t, opt_t)
+    assert opt_state is not None and epoch == 3
+    _assert_same(_leaves(params), _leaves(params_to_jax(trainer.model.state_dict())))
+    adam = (opt_state.inner_state if skip else opt_state)[0]
+    count, p_mu, p_nu, _ = _port_adam(trainer)
+    mu, nu = _unraveled(params, adam)
+    _assert_same(mu, p_mu)
+    _assert_same(nu, p_nu)
+    assert int(adam.count) == count == len(port_batches)
+    _assert_resumed_step_matches(trainer, port_batches[0], jt, params, opt_state,
+                                 jax_batches[0])
+    # a flattened checkpoint is refused by a per-parameter trainer, and back
+    plain = _port_trainer(port_stats, skip)
+    with pytest.raises(ValueError, match="adam's layout"):
+        load_checkpoint(tmp_path / "port.ckpt", plain.model, plain.optimizer, plain.nonfinite)
+    plain.save(tmp_path / "plain.ckpt", epoch=1)
+    with pytest.raises(ValueError, match="flatten"):
+        load_checkpoint(tmp_path / "plain.ckpt", trainer.model, trainer.optimizer,
+                        trainer.nonfinite, flat=True)

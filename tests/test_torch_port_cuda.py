@@ -9,7 +9,8 @@ calls bit-equal, the forwards' fp32 z_upd bit-equal to the plain version)
 and the split receiver layout the v2 kernels refuse; the fused3 and v2
 kernels on a batch at GraphLoader's bucketed capacities; an edge-partitioned
 fused3 train step over two ranks (#1-#3 on a shard's extended layout)
-against the single-card step. It imports neither
+against the single-card step; a set made by the port's generator served
+through ``cli.infer_main`` on fused3 against xla. It imports neither
 JAX nor the JAX package, so it runs where the card is (that machine has no
 JAX; skip the repo's conftest there):
 
@@ -1062,3 +1063,44 @@ def test_partitioned_fused3_step_over_two_ranks_on_cuda():
             got = r["grads"][name].to(g.device)
             assert torch.isfinite(got).all(), name
             assert float((got - g).norm()) <= 2e-4 * float(g.norm()) + 1e-12, name
+
+
+def test_generated_set_served_through_the_cli_on_cuda(tmp_path):
+    """A 4-mesh set made by the port's generator (``cli.generate_main``, two
+    workers) and served through ``cli.infer_main`` with fused3 from the
+    committed ``elast_200e_div`` checkpoint and its inference config: #1
+    launches 10 times for the one batch, and every field matches
+    ``Predictor`` on the plain xla path at the serve tolerance (rtol 2e-4 /
+    atol 2e-5 standardized)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    from pathlib import Path
+
+    from p_div_gnn_tpu_torch import cli
+    from p_div_gnn_tpu_torch.graphs.dataset import MeshStressFieldDataset
+    from p_div_gnn_tpu_torch.inference import Predictor
+    from p_div_gnn_tpu_torch.utils.configio import read_config, read_csv
+
+    root = Path(__file__).resolve().parents[1]
+    cli.generate_main(["--dataset_path", str(tmp_path / "data"), "--n_samples", "5",
+                       "--test_size", "0.8", "--seed", "3", "--max_workers", "2"])
+    csv = tmp_path / "data/test/dataset.csv"
+    cfg = read_config(root / "scripts/configs_inference/config_inference_div.yml")
+    weights = root / "checkpoints/elast_200e_div" / Path(cfg["model_weights_path"]).name
+    cfg.update(dataset_csv=str(csv), results_folder=str(tmp_path / "inf"),
+               model_weights_path=str(weights), scatter_impl="fused3")
+    config = tmp_path / "infer.yml"
+    config.write_text("".join(f"{k}: {v}\n" for k, v in cfg.items()))
+    fused_edge3.fused_edge_step3.launches = 0
+    cli.infer_main(["--config_path", str(config)])
+    assert fused_edge3.fused_edge_step3.launches == cfg["message_passing_steps"]
+    samples = MeshStressFieldDataset(read_csv(csv)).samples
+    assert len(samples) == 4
+    want = Predictor(weights, scatter_impl="xla").predict(samples)
+    norm = json.loads((tmp_path / "inf/normalize_params.json").read_text())
+    z = lambda f: (f - norm["mean_local_stress"]) / norm["std_local_stress"]  # noqa: E731
+    for path, w in zip(read_csv(tmp_path / "inf/dataset.csv")["data_filename"], want,
+                       strict=True):
+        np.testing.assert_allclose(z(np.load(path)["stress_field"]), z(w), rtol=2e-4,
+                                   atol=2e-5)

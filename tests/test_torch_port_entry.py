@@ -12,8 +12,9 @@ dataset of ``tests/test_train_e2e.py::_write_toy_dataset``:
   field within the serve tolerance (rtol 2e-4 / atol 2e-5 standardized);
 - the CLI in-process with ``--device cpu``: ``train`` then ``infer`` from
   YAML configs; both checkpoints load through the JAX package's
-  ``load_checkpoint`` with the port's values; the commands that are not
-  ported exit 2; the modes that are not ported raise."""
+  ``load_checkpoint`` with the port's values; every JAX command is ported
+  (an unknown one exits 2); the parallel modes run in one process without
+  a process group."""
 
 import json
 import shutil
@@ -181,30 +182,46 @@ def test_cli_trains_and_infers_on_the_cpu(toy, tmp_path):
     assert all(np.isfinite(np.load(p)["stress_field"]).all() for p in table["data_filename"])
 
 
-@pytest.mark.parametrize("command", ["generate", "benchmark", "compare", "scaling", "bogus", ""])
+JAX_COMMANDS = ("train", "infer", "generate", "benchmark", "compare", "scaling")
+
+
+@pytest.mark.parametrize("command", [*JAX_COMMANDS, "bogus", ""])
 def test_cli_commands_not_ported_exit_2(command, capsys):
-    if command == "scaling":  # ported: its usage, not the exit code 2
+    """No command exits 2: every command of the JAX CLI is ported and shows
+    its usage with exit 0; only an unknown command (or none) exits 2, with
+    the usage."""
+    if command in JAX_COMMANDS:
         with pytest.raises(SystemExit) as exc:
             cli.main([command, "--help"])
-        assert exc.value.code == 0 and command not in cli.NOT_PORTED
+        assert exc.value.code == 0
+        assert f"pdg-torch-{command}" in capsys.readouterr().out
         return
     assert cli.main([command] if command else []) == 2
     err = capsys.readouterr().err
-    assert ("ROADMAP A" in err) == (command in cli.NOT_PORTED)
+    assert "usage: python -m p_div_gnn_tpu_torch.cli" in err and "ROADMAP A" not in err
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(monkeypatch):
     import inspect
 
     from p_div_gnn_tpu_torch import inference
     from p_div_gnn_tpu_torch.train.data import GraphLoader
 
+    from p_div_gnn_tpu_torch.analysis import benchmark
+
     for fn in (runner.run_experience, runner.main, inference.run_inference, inference.main,
-               GraphLoader.__init__):
+               GraphLoader.__init__, benchmark.main, benchmark.sweep):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for fn in (cli.train_main, cli.infer_main):
+    for fn in (cli.train_main, cli.infer_main, cli.benchmark_main):
         with pytest.raises(SystemExit):
             fn(["--help"])
+    # the benchmark's --device defaults to the card, as train's and infer's do
+    seen = {}
+    monkeypatch.setattr(benchmark, "main", lambda **kw: seen.update(kw))
+    cli.benchmark_main(["--steps", "1"])
+    assert seen["device"] == "cuda"
+    cli.benchmark_main(["--device", "cpu"])
+    assert seen["device"] == "cpu"
 
 
 def test_unported_parallel_modes_raise(toy, tmp_path, monkeypatch):

@@ -5,8 +5,10 @@ none of them). Module names are matched whole, so the port's own name,
 which begins with the JAX package's, is allowed. The kernel sources
 (csrc/*.cu) and the headers they share (csrc/*.cuh) include no PyTorch
 header, and the sources export the plain C interface that
-ops/cuda_build.py loads with ctypes. ``torch.distributed`` is imported
-lazily, inside functions, so the package imports without it."""
+ops/cuda_build.py loads with ctypes; so does the native graph library's
+source (csrc/graphcore.cpp), which graphs/native.py loads. ``torch.distributed``
+and matplotlib are imported lazily, inside functions, so the package imports
+without them (the card's machine has no matplotlib)."""
 
 import ast
 import re
@@ -64,7 +66,14 @@ def test_port_sources_are_found():
             "p_div_gnn_tpu_torch/parallel/partition.py",
             "p_div_gnn_tpu_torch/parallel/multihost.py",
             "p_div_gnn_tpu_torch/parallel/scaling.py",
-            "p_div_gnn_tpu_torch/parallel/launch.py"} <= names
+            "p_div_gnn_tpu_torch/parallel/launch.py",
+            "p_div_gnn_tpu_torch/datagen/fem.py", "p_div_gnn_tpu_torch/datagen/hyperelastic.py",
+            "p_div_gnn_tpu_torch/datagen/generate.py", "p_div_gnn_tpu_torch/datagen/mesher.py",
+            "p_div_gnn_tpu_torch/graphs/native.py", "p_div_gnn_tpu_torch/analysis/compare.py",
+            "p_div_gnn_tpu_torch/analysis/plots.py", "p_div_gnn_tpu_torch/analysis/benchmark.py",
+            "p_div_gnn_tpu_torch/models/torch_import.py",
+            "p_div_gnn_tpu_torch/utils/precision.py",
+            "p_div_gnn_tpu_torch/utils/profiling.py"} <= names
     assert {p.name for p in SOURCES} >= {
         "fused_edge3_fwd.cu", "fused_edge3_bwd.cu", "segment_sum_csr.cu",
         "fused_edge_fwd.cu", "fused_edge_bwd.cu"}
@@ -88,6 +97,19 @@ def test_port_imports_torch_distributed_lazily(path):
     """``torch.distributed`` is imported inside the functions that use it,
     so the package imports where it is unavailable."""
     assert not [m for m in module_level_imports(path) if m.startswith("torch.distributed")]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_matplotlib_lazily(path):
+    """matplotlib is imported inside the functions that draw, as in the JAX
+    package: the card's machine has none."""
+    assert not [m for m in module_level_imports(path) if m.split(".")[0] == "matplotlib"]
+
+
+def test_graph_library_source_includes_no_pytorch_header():
+    text = (ROOT / "p_div_gnn_tpu_torch" / "csrc" / "graphcore.cpp").read_text()
+    assert not pytorch_includes(text)
+    assert 'extern "C"' in text and "pdg_faces_to_edges" in text
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
