@@ -1,0 +1,9 @@
+"""% of the least time of #2's launches (its shapes over the card's peaks,
+``kernels/fused_edge3_bwd.json``) in their measured device time, over a
+training step's launches."""
+
+from perfbench.harness.yardstick import roofline
+
+
+def read(run):
+    return roofline(run, "fused_edge3_bwd") if run.unit == "step" else None
