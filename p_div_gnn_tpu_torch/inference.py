@@ -13,6 +13,7 @@ forward → each prediction written as a copy of its sample's npz with
 
 from __future__ import annotations
 
+import itertools
 import json
 import shutil
 from pathlib import Path
@@ -26,6 +27,7 @@ from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
 from p_div_gnn_tpu_torch.train.checkpoint import load_checkpoint
 from p_div_gnn_tpu_torch.train.data import GraphLoader
 from p_div_gnn_tpu_torch.utils.configio import read_config, read_csv, write_csv
+from p_div_gnn_tpu_torch.utils.profiling import span
 
 
 class Predictor:
@@ -50,16 +52,28 @@ class Predictor:
         )
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
+        self._requests = itertools.count()
 
     @torch.no_grad()
     def predict(self, samples: list[GraphSample]) -> list[np.ndarray]:
         """One (N_i, 3) stress field per sample, as the JAX inference path
         computes it (RCM-ordered batch, pair-blocked for ``"fused2"``, fp32
-        model)."""
-        host = pack_batch(samples, reorder="rcm", sender_view=False, div_ell=False,
-                          pair_blocks=self.model.scatter_impl == "fused2")
-        out = self.model(host.to(self.device), self.stats)
-        return unpack_predictions(host, out.cpu().numpy())
+        model). Traced as ``serve.pack``, ``serve.copy_in``,
+        ``serve.forward`` (with its device time), ``serve.copy_out`` and
+        ``serve.unpack``, which share the request's id
+        (``utils/profiling.py``)."""
+        request = next(self._requests)
+        with span("serve.pack", request=request):
+            host = pack_batch(samples, reorder="rcm", sender_view=False, div_ell=False,
+                              pair_blocks=self.model.scatter_impl == "fused2")
+        with span("serve.copy_in", request=request):
+            batch = host.to(self.device)
+        with span("serve.forward", device=True, request=request):
+            out = self.model(batch, self.stats)
+        with span("serve.copy_out", request=request):
+            pred = out.cpu().numpy()
+        with span("serve.unpack", request=request):
+            return unpack_predictions(host, pred)
 
 
 def copy_data_file_and_replace_local_stress_field(

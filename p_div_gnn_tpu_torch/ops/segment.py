@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from p_div_gnn_tpu_torch.utils.profiling import count
+
 
 def segment_sum(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
@@ -43,10 +45,11 @@ def require_consecutive_runs(segment_ids: torch.Tensor, num_segments: int, who: 
     as one run and write it once need it. The answer is kept on the tensor
     (with its version counter), so a layout reused across calls, such as a
     batch's over its steps, is checked once: the check synchronizes with
-    the device."""
+    the device, and counts one ``host_sync.require_consecutive_runs``."""
     key = (segment_ids._version, num_segments)
     if getattr(segment_ids, "_pdg_runs_checked", None) == key:
         return
+    count("host_sync.require_consecutive_runs")
     if not runs_are_consecutive(segment_ids, num_segments):
         raise ValueError(
             f"{who}: a segment's slots are not consecutive; its kernel sums each "
@@ -64,11 +67,13 @@ def live_slots(edge_gid: torch.Tensor, n_graphs: int, block: int) -> int:
     spare capacity to its last node tile, as one receiver run of padding
     (119,040 slots of 393,216 in a flagship batch), which the kernels'
     run-aligned parts would hand to one CTA. Kept on the tensor with its
-    version counter, as the run check is: reading it synchronizes."""
+    version counter, as the run check is: reading it synchronizes, and
+    counts one ``host_sync.live_slots``."""
     key = (edge_gid._version, n_graphs, block)
     cached = getattr(edge_gid, "_pdg_live_slots", None)
     if cached is not None and cached[0] == key:
         return cached[1]
+    count("host_sync.live_slots")
     n = edge_gid.shape[0]
     slot = torch.arange(n, device=edge_gid.device)
     end = int(torch.where(edge_gid < n_graphs, slot, -1).max()) + 1 if n else 0

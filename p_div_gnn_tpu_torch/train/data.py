@@ -32,6 +32,7 @@ from p_div_gnn_tpu_torch.graphs.batching import (
     pack_batch,
 )
 from p_div_gnn_tpu_torch.graphs.container import EDGE_BLOCK, NODE_TILE, GraphBatch
+from p_div_gnn_tpu_torch.utils.profiling import span
 
 
 class GraphLoader:
@@ -101,15 +102,20 @@ class GraphLoader:
                   flush=True)
 
     def _pack(self, idx: Iterable[int]) -> GraphBatch:
-        batch_samples = [self.samples[i] for i in idx]
-        pad_nodes, pad_edges, pad_div = self._capacities(batch_samples)
-        batch = pack_batch(
-            batch_samples, n_graphs=self.batch_size, tile=self.tile,
-            pad_nodes=pad_nodes, pad_edges=pad_edges, pad_div=pad_div,
-            pair_blocks=self.pair_blocks, sender_view=self.sender_view,
-            reorder=self.reorder,
-        )
-        self._check_capacity(batch, pad_edges)
+        """One batch, traced as ``loader.pack`` with its real edges and
+        edge slots."""
+        with span("loader.pack") as sp:
+            batch_samples = [self.samples[i] for i in idx]
+            pad_nodes, pad_edges, pad_div = self._capacities(batch_samples)
+            batch = pack_batch(
+                batch_samples, n_graphs=self.batch_size, tile=self.tile,
+                pad_nodes=pad_nodes, pad_edges=pad_edges, pad_div=pad_div,
+                pair_blocks=self.pair_blocks, sender_view=self.sender_view,
+                reorder=self.reorder,
+            )
+            self._check_capacity(batch, pad_edges)
+            sp.set(edges=sum(s.num_edges for s in batch_samples),
+                   slots=batch.num_edges_padded)
         return batch
 
     def _groups(self) -> Iterator[np.ndarray]:
@@ -148,7 +154,8 @@ def prefetch(
     """The loader's batches on ``device``, packed and copied on a host thread
     at most ``depth`` batches ahead; host batches go to a CUDA device from
     pinned memory without waiting. Batches already there pass as they are.
-    An exception in the thread is raised here."""
+    An exception in the thread is raised here. The consumer's wait for
+    each batch is traced as ``loader.wait``."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
@@ -176,7 +183,8 @@ def prefetch(
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("loader.wait"):
+                item = q.get()
             if item is end:
                 break
             if isinstance(item, Exception):

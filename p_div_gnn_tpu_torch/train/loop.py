@@ -44,6 +44,7 @@ from p_div_gnn_tpu_torch.train.checkpoint import (
 )
 from p_div_gnn_tpu_torch.train.data import prefetch
 from p_div_gnn_tpu_torch.train.logging import MetricsWriter
+from p_div_gnn_tpu_torch.utils.profiling import span
 
 _INT32_MAX = 2**31 - 1
 
@@ -89,6 +90,7 @@ class Trainer:
         self.model.to(self.device)
         self.optimizer: torch.optim.Adam | None = None
         self.nonfinite: dict[str, torch.Tensor] | None = None
+        self.steps_taken = 0  # train_step calls, the id of the step's span
 
     def init(self) -> torch.optim.Adam:
         """Fresh Adam state over the model's parameters (step 0, zero
@@ -131,9 +133,11 @@ class Trainer:
         by name (averaged over the ranks under ``group``), leaving ``.grad``
         set; parameters are not updated."""
         self.model.zero_grad(set_to_none=True)
-        total, aux = self.loss(batch)
-        total.backward()
-        pmean_([p.grad for p in self.model.parameters()], self.group)
+        with span("step.forward", device=True):
+            total, aux = self.loss(batch)
+        with span("step.backward", device=True):
+            total.backward()
+            pmean_([p.grad for p in self.model.parameters()], self.group)
         aux = {k: v.detach() for k, v in aux.items()}
         aux["total"] = total.detach()
         grads = {n: p.grad for n, p in self.model.named_parameters()}
@@ -141,14 +145,21 @@ class Trainer:
 
     def train_step(self, batch: GraphBatch) -> dict[str, torch.Tensor]:
         """One forward, backward and Adam update; returns the loss terms
-        of the parameters before the update."""
+        of the parameters before the update. Traced as ``step`` around
+        ``step.forward`` (the model and the loss), ``step.backward``
+        (autograd, remat's recompute included, and the gradients' mean
+        under ``group``) and ``step.optimizer``, each with its device time
+        (``utils/profiling.py``)."""
         if self.optimizer is None:
             self.init()
-        aux, _ = self.loss_and_grads(batch)
-        if self.nonfinite is None:
-            self.optimizer.step()
-        else:
-            self._step_if_finite()
+        with span("step", step=self.steps_taken):
+            self.steps_taken += 1
+            aux, _ = self.loss_and_grads(batch)
+            with span("step.optimizer", device=True):
+                if self.nonfinite is None:
+                    self.optimizer.step()
+                else:
+                    self._step_if_finite()
         return aux
 
     def _step_if_finite(self) -> None:
