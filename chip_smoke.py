@@ -297,10 +297,11 @@ def ptxas_figures(built, smem=None) -> list[str]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             # the kernel's name: the <length><name> of the mangled name that
-            # ends in _kernel
+            # ends in _kernel (or _kernel_ws)
             label = next((name[m.end(1):m.end(1) + int(m.group(1))]
                           for m in re.finditer(r"(?=(\d+))", name)
-                          if name[m.end(1):m.end(1) + int(m.group(1))].endswith("_kernel")),
+                          if name[m.end(1):m.end(1) + int(m.group(1))].endswith(
+                              ("_kernel", "_kernel_ws"))),
                          name[:60])
             width = re.search(r"Li(64|128|256)E", name)
             bf16 = "bfloat16" in name

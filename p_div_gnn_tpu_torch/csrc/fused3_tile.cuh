@@ -48,6 +48,8 @@ enum Part {
   WITHOUT_WG_SPLIT,  // bwd: the weight-grad kernel's term split
   WITHOUT_WG_FETCH,  // bwd: the weight-grad kernel's operand fetch
   WITHOUT_GATHER,    // v2 bwd: the first layer's receiver and sender rows
+  WITHOUT_WG_REPEAT,  // bwd: the weight-grad kernel's fetch and split of the tiles
+                      // that an earlier CTA of the chunk fetches and splits too
 };
 __host__ __device__ constexpr bool keep(int part) { return PDG_WITHOUT != part; }
 
@@ -119,21 +121,34 @@ __device__ __forceinline__ int swz(int row, int col) {
   return row * RL + ((((col >> 3) ^ (row & X))) << 3) + (col & 7);
 }
 
+// The NT bf16 terms of a and b, packed two to a word (a in the low half):
+// split<NT> of each, one conversion instruction a term for both.
+template <int NT>
+__device__ __forceinline__ void split2(float a, float b, uint32_t (&t)[NT]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+    t[i] = *reinterpret_cast<const uint32_t*>(&p);
+    if (i + 1 < NT) {
+      a -= __uint_as_float(t[i] << 16);
+      b -= __uint_as_float(t[i] & 0xffff0000u);
+    }
+  }
+}
+
 // Writes the NT terms of 4 consecutive values at (row, col) of a swizzled
 // tile; term t lies at tile + t·tstride.
 template <int NT, int RL>
 __device__ __forceinline__ void put4(uint16_t* tile, int tstride, int row, int col, float4 v) {
-  uint32_t a[NT], b[NT], c[NT], d[NT];
-  split<NT>(v.x, a);
-  split<NT>(v.y, b);
-  split<NT>(v.z, c);
-  split<NT>(v.w, d);
+  uint32_t lo[NT], hi[NT];
+  split2<NT>(v.x, v.y, lo);
+  split2<NT>(v.z, v.w, hi);
   const int o = swz<RL>(row, col);
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     uint2 u;
-    u.x = a[t] | (b[t] << 16);
-    u.y = c[t] | (d[t] << 16);
+    u.x = lo[t];
+    u.y = hi[t];
     *reinterpret_cast<uint2*>(tile + t * tstride + o) = u;
   }
 }

@@ -56,7 +56,8 @@
 // issued before the e·We chain that hides them and kept raw until their
 // use (a timing build without them is at most 0.02 ms faster, so staging
 // them by cp.async would gain no more). The weight grads read the scratch
-// streams in list order and e at the list's slots.
+// streams in list order and e at the list's slots, in the weight-grad pass
+// of bwd_common.cuh (wgmma) as fused_edge_bwd.cu runs it.
 // - Every sum runs in a fixed order: two calls give bit-equal outputs. In
 //   fp32, dpre1 and dpre2 are the parent kernel's bit for bit (the same FMA
 //   chains); du_r and dv_r sum the same values in the same order, in one
@@ -69,10 +70,11 @@
 //   the tile kernel's four FMA-chain products are 256 FFMA (a 4 x 4 block a
 //   thread, unrolled), its one tensor-core product (de) 48 / 8 HMMA with
 //   fp32 / bf16 streams (six / one term products per k16 block); the
-//   weight-grad kernel's three products 48 / 16 HMMA. ptxas at L = 128:
+//   wgmma weight-grad kernel's products 12 / 2 HGMMA (m64n64k16). ptxas at
+//   L = 128:
 //   the tile kernel 204 / 187 registers, 224,784 / 151,056 bytes of dynamic
-//   shared memory (one CTA per SM); the weight-grad kernel 128 / 128
-//   registers at 512 / 256 threads; no spills. chip_smoke.py prints the
+//   shared memory (one CTA per SM); the wgmma weight-grad kernel 134 / 128
+//   registers at 384 threads (one CTA per SM); no spills. chip_smoke.py prints the
 //   figures at each width and dtype (PERF.md §6).
 
 #include <cuda_bf16.h>

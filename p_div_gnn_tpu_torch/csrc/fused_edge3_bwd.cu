@@ -46,9 +46,9 @@
 //   fp32 FMA chain over k in order; the first layer grouped as
 //   ((x·Wa + g·Wb) + e·We) + b0): pre1, pre2 (5 products), h1·W2, dy1·W2ᵀ
 //   and dy2·W2ᵀ. The gates and roundings are then the plain version's.
-// - Tensor cores (mma.sync m16n8k16, bf16 operands, fp32 accumulation;
-//   HMMA in the SASS): dg, de and the dx rows (5 products) and the 7
-//   weight-grad products. With bf16 streams each operand is one bf16 term
+// - Tensor cores (bf16 operands, fp32 accumulation): dg, de and the dx rows
+//   (5 products) on mma.sync m16n8k16 (HMMA in the SASS), the 7 weight-grad
+//   products on wgmma m64n64k16 (HGMMA). With bf16 streams each operand is one bf16 term
 //   (`_dot_default` as `_mms` applies it); with fp32 streams each is split
 //   into three bf16 terms (`_split3`) and the six cross products of terms
 //   i + j <= 2 are summed, smallest first: what Mosaic lowers
@@ -97,24 +97,28 @@
 //    ms of HBM time in and out at the peak rate), half that in bf16. A sum
 //    over ~2.6e5 slots of 128×128 per weight grad does not fit a CTA's
 //    registers or shared memory, so it is not fused here.
-// 2. `bwd_wgrad_kernel` (bwd_common.cuh), asked for four weight grads and
-//    their (A, B) stream pairs: dW2 (h1, dy1), (h2, dy2); dWe (e, dps); dWu
-//    (x[r], dpre1), (g, dpre2); dWv (x[r], dpre2), (g, dpre1). CTA (chunk of
-//    slots, weight grad, 64-row block, column block) sums A[i]ᵀB[i] over its
-//    chunk in items of 32 slots and one pair on the tensor cores, each
-//    32-slot partial added to an fp64 accumulator; the chunk's receivers are
-//    staged in shared memory for the x[r] rows.
+// 2. The weight-grad pass (bwd_common.cuh), asked for four weight grads
+//    and their (A, B) stream pairs: dW2 (h1, dy1), (h2, dy2); dWe (e, dps);
+//    dWu (x[r], dpre1), (g, dpre2); dWv (x[r], dpre2), (g, dpre1). Each
+//    32-slot item's partial of a pair on the tensor cores, added to an fp64
+//    accumulator per chunk of slots, by `bwd_wgrad_kernel_ws` (wgmma): per
+//    chunk 8 CTAs at L = 128, each one or two 64 x 64 blocks that share
+//    operand tiles (dW2 and dWe blocks in pairs along a row, each dWu block
+//    with its dWv block), which fetch and split 2,176 values a slot (34
+//    tiles of 64 columns) where the former mma.sync kernel, CTA by CTA,
+//    staged 2,688 (1,280 distinct).
 // 3. `bwd_reduce_kernel` (bwd_common.cuh): sums the per-chunk and per-part
 //    partials in order in fp64 and rounds once, into [dW2; dWe; dWu; dWv;
 //    db2; db0]. Every sum runs in a fixed order: two calls give bit-equal
 //    outputs.
-// - ptxas at L = 128 (sm_90a, CUDA 12.8), fp32 / bf16 streams: the tile kernel 246 /
-//   185 registers and 224,528 / 199,952 bytes of dynamic shared memory (one
-//   CTA per SM); the weight-grad kernel 128 / 128 registers at 512 / 256
-//   threads and 167,936 / 94,208 bytes (one / two CTAs per SM); no spills (a
-//   16-byte stack frame). The SASS holds 240 / 40 HMMA instructions in the
-//   tile kernel and 48 / 16 in the weight-grad kernel (scripts/port_sass.py;
-//   PERF.md §6). chip_smoke.py prints the figures at each width.
+// - ptxas at L = 128 (sm_90a, CUDA 12.8), fp32 / bf16 streams: the tile
+//   kernel 246 / 185 registers and 224,528 / 199,952 bytes of dynamic
+//   shared memory (one CTA per SM); the wgmma weight-grad kernel 134 / 128
+//   registers at 384 threads and 222,272 / 87,104 bytes (one CTA per SM);
+//   no spills. The SASS holds 240 / 40 HMMA instructions in the tile kernel
+//   and 12 / 2 HGMMA (wgmma m64n64k16) in the weight-grad kernel
+//   (scripts/port_sass.py; PERF.md §6). chip_smoke.py prints the figures at
+//   each width.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -563,6 +567,64 @@ int pdg_fused_edge3_bwd(int bf16, const void* x, const void* g, const void* e,
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = bf16 ? launch_width<__nv_bfloat16, 1>(ta, wa, ws, sp, n_chunks, o, L, s)
                                : launch_width<float, 3>(ta, wa, ws, sp, n_chunks, o, L, s);
+  return static_cast<int>(err);
+}
+
+// Weight-grad chunks over n_rows rows for n_mats weight grads.
+int64_t pdg_wgrad_chunks(int64_t n_rows, int64_t n_mats) { return wgrad_chunks(n_rows, n_mats); }
+
+// The weight-grad pass alone, as the three backwards launch it: wb[m] =
+// Σ_p Σ_i A[i]ᵀB[i] over the (A, B) = (src[pa[m][p]], src[pb[m][p]]) pairs
+// p < n_pairs[m] of weight grad m < n_mats, then two rows of zeros. src
+// (host array of n_src device pointers, each (·, L) in the stream dtype)
+// with kind (host array: 0 row i, 1 row idx[i], missing outside [0,
+// n_idx)); idx (n_rows,) int32 or null; pa, pb host arrays (n_mats, 2);
+// wpart (n_chunks = pdg_wgrad_chunks(n_rows, n_mats), n_mats, L, L) fp64
+// scratch; wb (n_mats·L + 2, L) fp32. L is 64, 128 or 256. Returns a
+// cudaError_t value (0 on success).
+int pdg_fused_edge3_bwd_wgrad(int bf16, const void* const* src, const int* kind, int n_src,
+                              const void* idx, int64_t n_idx, int n_mats, const int* n_pairs,
+                              const int* pa, const int* pb, void* wpart, void* wb,
+                              int64_t n_rows, int64_t L, int64_t n_chunks, void* stream) {
+  if ((L != 64 && L != 128 && L != 256) || n_rows < 0 || n_chunks < 1 || n_src < 1 ||
+      n_src > MAX_STREAMS || n_mats < 1 || n_mats > 4 ||
+      (n_rows + n_chunks - 1) / n_chunks > MAX_CHUNK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgradArgs wa{};
+  for (int k = 0; k < n_src; ++k) {
+    wa.src[k] = src[k];
+    wa.kind[k] = kind[k] ? AT_IDX : ROW;
+    if (kind[k] && idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  wa.idx = static_cast<const int32_t*>(idx);
+  wa.n_idx = n_idx;
+  wa.n_mats = n_mats;
+  for (int m = 0; m < n_mats; ++m) {
+    if (n_pairs[m] < 1 || n_pairs[m] > MAX_PAIRS) return static_cast<int>(cudaErrorInvalidValue);
+    wa.n_pairs[m] = n_pairs[m];
+    for (int p = 0; p < n_pairs[m]; ++p) {
+      wa.pa[m][p] = pa[2 * m + p], wa.pb[m][p] = pb[2 * m + p];
+      if (wa.pa[m][p] < 0 || wa.pa[m][p] >= n_src || wa.pb[m][p] < 0 || wa.pb[m][p] >= n_src)
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  wa.wpart = static_cast<double*>(wpart);
+  wa.n_rows = n_rows;
+  wa.chunk = n_rows > 0 ? (n_rows + n_chunks - 1) / n_chunks : 1;
+  auto* o = static_cast<float*>(wb);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16) {
+    using B = __nv_bfloat16;
+    err = L == 64    ? launch_wgrad_reduce<B, 1, 64>(wa, n_chunks, nullptr, 0, o, st)
+          : L == 128 ? launch_wgrad_reduce<B, 1, 128>(wa, n_chunks, nullptr, 0, o, st)
+                     : launch_wgrad_reduce<B, 1, 256>(wa, n_chunks, nullptr, 0, o, st);
+  } else {
+    err = L == 64    ? launch_wgrad_reduce<float, 3, 64>(wa, n_chunks, nullptr, 0, o, st)
+          : L == 128 ? launch_wgrad_reduce<float, 3, 128>(wa, n_chunks, nullptr, 0, o, st)
+                     : launch_wgrad_reduce<float, 3, 256>(wa, n_chunks, nullptr, 0, o, st);
+  }
   return static_cast<int>(err);
 }
 

@@ -47,8 +47,9 @@
 //    version (so dg_v and dg_u are the parent kernel's bit for bit in fp32);
 //    de runs on the tensor cores. The per-part db2 and db0 column sums are
 //    fp64.
-// 2. `bwd_wgrad_kernel`, asked for dW2 (h1, dy1), (h2, dy2) and dWe (e,
-//    dps), on the tensor cores, each 32-slot partial added in fp64.
+// 2. The weight-grad pass (bwd_common.cuh), asked for dW2 (h1, dy1), (h2,
+//    dy2) and dWe (e, dps), on the tensor cores, each 32-slot partial added
+//    in fp64: `bwd_wgrad_kernel_ws` (wgmma; 4 CTAs a chunk at L = 128).
 // 3. `bwd_reduce_kernel`: the partials summed in order in fp64, rounded
 //    once, into [dW2; dWe; db2; db0]. Two calls give bit-equal outputs.
 // - Precision: fp32 FMA chains (no TF32), split-bf16 tensor-core products
@@ -61,10 +62,11 @@
 //   the tile kernel's four FMA-chain products are 256 FFMA (a 4 x 4 block a
 //   thread, unrolled), its one tensor-core product (de) 48 / 8 HMMA with
 //   fp32 / bf16 streams (six / one term products per k16 block); the
-//   weight-grad kernel's three products 48 / 16 HMMA. ptxas at L = 128:
+//   wgmma weight-grad kernel's products 12 / 2 HGMMA (m64n64k16). ptxas at
+//   L = 128:
 //   the tile kernel 202 / 185 registers, 224,784 / 151,056 bytes of dynamic
-//   shared memory (one CTA per SM); the weight-grad kernel 128 / 128
-//   registers at 512 / 256 threads; no spills. chip_smoke.py prints the
+//   shared memory (one CTA per SM); the wgmma weight-grad kernel 134 / 128
+//   registers at 384 threads (one CTA per SM); no spills. chip_smoke.py prints the
 //   figures at each width and dtype (PERF.md §6).
 
 #include <cuda_bf16.h>

@@ -468,7 +468,7 @@ __global__ void zero_rows_kernel(T* __restrict__ d1, T* __restrict__ d2, T* __re
 // weight-grad kernel (which == 1), bytes.
 template <typename T, int NT, int L>
 int64_t v2_smem_of(int which) {
-  return which == 0 ? v2_tile_smem_bytes<T, NT, L>() : wgrad_smem_bytes<T, NT, L>();
+  return which == 0 ? v2_tile_smem_bytes<T, NT, L>() : wgrad_ws_smem_bytes<T, NT>();
 }
 inline int64_t v2_bwd_smem(int bf16, int64_t L, int which) {
   using B = __nv_bfloat16;

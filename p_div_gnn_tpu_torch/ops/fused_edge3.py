@@ -246,6 +246,14 @@ def _bwd_library() -> CudaLibrary:
     for count in (built.lib.pdg_fused_edge3_bwd_parts, built.lib.pdg_fused_edge3_bwd_chunks):
         count.argtypes = [ctypes.c_int64]
         count.restype = ctypes.c_int64
+    built.lib.pdg_wgrad_chunks.argtypes = [ctypes.c_int64, ctypes.c_int64]
+    built.lib.pdg_wgrad_chunks.restype = ctypes.c_int64
+    built.lib.pdg_fused_edge3_bwd_wgrad.argtypes = (
+        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+         ctypes.c_void_p])
+    built.lib.pdg_fused_edge3_bwd_wgrad.restype = ctypes.c_int
     return built
 
 

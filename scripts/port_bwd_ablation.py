@@ -10,10 +10,12 @@ in variants with one part of its work taken out by a preprocessor switch
 (``-DPDG_WITHOUT=<part>``, a name of ``csrc/fused3_tile.cuh``'s ``enum Part``),
 all with the port's nvcc flags, into ``build/port_bwd_ablation/``: the
 weight-grad kernel without its MMAs, without splitting the staged rows into
-bf16 terms, without fetching them; the tile kernel without its tensor-core
-MMAs, without its FMA chains (and the shared loads that feed them), and
-for #6 and #8 without the first layer's receiver and sender rows and
-without the receiver run sums. Each runs chip_smoke.py's backward kernel
+bf16 terms, without fetching them, and without fetching and splitting again
+a tile that an earlier CTA of its chunk has (the most a design that shares
+each chunk's split tiles among its CTAs could save); the tile kernel
+without its tensor-core MMAs, without its FMA chains (and the shared loads
+that feed them), and for #6 and #8 without the first layer's receiver and
+sender rows and without the receiver run sums. Each runs chip_smoke.py's backward kernel
 phase inputs (the flagship training batch, receiver-major or
 pair-blocked, that phase's generator seed) in fp32 and bf16 streams, three
 calls under ``torch.profiler``, and prints each sub-kernel's mean device
@@ -50,6 +52,7 @@ VARIANTS = {
     "wgrad without MMAs": "WITHOUT_WG_MMA",
     "wgrad without the term split": "WITHOUT_WG_SPLIT",
     "wgrad without fetching": "WITHOUT_WG_FETCH",
+    "wgrad fetching and splitting each tile once a chunk": "WITHOUT_WG_REPEAT",
     "tile without MMAs": "WITHOUT_MMA",
     "tile without FMA chains": "WITHOUT_FMA",
 }

@@ -10,7 +10,10 @@ warp-level primitives exchange values among a warp's 32 threads between
 two barriers of the warp: ``__shfl_sync``, ``__shfl_xor_sync``,
 ``__ballot_sync``, and ``csrc/mma_sm90.cuh``'s ``ldmatrix`` (x4, plain
 and transposed) and ``mma.sync`` m16n8k16 (bf16, fp32 accumulation) with
-the PTX ISA's fragment layouts; ``cp.async`` is a plain copy. The port's
+the PTX ISA's fragment layouts; ``cp.async`` is a plain copy; an mbarrier
+is a phase counter whose waits spin; ``wgmma`` m64n64k16 reads its
+operands through their shared-memory descriptors (MN-major, 128-byte
+swizzle), each thread summing its own accumulator fragment. The port's
 own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py`` with the
 v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on
 CPU tensors against the emulated libraries, and each kernel is held against
@@ -76,6 +79,8 @@ CUDA_RUNTIME_H = r"""
 #include <barrier>
 #include <cmath>
 #include <deque>
+#include <map>
+#include <mutex>
 #include <strings.h>
 #include <cstring>
 #include <thread>
@@ -87,6 +92,7 @@ CUDA_RUNTIME_H = r"""
 #define __restrict__
 #define __launch_bounds__(...)
 #define __noinline__
+#define __grid_constant__
 // CTAs run one at a time, so a function-scope static is one CTA's
 // shared memory
 #define __shared__ static
@@ -105,6 +111,7 @@ inline thread_local std::barrier<>* emu_bar = nullptr;
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 // A warp's lanes exchange values through `words` between two barriers of
 // the warp's 32 threads: each warp-collective call is made by all lanes.
 struct EmuWarp {
@@ -167,6 +174,7 @@ inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->bar->arrive_and_wait(); }
 struct EmuCfg { dim3 grid, block; size_t smem; };
 // the wrappers pass EMU_STREAM; another value is an argument list that
 // ctypes cut (a pointer passed as a 32-bit int)
@@ -232,6 +240,14 @@ inline float2 __bfloat1622float2(__nv_bfloat162 p) {
   return {__bfloat162float(p.x), __bfloat162float(p.y)};
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 """
 
 
@@ -298,6 +314,76 @@ inline void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+template <typename T> inline void cp_async_4_zfill(T* smem, const T* gmem, bool valid) {
+  if (valid) std::memcpy(smem, gmem, 4 * sizeof(T));
+  else std::memset(smem, 0, 4 * sizeof(T));
+}
+// shared-memory addresses: offsets into the CTA's buffer, so an alignment
+// in them is one in the buffer (whose swizzle the wgmma decode applies)
+inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(static_cast<const char*>(p) - reinterpret_cast<const char*>(emu_smem));
+}
+// mbarriers: a phase completes when its arrivals are in; the state lives
+// beside the buffer, keyed by the barrier's address, and waits spin
+struct EmuBar { int count = 0, pending = 0; unsigned phase = 0; };
+inline std::mutex emu_bar_mu;
+inline std::map<const void*, EmuBar> emu_bars;
+inline void mbar_init(uint64_t* bar, int count) {
+  std::lock_guard<std::mutex> g(emu_bar_mu);
+  emu_bars[bar] = EmuBar{count, count, 0};
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) {
+  std::lock_guard<std::mutex> g(emu_bar_mu);
+  EmuBar& b = emu_bars.at(bar);
+  if (b.pending <= 0) throw "an mbarrier arrival beyond its count";
+  if (--b.pending == 0) { b.phase ^= 1u; b.pending = b.count; }
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> g(emu_bar_mu);
+      if ((emu_bars.at(bar).phase & 1u) != (parity & 1u)) return;
+    }
+    std::this_thread::yield();
+  }
+}
+inline void fence_proxy_async() {}
+// wgmma m64n64k16 from MN-major, 128-byte-swizzled bf16 tiles: element
+// (mn, k) of a tile at the descriptor's address lies at the unswizzled
+// offset (mn/64)·LBO + (k/8)·SBO + (k%8)·128 + 2·(mn%64), whose bits 4-6
+// are XORed with bits 7-9; each thread sums its own fragment's elements in
+// fp32 in k order
+inline uint64_t wgmma_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(2048 >> 4) << 16 | static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+inline float emu_desc_at(uint64_t d, int mn, int k) {
+  if ((d >> 62) != 1) throw "a wgmma descriptor without the 128-byte swizzle";
+  const uint32_t addr = static_cast<uint32_t>(d & 0x3fff) << 4;
+  const uint32_t lbo = static_cast<uint32_t>((d >> 16) & 0x3fff) << 4;
+  const uint32_t sbo = static_cast<uint32_t>((d >> 32) & 0x3fff) << 4;
+  uint32_t u = addr + (mn / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 + 2 * (mn % 64);
+  u ^= ((u >> 7) & 7u) << 4;
+  uint16_t bits;
+  std::memcpy(&bits, reinterpret_cast<const char*>(emu_smem) + u, 2);
+  return emu_bf16(bits);
+}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N> inline void wgmma_wait() {}
+inline void wgmma_hold(float (&)[32]) {}
+inline void wgmma_64x64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  const unsigned t = threadIdx.x % 128, g = (t % 32) / 4, q = t % 4;
+  for (int i = 0; i < 32; ++i) {
+    const int row = 16 * static_cast<int>(t / 32) + static_cast<int>(g) + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * static_cast<int>(q) + i % 2;
+    float sum = accumulate ? d[i] : 0.f;
+    for (int k = 0; k < 16; ++k) sum += emu_desc_at(da, row, k) * emu_desc_at(db, col, k);
+    d[i] = sum;
+  }
+}
 """
 EMULATED_HEADERS = {"mma_sm90.cuh": MMA_SM90_H}
 

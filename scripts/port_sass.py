@@ -9,9 +9,11 @@ it (``ops/cuda_build.py``: nvcc, sm_90a, ``-Xptxas -v``). ``cuobjdump -sass``
 of the library goes to ``<out>/<name>.sass``; the script prints ptxas'
 lines and, for every kernel function of the dump, its instruction count and
 the count of each opcode family that sets its speed: tensor-core MMAs
-(``HMMA``), ``LDSM`` (ldmatrix), asynchronous copies (``LDGSTS``), global
-loads by width (``LDG.E``, ``.64``, ``.128``), shared loads and stores,
-double-precision adds (``DADD``) and FMAs (``FFMA``); for the segment sum's
+(``HGMMA`` for wgmma, ``HMMA`` for mma.sync), ``LDSM`` (ldmatrix),
+asynchronous copies (``LDGSTS``), global loads by width (``LDG.E``, ``.64``,
+``.128``), shared loads and stores, double-precision adds (``DADD``), FMAs
+(``FFMA``), conversions (``F2F``) and mbarrier operations (``SYNCS``); for
+the segment sum's
 ``run_chunk_kernel`` also the order of its global loads and DADDs. Needs
 nvcc and cuobjdump (the CUDA toolkit).
 """
@@ -30,8 +32,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from p_div_gnn_tpu_torch.ops.cuda_build import find_nvcc, load_cuda_library  # noqa: E402
 
-FAMILIES = ("HMMA", "LDSM", "LDGSTS", "LDG.E.128", "LDG.E.64", "LDG.E", "LDS", "STS", "STG",
-            "DADD", "DFMA", "FFMA", "SHFL", "BAR")
+FAMILIES = ("HGMMA", "HMMA", "LDSM", "LDGSTS", "LDG.E.128", "LDG.E.64", "LDG.E", "LDS", "STS",
+            "STG", "DADD", "DFMA", "FFMA", "F2F", "SHFL", "BAR", "SYNCS")
 
 
 def opcode_counts(body: list[str]) -> Counter:

@@ -873,6 +873,50 @@ def test_v2_backward_kernels_widths_and_determinism_on_cuda(dtype, kernel, L):
         assert torch.equal(a, b)
 
 
+# the weight-grad pass's stream sets: #2's four weight grads (dW2, dWe,
+# dWu, dWv over h1, dy1, h2, dy2, e, dps, dpre1, dpre2, g and x[r]), and
+# the v2 backwards' two (dW2, dWe, with #8's e rows at listed slots)
+WGRAD_SETS = {
+    "fused3": ([[(0, 1), (2, 3)], [(4, 5)], [(9, 6), (8, 7)], [(9, 7), (8, 6)]], 9),
+    "v2": ([[(0, 1), (2, 3)], [(4, 5)]], 4),
+}
+
+
+@pytest.mark.parametrize("streams", ["fused3", "v2"])
+@pytest.mark.parametrize("L", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgrad_pass_matches_fp64_sum_on_cuda(dtype, L, streams):
+    """The weight-grad pass alone (ops/wgrad.py) against Σ AᵀB in fp64:
+    4 weight grads of 2, 1, 2, 2 pairs or 2 of 2 and 1, over 20,011 rows (no
+    multiple of a 32-row item, nor of a chunk), one stream read at indices
+    that include -1 and values past its end (zero rows); each entry within
+    1e-5 of Σ|A|ᵀ|B| (the three-term split drops products below 2^-24 of
+    it, the tensor cores' k16 sums truncate near 2^-23), two calls
+    bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.ops import wgrad
+
+    pairs, indexed = WGRAD_SETS[streams]
+    n, n_idx = 20_011, 3_001
+    rng = np.random.default_rng(L + 7 * (dtype == torch.bfloat16) + len(pairs))
+    f = lambda rows: T(rng.normal(size=(rows, L)).astype(np.float32)).to("cuda", dtype)  # noqa: E731
+    n_src = 1 + max(max(a, b) for m in pairs for a, b in m)
+    src = [f(n_idx if k == indexed else n) for k in range(n_src)]
+    at_idx = [k == indexed for k in range(n_src)]
+    idx_np = rng.integers(0, n_idx, size=n).astype(np.int32)
+    idx_np[::97] = -1
+    idx_np[5::89] = n_idx + rng.integers(0, 5, size=len(idx_np[5::89]))
+    idx = T(idx_np).cuda()
+    got = [wgrad.wgrad_pass(src, at_idx, idx, pairs) for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    want = wgrad.wgrad_pass_reference(src, at_idx, idx, pairs, n)
+    scale = wgrad.wgrad_pass_reference([s.abs() for s in src], at_idx, idx, pairs, n)
+    assert scale.min() > 0
+    worst = float(((got[0] - want).abs() / scale).max())
+    assert worst < 1e-5, f"{worst:.3e} of Σ|A|ᵀ|B|"
+
+
 def test_v2_backward_kernel_refuses_split_receiver_runs_on_cuda():
     """The v2 backward writes each receiver's da rows once, from one run: on
     a pair-blocked layout, which splits a receiver's slots over several
