@@ -7,9 +7,10 @@ and, for a training cell, each planted fault, all against the reference.
         [--faults 3] [--out chiprun_out/calibrate_<cell>.jsonl]
     python3 perfbench/calibrate.py --workload <cell> --derive <readings.jsonl> ...
 
-Training reads the first three steps; serving runs its clients for
-``--seconds`` at the cell's load and compares the window's sampled
-requests. One JSON line per (seed, kind) goes to ``--out`` and stdout.
+Each traffic kind's driver (``harness/<kind>.py``) reads its own rows
+(``calibration_rows``): training the first three steps; serving runs its
+clients for ``--seconds`` at the cell's load and compares the window's
+sampled requests. One JSON line per (seed, kind) goes to ``--out`` and stdout.
 The benchmark's own runs never run this.
 """
 
@@ -21,92 +22,10 @@ from pathlib import Path
 sys.path[0] = str(Path(__file__).resolve().parents[1])
 
 import argparse  # noqa: E402
-import contextlib  # noqa: E402
-import gc  # noqa: E402
 import json  # noqa: E402
 import time  # noqa: E402
 
 from perfbench.harness import common, registry  # noqa: E402
-
-# the nearest precision below each stream precision a configuration states
-CONTROL = {"float32": "tf32", "bfloat16": "float8_e4m3fn"}
-
-
-def control_args(cfg: dict) -> dict:
-    import torch
-
-    if CONTROL[cfg["stream_dtype"]] == "tf32":
-        return {"dtype": torch.float32, "tf32": True}
-    return {"dtype": torch.float64, "stream": getattr(torch, CONTROL[cfg["stream_dtype"]])}
-
-
-def train_rows(cfg: dict, traffic: dict, seed: int, do_control: bool, do_faults: bool):
-    import torch
-
-    from perfbench.harness import train
-    from perfbench.harness.compare import train_details, train_numbers
-    from perfbench.harness.faults import FAULTS, planted
-
-    inputs = train.make_inputs(traffic, seed)
-    ref = train.reference_first_steps(cfg, inputs, "cuda", stream=train.stream_dtype(cfg))
-    kinds = ["program"] + (["control"] if do_control else []) + (list(FAULTS) if do_faults else [])
-    for kind in kinds:
-        if kind == "control":
-            got = train.reference_first_steps(cfg, inputs, "cuda", **control_args(cfg))
-        else:
-            with planted(kind) if kind in FAULTS else contextlib.nullcontext():
-                prog = train.Program(cfg, traffic, inputs, "cuda")
-                got = prog.first_steps(train.RECORDED_STEPS)
-                prog.close()
-                del prog
-        yield kind, {**train_numbers(got, ref), **train_details(got, ref)}
-        gc.collect()
-        torch.cuda.empty_cache()
-
-
-def serve_rows(cfg: dict, traffic: dict, seed: int, seconds: float, do_control: bool,
-               do_faults: bool):
-    import torch
-
-    from p_div_gnn_tpu_torch.inference import Predictor
-
-    from perfbench.harness import serve
-    from perfbench.harness.compare import serve_numbers
-    from perfbench.harness.faults import planted
-    from perfbench.inputs.pool import build_pool
-    from perfbench.reference.ckpt import read_checkpoint
-
-    ckpt = registry.ROOT / cfg["checkpoint"]
-    _, stats = read_checkpoint(ckpt)
-    pool = build_pool(traffic["pool"])
-    samples = serve.port_samples(pool)
-    kinds = ["program"] + (["answer_altered"] if do_faults else [])
-    sampled = None
-    for kind in kinds:
-        with planted(kind) if kind != "program" else contextlib.nullcontext():
-            predictor = Predictor(ckpt, latent_size=cfg["latent_size"],
-                                  message_passing_steps=cfg["message_passing_steps"],
-                                  scatter_impl=cfg["scatter_impl"],
-                                  stream_dtype=cfg["stream_dtype"], device="cuda")
-            clients = serve.Clients(predictor, pool, samples, traffic, stats, seed)
-            clients.run(seconds=seconds)
-        sampled = serve.checked_requests(clients.done, seed)
-        refs = [serve.reference_fields(cfg, pool, r, "cuda") for r in sampled]
-        worst = max(serve_numbers(r["fields"], ref, stats["std_local_stress"])["field_gap"]
-                    for r, ref in zip(sampled, refs))
-        yield kind, {"field_gap": worst, "requests": len(clients.done)}
-        del clients, predictor
-        gc.collect()
-        torch.cuda.empty_cache()
-    if do_control:
-        worst = 0.0
-        for r in sampled:
-            ref = serve.reference_fields(cfg, pool, r, "cuda")
-            low = serve.reference_fields(cfg, pool, r, "cuda", **control_args(cfg))
-            worst = max(worst, serve_numbers([x.cpu().numpy() for x in low], ref,
-                                             stats["std_local_stress"])["field_gap"])
-        yield "control", {"field_gap": worst}
-
 
 def derive(rows: list[dict], names: list[str]) -> dict:
     """Each number's limit from its readings: the lower reading is the
@@ -159,6 +78,7 @@ def main() -> int:
     common.set_cache_dirs()
     work = registry.cell(args.workload)
     cfg, traffic = registry.config(work), registry.traffic(work["traffic"])
+    driver = registry.driver(traffic["kind"])
     common.require_cards(work["chips"])
     out = Path(args.out or f"chiprun_out/calibrate_{args.workload}.jsonl")
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -166,11 +86,8 @@ def main() -> int:
     with out.open("a") as fh:
         for i, seed in enumerate(args.seeds):
             t0 = time.perf_counter()
-            if traffic["kind"] == "train":
-                rows = train_rows(cfg, traffic, seed, i < args.controls, i < args.faults)
-            else:
-                rows = serve_rows(cfg, traffic, seed, args.seconds, i < args.controls,
-                                  i < args.faults)
+            rows = driver.calibration_rows(cfg, traffic, seed, args.seconds, i < args.controls,
+                                           i < args.faults)
             for kind, numbers in rows:
                 line = json.dumps({"cell": args.workload, "seed": seed, "kind": kind, **numbers,
                                    "seconds": time.perf_counter() - t0})

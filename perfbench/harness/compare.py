@@ -19,6 +19,15 @@ from perfbench.harness.registry import BENCH
 # a leaf whose reference gradient is under this share of the median leaf's
 # moves by round-off alone, and is left out of the change's comparison
 NEGLIGIBLE_GRAD = 1e-3
+# the control: the nearest precision below each stream precision a configuration states
+CONTROL = {"float32": "tf32", "bfloat16": "float8_e4m3fn"}
+
+
+def control_args(cfg: dict) -> dict:
+    """The reference's arguments that put it one precision below ``cfg``'s."""
+    if CONTROL[cfg["stream_dtype"]] == "tf32":
+        return {"dtype": torch.float32, "tf32": True}
+    return {"dtype": torch.float64, "stream": getattr(torch, CONTROL[cfg["stream_dtype"]])}
 
 
 def limits(cell: str) -> dict[str, float]:

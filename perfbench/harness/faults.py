@@ -1,5 +1,6 @@
 """Faults planted in the program, to show that the comparison catches them
-(``calibrate.py`` reads them on the card, ``tests/`` on the CPU):
+(``calibrate.py`` reads them on the card, ``tests/`` on the CPU), each at
+the site that the architecture's module names (``fault_sites()``):
 
 - ``state_unchanged``: the training step leaves the parameters and Adam's
   state as they were;
@@ -18,44 +19,40 @@ import dataclasses
 
 import torch
 
-FAULTS = ("state_unchanged", "half_batch", "answer_altered")
+from perfbench.harness import registry
+
+# each fault and the architecture's site it goes to
+SITES = {"state_unchanged": "step", "half_batch": "loss", "answer_altered": "output"}
+FAULTS = tuple(SITES)
 
 
 @contextlib.contextmanager
-def planted(name: str):
-    from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
-    from p_div_gnn_tpu_torch.train import loop
-
+def planted(name: str, arch: str):
+    """Plant the fault ``name`` at its site of the architecture ``arch``
+    (``fault_sites()`` of ``arch/<arch>.py``) for the block's duration."""
+    if name not in SITES:
+        raise ValueError(f"unknown fault {name!r}; faults: {FAULTS}")
+    target, attr = registry.arch(arch).fault_sites()[SITES[name]]
+    orig = getattr(target, attr)
     if name == "state_unchanged":
-        target, attr = loop.Trainer, "train_step"
-        orig = loop.Trainer.train_step
-
         def broken(self, batch):
             if self.optimizer is None:
                 self.init()
             aux, _ = self.loss_and_grads(batch)
             return aux
     elif name == "half_batch":
-        target, attr = loop, "batch_loss"
-        orig = loop.batch_loss
-
         def broken(batch, *args, **kwargs):
             keep = torch.arange(batch.n_graphs, device=batch.graph_node_count.device)
             half = dataclasses.replace(batch, graph_node_count=torch.where(
                 keep < batch.n_graphs // 2, batch.graph_node_count,
                 torch.zeros_like(batch.graph_node_count)))
             return orig(half, *args, **kwargs)
-    elif name == "answer_altered":
-        target, attr = EncodeProcessDecode, "forward"
-        orig = EncodeProcessDecode.forward
-
+    else:
         def broken(self, *args, **kwargs):
             out = orig(self, *args, **kwargs)
             scale = torch.ones_like(out)
             scale[:64] = 1.5
             return out * scale
-    else:
-        raise ValueError(f"unknown fault {name!r}; faults: {FAULTS}")
     setattr(target, attr, broken)
     try:
         yield

@@ -1,11 +1,14 @@
 """Find what a cell names, by name: the cell and its metrics in
-``BENCHMARK.json``, its configuration (``configs/<config>.json``), its
-traffic mix (``traffic/<traffic>.json``), the per-layer metric readers
+``BENCHMARK.json``, its configuration (``configs/<config>.json``) and the
+module of the architecture the configuration names (``arch/<arch>.py``),
+its traffic mix (``traffic/<traffic>.json``) and the driver of the mix's
+kind (``harness/<kind>.py``), the per-layer metric readers
 (``metrics/<metric>.py``) and the port kernels' descriptions
 (``kernels/<kernel>.json``). Adding any of them is adding a file."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -40,7 +43,40 @@ def cell(name: str) -> dict:
 
 
 def config(work: dict) -> dict:
-    return json.loads(Path(work["config_file"]).read_text())
+    """The configuration file's contents, with every key that its
+    architecture's module requires."""
+    path = Path(work["config_file"])
+    cfg = json.loads(path.read_text())
+    if "arch" not in cfg:
+        raise SystemExit(f"{path}: no \"arch\" key; it names the configuration's module "
+                         f"{BENCH / 'arch'}/<arch>.py")
+    missing = [k for k in arch(cfg["arch"]).REQUIRED_KEYS if k not in cfg]
+    if missing:
+        raise SystemExit(f"{path}: lacks {', '.join(missing)}, which arch/{cfg['arch']}.py "
+                         "requires")
+    return cfg
+
+
+def _module(package: str, folder: Path, name: str, what: str) -> ModuleType:
+    path = folder / f"{name}.py"
+    if not name.isidentifier() or not path.is_file():
+        raise SystemExit(f"no {what} {name!r}: {path} is not there")
+    return importlib.import_module(f"{package}.{name}")
+
+
+def arch(name: str) -> ModuleType:
+    """The module of ``arch/<name>.py``: what the training driver and the
+    yardstick know of one architecture (its docstring gives the contract)."""
+    return _module("perfbench.arch", BENCH / "arch", name, "architecture")
+
+
+def driver(kind: str) -> ModuleType:
+    """The module of ``harness/<kind>.py``, the driver of a traffic kind:
+    its ``run(cfg, traffic, seed, seconds, trace, device, t_start, pool=)``
+    runs a cell once, ``UNIT`` names what its traced units are ("step" or
+    "request"), and ``calibration_rows`` reads the numbers that set a
+    cell's limits (``calibrate.py``)."""
+    return _module("perfbench.harness", BENCH / "harness", kind, "traffic kind")
 
 
 def traffic(name: str) -> dict:

@@ -7,10 +7,15 @@ until the window's time is up; the window ends when the last client's
 last request has returned, so every request sent is counted. The closed
 loop keeps the server at its capacity. A traced run measures the same
 window first, then traces a short one of a few requests a client.
+
+This driver is P-DivGNN's alone: it serves the configuration's committed
+checkpoint through the port's ``Predictor`` and holds it to P-DivGNN's
+reference. No cell serves yet, so it takes no architecture module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import threading
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from perfbench.harness.common import peak_bytes, say_setup, sync
-from perfbench.harness.compare import serve_numbers
+from perfbench.harness.compare import control_args, serve_numbers
 from perfbench.harness.registry import ROOT
 from perfbench.inputs.pool import PoolBuilder
 from perfbench.reference import model as ref_model
@@ -28,6 +33,7 @@ from perfbench.reference.ckpt import read_checkpoint
 from perfbench.reference.data import ref_batch
 
 CHECKED_REQUESTS = 6  # sampled from the window's requests, plus the largest
+UNIT = "request"
 
 
 def request(pool_size: int, n: int, stats: dict, seed: int, client: int, k: int):
@@ -228,3 +234,43 @@ def check(cfg: dict, pool: list[dict], done: list[dict], seed: int, device: str)
         worst = max(worst, serve_numbers(req["fields"], refs, stats["std_local_stress"])["field_gap"])
     return {"field_gap": worst}
 
+
+def calibration_rows(cfg: dict, traffic: dict, seed: int, seconds: float, do_control: bool,
+                     do_faults: bool):
+    """(kind, numbers) of the program's window and, where asked, of the
+    control and of the answer altered, all against the reference, on the
+    card (``calibrate.py``)."""
+    from p_div_gnn_tpu_torch.inference import Predictor
+
+    from perfbench.harness.faults import planted
+
+    ckpt = ROOT / cfg["checkpoint"]
+    _, stats = read_checkpoint(ckpt)
+    pool = PoolBuilder(traffic["pool"]).result()
+    samples = port_samples(pool)
+    kinds = ["program"] + (["answer_altered"] if do_faults else [])
+    sampled = None
+    for kind in kinds:
+        with planted(kind, cfg["arch"]) if kind != "program" else contextlib.nullcontext():
+            predictor = Predictor(ckpt, latent_size=cfg["latent_size"],
+                                  message_passing_steps=cfg["message_passing_steps"],
+                                  scatter_impl=cfg["scatter_impl"],
+                                  stream_dtype=cfg["stream_dtype"], device="cuda")
+            clients = Clients(predictor, pool, samples, traffic, stats, seed)
+            clients.run(seconds=seconds)
+        sampled = checked_requests(clients.done, seed)
+        refs = [reference_fields(cfg, pool, r, "cuda") for r in sampled]
+        worst = max(serve_numbers(r["fields"], ref, stats["std_local_stress"])["field_gap"]
+                    for r, ref in zip(sampled, refs))
+        yield kind, {"field_gap": worst, "requests": len(clients.done)}
+        del clients, predictor
+        gc.collect()
+        torch.cuda.empty_cache()
+    if do_control:
+        worst = 0.0
+        for r in sampled:
+            ref = reference_fields(cfg, pool, r, "cuda")
+            low = reference_fields(cfg, pool, r, "cuda", **control_args(cfg))
+            worst = max(worst, serve_numbers([x.cpu().numpy() for x in low], ref,
+                                             stats["std_local_stress"])["field_gap"])
+        yield "control", {"field_gap": worst}

@@ -10,32 +10,38 @@ differ: those steps are the ones the reference follows. The window then
 takes the same trainer and the same feed on. Nothing of the program is
 read for the yardstick but its outputs: the losses, Adam's moments, the
 parameters, and each batch's real edges and slots.
+
+What belongs to one architecture (its inputs, model, trainer, weights and
+plain reference) comes from the module that the configuration's ``arch``
+names (``arch/<arch>.py``); this driver holds the rest.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
 import numpy as np
 import torch
 
+from perfbench.harness import registry
 from perfbench.harness.common import peak_bytes, reset_peak, say_setup, sync
-from perfbench.harness.compare import train_numbers
-from perfbench.inputs.pool import PoolBuilder, sine_targets
-from perfbench.inputs.weights import initial_weights
-from perfbench.reference import model as ref_model
-from perfbench.reference.data import norm_stats, ref_batch
+from perfbench.harness.compare import control_args, train_details, train_numbers
+from perfbench.inputs.pool import PoolBuilder
+from perfbench.reference.model import adam_update
 
 RECORDED_STEPS = 3
+UNIT = "step"
 
 
-def make_inputs(traffic: dict, seed: int, workers: int | None = None,
+def make_inputs(cfg: dict, traffic: dict, seed: int, workers: int | None = None,
                 pool: PoolBuilder | None = None) -> dict:
-    """The pool (built, or waited for where ``pool`` builds it) and its targets."""
+    """The pool (built, or waited for where ``pool`` builds it) and what the
+    architecture draws over it from the seed."""
     pool = (pool or PoolBuilder(traffic["pool"], workers)).result()
-    targets = sine_targets(pool, seed)
-    return {"pool": pool, "targets": targets, "seed": seed, "loader_seed": traffic["loader_seed"]}
+    return {"pool": pool, "seed": seed, "loader_seed": traffic["loader_seed"],
+            **registry.arch(cfg["arch"]).draw_inputs(pool, seed)}
 
 
 def first_groups(n_meshes: int, batch_size: int, seed: int, count: int) -> list[np.ndarray]:
@@ -47,46 +53,15 @@ def first_groups(n_meshes: int, batch_size: int, seed: int, count: int) -> list[
     return [order[i * batch_size:(i + 1) * batch_size] for i in range(count)]
 
 
-def port_samples(inputs: dict) -> list:
-    from p_div_gnn_tpu_torch.graphs.batching import GraphSample
-    from p_div_gnn_tpu_torch.graphs.build import MeshGraph
-
-    samples = []
-    for mesh, (mean, field) in zip(inputs["pool"], inputs["targets"]):
-        graph = MeshGraph(pos=mesh["pos"], edge_index=mesh["edge_index"],
-                          edge_weight=mesh["edge_weight"], faces=mesh["faces"],
-                          org_num_edges=mesh["org_num_edges"], is_periodic=True)
-        samples.append(GraphSample(graph=graph, mean_stress=mean, local_stress=field,
-                                   node_labels=mesh["labels"], div_data=mesh["div_data"],
-                                   div_row=mesh["div_row"], div_col=mesh["div_col"]))
-    return samples
-
-
 class Program:
     """The system under test: trainer, loader and the feed the window runs."""
 
     def __init__(self, cfg: dict, traffic: dict, inputs: dict, device: str):
-        from p_div_gnn_tpu_torch.graphs.dataset import compute_norm_stats
-        from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
-        from p_div_gnn_tpu_torch.train.data import GraphLoader
-        from p_div_gnn_tpu_torch.train.loop import Trainer
-
         self.device = torch.device(device)
-        samples = port_samples(inputs)
-        model = EncodeProcessDecode(
-            latent_size=cfg["latent_size"], message_passing_steps=cfg["message_passing_steps"],
-            scatter_impl=cfg["scatter_impl"], stream_dtype=cfg["stream_dtype"],
-            remat_steps=cfg["remat_steps"])
-        self.initial = initial_weights(cfg["latent_size"], inputs["seed"], self.device)
-        model.load_state_dict(self.initial)
-        self.trainer = Trainer(model=model, stats=compute_norm_stats(samples),
-                               learning_rate=cfg["learning_rate"],
-                               divergence_penalty=cfg["divergence_penalty"],
-                               optimize_divergence=cfg["divergence"], device=self.device)
-        self.trainer.init()
-        self.loader = GraphLoader(samples, cfg["batch_size"], shuffle=True, seed=inputs["loader_seed"],
-                                  cache_groups=traffic["cache_groups"], sender_view=True,
-                                  device=self.device)
+        arch = registry.arch(cfg["arch"])
+        self.initial = arch.draw_weights(cfg, inputs["seed"], self.device)
+        self.trainer, self.loader = arch.build_program(cfg, traffic, inputs, self.initial,
+                                                       self.device)
         self.feed = self._feed()
         self.shapes: dict[int, dict] = {}
 
@@ -136,11 +111,11 @@ def reference_first_steps(cfg: dict, inputs: dict, device: str,
                           tf32: bool = False, n: int = RECORDED_STEPS) -> dict:
     """The reference's first ``n`` steps from the same weights on the same
     batches: losses, the first gradient and the change over the steps."""
-    pool, targets, seed = inputs["pool"], inputs["targets"], inputs["seed"]
-    stats = norm_stats(pool, [m for m, _ in targets], [f for _, f in targets])
-    groups = first_groups(len(pool), cfg["batch_size"], inputs["loader_seed"], n)
+    arch = registry.arch(cfg["arch"])
+    stats = arch.reference_stats(inputs)
+    groups = first_groups(len(inputs["pool"]), cfg["batch_size"], inputs["loader_seed"], n)
     params = {k: v.to(dtype).requires_grad_(True)
-              for k, v in initial_weights(cfg["latent_size"], seed, device).items()}
+              for k, v in arch.draw_weights(cfg, inputs["seed"], device).items()}
     start = {k: v.detach().clone() for k, v in params.items()}
     state: dict = {}
     losses, grad = [], {}
@@ -148,15 +123,13 @@ def reference_first_steps(cfg: dict, inputs: dict, device: str,
     torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         for k, ids in enumerate(groups):
-            batch = ref_batch([pool[i] for i in ids], [targets[i][0] for i in ids],
-                              [targets[i][1] for i in ids], device)
-            total = ref_model.loss(params, batch, stats, cfg["message_passing_steps"],
-                                   cfg["divergence_penalty"], stream=stream, remat=True)
+            batch = arch.reference_batch(inputs, ids, device)
+            total = arch.reference_loss(params, batch, stats, cfg, stream)
             grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
             losses.append(float(total.detach()))
             if k == 0:
                 grad = {name: g.detach().double() for name, g in grads.items()}
-            ref_model.adam_update(params, grads, state, cfg["learning_rate"])
+            adam_update(params, grads, state, cfg["learning_rate"])
             del batch, total, grads
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
@@ -170,7 +143,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device
     from perfbench.harness.trace import Spans, traced
 
     marks = [("start", t_start)]
-    inputs = make_inputs(traffic, seed, workers, pool)
+    inputs = make_inputs(cfg, traffic, seed, workers, pool)
     marks.append(("pool", time.perf_counter()))
     prog = Program(cfg, traffic, inputs, device)
     marks.append(("program", time.perf_counter()))
@@ -225,3 +198,27 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device
 def stream_dtype(cfg: dict) -> torch.dtype | None:
     return None if cfg["stream_dtype"] == "float32" else getattr(torch, cfg["stream_dtype"])
 
+
+
+def calibration_rows(cfg: dict, traffic: dict, seed: int, seconds: float, do_control: bool,
+                     do_faults: bool):
+    """(kind, numbers) of the program's first steps and, where asked, of the
+    control and of each planted fault, all against the reference, on the
+    card (``calibrate.py``)."""
+    from perfbench.harness.faults import FAULTS, planted
+
+    inputs = make_inputs(cfg, traffic, seed)
+    ref = reference_first_steps(cfg, inputs, "cuda", stream=stream_dtype(cfg))
+    kinds = ["program"] + (["control"] if do_control else []) + (list(FAULTS) if do_faults else [])
+    for kind in kinds:
+        if kind == "control":
+            got = reference_first_steps(cfg, inputs, "cuda", **control_args(cfg))
+        else:
+            with planted(kind, cfg["arch"]) if kind in FAULTS else contextlib.nullcontext():
+                prog = Program(cfg, traffic, inputs, "cuda")
+                got = prog.first_steps(RECORDED_STEPS)
+                prog.close()
+                del prog
+        yield kind, {**train_numbers(got, ref), **train_details(got, ref)}
+        gc.collect()
+        torch.cuda.empty_cache()

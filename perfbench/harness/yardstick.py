@@ -1,6 +1,7 @@
 """The benchmark's arithmetic: the card's peaks, a launch's least time from
-its shapes (``kernels/<kernel>.json``), the model's FLOPs, and the shares
-the per-layer metrics report. Nothing here reads the program.
+its shapes (``kernels/<kernel>.json``), the model's FLOPs (counted by its
+architecture's module), and the shares the per-layer metrics report.
+Nothing here reads the program.
 
 Peaks of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit):
 67 TFLOP/s fp32 outside the tensor cores, 989 TFLOP/s bf16 on the tensor
@@ -11,6 +12,8 @@ power limit is printed beside every run.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+from perfbench.harness import registry
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -79,15 +82,10 @@ def roofline(run: Run, name: str) -> float | None:
 
 
 def model_flops(cfg: dict, E: int, N: int) -> tuple[float, float]:
-    """(edge-stream FLOPs, other FLOPs) of one forward pass: the encoders,
-    per message-passing step the edge MLP (x·Wu and x·Wv once per node, per
-    edge g·Wv, g·Wu, e·We and h·W2 for the message and the update) and the
-    node MLP, and the decoder."""
-    L, S = cfg["latent_size"], cfg["message_passing_steps"]
-    stream = S * 2 * L * L * (5 * E + 2 * N)
-    other = (2 * N * (6 * L + L * L) + 2 * E * (L + L * L)
-             + S * 2 * 3 * L * L * N + 2 * N * (L * L + 3 * L))
-    return float(stream), float(other)
+    """(edge-stream FLOPs, other FLOPs) of one forward pass over E real
+    edges and N real nodes, as the configuration's architecture module
+    (``arch/<arch>.py``) counts them."""
+    return registry.arch(cfg["arch"]).model_flops(cfg, E, N)
 
 
 def model_least_time(cfg: dict, unit: dict, backward: bool) -> float:

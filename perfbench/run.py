@@ -3,8 +3,9 @@
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
-(``configs/<config>.json``) and a traffic mix (``traffic/<mix>.json``).
-The run makes its inputs and weights from the seed, builds and warms the
+(``configs/<config>.json``, whose ``arch`` names ``arch/<arch>.py``) and
+a traffic mix (``traffic/<mix>.json``, whose ``kind`` names its driver
+``harness/<kind>.py``). The run makes its inputs and weights from the seed, builds and warms the
 program (``p_div_gnn_tpu_torch``) on the card, then measures for
 ``--seconds`` (``--trace 0``: the cell's end-to-end metrics) or traces a
 short window (``--trace 1``: its per-layer metrics, read by
@@ -28,8 +29,6 @@ sys.path[0] = str(Path(__file__).resolve().parents[1])
 
 from perfbench.harness import common, registry  # noqa: E402
 
-TRAFFIC_KINDS = {"train": "perfbench.harness.train", "serve": "perfbench.harness.serve"}
-
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -41,7 +40,6 @@ def main(argv: list[str] | None = None) -> int:
 
     common.set_cache_dirs()
     work = registry.cell(args.workload)
-    cfg = registry.config(work)
     traffic = registry.traffic(work["traffic"])
 
     from perfbench.inputs.pool import PoolBuilder
@@ -50,9 +48,8 @@ def main(argv: list[str] | None = None) -> int:
     # processes while torch and the card start
     pool = PoolBuilder(traffic["pool"], cache=common.CACHE / "pool")
     try:
+        cfg = registry.config(work)
         common.require_cards(work["chips"])
-
-        import importlib
 
         import torch
 
@@ -60,7 +57,7 @@ def main(argv: list[str] | None = None) -> int:
         from perfbench.harness.trace import breakdown
         from perfbench.harness.yardstick import Run
 
-        driver = importlib.import_module(TRAFFIC_KINDS[traffic["kind"]])
+        driver = registry.driver(traffic["kind"])
         out = driver.run(cfg, traffic, args.seed, args.seconds, bool(args.trace), "cuda",
                          T_START, pool=pool)
     finally:
@@ -73,9 +70,8 @@ def main(argv: list[str] | None = None) -> int:
     metrics: dict = {}
     result: dict = {}
     if args.trace:
-        run = Run(cfg=cfg, unit="step" if traffic["kind"] == "train" else "request",
-                  units=out["units"], trace=out["trace"], kernels=registry.kernels(cfg["kernels"]),
-                  spans=out["spans"])
+        run = Run(cfg=cfg, unit=driver.UNIT, units=out["units"], trace=out["trace"],
+                  kernels=registry.kernels(cfg["kernels"]), spans=out["spans"])
         for m in work["per_layer"]:
             value = registry.metric_reader(m["name"]).read(run)
             if value is not None:

@@ -12,6 +12,10 @@ BENCH = registry.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+# what every architecture module offers (the contract in arch/pdivgnn.py's docstring)
+ARCH_CONTRACT = ("REQUIRED_KEYS", "draw_inputs", "port_samples", "draw_weights", "build_program",
+                 "reference_stats", "reference_batch", "reference_loss", "model_flops",
+                 "fault_sites")
 
 
 def test_top_level_keys():
@@ -39,10 +43,9 @@ def test_config_file(conf):
     assert data["name"] == conf["name"]
     assert conf["file"].startswith("perfbench/")
     assert data["reduced"] == conf["reduced"]
-    for key in ("latent_size", "message_passing_steps", "batch_size", "scatter_impl",
-                "stream_dtype", "learning_rate", "divergence_penalty", "remat_steps"):
-        assert key in data
-    assert (registry.ROOT / data["checkpoint"]).is_file()
+    assert all(key in data for key in registry.arch(data["arch"]).REQUIRED_KEYS)
+    if "checkpoint" in data:
+        assert (registry.ROOT / data["checkpoint"]).is_file()
     assert list(registry.kernels(data["kernels"])) == data["kernels"]  # those files alone
 
 
@@ -50,12 +53,22 @@ def test_config_file(conf):
 def test_cell_is_found_by_name(cell):
     work = registry.cell(cell)
     traffic = registry.traffic(work["traffic"])
-    assert traffic["kind"] in ("train", "serve")
+    driver = registry.driver(traffic["kind"])
+    assert callable(driver.run) and driver.UNIT in ("step", "request")
     e2e = {m["name"] for m in work["end_to_end"]}
     assert "setup_s" in e2e and len(e2e) >= 2 and work["per_layer"]
     assert all(m["moves"] in e2e for m in work["per_layer"])
     numbers = json.loads((registry.BENCH / "limits" / f"{cell}.json").read_text())["numbers"]
     assert numbers and all("limit" in v for v in numbers.values())
+
+
+@pytest.mark.parametrize("arch", sorted(p.stem for p in (registry.BENCH / "arch").glob("*.py")
+                                         if p.stem != "__init__"))
+def test_arch_module_keeps_the_contract(arch):
+    module = registry.arch(arch)
+    assert all(hasattr(module, name) for name in ARCH_CONTRACT)
+    assert {"latent_size", "batch_size", "learning_rate", "stream_dtype"} <= set(
+        module.REQUIRED_KEYS)  # read by the training driver and the yardstick
 
 
 @pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])

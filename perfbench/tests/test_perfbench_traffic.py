@@ -48,8 +48,7 @@ def tiny(cell: str) -> tuple[dict, dict]:
 
 def run_cell(cell: str, trace: bool = False, seed: int = SEED) -> dict:
     cfg, traffic = tiny(cell)
-    driver = train if traffic["kind"] == "train" else serve
-    return driver.run(cfg, traffic, seed, 1.0, trace, "cpu", time.perf_counter(), workers=1)
+    return registry.driver(traffic["kind"]).run(cfg, traffic, seed, 1.0, trace, "cpu", time.perf_counter(), workers=1)
 
 
 @pytest.mark.parametrize("cell", ["train.fp32", "train.bf16", "serve.fp32"])
@@ -69,9 +68,8 @@ def test_traced_run_reads_its_layer_metrics(cell):
     from perfbench.harness.yardstick import Run
 
     cfg, traffic, names = files(cell)
-    run = Run(cfg=tiny(cell)[0], unit="step" if traffic["kind"] == "train" else "request",
-              units=out["units"], trace=out["trace"], kernels=registry.kernels(cfg["kernels"]),
-              spans=out["spans"])
+    run = Run(cfg=tiny(cell)[0], unit=registry.driver(traffic["kind"]).UNIT, units=out["units"],
+              trace=out["trace"], kernels=registry.kernels(cfg["kernels"]), spans=out["spans"])
     assert out["units"] and run.trace.window_s > 0
     values = {name: registry.metric_reader(name).read(run) for name in names}
     kind = traffic["kind"]
@@ -85,14 +83,14 @@ def test_traced_run_reads_its_layer_metrics(cell):
 @pytest.mark.parametrize("fault", FAULTS)
 def test_faults_come_out_not_correct(fault):
     cell = "serve.fp32" if fault == "answer_altered" else "train.fp32"
-    with planted(fault):
+    with planted(fault, "pdivgnn"):
         out = run_cell(cell, seed=SEED + 1)
     correct, checks = judged(out["numbers"], limits(cell))
     assert not correct, checks
 
 
 def test_answer_altered_fails_training_too():
-    with planted("answer_altered"):
+    with planted("answer_altered", "pdivgnn"):
         out = run_cell("train.fp32", seed=SEED + 2)
     assert not judged(out["numbers"], limits("train.fp32"))[0]
 
@@ -102,7 +100,7 @@ def test_bf16_control_comes_out_not_correct():
     fp8, in the program's place."""
     cfg, traffic = tiny("train.bf16")
     cfg["message_passing_steps"] = 10
-    inputs = train.make_inputs(traffic, SEED, workers=1)
+    inputs = train.make_inputs(cfg, traffic, SEED, workers=1)
     ref = train.reference_first_steps(cfg, inputs, "cpu", stream=torch.bfloat16)
     low = train.reference_first_steps(cfg, inputs, "cpu",
                                       stream=torch.float8_e4m3fn)
@@ -131,7 +129,7 @@ def test_tf32_control_comes_out_not_correct_on_the_card(cell):
         pytest.skip("needs a CUDA card")
     cfg, traffic, _ = files(cell)
     if traffic["kind"] == "train":
-        inputs = train.make_inputs(traffic, SEED)
+        inputs = train.make_inputs(cfg, traffic, SEED)
         ref = train.reference_first_steps(cfg, inputs, "cuda")
         low = train.reference_first_steps(cfg, inputs, "cuda", dtype=torch.float32,
                                           tf32=True)

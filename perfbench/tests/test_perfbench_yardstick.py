@@ -15,7 +15,7 @@ from perfbench.harness.yardstick import (
     roofline,
 )
 
-CFG = {"latent_size": 4, "message_passing_steps": 2, "stream_dtype": "float32"}
+CFG = {"arch": "pdivgnn", "latent_size": 4, "message_passing_steps": 2, "stream_dtype": "float32"}
 
 
 def fake_trace() -> Trace:
