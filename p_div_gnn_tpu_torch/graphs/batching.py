@@ -17,6 +17,7 @@ import torch
 from p_div_gnn_tpu_torch.graphs.build import MeshGraph
 from p_div_gnn_tpu_torch.graphs.container import (
     EDGE_BLOCK,
+    NODE_FIELDS,
     NODE_TILE,
     SND_BLOCK,
     GraphBatch,
@@ -48,6 +49,17 @@ class GraphSample:
     @property
     def num_div_entries(self) -> int:
         return int(self.div_data.shape[0])
+
+
+@dataclasses.dataclass
+class NodeFieldSample(GraphSample):
+    """A sample with the per-node inputs and targets of another model than
+    P-DivGNN (MeshGraphNets), which ``pack_batch`` packs into the batch's
+    ``node_inputs`` / ``node_targets``. A subclass, so that GraphSample's
+    fields stay the JAX package's sample's."""
+
+    node_inputs: np.ndarray | None = None  # (N, F)
+    node_targets: np.ndarray | None = None  # (N, T)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -363,6 +375,8 @@ def _reorder_sample(s: GraphSample) -> tuple[GraphSample, np.ndarray]:
         edge_index=inv[np.asarray(g.edge_index)],
         faces=(inv[np.asarray(g.faces)] if g.faces is not None else None),
     )
+    per_node = {name: np.asarray(getattr(s, name))[perm] for name in NODE_FIELDS
+                if getattr(s, name, None) is not None}
     cols = np.asarray(s.div_col, np.int64)
     comp, node = cols // n, cols % n
     # entries with col >= 2n (virtual strain dofs) are dropped by pack_batch;
@@ -374,6 +388,7 @@ def _reorder_sample(s: GraphSample) -> tuple[GraphSample, np.ndarray]:
             graph=graph,
             local_stress=np.asarray(s.local_stress)[perm],
             node_labels=np.asarray(s.node_labels)[perm],
+            **per_node,
             div_row=inv[np.asarray(s.div_row, np.int64)],
             div_col=new_cols,
         ),
@@ -475,6 +490,7 @@ def pack_batch(
 
     graph_node_count = np.zeros(G, np.int32)
     graph_node_offset = np.zeros(G, np.int32)
+    per_node = {name: _node_field(samples, name, Np) for name in NODE_FIELDS}
 
     n_off = e_off = k_off = 0
     for g, s in enumerate(samples):
@@ -484,6 +500,9 @@ def pack_batch(
         node_type[n_off : n_off + n, 0] = np.asarray(s.node_labels, np.float32)
         local_stress[n_off : n_off + n] = np.asarray(s.local_stress, np.float32)
         node_gid[n_off : n_off + n] = g
+        for name, out in per_node.items():
+            if out is not None:
+                out[n_off : n_off + n] = np.asarray(getattr(s, name), np.float32)
 
         senders[e_off : e_off + e] = s.graph.edge_index[0] + n_off
         receivers[e_off : e_off + e] = s.graph.edge_index[1] + n_off
@@ -543,6 +562,7 @@ def pack_batch(
     return GraphBatch(
         node_order=node_order,
         **ell,
+        **per_node,
         pos=pos,
         mean_stress=mean_stress,
         node_type=node_type,
@@ -569,14 +589,30 @@ def pack_batch(
     )
 
 
+def _node_field(samples: list[GraphSample], name: str, Np: int) -> np.ndarray | None:
+    """The (Np, C) zeros that the samples' per-node field ``name`` fills, or
+    None where no sample has it; a batch takes it from every sample or
+    from none."""
+    given = [getattr(s, name, None) is not None for s in samples]
+    if not any(given):
+        return None
+    if not all(given):
+        raise ValueError(f"pack_batch: {name} is given for some samples and not others")
+    widths = {np.asarray(getattr(s, name)).shape[1] for s in samples}
+    if len(widths) != 1:
+        raise ValueError(f"pack_batch: the samples' {name} differ in width: {sorted(widths)}")
+    return np.zeros((Np, widths.pop()), np.float32)
+
+
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def unpack_predictions(batch: GraphBatch, prediction: np.ndarray) -> list[np.ndarray]:
-    """Slice a (Np, C) node prediction back into per-graph arrays in each
-    mesh's original node order (`data_utils.py:36-43`). The batch may be
-    on the host or on a device."""
+    """Slice a (Np, C) node prediction (or per-node field, such as the
+    batch's ``node_targets``) back into per-graph arrays in each mesh's
+    original node order (`data_utils.py:36-43`). The batch may be on the
+    host or on a device."""
     out = []
     counts = _host(batch.graph_node_count)
     offsets = _host(batch.graph_node_offset)

@@ -17,7 +17,11 @@ fields with the same layout contract, held as numpy arrays on the host
 
 Beyond the JAX package's fields, ``.to(device)`` derives from the sender
 view, on the device, the order in which the port's block-CSR segment sum
-reads it (``snd_run_perm``, ``snd_run_sorted``; see ``sender_run_order``).
+reads it (``snd_run_perm``, ``snd_run_sorted``; see ``sender_run_order``),
+and a batch may carry per-node inputs and targets of another model than
+P-DivGNN (``node_inputs``, ``node_targets``: MeshGraphNets' velocity and
+node type, and its velocity change), zero on padding nodes and ``None``
+in a P-DivGNN batch.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ Array = Any  # np.ndarray on the host, torch.Tensor on the device
 EDGE_BLOCK = 768
 NODE_TILE = 256
 SND_BLOCK = EDGE_BLOCK
+# the port's own optional per-node fields, which the JAX package's batch lacks
+NODE_FIELDS = ("node_inputs", "node_targets")
 
 
 @dataclasses.dataclass
@@ -91,23 +97,35 @@ class GraphBatch:
     snd_run_perm: Array | None = None  # (Ep2,) i32
     snd_run_sorted: Array | None = None  # (Ep2,) i32
 
+    # --- optional per-node inputs and targets of another model than
+    # P-DivGNN (pack_batch from NodeFieldSample.node_inputs /
+    # node_targets), in the packed node order, zero on padding nodes
+    node_inputs: Array | None = None  # (Np, F) f32
+    node_targets: Array | None = None  # (Np, T) f32
+
     # --- static
     n_graphs: int = 1
     tile: int = NODE_TILE
 
     def array_fields(self) -> list[str]:
-        """The fields of the JAX package's batch (the derived run order and
-        the static sizes left out)."""
+        """The fields of the JAX package's batch (the derived run order, the
+        port's own per-node fields and the static sizes left out)."""
         return [
             f.name for f in dataclasses.fields(self)
             if f.name not in ("n_graphs", "tile", "snd_run_perm", "snd_run_sorted")
+            + NODE_FIELDS
         ]
+
+    def tensor_fields(self) -> list[str]:
+        """Every array a device copy holds but the derived run order: the
+        JAX package's fields and the port's own per-node fields."""
+        return self.array_fields() + list(NODE_FIELDS)
 
     def is_on(self, device: str | torch.device) -> bool:
         """Whether every array is already a tensor on ``device`` (with the
         sender view's run order derived)."""
         device = torch.device(device)
-        arrays = [v for name in self.array_fields() if (v := getattr(self, name)) is not None]
+        arrays = [v for name in self.tensor_fields() if (v := getattr(self, name)) is not None]
         return (self.snd_perm is None or self.snd_run_perm is not None) and all(
             isinstance(v, torch.Tensor) and v.device.type == device.type
             and (device.index is None or v.device.index == device.index)
@@ -131,7 +149,7 @@ class GraphBatch:
 
         moved = {
             name: None if (v := getattr(self, name)) is None else move(v)
-            for name in self.array_fields()
+            for name in self.tensor_fields()
         }
         if moved["snd_perm"] is not None:
             moved["snd_run_perm"], moved["snd_run_sorted"] = sender_run_order(

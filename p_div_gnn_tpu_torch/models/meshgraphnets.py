@@ -1,0 +1,284 @@
+"""MeshGraphNets in torch.nn: the ``cylinder_flow`` model of Pfaff,
+Fortunato, Sanchez-Gonzalez and Battaglia, "Learning Mesh-Based Simulation
+with Graph Networks" (ICLR 2021, arXiv:2010.03409), as deepmind-research
+``meshgraphnets/`` writes it (``core_model.py``: ``EncodeProcessDecode``,
+``GraphNetBlock``; ``cfd_model.py``: features, normalisers and loss). It
+has no counterpart in the JAX package.
+
+- Node input ``[velocity (2), one_hot(node_type, 9)]`` (the batch's
+  ``node_inputs``), edge input ``[p_s − p_r (2), |p_s − p_r|]`` computed
+  here from the batch's positions; both normalised by fixed per-feature
+  statistics (``MGNStats``), as is the target, the velocity change (the
+  batch's ``node_targets``).
+- Every MLP is Sonnet's ``MLP([L] * hidden_layers + [out])``: Linear →
+  ReLU → ... → Linear, followed by a per-row LayerNorm (eps 1e-5) except
+  on the decoder. Init as Sonnet's: kernels truncated normal (±2 σ) with
+  σ = 1/√fan_in, biases 0, LayerNorm scale 1 and offset 0.
+- ``message_passing_steps`` blocks with their own weights. Block k: ``e' =
+  MLP_e([x_s, x_r, e])``, one evaluation per edge that is both the message
+  and the edge update; ``x' = MLP_n([x, Σ_{edges into r} e'])``; then ``x
+  += x'``, ``e += e'``.
+- The decoder gives 2 outputs, the normalised velocity change; the loss
+  (``mgn_loss``) is the mean over the NORMAL and OUTFLOW nodes of the
+  squared error summed over the two components.
+
+The edge MLP's first layer over ``[x_s, x_r, e]`` is split per slot of its
+kernel, as ``models/epd.py`` does P-DivGNN's: ``x·W_s`` and ``x·W_r`` once
+per node, then gathered, the senders' rows by ``sender_gather_one`` (its
+backward kernel #3 over the batch's sender view) and the receivers' by
+``receiver_gather`` (#3 over the receiver-major layout); ``Σ e'`` is
+``scatter_add(impl="pallas")`` (#3 over that layout). A training step thus
+runs #3 three times a block. ``e'`` is multiplied by the edge mask, so a
+padding slot adds nothing to a sum and takes no gradient; padding nodes
+are left out of the loss.
+
+The model runs on one device: edge partitioning (``halo``) raises. No
+block is rematerialized, as the source trains. Spans (``utils/profiling``,
+``device=True``): ``mgn.encode``, ``mgn.edge`` and ``mgn.node`` (attribute
+``block``) a block, ``mgn.decode``.
+
+Importing this module applies the port's matmul precision policy
+(``utils/precision.py``: fp32 with TF32 off by default).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from p_div_gnn_tpu_torch.graphs.batching import NodeFieldSample
+from p_div_gnn_tpu_torch.graphs.container import GraphBatch
+from p_div_gnn_tpu_torch.ops.gather import receiver_gather, sender_gather_one
+from p_div_gnn_tpu_torch.ops.scatter import scatter_add
+from p_div_gnn_tpu_torch.utils.precision import matmul_precision
+from p_div_gnn_tpu_torch.utils.profiling import span
+
+matmul_precision()
+
+# cfd_model.py: node input [velocity (2), one_hot(node_type, NodeType.SIZE)],
+# edge input [relative mesh position (2), its norm], output the velocity change
+VELOCITY, NODE_TYPES, EDGE_FEATURES, OUT_FEATURES = 2, 9, 3, 2
+NODE_FEATURES = VELOCITY + NODE_TYPES
+# common.NodeType
+NORMAL, OBSTACLE, AIRFOIL, HANDLE, INFLOW, OUTFLOW, WALL_BOUNDARY = 0, 1, 2, 3, 4, 5, 6
+LN_EPS = 1e-5
+STD_EPS = 1e-8  # normalization.Normalizer's std_epsilon
+
+
+@dataclass(frozen=True)
+class MGNStats:
+    """Fixed per-feature normalisers, (mean, std) each: the node inputs
+    (F,), the edge features (3,) and the targets (T,)."""
+
+    node_mean: np.ndarray
+    node_std: np.ndarray
+    edge_mean: np.ndarray
+    edge_std: np.ndarray
+    target_mean: np.ndarray
+    target_std: np.ndarray
+
+    @classmethod
+    def ones(cls, node: int = NODE_FEATURES, target: int = OUT_FEATURES) -> "MGNStats":
+        """Identity normalisers: every mean 0, every std 1."""
+        z, o = np.zeros, np.ones
+        return cls(z(node), o(node), z(EDGE_FEATURES), o(EDGE_FEATURES), z(target), o(target))
+
+
+def mesh_edge_features(pos: np.ndarray, edge_index: np.ndarray) -> np.ndarray:
+    """(E, 3) ``[p_s − p_r, |p_s − p_r|]`` of one mesh on the host, fp64."""
+    pos = np.asarray(pos, np.float64)[:, :2]
+    rel = pos[edge_index[0]] - pos[edge_index[1]]
+    return np.concatenate([rel, np.linalg.norm(rel, axis=1, keepdims=True)], axis=1)
+
+
+def compute_mgn_stats(samples: list[NodeFieldSample]) -> MGNStats:
+    """The per-feature mean and std (biased, at least ``STD_EPS``, as the
+    source's ``Normalizer``) of the samples' node inputs, edge features and
+    targets, in fp64: fixed statistics in place of the source's online
+    accumulation."""
+
+    def moments(parts: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+        x = np.concatenate([np.asarray(p, np.float64) for p in parts])
+        return x.mean(0), np.maximum(x.std(0), STD_EPS)
+
+    node = moments([s.node_inputs for s in samples])
+    edge = moments([mesh_edge_features(s.graph.pos, s.graph.edge_index) for s in samples])
+    target = moments([s.node_targets for s in samples])
+    return MGNStats(*node, *edge, *target)
+
+
+def edge_features(batch: GraphBatch) -> torch.Tensor:
+    """(Ep, 3) ``[p_s − p_r, |p_s − p_r|]`` of every slot, on the device;
+    a padding slot's endpoints are one node, so its features are 0."""
+    rel = batch.pos.index_select(0, batch.senders) - batch.pos.index_select(0, batch.receivers)
+    return torch.cat([rel, torch.linalg.vector_norm(rel, dim=-1, keepdim=True)], dim=-1)
+
+
+def truncated_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """Sonnet's default kernel init in place: truncated normal (±2 σ) with
+    σ = 1/√fan_in."""
+    std = 1.0 / math.sqrt(fan_in)
+    return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Dense(nn.Module):
+    """``x @ kernel + bias``, kernel (in, out), Sonnet's init."""
+
+    def __init__(self, in_features: int, features: int, generator: torch.Generator):
+        super().__init__()
+        self.kernel = nn.Parameter(truncated_normal_(torch.empty(in_features, features),
+                                                     in_features, generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class MLP(nn.Module):
+    """Sonnet's ``MLP([latent] * hidden_layers + [out])`` (``lin0``, ``lin1``,
+    ...), with a per-row LayerNorm (``ln``) after it unless ``layer_norm``
+    is False."""
+
+    def __init__(self, in_features: int, latent: int, out: int, hidden_layers: int,
+                 generator: torch.Generator, layer_norm: bool = True):
+        super().__init__()
+        widths = [latent] * hidden_layers + [out]
+        self.n_layers = len(widths)
+        for i, (n_in, n_out) in enumerate(zip([in_features] + widths, widths)):
+            self.add_module(f"lin{i}", Dense(n_in, n_out, generator))
+        self.ln = nn.LayerNorm(out, eps=LN_EPS) if layer_norm else None
+
+    def layer(self, i: int) -> Dense:
+        return getattr(self, f"lin{i}")
+
+    def tail(self, h: torch.Tensor) -> torch.Tensor:
+        """The MLP after its first layer's product: ``h`` is that product
+        plus its bias, before the ReLU."""
+        for i in range(1, self.n_layers):
+            h = self.layer(i)(torch.relu(h))
+        return h if self.ln is None else self.ln(h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.tail(self.lin0(x))
+
+
+class GraphNetBlock(nn.Module):
+    """One message-passing block with its own edge and node MLPs."""
+
+    def __init__(self, latent: int, hidden_layers: int, generator: torch.Generator):
+        super().__init__()
+        self.edge_mlp = MLP(3 * latent, latent, latent, hidden_layers, generator)
+        self.node_mlp = MLP(2 * latent, latent, latent, hidden_layers, generator)
+
+    def edge_update(self, x: torch.Tensor, e: torch.Tensor, batch: GraphBatch,
+                    view: tuple | None, mask: torch.Tensor) -> torch.Tensor:
+        """``MLP_e([x_s, x_r, e])`` of every slot, times ``mask`` (Ep, 1): zero
+        on padding slots. Its first layer is split per slot of the kernel,
+        the node rows projected before they are gathered."""
+        L = x.shape[1]
+        w = self.edge_mlp.lin0.kernel
+        p_s = sender_gather_one(x @ w[:L], batch.senders, view, batch.tile)
+        p_r = receiver_gather(x @ w[L:2 * L], batch.receivers, batch.edge_block_tile,
+                              batch.tile)
+        pre = p_s + p_r + e @ w[2 * L:] + self.edge_mlp.lin0.bias
+        return self.edge_mlp.tail(pre) * mask
+
+    def node_update(self, x: torch.Tensor, e_new: torch.Tensor,
+                    batch: GraphBatch) -> torch.Tensor:
+        """``MLP_n([x, Σ_{edges into r} e'])`` of every node."""
+        aggr = scatter_add(e_new, batch.receivers, x.shape[0], batch.edge_block_tile,
+                           impl="pallas", tile=batch.tile)
+        return self.node_mlp(torch.cat([x, aggr], dim=-1))
+
+
+class MeshGraphNets(nn.Module):
+    """Encode-process-decode with unshared blocks (``core_model.py``)."""
+
+    def __init__(
+        self,
+        latent_size: int = 128,
+        message_passing_steps: int = 15,
+        hidden_layers: int = 2,
+        node_features: int = NODE_FEATURES,
+        out_features: int = OUT_FEATURES,
+        stats: MGNStats | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        L = latent_size
+        self.latent_size = latent_size
+        self.message_passing_steps = message_passing_steps
+        self.node_encoder = MLP(node_features, L, L, hidden_layers, generator)
+        self.edge_encoder = MLP(EDGE_FEATURES, L, L, hidden_layers, generator)
+        self.blocks = nn.ModuleList(GraphNetBlock(L, hidden_layers, generator)
+                                    for _ in range(message_passing_steps))
+        self.decoder = MLP(L, L, out_features, hidden_layers, generator, layer_norm=False)
+        stats = stats or MGNStats.ones(node_features, out_features)
+        for name in ("node_mean", "node_std", "edge_mean", "edge_std", "target_mean",
+                     "target_std"):
+            self.register_buffer(name, torch.as_tensor(getattr(stats, name), dtype=torch.float32),
+                                 persistent=False)
+
+    def forward(self, batch: GraphBatch, halo: object | None = None) -> torch.Tensor:
+        """(Np, 2) normalised velocity change of every node of the padded
+        batch (padding rows are computed and not read)."""
+        if halo is not None:
+            raise ValueError("MeshGraphNets runs on one device: edge partitioning (halo) is "
+                             "not supported")
+        if batch.node_inputs is None:
+            raise ValueError("MeshGraphNets reads the batch's node_inputs: pack samples that "
+                             "carry them (NodeFieldSample)")
+        view = None
+        if batch.snd_perm is not None:
+            if batch.snd_run_perm is None:
+                raise ValueError("the batch's sender view has no run order: move the batch "
+                                 "to its device with GraphBatch.to")
+            view = (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
+        with span("mgn.encode", device=True):
+            x = self.node_encoder((batch.node_inputs - self.node_mean) / self.node_std)
+            e = self.edge_encoder((edge_features(batch) - self.edge_mean) / self.edge_std)
+            mask = batch.edge_mask.to(x.dtype)[:, None]
+        for k, block in enumerate(self.blocks):
+            with span("mgn.edge", device=True, block=k):
+                e_new = block.edge_update(x, e, batch, view, mask)
+                e = e + e_new
+            with span("mgn.node", device=True, block=k):
+                x = x + block.node_update(x, e_new, batch)
+        with span("mgn.decode", device=True):
+            return self.decoder(x)
+
+
+def loss_mask(batch: GraphBatch) -> torch.Tensor:
+    """(Np,) the nodes the loss counts: NORMAL or OUTFLOW nodes of the
+    graphs that hold nodes (``graph_node_count``)."""
+    types = batch.node_inputs[:, VELOCITY:]
+    gid = batch.node_gid.long()
+    G = batch.n_graphs
+    real = (gid < G) & (batch.graph_node_count[gid.clamp(max=G - 1)] > 0)
+    return real & ((types[:, NORMAL] + types[:, OUTFLOW]) > 0)
+
+
+def mgn_loss(batch: GraphBatch, output: torch.Tensor, model: MeshGraphNets) -> torch.Tensor:
+    """``cfd_model.py``'s loss: the mean over the loss's nodes
+    (``loss_mask``) of Σ_c (target_c − output_c)², the target normalised by
+    the model's statistics."""
+    target = (batch.node_targets - model.target_mean) / model.target_std
+    mask = loss_mask(batch)
+    error = ((target - output) ** 2).sum(-1)
+    return torch.where(mask, error, 0.0).sum() / mask.sum().clamp(min=1)
+
+
+def objective(trainer, batch: GraphBatch, training: bool) -> tuple[torch.Tensor, dict]:
+    """MeshGraphNets' objective for ``Trainer(objective=...)``, in training
+    and in eval alike: (total, {"mse"}) of ``mgn_loss`` of the trainer's
+    model, on one device (no ``group``)."""
+    if trainer.group is not None:
+        raise ValueError("MeshGraphNets trains on one device: Trainer(group=) is not supported")
+    total = mgn_loss(batch, trainer.model(batch), trainer.model)
+    return total, {"mse": total}

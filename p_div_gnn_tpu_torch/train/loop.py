@@ -2,9 +2,13 @@
 (``Trainer``: the step, the eval metrics, skipping non-finite updates and
 ``fit``).
 
-The loss standardizes the target, not the prediction (the model runs with
-``scale_output=False``), and is ``batch_loss``: mean per-graph NMSE plus
-λ·mean divergence penalty when ``optimize_divergence``. The update is Adam
+The trainer takes any model of the port with that model's objective
+(``objective``): P-DivGNN's ``EncodeProcessDecode`` with
+``pdivgnn_objective``, the default, or MeshGraphNets with
+``models/meshgraphnets.py::objective``. P-DivGNN's loss standardizes the
+target, not the prediction (the model runs with ``scale_output=False``),
+and is ``batch_loss``: mean per-graph NMSE plus λ·mean divergence penalty
+when ``optimize_divergence``. The update is Adam
 with the reference's torch defaults, which ``optax.adam`` matches: betas
 (0.9, 0.999), eps 1e-8 added outside the square root, bias correction.
 
@@ -28,13 +32,13 @@ from __future__ import annotations
 import sys
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterable
+from typing import Callable, Iterable
 
 import torch
+from torch import nn
 
 from p_div_gnn_tpu_torch.graphs.container import GraphBatch, NormStats
 from p_div_gnn_tpu_torch.losses import batch_loss, per_graph_divergence
-from p_div_gnn_tpu_torch.models.epd import EncodeProcessDecode
 from p_div_gnn_tpu_torch.parallel.collectives import Group, barrier, pmean_, psum, rank
 from p_div_gnn_tpu_torch.train.checkpoint import (
     BEST_CHECKPOINT,
@@ -47,14 +51,46 @@ from p_div_gnn_tpu_torch.train.logging import MetricsWriter
 from p_div_gnn_tpu_torch.utils.profiling import span
 
 _INT32_MAX = 2**31 - 1
+# a model's objective: (trainer, batch on the device, training) -> (total,
+# {term: value}); with training False, the terms eval reports
+Objective = Callable[["Trainer", GraphBatch, bool],
+                     tuple[torch.Tensor, dict[str, torch.Tensor]]]
+
+
+def pdivgnn_objective(trainer: "Trainer", batch: GraphBatch,
+                      training: bool) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """P-DivGNN's objective with the trainer's ``stats``, penalty and
+    ``group``: in training ``batch_loss`` (terms "nmse", "divergence"); in
+    eval the NMSE, and the divergence added when
+    ``monitor_divergence_in_test``, as the JAX ``_eval_metrics`` reports
+    them."""
+    stats, group = trainer.stats, trainer.group
+    if stats is None:
+        raise ValueError("P-DivGNN's objective needs the trainer's stats")
+    pred = trainer.model(batch, stats, scale_input=True, scale_output=False, group=group)
+    target = (batch.local_stress - stats.mean_local_stress) / stats.std_local_stress
+    if training:
+        return batch_loss(batch, pred, target, divergence_penalty=trainer.divergence_penalty,
+                          optimize_divergence=trainer.optimize_divergence, group=group)
+    total, aux = batch_loss(batch, pred, target, 0.0, False, group=group)
+    if trainer.monitor_divergence_in_test:
+        gmask = batch.graph_mask.to(pred.dtype)
+        div_sum = psum((per_graph_divergence(batch, pred) * gmask).sum(), group)
+        n_real = psum(gmask.sum(), group)
+        aux["divergence"] = div_sum / torch.clamp(n_real, min=1.0)
+        total = total + aux["divergence"]
+    return total, aux
 
 
 @dataclass
 class Trainer:
-    """Trainer of an ``EncodeProcessDecode`` on one device, or on this
-    rank's shards under ``group`` (the module docstring). The model is
-    moved to ``device`` (the card unless the caller asks for the CPU) and
-    every batch, host-packed or already there, goes to it too.
+    """Trainer of a model of the port on one device, or on this rank's
+    shards under ``group`` (the module docstring). The model is moved to
+    ``device`` (the card unless the caller asks for the CPU) and every
+    batch, host-packed or already there, goes to it too. ``objective`` is
+    the model's training objective, P-DivGNN's by default, which reads
+    ``stats`` and the divergence settings. ``fit`` logs P-DivGNN's terms and
+    ``save`` writes P-DivGNN's checkpoint.
 
     ``skip_nonfinite_updates`` does what ``optax.apply_if_finite`` does
     around Adam: a step whose gradients hold an inf or a NaN leaves the
@@ -73,8 +109,8 @@ class Trainer:
     ``mu`` and one ``nu`` vector, ``train/checkpoint.py``), which reads and
     writes the JAX trainer's flattened checkpoints."""
 
-    model: EncodeProcessDecode
-    stats: NormStats
+    model: nn.Module
+    stats: NormStats | None = None  # P-DivGNN's normalisers, read by its objective
     learning_rate: float = 1e-3
     divergence_penalty: float = 1.0
     optimize_divergence: bool = True
@@ -84,6 +120,7 @@ class Trainer:
     _max_consecutive_nonfinite: int = 100
     group: Group | None = None  # data parallelism over this process group
     flatten_optimizer: bool = False  # optax.flatten(adam)'s checkpoint layout
+    objective: Objective = pdivgnn_objective
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)
@@ -111,20 +148,9 @@ class Trainer:
                               "last_finite": torch.ones((), dtype=torch.bool, device=self.device)}
         return self.optimizer
 
-    def _target(self, batch: GraphBatch) -> torch.Tensor:
-        return (batch.local_stress - self.stats.mean_local_stress) / self.stats.std_local_stress
-
     def loss(self, batch: GraphBatch) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """(total, {"nmse", "divergence"}) of the training objective."""
-        batch = batch.to(self.device)
-        pred = self.model(batch, self.stats, scale_input=True, scale_output=False,
-                          group=self.group)
-        return batch_loss(
-            batch, pred, self._target(batch),
-            divergence_penalty=self.divergence_penalty,
-            optimize_divergence=self.optimize_divergence,
-            group=self.group,
-        )
+        """(total, terms) of the training objective."""
+        return self.objective(self, batch.to(self.device), True)
 
     def loss_and_grads(
         self, batch: GraphBatch
@@ -186,18 +212,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: GraphBatch) -> dict[str, torch.Tensor]:
-        """NMSE (and the divergence when ``monitor_divergence_in_test``) of
-        the current parameters, as the JAX ``_eval_metrics`` reports them."""
-        batch = batch.to(self.device)
-        pred = self.model(batch, self.stats, scale_input=True, scale_output=False,
-                          group=self.group)
-        total, aux = batch_loss(batch, pred, self._target(batch), 0.0, False, group=self.group)
-        if self.monitor_divergence_in_test:
-            gmask = batch.graph_mask.to(pred.dtype)
-            div_sum = psum((per_graph_divergence(batch, pred) * gmask).sum(), self.group)
-            n_real = psum(gmask.sum(), self.group)
-            aux["divergence"] = div_sum / torch.clamp(n_real, min=1.0)
-            total = total + aux["divergence"]
+        """The objective's eval terms (with "total") of the current
+        parameters."""
+        total, aux = self.objective(self, batch.to(self.device), False)
         aux["total"] = total
         return aux
 
