@@ -32,10 +32,21 @@ runs #3 three times a block. ``e'`` is multiplied by the edge mask, so a
 padding slot adds nothing to a sum and takes no gradient; padding nodes
 are left out of the loss.
 
+The edge stream holds the batch's live slots only (``live_edges``): the
+slots up to its last real one, in whole edge blocks
+(``ops/segment.py::live_slots``). A loader's batch gives its spare edge
+capacity to its last node tile, so the slots after those are all padding
+and would add nothing; every edge tensor, the encoder's on, has ``n`` rows
+and #3's receiver sums run over ``n`` slots. The mask stays, for the
+block-alignment padding inside the receiver runs. The layout cut to ``n``
+slots is kept on the batch, so a batch reused across steps reads
+``live_slots`` (a device sync) once.
+
 The model runs on one device: edge partitioning (``halo``) raises. No
 block is rematerialized, as the source trains. Spans (``utils/profiling``,
 ``device=True``): ``mgn.encode``, ``mgn.edge`` and ``mgn.node`` (attribute
-``block``) a block, ``mgn.decode``.
+``block``) a block, ``mgn.decode``; the counter ``mgn.edge_rows`` adds the
+edge stream's rows once a block, inside ``mgn.edge``.
 
 Importing this module applies the port's matmul precision policy
 (``utils/precision.py``: fp32 with TF32 off by default).
@@ -54,8 +65,9 @@ from p_div_gnn_tpu_torch.graphs.batching import NodeFieldSample
 from p_div_gnn_tpu_torch.graphs.container import GraphBatch
 from p_div_gnn_tpu_torch.ops.gather import receiver_gather, sender_gather_one
 from p_div_gnn_tpu_torch.ops.scatter import scatter_add
+from p_div_gnn_tpu_torch.ops.segment import live_slots
 from p_div_gnn_tpu_torch.utils.precision import matmul_precision
-from p_div_gnn_tpu_torch.utils.profiling import span
+from p_div_gnn_tpu_torch.utils.profiling import count, span
 
 matmul_precision()
 
@@ -111,10 +123,57 @@ def compute_mgn_stats(samples: list[NodeFieldSample]) -> MGNStats:
     return MGNStats(*node, *edge, *target)
 
 
-def edge_features(batch: GraphBatch) -> torch.Tensor:
-    """(Ep, 3) ``[p_s − p_r, |p_s − p_r|]`` of every slot, on the device;
-    a padding slot's endpoints are one node, so its features are 0."""
-    rel = batch.pos.index_select(0, batch.senders) - batch.pos.index_select(0, batch.receivers)
+@dataclass(frozen=True)
+class LiveEdges:
+    """A batch's edge stream up to its last real slot: the first ``n``
+    slots of its receiver-major layout (``live_slots``, whole edge blocks),
+    and the sender view in run order with the slots at or after ``n``
+    turned into its padding (source slot 0, sender -1), so the sender
+    gather's backward reads an ``n``-row cotangent."""
+
+    n: int
+    senders: torch.Tensor  # (n,) i32
+    receivers: torch.Tensor  # (n,) i32
+    block_tile: torch.Tensor  # (n / block,) i32
+    mask: torch.Tensor  # (n,) bool, the real edges
+    view: tuple | None  # (snd_run_perm, snd_run_sorted, snd_block_tile), or None
+    tile: int  # node tile of the layout
+
+
+def live_edges(batch: GraphBatch) -> LiveEdges:
+    """The batch's ``LiveEdges``, kept on the batch with ``edge_gid``'s
+    version counter, as ``live_slots`` keeps its answer: a batch reused
+    across steps gives the same tensors, on which #3's run check is cached
+    too. A batch with no spare edge capacity keeps its sender view as it
+    is, and so runs as it would over every slot."""
+    key = (batch.edge_gid, batch.edge_gid._version)
+    cached = getattr(batch, "_mgn_live_edges", None)
+    if cached is not None and cached[0][0] is key[0] and cached[0][1] == key[1]:
+        return cached[1]
+    view = None
+    if batch.snd_perm is not None:
+        if batch.snd_run_perm is None:
+            raise ValueError("the batch's sender view has no run order: move the batch "
+                             "to its device with GraphBatch.to")
+        view = (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
+    Ep = batch.num_edges_padded
+    block = Ep // batch.edge_block_tile.shape[0]
+    n = live_slots(batch.edge_gid, batch.n_graphs, block)
+    if n < Ep and view is not None:
+        past = view[0] >= n
+        view = (view[0].masked_fill(past, 0), view[1].masked_fill(past, -1), view[2])
+    live = LiveEdges(n=n, senders=batch.senders[:n], receivers=batch.receivers[:n],
+                     block_tile=batch.edge_block_tile[:n // block],
+                     mask=batch.edge_gid[:n] < batch.n_graphs, view=view, tile=batch.tile)
+    batch._mgn_live_edges = (key, live)
+    return live
+
+
+def edge_features(pos: torch.Tensor, senders: torch.Tensor,
+                  receivers: torch.Tensor) -> torch.Tensor:
+    """(E, 3) ``[p_s − p_r, |p_s − p_r|]`` of every slot, on the device;
+    a padding slot's features are masked out with its update."""
+    rel = pos.index_select(0, senders) - pos.index_select(0, receivers)
     return torch.cat([rel, torch.linalg.vector_norm(rel, dim=-1, keepdim=True)], dim=-1)
 
 
@@ -174,24 +233,23 @@ class GraphNetBlock(nn.Module):
         self.edge_mlp = MLP(3 * latent, latent, latent, hidden_layers, generator)
         self.node_mlp = MLP(2 * latent, latent, latent, hidden_layers, generator)
 
-    def edge_update(self, x: torch.Tensor, e: torch.Tensor, batch: GraphBatch,
-                    view: tuple | None, mask: torch.Tensor) -> torch.Tensor:
-        """``MLP_e([x_s, x_r, e])`` of every slot, times ``mask`` (Ep, 1): zero
-        on padding slots. Its first layer is split per slot of the kernel,
-        the node rows projected before they are gathered."""
+    def edge_update(self, x: torch.Tensor, e: torch.Tensor, edges: LiveEdges,
+                    mask: torch.Tensor) -> torch.Tensor:
+        """``MLP_e([x_s, x_r, e])`` of every live slot, times ``mask`` (n, 1):
+        zero on padding slots. Its first layer is split per slot of the
+        kernel, the node rows projected before they are gathered."""
         L = x.shape[1]
         w = self.edge_mlp.lin0.kernel
-        p_s = sender_gather_one(x @ w[:L], batch.senders, view, batch.tile)
-        p_r = receiver_gather(x @ w[L:2 * L], batch.receivers, batch.edge_block_tile,
-                              batch.tile)
+        p_s = sender_gather_one(x @ w[:L], edges.senders, edges.view, edges.tile)
+        p_r = receiver_gather(x @ w[L:2 * L], edges.receivers, edges.block_tile, edges.tile)
         pre = p_s + p_r + e @ w[2 * L:] + self.edge_mlp.lin0.bias
         return self.edge_mlp.tail(pre) * mask
 
     def node_update(self, x: torch.Tensor, e_new: torch.Tensor,
-                    batch: GraphBatch) -> torch.Tensor:
+                    edges: LiveEdges) -> torch.Tensor:
         """``MLP_n([x, Σ_{edges into r} e'])`` of every node."""
-        aggr = scatter_add(e_new, batch.receivers, x.shape[0], batch.edge_block_tile,
-                           impl="pallas", tile=batch.tile)
+        aggr = scatter_add(e_new, edges.receivers, x.shape[0], edges.block_tile,
+                           impl="pallas", tile=edges.tile)
         return self.node_mlp(torch.cat([x, aggr], dim=-1))
 
 
@@ -234,22 +292,19 @@ class MeshGraphNets(nn.Module):
         if batch.node_inputs is None:
             raise ValueError("MeshGraphNets reads the batch's node_inputs: pack samples that "
                              "carry them (NodeFieldSample)")
-        view = None
-        if batch.snd_perm is not None:
-            if batch.snd_run_perm is None:
-                raise ValueError("the batch's sender view has no run order: move the batch "
-                                 "to its device with GraphBatch.to")
-            view = (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
+        edges = live_edges(batch)
         with span("mgn.encode", device=True):
             x = self.node_encoder((batch.node_inputs - self.node_mean) / self.node_std)
-            e = self.edge_encoder((edge_features(batch) - self.edge_mean) / self.edge_std)
-            mask = batch.edge_mask.to(x.dtype)[:, None]
+            e_in = edge_features(batch.pos, edges.senders, edges.receivers)
+            e = self.edge_encoder((e_in - self.edge_mean) / self.edge_std)
+            mask = edges.mask.to(x.dtype)[:, None]
         for k, block in enumerate(self.blocks):
             with span("mgn.edge", device=True, block=k):
-                e_new = block.edge_update(x, e, batch, view, mask)
+                count("mgn.edge_rows", edges.n)
+                e_new = block.edge_update(x, e, edges, mask)
                 e = e + e_new
             with span("mgn.node", device=True, block=k):
-                x = x + block.node_update(x, e_new, batch)
+                x = x + block.node_update(x, e_new, edges)
         with span("mgn.decode", device=True):
             return self.decoder(x)
 

@@ -7,7 +7,10 @@ kernel at widths it is not built for (zero-padded), the redesigned v2 and
 pair-blocked forwards and backwards at each width they are built for (two
 calls bit-equal, the forwards' fp32 z_upd bit-equal to the plain version)
 and the split receiver layout the v2 kernels refuse; the fused3 and v2
-kernels on a batch at GraphLoader's bucketed capacities; an edge-partitioned
+kernels on a batch at GraphLoader's bucketed capacities; MeshGraphNets'
+training steps on such a batch, whose edge stream stops at its last real
+slot (no host sync in a second step; the step of a batch without spare
+edge capacity, to 1e-6 relative); an edge-partitioned
 fused3 train step over two ranks (#1-#3 on a shard's extended layout)
 against the single-card step; a set made by the port's generator served
 through ``cli.infer_main`` on fused3 against xla. It imports neither
@@ -1043,6 +1046,65 @@ def test_kernels_on_a_loader_batch_on_cuda(dtype, kernel):
     got, _ = _held(*case)
     for a, c in zip(got, case[1]()):
         assert torch.equal(a, c)
+
+
+def test_meshgraphnets_steps_on_a_loader_batch_on_cuda():
+    """MeshGraphNets (latent 128, 15 blocks) trains on a GraphLoader batch of
+    two benchmark meshes, whose spare edge capacity lies after its last
+    real slot. The edge stream runs on the live slots: the second step
+    reads no layout from the device (``host_sync.*`` 0; the live slots and
+    #3's run checks are kept with the batch), every block's edge MLP runs
+    over the live slots, and the first step's loss and gradients match
+    those of the same meshes packed with no spare edge capacity (1e-6
+    relative, per parameter)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import dataclasses
+
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples
+    from p_div_gnn_tpu_torch.graphs.batching import NodeFieldSample, pack_batch
+    from p_div_gnn_tpu_torch.models import meshgraphnets as mgn
+    from p_div_gnn_tpu_torch.train.data import GraphLoader
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+    from p_div_gnn_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(7)
+    samples = []
+    for s in build_samples(2, seed=0):
+        types = np.eye(mgn.NODE_TYPES)[rng.integers(0, mgn.WALL_BOUNDARY + 1, s.num_nodes)]
+        velocity = rng.normal(size=(s.num_nodes, mgn.VELOCITY))
+        samples.append(NodeFieldSample(
+            **{f.name: getattr(s, f.name) for f in dataclasses.fields(s)},
+            node_inputs=np.concatenate([velocity, types], axis=1).astype(np.float32),
+            node_targets=rng.normal(size=(s.num_nodes, mgn.OUT_FEATURES)).astype(np.float32)))
+    spare = GraphLoader(samples, 2, device="cuda")._pack(range(2)).to("cuda")
+    tight = pack_batch(samples, n_graphs=2, pad_nodes=spare.num_nodes_padded,
+                       reorder="rcm").to("cuda")
+    n = mgn.live_edges(spare).n
+    assert mgn.live_edges(tight).n == n
+    assert tight.num_edges_padded < spare.num_edges_padded and n < spare.num_edges_padded
+    stats = mgn.compute_mgn_stats(samples)
+
+    def first_step(batch):
+        model = mgn.MeshGraphNets(stats=stats, generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model=model, learning_rate=1e-4, objective=mgn.objective,
+                          device="cuda")
+        trainer.init()
+        loss = float(trainer.train_step(batch)["total"])
+        return trainer, loss, {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    trainer, loss, grads = first_step(spare)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        trainer.train_step(spare)
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    assert rec.counted("host_sync") == 0, rec.counters
+    assert rec.counters["mgn.edge_rows"] == trainer.model.message_passing_steps * n
+    _, want_loss, want = first_step(tight)
+    assert abs(loss - want_loss) <= 1e-6 * abs(want_loss)
+    for name, g in want.items():
+        assert torch.isfinite(grads[name]).all(), name
+        assert float((grads[name] - g).norm()) <= 1e-6 * float(g.norm()), name
 
 
 # --- the parallel tier: an edge-partitioned step over two ranks

@@ -6,8 +6,10 @@ output, the loss, every parameter's gradient and one Adam step through
 ``Trainer``; the same reference in bfloat16 fails one of those
 tolerances. Also: the receiver gather's backward against torch's
 indexing, the per-node fields through packing and unpacking, the blocks'
-own weights, the ``mgn.*`` spans, and the benchmark's cell at a tiny size
-with its faults."""
+own weights, the ``mgn.*`` spans, the edge stream on the batch's live
+slots (the same result bit for bit whatever the spare edge capacity, the
+rows the edge MLPs see, the one sync), and the benchmark's cell at a tiny
+size with its faults."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from p_div_gnn_tpu_torch.graphs.batching import (
     unpack_predictions,
 )
 from p_div_gnn_tpu_torch.graphs.build import MeshGraph
+from p_div_gnn_tpu_torch.graphs.container import EDGE_BLOCK
 from p_div_gnn_tpu_torch.models import meshgraphnets as mgn
 from p_div_gnn_tpu_torch.ops.gather import receiver_gather
 from p_div_gnn_tpu_torch.train.loop import Trainer
@@ -34,6 +37,7 @@ from perfbench.arch import mgn as arch
 from perfbench.harness import registry, train
 from perfbench.harness.compare import judged, limits
 from perfbench.harness.faults import FAULTS, planted
+from perfbench.harness.yardstick import Run
 from perfbench.inputs.graph import edge_distances, faces_to_edge_index
 from perfbench.reference import meshgraphnets as ref
 from perfbench.reference.model import adam_update
@@ -256,6 +260,76 @@ def test_spans_are_recorded(samples):
     assert [s.attrs["block"] for s in rec.named("mgn.node")] == list(range(BLOCKS))
 
 
+def spare_capacity_pair(samples, reorder: str | None):
+    """The samples packed twice at one node capacity (5 node tiles of 32,
+    so real edges fill several receiver runs): at the layout's own edge
+    capacity, and with spare capacity on its last tile as a loader's
+    bucket gives it."""
+    def pack(pad_edges: int | None):
+        return pack_batch(samples, n_graphs=len(samples) + 1, pad_nodes=160,
+                          pad_edges=pad_edges, tile=32, reorder=reorder).to("cpu")
+
+    return pack(None), pack(12 * EDGE_BLOCK)
+
+
+def step_readings(samples, batch) -> dict:
+    """The output, the loss and every parameter's gradient of one step."""
+    model = make_model(samples)
+    out = model(batch)
+    loss = mgn.mgn_loss(batch, out, model)
+    names, params = zip(*model.named_parameters())
+    return {"output": out.detach(), "loss": loss.detach(),
+            **dict(zip(names, torch.autograd.grad(loss, params)))}
+
+
+@pytest.mark.parametrize("reorder", [None, "rcm"])
+def test_result_does_not_depend_on_spare_edge_capacity(samples, reorder):
+    """The edge stream stops at the last real slot: a batch with spare edge
+    capacity runs the very computation of one without, and gives the same
+    output, loss and gradients to the last bit."""
+    tight, spare = spare_capacity_pair(samples, reorder)
+    n = mgn.live_edges(tight).n
+    assert n == tight.num_edges_padded < spare.num_edges_padded
+    assert mgn.live_edges(spare).n == n
+    for name in ("senders", "receivers", "edge_gid"):
+        assert torch.equal(getattr(tight, name), getattr(spare, name)[:n]), name
+    assert torch.equal(tight.edge_block_tile, spare.edge_block_tile[:n // EDGE_BLOCK])
+    assert tight.num_nodes_padded == spare.num_nodes_padded
+    # the sender views differ in length: the spare slots send from the last node
+    assert len(tight.snd_run_perm) < len(spare.snd_run_perm)
+    want, got = step_readings(samples, tight), step_readings(samples, spare)
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+def test_edge_stream_runs_on_live_slots(samples):
+    """On a batch with spare edge capacity, the edge MLPs see the live slots
+    only, ``mgn.edge_rows`` counts them once a block, and ``live_slots``
+    synchronizes once for two forwards."""
+    model = make_model(samples)
+    batch = packed(samples)
+    rows: list[int] = []
+    layers = [model.edge_encoder.lin0] + [b.edge_mlp.lin1 for b in model.blocks]
+    hooks = [m.register_forward_hook(lambda m, args, out: rows.append(args[0].shape[0]))
+             for m in layers]
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with torch.no_grad():
+                for _ in range(2):
+                    model(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    rec = profiling.recorded()
+    n = mgn.live_edges(batch).n
+    assert 0 < n < batch.num_edges_padded
+    assert rec.counters["mgn.edge_rows"] == 2 * BLOCKS * n
+    assert rows == 2 * [n] * len(layers)
+    assert rec.counters["host_sync.live_slots"] == 1
+    assert rec.counted("host_sync") == 1
+
+
 def test_eval_step_reads_the_objective(samples):
     model = make_model(samples)
     trainer = Trainer(model=model, learning_rate=LR, objective=mgn.objective, device="cpu")
@@ -305,3 +379,24 @@ def test_benchmark_cell_judges_the_program(fault):
     correct, checks = judged(out["numbers"], limits("train.mgn.fp32"))
     assert correct == (fault is None), checks
     assert out["attempted"] > 0 and out["failed"] == 0 and out["train_edges_per_s"] > 0
+
+
+def test_benchmark_reads_the_edge_padding_share(monkeypatch):
+    """``mgn.edge_padding_share`` over a traced window of the tiny cell: the
+    edge stream's rows against the blocks' real edges, each block's rows
+    whole edge blocks of the live slots; None where the program counts no
+    rows, as a program without the counter."""
+    cfg, traffic = tiny_cell()
+    out = train.run(cfg, traffic, 2**31 + 11, 0.5, True, "cpu", time.perf_counter(), workers=1)
+    run = Run(cfg=cfg, unit=train.UNIT, units=out["units"], trace=out["trace"], kernels={})
+    reader = registry.metric_reader("mgn.edge_padding_share")
+    rows = profiling.recorded().counters["mgn.edge_rows"]
+    S = cfg["message_passing_steps"]
+    assert rows % (S * EDGE_BLOCK) == 0
+    edges = sum(u["E"] for u in out["units"])
+    assert S * edges <= rows < sum(S * u["slots"] for u in out["units"])
+    assert reader.read(run) == pytest.approx(100 * (1 - S * edges / rows))
+    rec = profiling.recorded()
+    rec.counters.pop("mgn.edge_rows")
+    monkeypatch.setattr(profiling, "recorded", lambda: rec)
+    assert reader.read(run) is None
