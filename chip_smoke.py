@@ -128,7 +128,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -347,11 +346,8 @@ def kernel_phase(batch) -> dict:
     bit-equal); time both."""
     import torch
 
-    from p_div_gnn_tpu_torch.ops.fused_edge3 import (
-        _library,
-        fused_edge_step3,
-        fused_edge_step3_reference,
-    )
+    from p_div_gnn_tpu_torch.ops import cuda_build
+    from p_div_gnn_tpu_torch.ops.fused_edge3 import fused_edge_step3, fused_edge_step3_reference
 
     dev = batch.receivers.device
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, LATENT
@@ -363,7 +359,7 @@ def kernel_phase(batch) -> dict:
     n_rcv = int(torch.unique(batch.receivers[real]).numel())
     base = edge_step_inputs(batch, torch.Generator(device=dev).manual_seed(0))
     aux = (batch.edge_gid, batch.edge_block_tile)
-    n_parts = int(_library().lib.pdg_fused_edge3_fwd_parts())
+    n_parts = int(cuda_build.library("fused_edge3_fwd").lib.pdg_fused_edge3_fwd_parts())
     say(f"kernel fused_edge3_fwd: {n_parts} parts (one CTA per SM)")
     results = {}
     for sd_name, sd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -659,13 +655,13 @@ def v2_kernel_phase(batch) -> dict:
     its ptxas figures and sub-kernel times; time both."""
     import torch
 
+    from p_div_gnn_tpu_torch.ops import cuda_build
     from p_div_gnn_tpu_torch.ops.fused_edge import (
-        _library,
         fused_edge_step,
         fused_edge_step_reference,
     )
 
-    built = _library()
+    built = cuda_build.library("fused_edge_fwd")
     for fig in ptxas_figures(built, built.lib.pdg_fused_edge_fwd_smem):
         say(f"kernel fused_edge_fwd ptxas: {fig}")
     say(f"kernel fused_edge_fwd: {built.lib.pdg_fused_edge_fwd_parts()} parts "
@@ -712,14 +708,14 @@ def v2_backward_kernel_phase(batch) -> dict:
     nonzero cotangents on z_upd, R and M, in both stream dtypes; time both."""
     import torch
 
+    from p_div_gnn_tpu_torch.ops import cuda_build
     from p_div_gnn_tpu_torch.ops.fused_edge import (
-        _bwd_library,
         fused_edge_step_backward,
         fused_edge_step_backward_reference,
         fused_edge_step_reference,
     )
 
-    built = _bwd_library()
+    built = cuda_build.library("fused_edge_bwd")
     for fig in ptxas_figures(built, built.lib.pdg_fused_edge_bwd_smem):
         say(f"kernel fused_edge_bwd ptxas: {fig}")
     dev = batch.receivers.device
@@ -875,13 +871,13 @@ def fused2_kernel_phase(batch) -> dict:
     both."""
     import torch
 
+    from p_div_gnn_tpu_torch.ops import cuda_build
     from p_div_gnn_tpu_torch.ops.fused_edge import (
-        _library2,
         fused_edge_step2,
         fused_edge_step2_reference,
     )
 
-    built = _library2()
+    built = cuda_build.library("fused_edge2_fwd")
     for fig in ptxas_figures(built, built.lib.pdg_fused_edge2_fwd_smem):
         say(f"kernel fused_edge2_fwd ptxas: {fig}")
     dev = batch.receivers.device
@@ -928,14 +924,14 @@ def fused2_backward_kernel_phase(batch) -> dict:
     z_upd, R and M, in both stream dtypes; time both."""
     import torch
 
+    from p_div_gnn_tpu_torch.ops import cuda_build
     from p_div_gnn_tpu_torch.ops.fused_edge import (
-        _bwd_library2,
         fused_edge2_bwd,
         fused_edge2_bwd_reference,
         fused_edge_step2_reference,
     )
 
-    built = _bwd_library2()
+    built = cuda_build.library("fused_edge2_bwd")
     for fig in ptxas_figures(built, built.lib.pdg_fused_edge2_bwd_smem):
         say(f"kernel fused_edge2_bwd ptxas: {fig}")
     dev = batch.receivers.device
@@ -1007,7 +1003,7 @@ def width_phase() -> dict:
     import torch
 
     from p_div_gnn_tpu_torch.datagen.workload import build_workload
-    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3
+    from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3
 
     batch = build_workload(WIDTH_MESHES, seed=0)[0].to("cuda")
     pair = build_workload(WIDTH_MESHES, seed=0, pair_blocks=True)[0].to("cuda")
@@ -1056,11 +1052,10 @@ def width_phase() -> dict:
                                     lambda: fused_edge.fused_edge2_bwd_reference(
                                         *p2, *pidx, *cp), bwd),
             }
-            counters = counted_wrappers()
             for name, (kern, plain, tols) in cases.items():
-                before = counters[name].launches
+                before = cuda_build.launches[name]
                 got = kern()
-                check(counters[name].launches == before + 1, f"width {name}: no launch")
+                check(cuda_build.launches[name] == before + 1, f"width {name}: no launch")
                 want = plain()
                 torch.cuda.synchronize()
                 shares = [held(f"width {name} {sd_name} L={L} output {i}", a, b, tol)[1]
@@ -1117,27 +1112,21 @@ def wide_train_step(batch) -> None:
     torch.cuda.empty_cache()
 
 
-def counted_wrappers() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
-
-    return {"fused_edge3_fwd": fused_edge3.fused_edge_step3,
-            "fused_edge3_bwd": fused_edge3.fused_edge_step3_backward,
-            "segment_sum_csr": scatter_csr.csr_segment_sum,
-            "fused_edge_fwd": fused_edge.fused_edge_step,
-            "fused_edge_bwd": fused_edge.fused_edge_step_backward,
-            "segment_sum_csr_pair": scatter_csr.csr_segment_sum_pair,
-            "fused_edge2_fwd": fused_edge.fused_edge_step2,
-            "fused_edge2_bwd": fused_edge.fused_edge2_bwd}
+# the kernels whose launches the phases hold (cuda_build.launches' keys)
+KERNELS = ("fused_edge3_fwd", "fused_edge3_bwd", "segment_sum_csr", "fused_edge_fwd",
+           "fused_edge_bwd", "segment_sum_csr_pair", "fused_edge2_fwd", "fused_edge2_bwd")
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in counted_wrappers().items()}
+    from p_div_gnn_tpu_torch.ops import cuda_build
+
+    return {name: cuda_build.launches[name] for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in counted_wrappers().values():
-        fn.launches = 0
+    from p_div_gnn_tpu_torch.ops import cuda_build
+
+    cuda_build.launches.clear()
 
 
 def make_trainer(impl: str, stream_dtype: str, device, latent: int = LATENT, group=None):
@@ -2453,22 +2442,15 @@ def main() -> int:
 
     from p_div_gnn_tpu_torch.datagen.workload import build_samples, pack_workload
     from p_div_gnn_tpu_torch.graphs.batching import pack_batch
-    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
+    from p_div_gnn_tpu_torch.ops import cuda_build
 
     # one nvcc per source, all started together
-    loaders = {"fused_edge3_fwd": fused_edge3._library,
-               "fused_edge3_bwd": fused_edge3._bwd_library,
-               "segment_sum_csr": scatter_csr._library,
-               "fused_edge_fwd": fused_edge._library,
-               "fused_edge_bwd": fused_edge._bwd_library,
-               "fused_edge2_fwd": fused_edge._library2,
-               "fused_edge2_bwd": fused_edge._bwd_library2}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(loaders)) as pool:
-        futures = {name: pool.submit(load) for name, load in loaders.items()}
-        libs = {name: f.result() for name, f in futures.items()}
+    libs = cuda_build.libraries("fused_edge3_fwd", "fused_edge3_bwd", "segment_sum_csr",
+                                "fused_edge_fwd", "fused_edge_bwd", "fused_edge2_fwd",
+                                "fused_edge2_bwd")
     say(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s wall")
-    for built in libs.values():
+    for built in libs:
         say(f"build: {built.path.relative_to(ROOT)} in {built.build_seconds:.1f} s")
         for fig in ptxas_figures(built):
             say(f"build: {fig}")

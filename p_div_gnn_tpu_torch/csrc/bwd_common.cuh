@@ -366,15 +366,6 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     // its index lies outside the indexed stream. An indexed row's index is
     // read two stages before its copy.
     constexpr int PER_TILE = WS_TILE / 4 / (32 * WS_SPLITTERS);
-    // the tiles left out (bit t): none, but in the timing ablation of a
-    // chunk that fetches and splits each tile once, those of an earlier CTA
-    unsigned left_out = 0;
-    if constexpr (!keep(WITHOUT_WG_REPEAT))
-      for (int k = 0; k < static_cast<int>(blockIdx.x); ++k)
-        for (int t = 0; t < n_tiles; ++t)
-          for (int u = 0; u < plan.cta[k].n_tiles; ++u)
-            if (plan.cta[k].stream[u] == c.stream[t] && plan.cta[k].blk[u] == c.blk[t])
-              left_out |= 1u << t;
     auto elem = [&](int k) { return (tid + k * 32 * WS_SPLITTERS) * 4; };  // in a tile
     auto indices = [&](int64_t s, int64_t (&ix)[PER_TILE]) {
 #pragma unroll
@@ -389,7 +380,6 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 #pragma unroll
         for (int t = 0; t < WS_TILES; ++t) {
           if (t >= n_tiles) break;
-          if (left_out >> t & 1u) continue;
           const int st = c.stream[t];
           const bool indexed = a.kind[st] == AT_IDX;
           const T* base = static_cast<const T*>(a.src[st]) + c.blk[t] * WS_COLS;
@@ -434,7 +424,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                                   : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int t = 0; t < WS_TILES; ++t)
-          if (t < n_tiles && !(left_out >> t & 1u))
+          if (t < n_tiles)
 #pragma unroll
             for (int k = 0; k < PER_TILE; ++k)
               put4<NT, WS_COLS>(dst + t * NT * WS_TILE, WS_TILE, elem(k) / WS_COLS,

@@ -48,8 +48,6 @@ enum Part {
   WITHOUT_WG_SPLIT,  // bwd: the weight-grad kernel's term split
   WITHOUT_WG_FETCH,  // bwd: the weight-grad kernel's operand fetch
   WITHOUT_GATHER,    // v2 bwd: the first layer's receiver and sender rows
-  WITHOUT_WG_REPEAT,  // bwd: the weight-grad kernel's fetch and split of the tiles
-                      // that an earlier CTA of the chunk fetches and splits too
 };
 __host__ __device__ constexpr bool keep(int part) { return PDG_WITHOUT != part; }
 

@@ -53,12 +53,10 @@ on real rows, from the moment partials M.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
+from p_div_gnn_tpu_torch.ops import cuda_build, wide
+from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary
 from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum_pair
 from p_div_gnn_tpu_torch.ops.segment import (
     live_slots,
@@ -66,7 +64,6 @@ from p_div_gnn_tpu_torch.ops.segment import (
     segment_sum,
     slot_outputs,
 )
-from p_div_gnn_tpu_torch.ops import wide
 from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
 from p_div_gnn_tpu_torch.parallel.collectives import Group, psum64
 
@@ -110,9 +107,77 @@ def lazy_layernorm_affine(
     return alpha, bias - mean * alpha
 
 
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"fused_edge_step: {msg}")
+# the tensors of a fused edge step's call, by their letter in
+# check_step_inputs' spec: dtype (None: the stream dtype), name, shape
+_STEP_TENSORS = {
+    "n": (None, "node rows", "(Np, L)"), "s": (None, "slot streams", "(Ep, L)"),
+    "w": (None, "weights", "(L, L)"), "b": (None, "biases", "(L,)"),
+    "i": (torch.int32, "slot indices", "(Ep,)"), "t": (torch.int32, "block tile arrays", "(NB,)"),
+    "r": (torch.float32, "dR", "(Np, L)"), "m": (torch.float32, "dM", "(8, L)"),
+}
+
+
+def check_step_inputs(who: str, widths: tuple[int, ...], tile: int, rows: tuple[int, int],
+                      spec: str, *tensors: torch.Tensor) -> tuple[int, int, int, int]:
+    """The input contract of the six fused edge-step kernels (#1, #2,
+    #5-#8): dtype, device, contiguity and shape of each tensor, and the
+    layout, of a call built for ``widths``. Each tensor's letter in
+    ``spec`` says what it is: "n" node rows (Np, L), "s" a slot stream
+    (Ep, L), "w" a weight (L, L), "b" a bias (L,), "i" an int32 slot index
+    (Ep,), "t" an int32 block tile array (NB,), one entry a block of slots,
+    "r" dR (Np, L) and "m" dM (8, L), both fp32. The first node rows give
+    (Np, L), the first slot stream Ep and the stream dtype, the first block
+    tile array NB. ``rows`` = (per slot, per node): the most rows of Lp
+    values the kernel indexes with 32 bits, per edge slot and per node.
+    Returns (Np, Ep, L, Lp), Lp the width it runs at."""
+    def refuse(msg: str) -> None:
+        raise ValueError(f"{who}: {msg}")
+
+    Np, L = tensors[spec.index("n")].shape
+    slots = tensors[spec.index("s")]
+    Ep, sd = slots.shape[0], slots.dtype
+    n_blocks = tensors[spec.index("t")].shape[0]
+    if sd not in STREAM_DTYPES:
+        refuse(f"stream dtype {sd} is not float32 or bfloat16")
+    shapes = {"n": (Np, L), "s": (Ep, L), "w": (L, L), "b": (L,), "i": (Ep,), "t": (n_blocks,),
+              "r": (Np, L), "m": (8, L)}
+    dev = slots.device
+    for t, c in zip(tensors, spec, strict=True):
+        dtype, name, shape = _STEP_TENSORS[c]
+        if t.dtype != (dtype or sd):
+            refuse(f"{name} must be {dtype or sd}" + ("" if dtype else ", the stream dtype"))
+        if t.device != dev:
+            refuse("tensors on several devices")
+        if not t.is_contiguous():
+            refuse("tensors must be contiguous")
+        if t.shape != shapes[c]:
+            refuse(f"{name} must be {shape}")
+    if n_blocks < 1 or Ep % n_blocks:
+        refuse("edge slots must split into whole blocks")
+    if tile < 1 or Np % tile:
+        refuse(f"Np={Np} is not a multiple of tile={tile}")
+    Lp = padded_width(L, widths, who)
+    per_slot, per_node = rows
+    if not (wide_strips(Lp) or (per_slot * Ep * Lp < 2**31 and per_node * Np * Lp < 2**31)):
+        refuse("arrays too large")
+    return Np, Ep, L, Lp
+
+
+def forward_scratch(built: CudaLibrary, name: str, sd: torch.dtype, L: int, dev: torch.device,
+                    n_wfma: int) -> tuple:
+    """A forward's scratch (#1, #5, #7): (n_parts, wfma or None, mpart);
+    n_parts is the persistent grid's CTAs, one per SM of the device, and
+    wfma the (n_wfma, L, L) fp32 weights of the FMA chains, where the
+    kernel takes them."""
+    with torch.cuda.device(dev):
+        n_parts = int(getattr(built.lib, f"pdg_{name}_parts")())
+    if n_parts < 1:
+        raise RuntimeError(f"{name}: cannot read the card's SM count")
+    wfma = None
+    if getattr(built.lib, f"pdg_{name}_needs_wfma")(int(sd == torch.bfloat16), L):
+        wfma = torch.empty((n_wfma, L, L), dtype=torch.float32, device=dev)
+    mpart = torch.empty((n_parts, 4, L), dtype=torch.float64, device=dev)
+    return n_parts, wfma, mpart
 
 
 def fused_edge_step_reference(
@@ -141,118 +206,37 @@ def fused_edge_step_reference(
     return z_upd.to(sd), r, m.float()
 
 
-def _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile,
-                  tile, widths, extra_sd=(), extra_f32=()):
-    """Shapes, dtypes, devices and layout of a kernel call built for
-    ``widths``; returns (Np, Ep, L, Lp), Lp the width it runs at."""
-    Np, L = a_u.shape
-    Ep = g_v.shape[0]
-    sd = g_v.dtype
-    floats = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2) + tuple(extra_sd)
-    ints = (receivers, edge_gid, block_tile)
-    every = floats + ints + tuple(extra_f32)
-    _check(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
-    _check(all(t.dtype == sd for t in floats),
-           "the node projections, streams and weights must share a dtype")
-    _check(all(t.dtype == torch.float32 for t in extra_f32), "dR and dM must be float32")
-    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
-    _check(len({t.device for t in every}) == 1, "tensors on several devices")
-    _check(all(t.is_contiguous() for t in every), "tensors must be contiguous")
-    _check(a_v.shape == (Np, L), "a_u and a_v must be (Np, L)")
-    _check(all(t.shape == (Ep, L) for t in (g_v, g_u, e) + tuple(extra_sd)),
-           "g_v, g_u, e (and z_upd, dz_upd) must be (Ep, L)")
-    _check(w_e.shape == (L, L) and w2.shape == (L, L), "weights must be (L, L)")
-    _check(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
-    _check(receivers.shape == (Ep,) and edge_gid.shape == (Ep,), "index arrays must be (Ep,)")
-    n_blocks = block_tile.shape[0]
-    _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
-           "edge slots must split into whole blocks")
-    _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    Lp = padded_width(L, widths, "fused_edge_step")
-    _check(wide_strips(Lp) or (5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31), "arrays too large")
-    return Np, Ep, L, Lp
-
-
-def _bind_forward(built: CudaLibrary, name: str, n_ptr: int, n_int: int) -> CudaLibrary:
-    """Argument types of a v2 forward library's entry points (``name``:
-    its launch function's prefix)."""
-    fn = getattr(built.lib, name)
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    getattr(built.lib, f"{name}_parts").argtypes = []
-    getattr(built.lib, f"{name}_parts").restype = ctypes.c_int64
-    getattr(built.lib, f"{name}_needs_wfma").argtypes = [ctypes.c_int, ctypes.c_int64]
-    getattr(built.lib, f"{name}_needs_wfma").restype = ctypes.c_int
-    getattr(built.lib, f"{name}_smem").argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
-    getattr(built.lib, f"{name}_smem").restype = ctypes.c_int64
-    return built
-
-
-def _forward_scratch(built: CudaLibrary, name: str, sd: torch.dtype, L: int,
-                     dev: torch.device) -> tuple:
-    """A v2 forward's scratch: (n_parts, wfma or None, mpart); n_parts is
-    the persistent grid's CTAs, one per SM."""
-    n_parts = int(getattr(built.lib, f"{name}_parts")())
-    if n_parts < 1:
-        raise RuntimeError(f"{name}: no CUDA device to size the grid on")
-    wfma = None
-    if getattr(built.lib, f"{name}_needs_wfma")(int(sd == torch.bfloat16), L):
-        wfma = torch.empty((2, L, L), dtype=torch.float32, device=dev)
-    mpart = torch.empty((n_parts, 4, L), dtype=torch.float64, device=dev)
-    return n_parts, wfma, mpart
-
-
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
-@functools.cache
-def _library() -> CudaLibrary:
-    return _bind_forward(load_cuda_library("fused_edge_fwd"), "pdg_fused_edge_fwd", 16, 5)
-
-
 def _fused_edge_step_cuda(
     a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
     e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     receivers: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
     n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    built = _library()
-    Np, Ep, L, Lp = _check_inputs(a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers,
-                                  edge_gid, block_tile, tile, FWD_WIDTHS)
+    built = cuda_build.library("fused_edge_fwd")
+    floats = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2)
+    Np, Ep, L, Lp = check_step_inputs("fused_edge_step", FWD_WIDTHS, tile, (5, 2), "nnssswbwbiit",
+                                      *floats, receivers, edge_gid, block_tile)
     # one writer per R row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step")
     if Lp != L:
-        padded = pad_args((a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2), "cccccwcwc", Lp)
-        out = _fused_edge_step_cuda(*padded, receivers, edge_gid, block_tile, n_graphs, tile)
+        out = _fused_edge_step_cuda(*pad_args(floats, "cccccwcwc", Lp), receivers, edge_gid,
+                                    block_tile, n_graphs, tile)
         return unpad_args(out, "ccc", L)
-    sd = g_v.dtype
-    dev = a_u.device
+    sd, dev = g_v.dtype, a_u.device
     # the kernel runs the slots up to the last real one; the padding after
     # them has zero z_upd, messages and moments
     n = live_slots(edge_gid, n_graphs, Ep // block_tile.shape[0])
     if wide_strips(L):
-        out = wide.forward(built, "fused_edge_fwd", sd, n, Np, Ep, n_graphs, {
+        return wide.forward("fused_edge_fwd", sd, n, Np, Ep, n_graphs, {
             "na": a_u, "nb": a_v, "ga": g_v, "gb": g_u, "e": e, "we": w_e, "w2": w2, "b0": b0,
             "b2": b2, "rcv": receivers, "gid": edge_gid})
-        fused_edge_step.launches += 1
-        return out
     (z_upd,) = slot_outputs(n, 1, Ep, L, sd, dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        n_parts, wfma, mpart = _forward_scratch(built, "pdg_fused_edge_fwd", sd, L, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge_fwd(
-            int(sd == torch.bfloat16),
-            *(_ptr(t) for t in (a_u, a_v, g_v, g_u, e, receivers, edge_gid, w_e, w2, b0, b2,
-                                z_upd, r, wfma, mpart, m)),
-            Np, n, L, int(n_graphs), n_parts, stream,
-        )
-    check_launch(built, err, "fused_edge_fwd")
-    fused_edge_step.launches += 1
+    n_parts, wfma, mpart = forward_scratch(built, "fused_edge_fwd", sd, L, dev, 2)
+    cuda_build.launch("fused_edge_fwd", "pdg_fused_edge_fwd", int(sd == torch.bfloat16),
+                      a_u, a_v, g_v, g_u, e, receivers, edge_gid, w_e, w2, b0, b2, z_upd, r,
+                      wfma, mpart, m, Np, n, L, int(n_graphs), n_parts)
     return z_upd, r, m
 
 
@@ -313,22 +297,6 @@ def fused_edge_step_backward_reference(
     return da_u, da_v, dpre1.to(sd), dpre2.to(sd), de, dwe, db0, dw2, db2
 
 
-@functools.cache
-def _bwd_library() -> CudaLibrary:
-    built = load_cuda_library("fused_edge_bwd")
-    fn = built.lib.pdg_fused_edge_bwd
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    for count in (built.lib.pdg_fused_edge_bwd_parts, built.lib.pdg_fused_edge_bwd_chunks):
-        count.argtypes = [ctypes.c_int64]
-        count.restype = ctypes.c_int64
-    built.lib.pdg_fused_edge_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
-    built.lib.pdg_fused_edge_bwd_smem.restype = ctypes.c_int64
-    return built
-
-
 def _fused_edge_step_backward_cuda(
     a_u: torch.Tensor, a_v: torch.Tensor, g_v: torch.Tensor, g_u: torch.Tensor,
     e: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
@@ -336,31 +304,29 @@ def _fused_edge_step_backward_cuda(
     n_graphs: int, tile: int,
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
-    built = _bwd_library()
-    Np, Ep, L, Lp = _check_inputs(
-        a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile, tile,
-        BWD_WIDTHS, (z_upd, dz_upd), (dr, dm))
-    _check(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
+    built = cuda_build.library("fused_edge_bwd")
+    floats = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2)
+    cots = (z_upd, dz_upd, dr, dm)
+    Np, Ep, L, Lp = check_step_inputs("fused_edge_step_backward", BWD_WIDTHS, tile, (5, 2),
+                                      "nnssswbwbiitssrm", *floats, receivers, edge_gid,
+                                      block_tile, *cots)
     # one writer per da row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step_backward")
     if Lp != L:
         out = _fused_edge_step_backward_cuda(
-            *pad_args((a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2), "cccccwcwc", Lp),
-            receivers, edge_gid, block_tile, n_graphs, tile,
-            *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
+            *pad_args(floats, "cccccwcwc", Lp), receivers, edge_gid, block_tile, n_graphs, tile,
+            *pad_args(cots, "cccc", Lp))
         return unpad_args(out, "cccccwcwc", L)
-    sd = g_v.dtype
-    dev = a_u.device
+    sd, dev = g_v.dtype, a_u.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
     # the padding slots after the last real one have zero cotangents in
     # every product: dg_v, dg_u and de are zero there, and they add nothing
     n = live_slots(edge_gid, n_graphs, Ep // block_tile.shape[0])
     if wide_strips(L):
-        o = wide.backward(built, "fused_edge_bwd", wide.V2, sd, n, Np, Ep, n_graphs, {
+        o = wide.backward("fused_edge_bwd", wide.V2, sd, n, Np, Ep, n_graphs, {
             "na": a_u, "nb": a_v, "ga": g_v, "gb": g_u, "e": e, "we": w_e, "w2": w2,
             "weT": weT, "w2T": w2T, "b0": b0, "b2": b2, "z_upd": z_upd, "dz": dz_upd,
             "dr": dr, "dm": dm, "rcv": receivers, "gid": edge_gid})
-        fused_edge_step_backward.launches += 1
         dw2, dwe = o["w_out"].unbind(0)
         return (o["r_out"], o["r_out2"], o["dg1"], o["dg2"], o["de"], dwe, o["m_out"][1], dw2,
                 o["m_out"][0])
@@ -379,17 +345,10 @@ def _fused_edge_step_backward_cuda(
     n_chunks = built.lib.pdg_fused_edge_bwd_chunks(n)
     wpart = torch.empty((n_chunks, 2, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge_bwd(
-            int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (a_u, a_v, g_v, g_u, e, z_upd, dz_upd, dr, dm, receivers,
-                                     edge_gid, w_e, w2, w2T, weT, b0, b2, dg_v, dg_u, de, da,
-                                     scratch, wfma, wsplit, bpart, wpart, wb)),
-            Np, n, L, int(n_graphs), n_chunks, stream,
-        )
-    check_launch(built, err, "fused_edge_bwd")
-    fused_edge_step_backward.launches += 1
+    cuda_build.launch("fused_edge_bwd", "pdg_fused_edge_bwd", int(sd == torch.bfloat16),
+                      a_u, a_v, g_v, g_u, e, z_upd, dz_upd, dr, dm, receivers, edge_gid, w_e, w2,
+                      w2T, weT, b0, b2, dg_v, dg_u, de, da, scratch, wfma, wsplit, bpart, wpart,
+                      wb, Np, n, L, int(n_graphs), n_chunks)
     dw2, dwe = wb[:2 * L].view(2, L, L).unbind(0)
     return da[0], da[1], dg_v, dg_u, de, dwe, wb[2 * L + 1], dw2, wb[2 * L]
 
@@ -406,38 +365,29 @@ def fused_edge_step_backward(
 ) -> tuple[torch.Tensor, ...]:
     """The v2 edge step's VJP: (da_u, da_v, dg_v, dg_u, de, dWe, db0, dW2,
     db2), dg_v, dg_u and de in the stream dtype, the rest fp32. CUDA
-    tensors go to the kernel (``fused_edge_step_backward.launches`` counts
-    its launches), which takes any L (64, 128 and 256 natively, another
-    L <= 256 zero-padded to the next, a wider one in the wide variant) and
-    each receiver's slots consecutive (the receiver-major layout; a
-    pair-blocked batch's is not) and raises otherwise; CPU tensors go to
-    the plain version; anything else raises."""
+    tensors go to the kernel (``cuda_build.launches["fused_edge_bwd"]``
+    counts its launches), which takes any L (64, 128 and 256 natively,
+    another L <= 256 zero-padded to the next, a wider one in the wide
+    variant) and each receiver's slots consecutive (the receiver-major
+    layout; a pair-blocked batch's is not) and raises otherwise; CPU
+    tensors go to the plain version; anything else raises."""
     edge_gid, block_tile = aux
     args = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers)
     cots = (z_upd, dz_upd, dr, dm)
-    kinds = {t.device.type for t in args + cots + (edge_gid, block_tile)}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("fused_edge_step_backward", *args, *cots, edge_gid,
+                              block_tile) == "cuda":
         return _fused_edge_step_backward_cuda(
             *args, edge_gid, block_tile, n_graphs, tile, *cots)
-    if kinds == {"cpu"}:
-        return fused_edge_step_backward_reference(*args, edge_gid, n_graphs, *cots)
-    raise ValueError(
-        f"fused_edge_step_backward runs on cuda or cpu tensors, got {sorted(kinds)}")
-
-
-fused_edge_step_backward.launches = 0  # type: ignore[attr-defined]
+    return fused_edge_step_backward_reference(*args, edge_gid, n_graphs, *cots)
 
 
 def _fused_edge_step_forward(
     a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers, edge_gid, block_tile, n_graphs, tile
 ):
     args = (a_u, a_v, g_v, g_u, e, w_e, b0, w2, b2, receivers)
-    kinds = {t.device.type for t in args + (edge_gid, block_tile)}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("fused_edge_step", *args, edge_gid, block_tile) == "cuda":
         return _fused_edge_step_cuda(*args, edge_gid, block_tile, n_graphs, tile)
-    if kinds == {"cpu"}:
-        return fused_edge_step_reference(*args, edge_gid, n_graphs)
-    raise ValueError(f"fused_edge_step runs on cuda or cpu tensors, got {sorted(kinds)}")
+    return fused_edge_step_reference(*args, edge_gid, n_graphs)
 
 
 class _FusedEdgeStep(torch.autograd.Function):
@@ -482,8 +432,8 @@ def fused_edge_step(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The v2 edge step: (z_upd, R, M), differentiable in a_u, a_v, g_v,
     g_u, e and the weights. CUDA tensors go to the kernels
-    (``fused_edge_step.launches`` counts the forward's launches,
-    ``fused_edge_step_backward.launches`` the backward's), which take any
+    (``cuda_build.launches`` counts them under ``fused_edge_fwd`` and
+    ``fused_edge_bwd``), which take any
     L (64, 128 and 256 natively, another L <= 256 zero-padded to the next,
     a wider one in the wide variant) and each receiver's slots consecutive
     (the receiver-major layout; a pair-blocked batch's is not) and raise
@@ -493,20 +443,12 @@ def fused_edge_step(
                                 block_tile, n_graphs, tile)
 
 
-fused_edge_step.launches = 0  # type: ignore[attr-defined]
-
-
 # ---------------------------------------------------------------------------
 # fused2: the pair-blocked edge step (`fused_edge.py:588-955` of the JAX
 # package)
 # ---------------------------------------------------------------------------
 
 PairAux = tuple  # (edge_gid, block_tile, block_snd_tile[, snd_perm, snd_sorted, snd_block_tile])
-
-
-def _check2(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"fused_edge_step2: {msg}")
 
 
 def _pair_in_tile(
@@ -554,84 +496,35 @@ def fused_edge_step2_reference(
     return z_upd.to(sd), r, m.float()
 
 
-def _check_pair_inputs(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid,
-                       block_tile, block_snd_tile, tile, widths, extra_sd=(), extra_f32=()):
-    """Shapes, dtypes, devices and layout of a fused2 kernel call built for
-    ``widths``; returns (Np, Ep, L, Lp), Lp the width it runs at."""
-    Np, L = proj_u.shape
-    Ep = e.shape[0]
-    sd = e.dtype
-    floats = (proj_u, proj_v, e, w_e, b0, w2, b2) + tuple(extra_sd)
-    ints = (receivers, senders, edge_gid, block_tile, block_snd_tile)
-    every = floats + ints + tuple(extra_f32)
-    _check2(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
-    _check2(all(t.dtype == sd for t in floats),
-            "the node projections, streams and weights must share a dtype")
-    _check2(all(t.dtype == torch.float32 for t in extra_f32), "dR and dM must be float32")
-    _check2(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
-    _check2(len({t.device for t in every}) == 1, "tensors on several devices")
-    _check2(all(t.is_contiguous() for t in every), "tensors must be contiguous")
-    _check2(proj_v.shape == (Np, L), "proj_u and proj_v must be (Np, L)")
-    _check2(all(t.shape == (Ep, L) for t in (e,) + tuple(extra_sd)),
-            "e (and z_upd, dz_upd) must be (Ep, L)")
-    _check2(w_e.shape == (L, L) and w2.shape == (L, L), "weights must be (L, L)")
-    _check2(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
-    _check2(all(t.shape == (Ep,) for t in (receivers, senders, edge_gid)),
-            "index arrays must be (Ep,)")
-    n_blocks = block_tile.shape[0]
-    _check2(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0
-            and block_snd_tile.shape == block_tile.shape,
-            "edge slots must split into whole blocks, each with a receiver and a sender tile")
-    _check2(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    Lp = padded_width(L, widths, "fused_edge_step2")
-    _check2(wide_strips(Lp) or (5 * Ep * Lp < 2**31 and 2 * Np * Lp < 2**31), "arrays too large")
-    return Np, Ep, L, Lp
-
-
-@functools.cache
-def _library2() -> CudaLibrary:
-    return _bind_forward(load_cuda_library("fused_edge2_fwd"), "pdg_fused_edge2_fwd", 16, 6)
-
-
 def _fused_edge_step2_cuda(
     proj_u: torch.Tensor, proj_v: torch.Tensor, e: torch.Tensor, w_e: torch.Tensor,
     b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, receivers: torch.Tensor,
     senders: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
     block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    built = _library2()
-    Np, Ep, L, Lp = _check_pair_inputs(
-        proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
-        block_snd_tile, tile, FWD_WIDTHS)
+    built = cuda_build.library("fused_edge2_fwd")
+    floats = (proj_u, proj_v, e, w_e, b0, w2, b2)
+    Np, Ep, L, Lp = check_step_inputs("fused_edge_step2", FWD_WIDTHS, tile, (5, 2), "nnswbwbiiitt",
+                                      *floats, receivers, senders, edge_gid, block_tile,
+                                      block_snd_tile)
     if Lp != L:
-        padded = pad_args((proj_u, proj_v, e, w_e, b0, w2, b2), "cccwcwc", Lp)
-        out = _fused_edge_step2_cuda(*padded, receivers, senders, edge_gid, block_tile,
-                                     block_snd_tile, n_graphs, tile)
+        out = _fused_edge_step2_cuda(*pad_args(floats, "cccwcwc", Lp), receivers, senders,
+                                     edge_gid, block_tile, block_snd_tile, n_graphs, tile)
         return unpad_args(out, "ccc", L)
     slot, rcv, snd, pad = pair_entries(receivers, senders, edge_gid, block_tile,
                                        block_snd_tile, n_graphs, tile)
-    sd = e.dtype
-    dev = e.device
+    sd, dev = e.dtype, e.device
     if wide_strips(L):
-        out = wide.forward(built, "fused_edge2_fwd", sd, slot.shape[0], Np, Ep, n_graphs, {
+        return wide.forward("fused_edge2_fwd", sd, slot.shape[0], Np, Ep, n_graphs, {
             "na": proj_u, "nb": proj_v, "e": e, "we": w_e, "w2": w2, "b0": b0, "b2": b2,
             "slot": slot, "rcv": rcv, "snd": snd})
-        fused_edge_step2.launches += 1
-        return out
     z_upd = torch.empty((Ep, L), dtype=sd, device=dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        n_parts, wfma, mpart = _forward_scratch(built, "pdg_fused_edge2_fwd", sd, L, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge2_fwd(
-            int(sd == torch.bfloat16),
-            *(_ptr(t) for t in (proj_u, proj_v, e, slot, rcv, snd, pad, w_e, w2, b0, b2, z_upd,
-                                r, wfma, mpart, m)),
-            Np, Ep, slot.shape[0], pad.shape[0], L, n_parts, stream,
-        )
-    check_launch(built, err, "fused_edge2_fwd")
-    fused_edge_step2.launches += 1
+    n_parts, wfma, mpart = forward_scratch(built, "fused_edge2_fwd", sd, L, dev, 2)
+    cuda_build.launch("fused_edge2_fwd", "pdg_fused_edge2_fwd", int(sd == torch.bfloat16),
+                      proj_u, proj_v, e, slot, rcv, snd, pad, w_e, w2, b0, b2, z_upd, r, wfma,
+                      mpart, m, Np, Ep, slot.shape[0], pad.shape[0], L, n_parts)
     return z_upd, r, m
 
 
@@ -699,22 +592,6 @@ def fused_edge2_bwd_reference(
     return de, dpre1.to(sd), dpre2.to(sd), du_r, dv_r, dwe, db0, dw2, db2
 
 
-@functools.cache
-def _bwd_library2() -> CudaLibrary:
-    built = load_cuda_library("fused_edge2_bwd")
-    fn = built.lib.pdg_fused_edge2_bwd
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 27 + [ctypes.c_int64] * 6 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    for count in (built.lib.pdg_fused_edge2_bwd_parts, built.lib.pdg_fused_edge2_bwd_chunks):
-        count.argtypes = [ctypes.c_int64]
-        count.restype = ctypes.c_int64
-    built.lib.pdg_fused_edge2_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
-    built.lib.pdg_fused_edge2_bwd_smem.restype = ctypes.c_int64
-    return built
-
-
 def pair_entries(
     receivers: torch.Tensor, senders: torch.Tensor, edge_gid: torch.Tensor,
     block_tile: torch.Tensor, block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
@@ -751,29 +628,27 @@ def _fused_edge2_bwd_cuda(
     block_snd_tile: torch.Tensor, n_graphs: int, tile: int,
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
-    built = _bwd_library2()
-    Np, Ep, L, Lp = _check_pair_inputs(
-        proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders, edge_gid, block_tile,
-        block_snd_tile, tile, BWD_WIDTHS, (z_upd, dz_upd), (dr, dm))
-    _check2(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
+    built = cuda_build.library("fused_edge2_bwd")
+    floats = (proj_u, proj_v, e, w_e, b0, w2, b2)
+    cots = (z_upd, dz_upd, dr, dm)
+    Np, Ep, L, Lp = check_step_inputs("fused_edge2_bwd", BWD_WIDTHS, tile, (5, 2),
+                                      "nnswbwbiiittssrm", *floats, receivers, senders, edge_gid,
+                                      block_tile, block_snd_tile, *cots)
     if Lp != L:
         out = _fused_edge2_bwd_cuda(
-            *pad_args((proj_u, proj_v, e, w_e, b0, w2, b2), "cccwcwc", Lp), receivers,
-            senders, edge_gid, block_tile, block_snd_tile, n_graphs, tile,
-            *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
+            *pad_args(floats, "cccwcwc", Lp), receivers, senders, edge_gid, block_tile,
+            block_snd_tile, n_graphs, tile, *pad_args(cots, "cccc", Lp))
         return unpad_args(out, "cccccwcwc", L)
     slot, rcv, snd, pad = pair_entries(receivers, senders, edge_gid, block_tile,
                                        block_snd_tile, n_graphs, tile)
     n_real = slot.shape[0]
-    sd = e.dtype
-    dev = e.device
+    sd, dev = e.dtype, e.device
     weT, w2T = w_e.t().contiguous(), w2.t().contiguous()
     if wide_strips(L):
-        o = wide.backward(built, "fused_edge2_bwd", wide.P2, sd, n_real, Np, Ep, n_graphs, {
+        o = wide.backward("fused_edge2_bwd", wide.P2, sd, n_real, Np, Ep, n_graphs, {
             "na": proj_u, "nb": proj_v, "e": e, "we": w_e, "w2": w2, "weT": weT, "w2T": w2T,
             "b0": b0, "b2": b2, "z_upd": z_upd, "dz": dz_upd, "dr": dr, "dm": dm,
             "slot": slot, "rcv": rcv, "snd": snd})
-        fused_edge2_bwd.launches += 1
         dw2, dwe = o["w_out"].unbind(0)
         return (o["de"], o["dg1"], o["dg2"], o["r_out"], o["r_out2"], dwe, o["m_out"][1], dw2,
                 o["m_out"][0])
@@ -790,17 +665,10 @@ def _fused_edge2_bwd_cuda(
     n_chunks = built.lib.pdg_fused_edge2_bwd_chunks(n_real)
     wpart = torch.empty((n_chunks, 2, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((2 * L + 2, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge2_bwd(
-            int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (proj_u, proj_v, e, z_upd, dz_upd, dr, dm, slot, rcv, snd,
-                                     pad, w_e, w2, w2T, weT, b0, b2, dpre1, dpre2, de, dur,
-                                     scratch, wfma, wsplit, bpart, wpart, wb)),
-            Np, Ep, n_real, pad.shape[0], L, n_chunks, stream,
-        )
-    check_launch(built, err, "fused_edge2_bwd")
-    fused_edge2_bwd.launches += 1
+    cuda_build.launch("fused_edge2_bwd", "pdg_fused_edge2_bwd", int(sd == torch.bfloat16),
+                      proj_u, proj_v, e, z_upd, dz_upd, dr, dm, slot, rcv, snd, pad, w_e, w2,
+                      w2T, weT, b0, b2, dpre1, dpre2, de, dur, scratch, wfma, wsplit, bpart,
+                      wpart, wb, Np, Ep, n_real, pad.shape[0], L, n_chunks)
     dw2, dwe = wb[:2 * L].view(2, L, L).unbind(0)
     return de, dpre1, dpre2, dur[0], dur[1], dwe, wb[2 * L + 1], dw2, wb[2 * L]
 
@@ -813,23 +681,19 @@ def fused_edge2_bwd(
 ) -> tuple[torch.Tensor, ...]:
     """The pair-blocked backward kernel's outputs (de, dpre1, dpre2, du_r,
     dv_r, dWe, db0, dW2, db2), before the sender-side sums. CUDA tensors go
-    to the kernel (``fused_edge2_bwd.launches`` counts its launches), which
+    to the kernel (``cuda_build.launches["fused_edge2_bwd"]`` counts its
+    launches), which
     takes any L (64, 128 and 256 natively, another L <= 256 zero-padded to
     the next, a wider one in the wide variant), CPU tensors to
     ``fused_edge2_bwd_reference``; anything else raises."""
     edge_gid, block_tile, block_snd_tile = aux[:3]
     args = (proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders)
     cots = (z_upd, dz_upd, dr, dm)
-    kinds = {t.device.type for t in args + cots + (edge_gid, block_tile, block_snd_tile)}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("fused_edge2_bwd", *args, *cots, edge_gid, block_tile,
+                              block_snd_tile) == "cuda":
         return _fused_edge2_bwd_cuda(*args, edge_gid, block_tile, block_snd_tile, n_graphs,
                                      tile, *cots)
-    if kinds == {"cpu"}:
-        return fused_edge2_bwd_reference(*args, aux, n_graphs, tile, *cots)
-    raise ValueError(f"fused_edge2_bwd runs on cuda or cpu tensors, got {sorted(kinds)}")
-
-
-fused_edge2_bwd.launches = 0  # type: ignore[attr-defined]
+    return fused_edge2_bwd_reference(*args, aux, n_graphs, tile, *cots)
 
 
 def fused_edge_step2_backward_reference(
@@ -883,13 +747,11 @@ def _fused_edge_step2_forward(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, sen
                               n_graphs, tile):
     edge_gid, block_tile, block_snd_tile = aux[:3]
     args = (proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders)
-    kinds = {t.device.type for t in args + (edge_gid, block_tile, block_snd_tile)}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("fused_edge_step2", *args, edge_gid, block_tile,
+                              block_snd_tile) == "cuda":
         return _fused_edge_step2_cuda(*args, edge_gid, block_tile, block_snd_tile, n_graphs,
                                       tile)
-    if kinds == {"cpu"}:
-        return fused_edge_step2_reference(*args, aux, n_graphs, tile)
-    raise ValueError(f"fused_edge_step2 runs on cuda or cpu tensors, got {sorted(kinds)}")
+    return fused_edge_step2_reference(*args, aux, n_graphs, tile)
 
 
 class _FusedEdgeStep2(torch.autograd.Function):
@@ -939,11 +801,10 @@ def fused_edge_step2(
     receiver or sender tile reads zero, as the TPU kernel's one-hot
     contractions do (the layout never makes one). Differentiable in proj_u,
     proj_v, e and the weights. CUDA tensors go to the kernels
-    (``fused_edge_step2.launches`` counts the forward's launches,
-    ``fused_edge2_bwd.launches`` the backward's, ``csr_segment_sum_pair``
-    its own), CPU tensors to the plain versions; anything else raises.
-    Without the sender view it is forward-only and raises if an input needs
-    a gradient."""
+    (``cuda_build.launches`` counts them under ``fused_edge2_fwd``,
+    ``fused_edge2_bwd`` and ``segment_sum_csr_pair``), CPU tensors to the
+    plain versions; anything else raises. Without the sender view it is
+    forward-only and raises if an input needs a gradient."""
     view = tuple(aux[3:6])
     if not view or view[0] is None:
         view = ()
@@ -954,6 +815,3 @@ def fused_edge_step2(
                 "(pack_batch(sender_view=True))")
     return _FusedEdgeStep2.apply(proj_u, proj_v, e, w_e, b0, w2, b2, receivers, senders,
                                  n_graphs, tile, *aux[:3], *view)
-
-
-fused_edge_step2.launches = 0  # type: ignore[attr-defined]

@@ -32,22 +32,17 @@ the CPU.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
+from p_div_gnn_tpu_torch.ops import cuda_build, wide
+from p_div_gnn_tpu_torch.ops.fused_edge import check_step_inputs, forward_scratch
 from p_div_gnn_tpu_torch.ops.segment import (
     live_slots,
     require_consecutive_runs,
     segment_sum,
     slot_outputs,
 )
-from p_div_gnn_tpu_torch.ops import wide
-from p_div_gnn_tpu_torch.ops.widths import pad_args, padded_width, unpad_args, wide_strips
-
-STREAM_DTYPES = (torch.float32, torch.bfloat16)
+from p_div_gnn_tpu_torch.ops.widths import pad_args, unpad_args, wide_strips
 
 
 def fused_edge_step3_reference(
@@ -79,30 +74,10 @@ def fused_edge_step3_reference(
     return z_upd.to(sd), r, m.float()
 
 
-@functools.cache
-def _library() -> CudaLibrary:
-    built = load_cuda_library("fused_edge3_fwd")
-    fn = built.lib.pdg_fused_edge3_fwd
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    built.lib.pdg_fused_edge3_fwd_parts.argtypes = []
-    built.lib.pdg_fused_edge3_fwd_parts.restype = ctypes.c_int64
-    built.lib.pdg_fused_edge3_fwd_needs_wfma.argtypes = [ctypes.c_int, ctypes.c_int64]
-    built.lib.pdg_fused_edge3_fwd_needs_wfma.restype = ctypes.c_int
-    return built
-
-
 # the widths the tile kernels are built for; any other L <= 256 runs at the
 # next one, zero-padded, and a wider L at the wide variant (ops/widths.py)
 FWD_WIDTHS = (64, 128, 256)
 BWD_WIDTHS = (64, 128, 256)
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"fused_edge_step3: {msg}")
 
 
 def _fused_edge_step3_cuda(
@@ -112,64 +87,32 @@ def _fused_edge_step3_cuda(
     receivers: torch.Tensor, edge_gid: torch.Tensor, block_tile: torch.Tensor,
     n_graphs: int, tile: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    built = _library()
-    Np, L = x.shape
-    Ep = g_x.shape[0]
-    sd = g_x.dtype
+    built = cuda_build.library("fused_edge3_fwd")
     floats = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2)
-    ints = (receivers, edge_gid, block_tile)
-    _check(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
-    _check(all(t.dtype == sd for t in floats), "x, g_x, e and the weights must share a dtype")
-    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
-    _check(len({t.device for t in floats + ints}) == 1, "tensors on several devices")
-    _check(all(t.is_contiguous() for t in floats + ints), "tensors must be contiguous")
-    _check(g_x.shape == (Ep, L) and e.shape == (Ep, L), "g_x and e must be (Ep, L)")
-    _check(all(w.shape == (L, L) for w in (w_u, w_v, w_e, w2)), "weights must be (L, L)")
-    _check(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
-    _check(receivers.shape == (Ep,) and edge_gid.shape == (Ep,), "index arrays must be (Ep,)")
-    n_blocks = block_tile.shape[0]
-    _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
-           "edge slots must split into whole blocks")
-    _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    Lp = padded_width(L, FWD_WIDTHS, "fused_edge_step3")
-    _check(wide_strips(Lp) or (Np * Lp < 2**31 and Ep * Lp < 2**31), "arrays too large")
+    Np, Ep, L, Lp = check_step_inputs("fused_edge_step3", FWD_WIDTHS, tile, (1, 1),
+                                      "nsswwwbwbiit", *floats, receivers, edge_gid, block_tile)
     # one writer per R row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step3")
     if Lp != L:
-        out = _fused_edge_step3_cuda(*pad_args(floats, "cccwwwcwc", Lp), *ints, n_graphs, tile)
+        out = _fused_edge_step3_cuda(*pad_args(floats, "cccwwwcwc", Lp), receivers, edge_gid,
+                                     block_tile, n_graphs, tile)
         return unpad_args(out, "ccc", L)
+    sd, dev = g_x.dtype, x.device
     # the kernel runs the slots up to the last real one; the padding after
     # them has zero z_upd, messages and moments
-    n = live_slots(edge_gid, n_graphs, Ep // n_blocks)
+    n = live_slots(edge_gid, n_graphs, Ep // block_tile.shape[0])
     if wide_strips(L):
-        out = wide.forward(built, "fused_edge3_fwd", sd, n, Np, Ep, n_graphs, {
+        return wide.forward("fused_edge3_fwd", sd, n, Np, Ep, n_graphs, {
             "na": x, "ga": g_x, "e": e, "wu": w_u, "wv": w_v, "we": w_e, "w2": w2, "b0": b0,
             "b2": b2, "rcv": receivers, "gid": edge_gid})
-        fused_edge_step3.launches += 1
-        return out
-
-    dev = x.device
     (z_upd,) = slot_outputs(n, 1, Ep, L, sd, dev)
     r = torch.empty((Np, L), dtype=torch.float32, device=dev)  # zeroed by the launch
     m = torch.empty((8, L), dtype=torch.float32, device=dev)
-    bf16 = int(sd == torch.bfloat16)
     # the FMA chains read the four weights from one (4, L, L) fp32 block
-    wfma = torch.empty((4, L, L), dtype=torch.float32, device=dev) \
-        if built.lib.pdg_fused_edge3_fwd_needs_wfma(bf16, L) else None
-    with torch.cuda.device(dev):
-        n_parts = built.lib.pdg_fused_edge3_fwd_parts()
-        _check(n_parts > 0, "cannot read the card's SM count")
-        mpart = torch.empty((n_parts, 4, L), dtype=torch.float64, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge3_fwd(
-            bf16,
-            *(t.data_ptr() for t in (x, g_x, e, receivers, edge_gid, w_u, w_v, w_e, w2, b0, b2,
-                                     z_upd, r)),
-            None if wfma is None else wfma.data_ptr(), mpart.data_ptr(), m.data_ptr(),
-            Np, n, L, int(n_graphs), n_parts, stream,
-        )
-    check_launch(built, err, "fused_edge3_fwd")
-    fused_edge_step3.launches += 1
+    n_parts, wfma, mpart = forward_scratch(built, "fused_edge3_fwd", sd, L, dev, 4)
+    cuda_build.launch("fused_edge3_fwd", "pdg_fused_edge3_fwd", int(sd == torch.bfloat16),
+                      x, g_x, e, receivers, edge_gid, w_u, w_v, w_e, w2, b0, b2, z_upd, r, wfma,
+                      mpart, m, Np, n, L, int(n_graphs), n_parts)
     return z_upd, r, m
 
 
@@ -235,28 +178,6 @@ def fused_edge_step3_backward_reference(
     return dx, dg, de, dwu, dwv, dwe, db0, dw2, db2
 
 
-@functools.cache
-def _bwd_library() -> CudaLibrary:
-    built = load_cuda_library("fused_edge3_bwd")
-    fn = built.lib.pdg_fused_edge3_bwd
-    fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 28 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    for count in (built.lib.pdg_fused_edge3_bwd_parts, built.lib.pdg_fused_edge3_bwd_chunks):
-        count.argtypes = [ctypes.c_int64]
-        count.restype = ctypes.c_int64
-    built.lib.pdg_wgrad_chunks.argtypes = [ctypes.c_int64, ctypes.c_int64]
-    built.lib.pdg_wgrad_chunks.restype = ctypes.c_int64
-    built.lib.pdg_fused_edge3_bwd_wgrad.argtypes = (
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-         ctypes.c_void_p])
-    built.lib.pdg_fused_edge3_bwd_wgrad.restype = ctypes.c_int
-    return built
-
-
 def _fused_edge_step3_backward_cuda(
     x: torch.Tensor, g_x: torch.Tensor, e: torch.Tensor,
     w_u: torch.Tensor, w_v: torch.Tensor, w_e: torch.Tensor, b0: torch.Tensor,
@@ -265,52 +186,30 @@ def _fused_edge_step3_backward_cuda(
     n_graphs: int, tile: int,
     z_upd: torch.Tensor, dz_upd: torch.Tensor, dr: torch.Tensor, dm: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
-    built = _bwd_library()
-    Np, L = x.shape
-    Ep = g_x.shape[0]
-    sd = g_x.dtype
-    floats = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, z_upd, dz_upd)
-    ints = (receivers, edge_gid, block_tile)
-    f32 = (dr, dm)
-    _check(sd in STREAM_DTYPES, f"stream dtype {sd} is not float32 or bfloat16")
-    _check(all(t.dtype == sd for t in floats),
-           "x, g_x, e, the weights, z_upd and dz_upd must share a dtype")
-    _check(all(t.dtype == torch.float32 for t in f32), "dR and dM must be float32")
-    _check(all(t.dtype == torch.int32 for t in ints), "index arrays must be int32")
-    _check(len({t.device for t in floats + ints + f32}) == 1, "tensors on several devices")
-    _check(all(t.is_contiguous() for t in floats + ints + f32), "tensors must be contiguous")
-    _check(all(t.shape == (Ep, L) for t in (g_x, e, z_upd, dz_upd)),
-           "g_x, e, z_upd and dz_upd must be (Ep, L)")
-    _check(dr.shape == (Np, L) and dm.shape == (8, L), "dR must be (Np, L) and dM (8, L)")
-    _check(all(w.shape == (L, L) for w in (w_u, w_v, w_e, w2)), "weights must be (L, L)")
-    _check(b0.shape == (L,) and b2.shape == (L,), "biases must be (L,)")
-    _check(receivers.shape == (Ep,) and edge_gid.shape == (Ep,), "index arrays must be (Ep,)")
-    n_blocks = block_tile.shape[0]
-    _check(block_tile.dim() == 1 and n_blocks > 0 and Ep % n_blocks == 0,
-           "edge slots must split into whole blocks")
-    _check(tile > 0 and Np % tile == 0, f"Np={Np} is not a multiple of tile={tile}")
-    Lp = padded_width(L, BWD_WIDTHS, "fused_edge_step3_backward")
-    _check(wide_strips(Lp) or (7 * Ep * Lp < 2**31 and Np * Lp < 2**31), "arrays too large")
+    built = cuda_build.library("fused_edge3_bwd")
+    floats = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2)
+    cots = (z_upd, dz_upd, dr, dm)
+    Np, Ep, L, Lp = check_step_inputs("fused_edge_step3_backward", BWD_WIDTHS, tile, (7, 1),
+                                      "nsswwwbwbiitssrm", *floats, receivers, edge_gid,
+                                      block_tile, *cots)
     # one writer per dx row: each receiver's slots must be one run
     require_consecutive_runs(receivers, Np, "fused_edge_step3_backward")
     if Lp != L:
         out = _fused_edge_step3_backward_cuda(
-            *pad_args(floats[:9], "cccwwwcwc", Lp), *ints, n_graphs, tile,
-            *pad_args((z_upd, dz_upd, dr, dm), "cccc", Lp))
+            *pad_args(floats, "cccwwwcwc", Lp), receivers, edge_gid, block_tile, n_graphs, tile,
+            *pad_args(cots, "cccc", Lp))
         return unpad_args(out, "cccwwwcwc", L)
-
-    dev = x.device
+    sd, dev = g_x.dtype, x.device
     transposed = [w.t().contiguous() for w in (w_u, w_v, w_e, w2)]
     # the padding slots after the last real one have zero cotangents in
     # every product: dg and de are zero there, and they add nothing
-    n = live_slots(edge_gid, n_graphs, Ep // n_blocks)
+    n = live_slots(edge_gid, n_graphs, Ep // block_tile.shape[0])
     if wide_strips(L):
-        o = wide.backward(built, "fused_edge3_bwd", wide.F3, sd, n, Np, Ep, n_graphs, {
+        o = wide.backward("fused_edge3_bwd", wide.F3, sd, n, Np, Ep, n_graphs, {
             "na": x, "ga": g_x, "e": e, "wu": w_u, "wv": w_v, "we": w_e, "w2": w2,
             **dict(zip(("wuT", "wvT", "weT", "w2T"), transposed)), "b0": b0, "b2": b2,
             "z_upd": z_upd, "dz": dz_upd, "dr": dr, "dm": dm, "rcv": receivers,
             "gid": edge_gid})
-        fused_edge_step3_backward.launches += 1
         dw2, dwe, dwu, dwv = o["w_out"].unbind(0)
         return o["r_out"], o["dg"], o["de"], dwu, dwv, dwe, o["m_out"][1], dw2, o["m_out"][0]
     dg, de = slot_outputs(n, 2, Ep, L, sd, dev)
@@ -328,17 +227,10 @@ def _fused_edge_step3_backward_cuda(
     n_chunks = built.lib.pdg_fused_edge3_bwd_chunks(n)
     wpart = torch.empty((n_chunks, 4, L, L), dtype=torch.float64, device=dev)
     wb = torch.empty((4 * L + 2, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge3_bwd(
-            int(sd == torch.bfloat16),
-            *(t.data_ptr() for t in (x, g_x, e, z_upd, dz_upd, dr, dm, receivers, edge_gid,
-                                     w_u, w_v, w_e, w2, *transposed, b0, b2,
-                                     dg, de, dx, scratch, wsplit, wfma, bpart, wpart, wb)),
-            Np, n, L, int(n_graphs), n_chunks, stream,
-        )
-    check_launch(built, err, "fused_edge3_bwd")
-    fused_edge_step3_backward.launches += 1
+    cuda_build.launch("fused_edge3_bwd", "pdg_fused_edge3_bwd", int(sd == torch.bfloat16),
+                      x, g_x, e, z_upd, dz_upd, dr, dm, receivers, edge_gid, w_u, w_v, w_e, w2,
+                      *transposed, b0, b2, dg, de, dx, scratch, wsplit, wfma, bpart, wpart, wb,
+                      Np, n, L, int(n_graphs), n_chunks)
     dw2, dwe, dwu, dwv = wb[:4 * L].view(4, L, L).unbind(0)
     return dx, dg, de, dwu, dwv, dwe, wb[4 * L + 1], dw2, wb[4 * L]
 
@@ -356,7 +248,7 @@ def fused_edge_step3_backward(
 ) -> tuple[torch.Tensor, ...]:
     """The fused3 edge step's VJP: fp32 (dx, dg, de, dWu, dWv, dWe, db0,
     dW2, db2), dg and de in the stream dtype. CUDA tensors go to the kernel
-    (``fused_edge_step3_backward.launches`` counts its launches), which
+    (``cuda_build.launches["fused_edge3_bwd"]`` counts its launches), which
     takes any L (64, 128 and 256 natively, another L <= 256 zero-padded to
     the next, a wider one in the wide variant) and each receiver's slots
     consecutive (the receiver-major layout; a pair-blocked batch's is not)
@@ -365,29 +257,20 @@ def fused_edge_step3_backward(
     edge_gid, block_tile = aux
     args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
     cots = (z_upd, dz_upd, dr, dm)
-    kinds = {t.device.type for t in args + cots + (edge_gid, block_tile)}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("fused_edge_step3_backward", *args, *cots, edge_gid,
+                              block_tile) == "cuda":
         return _fused_edge_step3_backward_cuda(
             *args, edge_gid, block_tile, n_graphs, tile, *cots)
-    if kinds == {"cpu"}:
-        return fused_edge_step3_backward_reference(*args, edge_gid, n_graphs, *cots)
-    raise ValueError(
-        f"fused_edge_step3_backward runs on cuda or cpu tensors, got {sorted(kinds)}")
-
-
-fused_edge_step3_backward.launches = 0  # type: ignore[attr-defined]
+    return fused_edge_step3_backward_reference(*args, edge_gid, n_graphs, *cots)
 
 
 def _fused_edge_step3_forward(
     x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid, block_tile, n_graphs, tile
 ):
     args = (x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers)
-    kinds = {t.device.type for t in args + (edge_gid, block_tile)}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("fused_edge_step3", *args, edge_gid, block_tile) == "cuda":
         return _fused_edge_step3_cuda(*args, edge_gid, block_tile, n_graphs, tile)
-    if kinds == {"cpu"}:
-        return fused_edge_step3_reference(*args, edge_gid, n_graphs)
-    raise ValueError(f"fused_edge_step3 runs on cuda or cpu tensors, got {sorted(kinds)}")
+    return fused_edge_step3_reference(*args, edge_gid, n_graphs)
 
 
 class _FusedEdgeStep3(torch.autograd.Function):
@@ -431,17 +314,14 @@ def fused_edge_step3(
     tile: int,  # node tile of the layout (GraphBatch.tile)
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused3 edge step: (z_upd, R, M), differentiable in x, g_x, e and
-    the weights. CUDA tensors go to the kernels (``fused_edge_step3.launches``
-    counts the forward's launches, ``fused_edge_step3_backward.launches``
-    the backward's), which take each receiver's slots consecutive (the
-    receiver-major layout; a pair-blocked batch's is not) and any L (64,
-    128 and 256 natively, another L <= 256 zero-padded to the next, a wider
-    one in the wide variant, ``ops/wide.py``; the padding is exact:
-    ``ops/widths.py``), and raise otherwise; CPU tensors go to the plain
-    versions; anything else raises."""
+    the weights. CUDA tensors go to the kernels (``cuda_build.launches``
+    counts them under ``fused_edge3_fwd`` and ``fused_edge3_bwd``), which
+    take each receiver's slots consecutive (the receiver-major layout; a
+    pair-blocked batch's is not) and any L (64, 128 and 256 natively,
+    another L <= 256 zero-padded to the next, a wider one in the wide
+    variant, ``ops/wide.py``; the padding is exact: ``ops/widths.py``), and
+    raise otherwise; CPU tensors go to the plain versions; anything else
+    raises."""
     edge_gid, block_tile = aux
     return _FusedEdgeStep3.apply(x, g_x, e, w_u, w_v, w_e, b0, w2, b2, receivers, edge_gid,
                                  block_tile, n_graphs, tile)
-
-
-fused_edge_step3.launches = 0  # type: ignore[attr-defined]

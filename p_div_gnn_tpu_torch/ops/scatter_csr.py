@@ -37,12 +37,9 @@ and slices the sums back.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch, load_cuda_library
+from p_div_gnn_tpu_torch.ops import cuda_build
 from p_div_gnn_tpu_torch.ops.segment import require_consecutive_runs, segment_sum
 from p_div_gnn_tpu_torch.ops.widths import pad_width, unpad
 
@@ -67,20 +64,6 @@ def csr_segment_sum_reference(
     return segment_sum(data, torch.where(valid, receivers, 0), num_nodes)
 
 
-@functools.cache
-def _library() -> CudaLibrary:
-    built = load_cuda_library("segment_sum_csr")
-    fn = built.lib.pdg_segment_sum_csr
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    built.lib.pdg_segment_sum_csr_chunk_slots.restype = ctypes.c_int64
-    pair = built.lib.pdg_segment_sum_csr_pair
-    pair.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4
-                     + [ctypes.c_void_p])
-    pair.restype = ctypes.c_int
-    return built
-
-
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"csr_segment_sum: {msg}")
@@ -89,7 +72,7 @@ def _check(cond: bool, msg: str) -> None:
 def _csr_segment_sum_cuda(
     rows: torch.Tensor, receivers: torch.Tensor, num_nodes: int, perm: torch.Tensor | None,
 ) -> torch.Tensor:
-    built = _library()
+    built = cuda_build.library("segment_sum_csr")
     n_src, L = rows.shape
     n_slots = receivers.shape[0]
     ints = (receivers,) + (() if perm is None else (perm,))
@@ -113,27 +96,16 @@ def _csr_segment_sum_cuda(
     pieces = torch.empty((n_chunks, 2, L), dtype=torch.float64, device=dev)
     kind = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     out = torch.empty((num_nodes, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_segment_sum_csr(
-            int(rows.dtype == torch.bfloat16), rows.data_ptr(),
-            None if perm is None else perm.data_ptr(), receivers.data_ptr(),
-            pieces.data_ptr(), kind.data_ptr(), out.data_ptr(), n_src, n_slots, L, num_nodes,
-            stream,
-        )
-    check_launch(built, err, "segment_sum_csr")
-    csr_segment_sum.launches += 1
+    cuda_build.launch("segment_sum_csr", "pdg_segment_sum_csr", int(rows.dtype == torch.bfloat16),
+                      rows, perm, receivers, pieces, kind, out, n_src, n_slots, L, num_nodes)
     return out
 
 
 def _segment_sum_dispatch(rows, receivers, block_tile, num_nodes, tile, perm):
     tensors = (rows, receivers, block_tile) + (() if perm is None else (perm,))
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("csr_segment_sum", *tensors) == "cuda":
         return _csr_segment_sum_cuda(rows, receivers, num_nodes, perm)
-    if kinds == {"cpu"}:
-        return csr_segment_sum_reference(rows, receivers, num_nodes, perm)
-    raise ValueError(f"csr_segment_sum runs on cuda or cpu tensors, got {sorted(kinds)}")
+    return csr_segment_sum_reference(rows, receivers, num_nodes, perm)
 
 
 class _CsrSegmentSum(torch.autograd.Function):
@@ -167,15 +139,12 @@ def csr_segment_sum(
     perm: torch.Tensor | None = None,  # (Ep2,) i32 source row of each slot
 ) -> torch.Tensor:
     """(num_nodes, L) fp32 segment sum over the block-CSR layout. CUDA
-    tensors go to the kernel (``csr_segment_sum.launches`` counts its
-    launches), which needs each receiver's slots consecutive and raises
-    otherwise; CPU tensors go to the plain version, which takes any order;
-    anything else raises. ``block_tile`` and ``tile`` are taken as the JAX
+    tensors go to the kernel (``cuda_build.launches["segment_sum_csr"]``
+    counts its launches), which needs each receiver's slots consecutive
+    and raises otherwise; CPU tensors go to the plain version, which takes
+    any order; anything else raises. ``block_tile`` and ``tile`` are taken as the JAX
     function takes them and are not read."""
     return _CsrSegmentSum.apply(rows, receivers, block_tile, num_nodes, tile, perm)
-
-
-csr_segment_sum.launches = 0  # type: ignore[attr-defined]
 
 
 def csr_segment_sum_pair_reference(
@@ -191,7 +160,7 @@ def _csr_segment_sum_pair_cuda(
     a: torch.Tensor, b: torch.Tensor, receivers: torch.Tensor, block_tile: torch.Tensor,
     num_nodes: int, tile: int, perm: torch.Tensor | None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    built = _library()
+    built = cuda_build.library("segment_sum_csr")
     n_src, L = a.shape
     n_slots = receivers.shape[0]
     ints = (receivers, block_tile) + (() if perm is None else (perm,))
@@ -224,15 +193,9 @@ def _csr_segment_sum_pair_cuda(
     pieces = torch.empty((2, n_chunks, 2, L), dtype=torch.float64, device=dev)
     kind = torch.empty((n_chunks,), dtype=torch.int32, device=dev)
     out = torch.empty((2, num_nodes, L), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_segment_sum_csr_pair(
-            int(a.dtype == torch.bfloat16), a.data_ptr(), b.data_ptr(),
-            None if perm is None else perm.data_ptr(), receivers.data_ptr(), pieces.data_ptr(),
-            kind.data_ptr(), out.data_ptr(), n_src, n_slots, L, num_nodes, stream,
-        )
-    check_launch(built, err, "segment_sum_csr_pair")
-    csr_segment_sum_pair.launches += 1
+    cuda_build.launch("segment_sum_csr_pair", "pdg_segment_sum_csr_pair",
+                      int(a.dtype == torch.bfloat16), a, b, perm, receivers, pieces, kind, out,
+                      n_src, n_slots, L, num_nodes)
     return out[0], out[1]
 
 
@@ -247,21 +210,16 @@ def csr_segment_sum_pair(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two (num_nodes, L) fp32 segment sums of two streams over one
     block-CSR layout, in one pass, the rows read as stored and summed in
-    fp64. CUDA tensors go to the kernel (``csr_segment_sum_pair.launches``
-    counts its launches), which needs each receiver's slots consecutive
-    and raises otherwise; CPU tensors go to the plain version, which takes
-    any order; anything else raises. It has no backward: it raises where a
+    fp64. CUDA tensors go to the kernel
+    (``cuda_build.launches["segment_sum_csr_pair"]`` counts its launches),
+    which needs each receiver's slots consecutive and raises otherwise; CPU
+    tensors go to the plain version, which takes any order; anything else
+    raises. It has no backward: it raises where a
     gradient would be needed."""
     tensors = (a, b, receivers, block_tile) + (() if perm is None else (perm,))
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise ValueError("csr_segment_sum_pair has no backward; call it where no "
                          "gradient is taken (a backward, or torch.no_grad)")
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if cuda_build.device_kind("csr_segment_sum_pair", *tensors) == "cuda":
         return _csr_segment_sum_pair_cuda(a, b, receivers, block_tile, num_nodes, tile, perm)
-    if kinds == {"cpu"}:
-        return csr_segment_sum_pair_reference(a, b, receivers, num_nodes, perm)
-    raise ValueError(f"csr_segment_sum_pair runs on cuda or cpu tensors, got {sorted(kinds)}")
-
-
-csr_segment_sum_pair.launches = 0  # type: ignore[attr-defined]
+    return csr_segment_sum_pair_reference(a, b, receivers, num_nodes, perm)

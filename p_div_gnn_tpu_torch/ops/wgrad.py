@@ -15,7 +15,7 @@ from typing import Sequence
 
 import torch
 
-from p_div_gnn_tpu_torch.ops.cuda_build import check_launch
+from p_div_gnn_tpu_torch.ops import cuda_build
 
 WGRAD_WIDTHS = (64, 128, 256)
 MAX_STREAMS = 10  # csrc/bwd_common.cuh MAX_STREAMS
@@ -58,9 +58,7 @@ def wgrad_pass(
 
 
 def _wgrad_pass_cuda(streams, at_idx, idx, pairs, n_rows: int) -> torch.Tensor:
-    from p_div_gnn_tpu_torch.ops.fused_edge3 import _bwd_library
-
-    built = _bwd_library()
+    built = cuda_build.library("fused_edge3_bwd")
     sd, L, dev = streams[0].dtype, streams[0].shape[1], streams[0].device
     if not (sd in (torch.float32, torch.bfloat16) and L in WGRAD_WIDTHS
             and all(s.dtype == sd and s.dim() == 2 and s.shape[1] == L and s.is_contiguous()
@@ -85,12 +83,8 @@ def _wgrad_pass_cuda(streams, at_idx, idx, pairs, n_rows: int) -> torch.Tensor:
                                          for p in range(2)))
     pb = (ctypes.c_int * (2 * n_mats))(*(m[p][1] if p < len(m) else 0 for m in pairs
                                          for p in range(2)))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = built.lib.pdg_fused_edge3_bwd_wgrad(
-            int(sd == torch.bfloat16), src, kind, len(streams),
-            idx.data_ptr() if idx is not None else None,
-            max(n_idx, default=0), n_mats, n_pairs, pa, pb, wpart.data_ptr(), wb.data_ptr(),
-            n_rows, L, n_chunks, stream)
-    check_launch(built, err, "fused_edge3_bwd_wgrad")
+    cuda_build.launch("fused_edge3_bwd_wgrad", "pdg_fused_edge3_bwd_wgrad",
+                      int(sd == torch.bfloat16), src, kind, len(streams), idx,
+                      max(n_idx, default=0), n_mats, n_pairs, pa, pb, wpart, wb, n_rows, L,
+                      n_chunks, device=dev)
     return wb[:n_mats * L].view(n_mats, L, L)

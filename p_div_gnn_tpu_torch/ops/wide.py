@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from p_div_gnn_tpu_torch.ops.cuda_build import CudaLibrary, check_launch
+from p_div_gnn_tpu_torch.ops import cuda_build
 from p_div_gnn_tpu_torch.ops.segment import slot_outputs
 
 # csrc/wide_tile.cuh: slots of a CTA's tile, slot ranges of a weight grad
@@ -39,20 +39,15 @@ class WideStep(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in _PTRS] + [(f, ctypes.c_int64) for f in _INTS]
 
 
-def _launch(built: CudaLibrary, name: str, sd: torch.dtype, dev: torch.device,
-            tensors: dict, **sizes: int) -> None:
-    fn = getattr(built.lib, f"pdg_{name}_wide")
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def _launch(name: str, sd: torch.dtype, dev: torch.device, tensors: dict, **sizes: int) -> None:
+    """One launch of ``pdg_<name>_wide``, counted under ``name``."""
     step = WideStep(**{k: t.data_ptr() for k, t in tensors.items() if t is not None}, **sizes)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(int(sd == torch.bfloat16), ctypes.addressof(step), stream)
-    check_launch(built, err, f"{name} (wide)")
+    cuda_build.launch(name, f"pdg_{name}_wide", int(sd == torch.bfloat16), ctypes.addressof(step),
+                      device=dev)
 
 
-def forward(built: CudaLibrary, name: str, sd: torch.dtype, n: int, Np: int, Ep: int,
-            n_graphs: int, inputs: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def forward(name: str, sd: torch.dtype, n: int, Np: int, Ep: int, n_graphs: int,
+            inputs: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(z_upd (Ep, L) stream dtype, R (Np, L), M (8, L)) of a wide forward
     over n entries; ``inputs`` names the WideStep fields the mode reads.
     z_upd is zeroed from slot n on before the launch: the F3 and V2 modes
@@ -67,13 +62,13 @@ def forward(built: CudaLibrary, name: str, sd: torch.dtype, n: int, Np: int, Ep:
     }
     scratch = {"h1": h[0], "h2": h[1], "s1": h[2],
                "part": torch.empty((-(-n // WM), 4, L), dtype=torch.float64, device=dev)}
-    _launch(built, name, sd, dev, {**inputs, **scratch, **out}, n=n, L=L, Np=Np, Ep=Ep,
+    _launch(name, sd, dev, {**inputs, **scratch, **out}, n=n, L=L, Np=Np, Ep=Ep,
             n_graphs=n_graphs, splits=1)
     return out["z_out"], out["r_out"], out["m_out"]
 
 
-def backward(built: CudaLibrary, name: str, mode: int, sd: torch.dtype, n: int, Np: int,
-             Ep: int, n_graphs: int, inputs: dict) -> dict:
+def backward(name: str, mode: int, sd: torch.dtype, n: int, Np: int, Ep: int, n_graphs: int,
+             inputs: dict) -> dict:
     """A wide backward over n entries: its outputs by WideStep field (r_out,
     r_out2, m_out (db2, db0), dg, dg1, dg2, de, w_out (dW2, dWe[, dWu,
     dWv])), those the mode writes; the per-slot ones are zeroed from slot
@@ -95,6 +90,6 @@ def backward(built: CudaLibrary, name: str, mode: int, sd: torch.dtype, n: int, 
     else:
         out.update(zip(("dg1", "dg2", "de"), slot_outputs(n, 3, Ep, L, sd, dev)),
                    r_out2=torch.empty((Np, L), dtype=torch.float32, device=dev))
-    _launch(built, name, sd, dev, {**inputs, **scratch, **out}, n=n, L=L, Np=Np, Ep=Ep,
+    _launch(name, sd, dev, {**inputs, **scratch, **out}, n=n, L=L, Np=Np, Ep=Ep,
             n_graphs=n_graphs, splits=splits)
     return out

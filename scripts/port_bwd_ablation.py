@@ -8,12 +8,11 @@ Builds ``p_div_gnn_tpu_torch/csrc/<kernel>.cu`` (default the fused3 backward,
 #2; the v2 backward #6, the pair-blocked backward #8) as it is ("base") and
 in variants with one part of its work taken out by a preprocessor switch
 (``-DPDG_WITHOUT=<part>``, a name of ``csrc/fused3_tile.cuh``'s ``enum Part``),
-all with the port's nvcc flags, into ``build/port_bwd_ablation/``: the
-weight-grad kernel without its MMAs, without splitting the staged rows into
-bf16 terms, without fetching them, and without fetching and splitting again
-a tile that an earlier CTA of its chunk has (the most a design that shares
-each chunk's split tiles among its CTAs could save); the tile kernel
-without its tensor-core MMAs, without its FMA chains (and the shared loads
+through ``ops/cuda_build.py`` (its nvcc flags and build directory, one build
+a variant, in parallel), and runs the wrapper on each through
+``cuda_build.using``: the weight-grad kernel without its MMAs, without
+splitting the staged rows into bf16 terms and without fetching them; the
+tile kernel without its tensor-core MMAs, without its FMA chains (and the shared loads
 that feed them), and for #6 and #8 without the first layer's receiver and
 sender rows and without the receiver run sums. Each runs chip_smoke.py's backward kernel
 phase inputs (the flagship training batch, receiver-major or
@@ -26,7 +25,6 @@ Needs a CUDA card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -40,7 +38,6 @@ import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.datagen.workload import build_workload  # noqa: E402
 from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3  # noqa: E402
 
-OUT = ROOT / "build" / "port_bwd_ablation"
 # each kernel's sub-kernels (csrc/bwd_common.cuh's are shared)
 SHARED = ("prepare_weights_kernel", "bwd_wgrad_kernel", "bwd_reduce_kernel")
 SUBS = {"fused_edge3_bwd": ("step3_bwd_tile_kernel",) + SHARED,
@@ -52,55 +49,34 @@ VARIANTS = {
     "wgrad without MMAs": "WITHOUT_WG_MMA",
     "wgrad without the term split": "WITHOUT_WG_SPLIT",
     "wgrad without fetching": "WITHOUT_WG_FETCH",
-    "wgrad fetching and splitting each tile once a chunk": "WITHOUT_WG_REPEAT",
     "tile without MMAs": "WITHOUT_MMA",
     "tile without FMA chains": "WITHOUT_FMA",
 }
 V2_VARIANTS = {**VARIANTS, "tile without the row gathers": "WITHOUT_GATHER",
                "tile without the run sums": "WITHOUT_RUNS"}
-# pointer and size arguments of each launch function
-ARGS = {"fused_edge3_bwd": (28, 5), "fused_edge_bwd": (27, 5), "fused_edge2_bwd": (27, 6)}
 
 
-def build_variants(kernel: str = "fused_edge3_bwd", variants: dict = VARIANTS,
-                   out: Path = OUT, extra: dict | None = None) -> dict[str, Path]:
-    """Builds csrc/<kernel>.cu once per variant into out/variant<i>.so, with
+def build_variants(kernel: str, variants: dict, extra: dict | None = None
+                   ) -> dict[str, tuple[str, ...]]:
+    """Builds csrc/<kernel>.cu once per variant, in parallel, with
     -DPDG_WITHOUT=<its part> (none for None) and the variant's ``extra``
-    flags, in parallel."""
-    source = cuda_build.CSRC_DIR / f"{kernel}.cu"
-    out.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    procs, libs = {}, {}
-    for i, (name, part) in enumerate(variants.items()):
-        defs = [] if part is None else [f"-DPDG_WITHOUT={part}"]
-        defs += (extra or {}).get(name, [])
-        libs[name] = out / f"variant{i}.so"
-        procs[name] = subprocess.Popen([cuda_build.find_nvcc(), *flags, *defs, "-o",
-                                        str(libs[name]), str(source)])
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise SystemExit(f"nvcc failed on variant {name!r}")
-    return libs
+    defines; returns each variant's defines."""
+    defines = {name: (() if part is None else (f"PDG_WITHOUT={part}",))
+               + tuple((extra or {}).get(name, ())) for name, part in variants.items()}
+    cuda_build.libraries(*((kernel, d) for d in defines.values()))
+    return defines
 
 
-def load(path: Path, kernel: str) -> cuda_build.CudaLibrary:
-    lib = ctypes.CDLL(str(path))
-    lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pdg_cuda_error_string.restype = ctypes.c_char_p
-    n_ptr, n_int = ARGS[kernel]
-    fn = getattr(lib, f"pdg_{kernel}")
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [ctypes.c_int64] * n_int + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for count in (getattr(lib, f"pdg_{kernel}_parts"), getattr(lib, f"pdg_{kernel}_chunks")):
-        count.argtypes = [ctypes.c_int64]
-        count.restype = ctypes.c_int64
-    return cuda_build.CudaLibrary(lib, path, 0.0, "")
+def variant(kernel: str, defines: tuple[str, ...]):
+    """A block in which the wrappers launch csrc/<kernel>.cu built with
+    ``defines`` (every other library as built)."""
+    return cuda_build.using(lambda name, d: cuda_build.load_cuda_library(
+        name, d + defines if name == kernel else d))
 
 
 def calls(kernel: str):
-    """The kernel phase's inputs: yields (dtype name, a call of the wrapper,
-    the module attribute of its cached library)."""
+    """The kernel phase's inputs: yields (dtype name, a call of the
+    wrapper)."""
     pair = kernel == "fused_edge2_bwd"
     batch = build_workload(chip_smoke.N_MESHES, seed=0, pair_blocks=pair)[0].to("cuda")
     Np, Ep, L = batch.num_nodes_padded, batch.num_edges_padded, chip_smoke.LATENT
@@ -144,32 +120,28 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     kernel = args.kernel
-    libs = build_variants(kernel, VARIANTS if kernel == "fused_edge3_bwd" else V2_VARIANTS,
-                          OUT / kernel)
-    module, attr = {"fused_edge3_bwd": (fused_edge3, "_bwd_library"),
-                    "fused_edge_bwd": (fused_edge, "_bwd_library"),
-                    "fused_edge2_bwd": (fused_edge, "_bwd_library2")}[kernel]
+    defines = build_variants(kernel, VARIANTS if kernel == "fused_edge3_bwd" else V2_VARIANTS)
     subs = SUBS[kernel]
-    for name, path in libs.items():
-        built = load(path, kernel)
-        setattr(module, attr, lambda built=built: built)
-        for sd_name, call in calls(kernel):
-            for _ in range(2):
-                call()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
+    for name, d in defines.items():
+        with variant(kernel, d):
+            for sd_name, call in calls(kernel):
+                for _ in range(2):
                     call()
                 torch.cuda.synchronize()
-            times = {sub: 0.0 for sub in subs}
-            for e in prof.key_averages():
-                for sub in subs:
-                    if sub in e.key:
-                        times[sub] += e.device_time_total / 3e3
-            print(f"{kernel} {name} {sd_name}: "
-                  + " ".join(f"{k} {v:.3f}" for k, v in times.items())
-                  + f" ms; sum {sum(times.values()):.3f} ms", flush=True)
-            torch.cuda.empty_cache()
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        call()
+                    torch.cuda.synchronize()
+                times = {sub: 0.0 for sub in subs}
+                for e in prof.key_averages():
+                    for sub in subs:
+                        if sub in e.key:
+                            times[sub] += e.device_time_total / 3e3
+                print(f"{kernel} {name} {sd_name}: "
+                      + " ".join(f"{k} {v:.3f}" for k, v in times.items())
+                      + f" ms; sum {sum(times.values()):.3f} ms", flush=True)
+                torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

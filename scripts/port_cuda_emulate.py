@@ -16,8 +16,8 @@ operands through their shared-memory descriptors (MN-major, 128-byte
 swizzle), each thread summing its own accumulator fragment. The port's
 own ctypes wrappers (``ops/fused_edge3.py``, ``ops/fused_edge.py`` with the
 v2 and the pair-blocked fused2 steps, ``ops/scatter_csr.py``) then run on
-CPU tensors against the emulated libraries, and each kernel is held against
-its plain version at small shapes, in both stream dtypes: the fused3
+CPU tensors against the emulated libraries (``ops/cuda_build.py::using``),
+and each kernel is held against its plain version at small shapes, in both stream dtypes: the fused3
 forward at each width it is built for, 64, 128 and 256, on a layout with a
 tile of only padding, twice, the two calls bit-equal; the fused3 backward
 at L = 64 and 256; the v2 (#6) and pair-blocked (#8) backwards at L = 64
@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import re
 import subprocess
 import sys
@@ -410,39 +409,26 @@ def build(name: str) -> Path:
     return lib
 
 
-def load_emulated(name: str) -> cuda_build.CudaLibrary:
-    lib = ctypes.CDLL(str(build(name)))
-    lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pdg_cuda_error_string.restype = ctypes.c_char_p
-    return cuda_build.CudaLibrary(lib, OUT / f"{name}.so", 0.0, "")
+def load_emulated(name: str, defines: tuple[str, ...] = ()) -> cuda_build.CudaLibrary:
+    if defines:
+        raise ValueError(f"{name}: the emulation builds no variant ({defines})")
+    return cuda_build.open_library(build(name), name)
 
 
 @contextlib.contextmanager
 def emulated_kernels():
-    """The wrappers' CUDA paths on CPU tensors, against emulated libraries."""
-    mods = (fused_edge, fused_edge3, scatter_csr)
-    saved = [(m, m.load_cuda_library) for m in mods]
+    """The wrappers' CUDA paths on CPU tensors, against emulated libraries
+    (``cuda_build.using``): a launch runs on the CPU tensors' pointers and
+    a stand-in stream, which the emulated runtime checks."""
     stream = type("Stream", (), {"cuda_stream": 0x5EED0000BEEF})()
     saved_cuda = (torch.cuda.device, torch.cuda.current_stream)
     torch.cuda.device = lambda dev: contextlib.nullcontext()
     torch.cuda.current_stream = lambda dev=None: stream
-
-    def clear():
-        for m in mods:
-            for f in ("_library", "_bwd_library", "_library2", "_bwd_library2"):
-                if hasattr(m, f):
-                    getattr(m, f).cache_clear()
-
-    for m in mods:
-        m.load_cuda_library = load_emulated
-    clear()
     try:
-        yield
+        with cuda_build.using(load_emulated):
+            yield
     finally:
-        for m, f in saved:
-            m.load_cuda_library = f
         torch.cuda.device, torch.cuda.current_stream = saved_cuda
-        clear()
 
 
 T = torch.from_numpy

@@ -9,8 +9,8 @@ Builds ``p_div_gnn_tpu_torch/csrc/<kernel>.cu`` (default the fused3
 forward, #1; the v2 forward #5, the pair-blocked forward #7) as it is
 ("base") and in variants with one part of its work taken out by a
 preprocessor switch (``-DPDG_WITHOUT=<part>``, a name of
-``csrc/fused3_tile.cuh``'s ``enum Part``), with the port's nvcc flags, into
-``build/port_fwd_ablation/`` (``port_bwd_ablation.build_variants``):
+``csrc/fused3_tile.cuh``'s ``enum Part``), through ``ops/cuda_build.py``
+(``port_bwd_ablation.build_variants`` and ``variant``):
 without the FMA chains (fp32: the FMAs, and the shared loads that feed
 them), without staging the step's rows (fp32), without the MMAs (bf16),
 without copying the step's rows (bf16), for #5 and #7 without gathering the
@@ -49,9 +49,8 @@ sys.path.insert(0, str(ROOT / "scripts"))
 import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.batching import pack_batch  # noqa: E402
 from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3  # noqa: E402
-from port_bwd_ablation import build_variants  # noqa: E402
+from port_bwd_ablation import build_variants, variant  # noqa: E402
 
-OUT = ROOT / "build" / "port_fwd_ablation"
 SUBS = {"fused_edge3_fwd": ("copy_weights_kernel", "step3_fwd_fma_kernel",
                             "step3_fwd_mma_kernel", "moments_reduce_kernel"),
         "fused_edge_fwd": chip_smoke.V2_FWD_SUBS,
@@ -69,36 +68,7 @@ VARIANTS = {
     "part clock": None,
 }
 V2_VARIANTS = {**VARIANTS, "without the row gathers": "WITHOUT_GATHER"}
-EXTRA = {"part clock": ["-DPDG_PART_CLOCK=1"]}
-
-
-def load(path: Path, kernel: str) -> cuda_build.CudaLibrary:
-    lib = ctypes.CDLL(str(path))
-    lib.pdg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pdg_cuda_error_string.restype = ctypes.c_char_p
-    built = cuda_build.CudaLibrary(lib, path, 0.0, "")
-    if kernel == "fused_edge_fwd":
-        return fused_edge._bind_forward(built, "pdg_fused_edge_fwd", 16, 5)
-    if kernel == "fused_edge2_fwd":
-        return fused_edge._bind_forward(built, "pdg_fused_edge2_fwd", 16, 6)
-    fn = lib.pdg_fused_edge3_fwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 16 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.pdg_fused_edge3_fwd_parts.argtypes = []
-    lib.pdg_fused_edge3_fwd_parts.restype = ctypes.c_int64
-    lib.pdg_fused_edge3_fwd_needs_wfma.argtypes = [ctypes.c_int, ctypes.c_int64]
-    lib.pdg_fused_edge3_fwd_needs_wfma.restype = ctypes.c_int
-    return built
-
-
-def use(kernel: str, built: cuda_build.CudaLibrary) -> None:
-    """Make the kernel's wrapper launch ``built``."""
-    if kernel == "fused_edge3_fwd":
-        fused_edge3._library = lambda: built
-    elif kernel == "fused_edge_fwd":
-        fused_edge._library = lambda: built
-    else:
-        fused_edge._library2 = lambda: built
+EXTRA = {"part clock": ("PDG_PART_CLOCK=1",)}
 
 
 def part_times(built: cuda_build.CudaLibrary, kernel: str, call) -> str:
@@ -107,8 +77,7 @@ def part_times(built: cuda_build.CudaLibrary, kernel: str, call) -> str:
     call()
     torch.cuda.synchronize()
     buf = (ctypes.c_ulonglong * (2 * n_parts))()
-    built.lib.pdg_part_clock.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-    err = built.lib.pdg_part_clock(buf, ctypes.c_int64(n_parts))
+    err = built.lib.pdg_part_clock(buf, n_parts)
     cuda_build.check_launch(built, err, "pdg_part_clock")
     starts, ends = buf[0::2], buf[1::2]
     spans = [(e - s) / 1e6 for s, e in zip(starts, ends)]
@@ -156,30 +125,32 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     variants = VARIANTS if kernel == "fused_edge3_fwd" else V2_VARIANTS
-    libs = build_variants(kernel, variants, OUT / kernel, EXTRA)
+    defines = build_variants(kernel, variants, EXTRA)
     subs = SUBS[kernel]
     cases = list(calls(kernel))
-    for name, path in libs.items():
-        built = load(path, kernel)
-        use(kernel, built)
-        for sd_name, call in cases:
-            if name == "part clock":
-                print(f"{name} {sd_name}: {part_times(built, kernel, call)}", flush=True)
-                continue
-            for _ in range(2):
-                call()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
+    for name, d in defines.items():
+        with variant(kernel, d):
+            for sd_name, call in cases:
+                if name == "part clock":
+                    print(f"{name} {sd_name}: "
+                          f"{part_times(cuda_build.library(kernel), kernel, call)}", flush=True)
+                    continue
+                for _ in range(2):
                     call()
                 torch.cuda.synchronize()
-            times = {sub: 0.0 for sub in subs}
-            for e in prof.key_averages():
-                for sub in subs:
-                    if sub in e.key:
-                        times[sub] += e.device_time_total / 5e3
-            print(f"{name} {sd_name}: " + " ".join(f"{k} {v:.3f}" for k, v in times.items() if v)
-                  + f" ms; sum {sum(times.values()):.3f} ms", flush=True)
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        call()
+                    torch.cuda.synchronize()
+                times = {sub: 0.0 for sub in subs}
+                for e in prof.key_averages():
+                    for sub in subs:
+                        if sub in e.key:
+                            times[sub] += e.device_time_total / 5e3
+                print(f"{name} {sd_name}: "
+                      + " ".join(f"{k} {v:.3f}" for k, v in times.items() if v)
+                      + f" ms; sum {sum(times.values()):.3f} ms", flush=True)
 
 
 if __name__ == "__main__":

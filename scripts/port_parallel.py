@@ -20,7 +20,6 @@ from __future__ import annotations
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,7 +29,7 @@ sys.path.insert(0, str(ROOT))
 def main() -> int:
     import chip_smoke
     from p_div_gnn_tpu_torch.datagen.workload import build_samples, pack_workload
-    from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
+    from p_div_gnn_tpu_torch.ops import cuda_build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -38,10 +37,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    loaders = (fused_edge3._library, fused_edge3._bwd_library, scatter_csr._library,
-               fused_edge._library, fused_edge._bwd_library)
-    with ThreadPoolExecutor(len(loaders)) as pool:
-        list(pool.map(lambda load: load(), loaders))
+    cuda_build.libraries("fused_edge3_fwd", "fused_edge3_bwd", "segment_sum_csr",
+                         "fused_edge_fwd", "fused_edge_bwd")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     samples = build_samples(chip_smoke.N_MESHES, seed=0)
     host_train = pack_workload(samples)[0]

@@ -30,7 +30,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from p_div_gnn_tpu_torch.ops.cuda_build import find_nvcc, load_cuda_library  # noqa: E402
+from p_div_gnn_tpu_torch.ops.cuda_build import find_nvcc, library  # noqa: E402
 
 FAMILIES = ("HGMMA", "HMMA", "LDSM", "LDGSTS", "LDG.E.128", "LDG.E.64", "LDG.E", "LDS", "STS",
             "STG", "DADD", "DFMA", "FFMA", "F2F", "SHFL", "BAR", "SYNCS")
@@ -100,7 +100,7 @@ def main() -> int:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for name in args.names:
-        built = load_cuda_library(name)
+        built = library(name)
         print(f"== {name}: {built.path.name}")
         for line in built.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:

@@ -207,16 +207,13 @@ def test_backward_cuda_tensors_never_fall_back(monkeypatch, tmp_path):
         raise AssertionError("CUDA tensors reached the plain backward")
 
     monkeypatch.setattr(fused_edge3, "fused_edge_step3_backward_reference", no_fallback)
-    fused_edge3._bwd_library.cache_clear()
-    before = fused_edge3.fused_edge_step3_backward.launches
+    before = cuda_build.launches["fused_edge3_bwd"]
     stub = _CudaStub()
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            fused_edge3.fused_edge_step3_backward(
-                *([stub] * 10), (stub, stub), 1, NODE_TILE, *([stub] * 4))
-    finally:
-        fused_edge3._bwd_library.cache_clear()
-    assert fused_edge3.fused_edge_step3_backward.launches == before
+    with cuda_build.using(cuda_build.load_cuda_library), \
+            pytest.raises(RuntimeError, match="nvcc not found"):
+        fused_edge3.fused_edge_step3_backward(
+            *([stub] * 10), (stub, stub), 1, NODE_TILE, *([stub] * 4))
+    assert cuda_build.launches["fused_edge3_bwd"] == before
 
 
 def test_segment_sum_cuda_tensors_never_fall_back(monkeypatch, tmp_path):
@@ -226,15 +223,12 @@ def test_segment_sum_cuda_tensors_never_fall_back(monkeypatch, tmp_path):
         raise AssertionError("CUDA tensors reached the plain segment sum")
 
     monkeypatch.setattr(scatter_csr, "csr_segment_sum_reference", no_fallback)
-    scatter_csr._library.cache_clear()
-    before = csr_segment_sum.launches
+    before = cuda_build.launches["segment_sum_csr"]
     stub = _CudaStub()
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            scatter_csr._segment_sum_dispatch(stub, stub, stub, 256, NODE_TILE, stub)
-    finally:
-        scatter_csr._library.cache_clear()
-    assert csr_segment_sum.launches == before
+    with cuda_build.using(cuda_build.load_cuda_library), \
+            pytest.raises(RuntimeError, match="nvcc not found"):
+        scatter_csr._segment_sum_dispatch(stub, stub, stub, 256, NODE_TILE, stub)
+    assert cuda_build.launches["segment_sum_csr"] == before
 
 
 @pytest.mark.parametrize("op", ["backward", "segment_sum"])

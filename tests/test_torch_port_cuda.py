@@ -36,7 +36,7 @@ from p_div_gnn_tpu_torch.graphs.batching import (
     build_sender_view,
 )
 from p_div_gnn_tpu_torch.graphs.container import EDGE_BLOCK, NODE_TILE, sender_run_order
-from p_div_gnn_tpu_torch.ops import fused_edge, fused_edge3, scatter_csr
+from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3, scatter_csr
 
 T = torch.from_numpy
 # slots per chunk of the segment sum kernel (csrc/segment_sum_csr.cu
@@ -192,7 +192,7 @@ def test_kernel_matches_reference_on_cuda(dtype, L):
         pytest.skip("needs a CUDA card")
     arrays, idx = _edge_problem(5, 4, L=L, empty_tile=2)
     rcv_np, gid_np = idx["receivers"], idx["edge_gid"]
-    n_parts = int(fused_edge3._library().lib.pdg_fused_edge3_fwd_parts())
+    n_parts = int(cuda_build.library("fused_edge3_fwd").lib.pdg_fused_edge3_fwd_parts())
     nominal = np.arange(1, n_parts) * -(-len(rcv_np) // n_parts)
     nominal = nominal[nominal < len(rcv_np)]
     assert len(nominal) > 1, "several parts"
@@ -204,9 +204,9 @@ def test_kernel_matches_reference_on_cuda(dtype, L):
     assert tail.any(), "a real receiver has a tail of padding slots"
     args = [T(a).to("cuda", dtype) for a in arrays.values()]
     rcv, gid, bt = (T(idx[k]).cuda() for k in ("receivers", "edge_gid", "block_tile"))
-    before = fused_edge3.fused_edge_step3.launches
+    before = cuda_build.launches["fused_edge3_fwd"]
     got = fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE)
-    assert fused_edge3.fused_edge_step3.launches == before + 1
+    assert cuda_build.launches["fused_edge3_fwd"] == before + 1
     want = fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1)
     if dtype == torch.float32:
         assert torch.equal(got[0], want[0])
@@ -259,10 +259,10 @@ def test_kernel_refuses_split_receiver_runs_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args, rcv, gid, bt = _split_run_inputs(16)
-    before = fused_edge3.fused_edge_step3.launches
+    before = cuda_build.launches["fused_edge3_fwd"]
     with pytest.raises(ValueError, match="not consecutive"):
         fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE)
-    assert fused_edge3.fused_edge_step3.launches == before
+    assert cuda_build.launches["fused_edge3_fwd"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -280,10 +280,10 @@ def test_backward_kernel_matches_reference_on_cuda(dtype):
     dz = T(rng.normal(size=z_upd.shape).astype(np.float32)).to("cuda", dtype)
     dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
     dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
-    before = fused_edge3.fused_edge_step3_backward.launches
+    before = cuda_build.launches["fused_edge3_bwd"]
     got = fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
                                                 z_upd, dz, dr, dm)
-    assert fused_edge3.fused_edge_step3_backward.launches == before + 1
+    assert cuda_build.launches["fused_edge3_bwd"] == before + 1
     want = fused_edge3.fused_edge_step3_backward_reference(*args, rcv, gid, 1,
                                                            z_upd, dz, dr, dm)
     tol = 2e-4 if dtype == torch.float32 else 3e-2
@@ -307,16 +307,16 @@ def test_segment_sum_kernel_matches_reference_on_cuda(dtype):
     perm, srt = (t.cuda() for t in sender_run_order(*view))
     sbt = view[2].cuda()
     rows = T(rng.normal(size=(E, 128)).astype(np.float32)).to("cuda", dtype)
-    before = scatter_csr.csr_segment_sum.launches
+    before = cuda_build.launches["segment_sum_csr"]
     got = scatter_csr.csr_segment_sum(rows, srt, sbt, num_nodes, NODE_TILE, perm=perm)
-    assert scatter_csr.csr_segment_sum.launches == before + 1
+    assert cuda_build.launches["segment_sum_csr"] == before + 1
     want = scatter_csr.csr_segment_sum_reference(rows, srt, num_nodes, perm)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     jax_perm, jax_srt = view[0].cuda(), view[1].cuda()
     with pytest.raises(ValueError, match="not consecutive"):
         scatter_csr.csr_segment_sum(rows, jax_srt, sbt, num_nodes, NODE_TILE, perm=jax_perm)
-    assert scatter_csr.csr_segment_sum.launches == before + 1
+    assert cuda_build.launches["segment_sum_csr"] == before + 1
 
 
 @pytest.mark.parametrize("layout", ["sender", "receiver"])
@@ -333,10 +333,10 @@ def test_segment_sum_runs_are_split_and_deterministic_on_cuda(dtype, layout):
     assert _longest_run(rcv) > RUN_CHUNK
     rows = rows.to("cuda", dtype)
     num_nodes = 3 * NODE_TILE
-    before = scatter_csr.csr_segment_sum.launches
+    before = cuda_build.launches["segment_sum_csr"]
     got = [scatter_csr.csr_segment_sum(rows, rcv, bt, num_nodes, NODE_TILE, perm=perm)
            for _ in range(2)]
-    assert scatter_csr.csr_segment_sum.launches == before + 2
+    assert cuda_build.launches["segment_sum_csr"] == before + 2
     assert torch.equal(got[0], got[1])
     want = scatter_csr.csr_segment_sum_reference(rows, rcv, num_nodes, perm)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
@@ -386,11 +386,11 @@ def test_backward_kernel_refuses_split_receiver_runs_on_cuda():
     dz = torch.ones((Ep, L), device="cuda")
     dr = torch.ones((Np, L), device="cuda")
     dm = torch.zeros((8, L), device="cuda")
-    before = fused_edge3.fused_edge_step3_backward.launches
+    before = cuda_build.launches["fused_edge3_bwd"]
     with pytest.raises(ValueError, match="not consecutive"):
         fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
                                               z_upd, dz, dr, dm)
-    assert fused_edge3.fused_edge_step3_backward.launches == before
+    assert cuda_build.launches["fused_edge3_bwd"] == before
 
 
 def test_remat_steps_give_the_same_gradients_on_cuda():
@@ -412,9 +412,9 @@ def test_remat_steps_give_the_same_gradients_on_cuda():
         model = EncodeProcessDecode(128, 2, scatter_impl="fused3", remat_steps=remat,
                                     generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
-        before = fused_edge3.fused_edge_step3.launches
+        before = cuda_build.launches["fused_edge3_fwd"]
         _, g = trainer.loss_and_grads(batch)
-        assert fused_edge3.fused_edge_step3.launches - before == (4 if remat else 2)
+        assert cuda_build.launches["fused_edge3_fwd"] - before == (4 if remat else 2)
         grads.append(g)
     for name, g in grads[0].items():
         assert torch.equal(g, grads[1][name]), name
@@ -432,9 +432,9 @@ def test_v2_kernel_matches_reference_on_cuda(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args, (rcv, gid, bt) = _on_cuda(*_v2_problem(5, 3, L=128), dtype)
-    before = fused_edge.fused_edge_step.launches
+    before = cuda_build.launches["fused_edge_fwd"]
     got = fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE)
-    assert fused_edge.fused_edge_step.launches == before + 1
+    assert cuda_build.launches["fused_edge_fwd"] == before + 1
     want = fused_edge.fused_edge_step_reference(*args, rcv, gid, 1)
     tols = (1e-5, 1e-4, 1e-3) if dtype == torch.float32 else (3e-2,) * 3
     for a, b, tol in zip(got, want, tols):
@@ -455,10 +455,10 @@ def test_v2_backward_kernel_matches_reference_on_cuda(dtype):
     dz = T(rng.normal(size=z_upd.shape).astype(np.float32)).to("cuda", dtype)
     dr = T(rng.normal(size=(Np, L)).astype(np.float32)).cuda()
     dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
-    before = fused_edge.fused_edge_step_backward.launches
+    before = cuda_build.launches["fused_edge_bwd"]
     got = fused_edge.fused_edge_step_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
                                               z_upd, dz, dr, dm)
-    assert fused_edge.fused_edge_step_backward.launches == before + 1
+    assert cuda_build.launches["fused_edge_bwd"] == before + 1
     want = fused_edge.fused_edge_step_backward_reference(*args, rcv, gid, 1, z_upd, dz, dr, dm)
     tol = 2e-4 if dtype == torch.float32 else 3e-2
     for a, b in zip(got, want):
@@ -480,16 +480,16 @@ def test_pair_segment_sum_kernel_matches_reference_on_cuda():
     perm, srt = (t.cuda() for t in sender_run_order(*view))
     sbt = view[2].cuda()
     a, b = (T(rng.normal(size=(E, 128)).astype(np.float32)).cuda() for _ in range(2))
-    before = scatter_csr.csr_segment_sum_pair.launches
+    before = cuda_build.launches["segment_sum_csr_pair"]
     got = scatter_csr.csr_segment_sum_pair(a, b, srt, sbt, num_nodes, NODE_TILE, perm=perm)
-    assert scatter_csr.csr_segment_sum_pair.launches == before + 1
+    assert cuda_build.launches["segment_sum_csr_pair"] == before + 1
     want = scatter_csr.csr_segment_sum_pair_reference(a, b, srt, num_nodes, perm)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError, match="not consecutive"):
         scatter_csr.csr_segment_sum_pair(a, b, view[1].cuda(), sbt, num_nodes, NODE_TILE,
                                          perm=view[0].cuda())
-    assert scatter_csr.csr_segment_sum_pair.launches == before + 1
+    assert cuda_build.launches["segment_sum_csr_pair"] == before + 1
 
 
 def _pair_sum_views(L: int) -> dict:
@@ -527,10 +527,10 @@ def test_pair_sum_redesign_on_both_views_on_cuda(dtype, L):
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for view, (a, b, srt, sbt, perm, num_nodes) in _pair_sum_views(L).items():
         a, b = a.to(dtype), b.to(dtype)
-        before = scatter_csr.csr_segment_sum_pair.launches
+        before = cuda_build.launches["segment_sum_csr_pair"]
         got = [scatter_csr.csr_segment_sum_pair(a, b, srt, sbt, num_nodes, NODE_TILE, perm=perm)
                for _ in range(2)]
-        assert scatter_csr.csr_segment_sum_pair.launches == before + 2, view
+        assert cuda_build.launches["segment_sum_csr_pair"] == before + 2, view
         want = scatter_csr.csr_segment_sum_pair_reference(a, b, srt, num_nodes, perm)
         for x, y, z in zip(got[0], got[1], want):
             assert x.dtype == torch.float32 and x.shape == (num_nodes, L)
@@ -550,10 +550,10 @@ def test_segment_sum_kernel_at_width_18_on_cuda(dtype):
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for layout in layouts.values():
         rcv, bt, perm = (None if t is None else t.cuda() for t in layout)
-        before = scatter_csr.csr_segment_sum.launches
+        before = cuda_build.launches["segment_sum_csr"]
         got = [scatter_csr.csr_segment_sum(rows, rcv, bt, 3 * NODE_TILE, NODE_TILE, perm=perm)
                for _ in range(2)]
-        assert scatter_csr.csr_segment_sum.launches == before + 2
+        assert cuda_build.launches["segment_sum_csr"] == before + 2
         assert torch.equal(got[0], got[1]) and got[0].shape == (3 * NODE_TILE, 18)
         want = scatter_csr.csr_segment_sum_reference(rows, rcv, 3 * NODE_TILE, perm)
         torch.testing.assert_close(got[0], want, rtol=tol, atol=tol)
@@ -572,16 +572,15 @@ def test_fused_v2_training_step_is_deterministic_on_cuda():
     from p_div_gnn_tpu_torch.train.loop import Trainer
 
     batch = build_workload(n_graphs=2, seed=0)[0].to("cuda")
-    counters = (fused_edge.fused_edge_step, fused_edge.fused_edge_step_backward,
-                scatter_csr.csr_segment_sum_pair)
+    counters = ("fused_edge_fwd", "fused_edge_bwd", "segment_sum_csr_pair")
     grads = []
     for _ in range(2):
         model = EncodeProcessDecode(128, 2, scatter_impl="fused", remat_steps=False,
                                     generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
-        before = [f.launches for f in counters]
+        before = [cuda_build.launches[k] for k in counters]
         _, g = trainer.loss_and_grads(batch)
-        assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
+        assert [cuda_build.launches[k] - b for k, b in zip(counters, before)] == [2, 2, 2]
         grads.append(g)
     for name, g in grads[0].items():
         assert torch.isfinite(g).all(), name
@@ -609,9 +608,9 @@ def test_pair_kernel_matches_reference_on_cuda(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(5, 3, L=128), dtype)
-    before = fused_edge.fused_edge_step2.launches
+    before = cuda_build.launches["fused_edge2_fwd"]
     got = fused_edge.fused_edge_step2(*args, rcv, snd, aux, 1, NODE_TILE)
-    assert fused_edge.fused_edge_step2.launches == before + 1
+    assert cuda_build.launches["fused_edge2_fwd"] == before + 1
     want = fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1, NODE_TILE)
     tols = (1e-5, 1e-4, 1e-3) if dtype == torch.float32 else (3e-2,) * 3
     for a, b, tol in zip(got, want, tols):
@@ -636,17 +635,17 @@ def test_pair_backward_kernel_matches_reference_on_cuda(dtype):
     dm = T(rng.normal(size=(8, L)).astype(np.float32)).cuda()
     cots = (z_upd, dz, dr, dm)
     tol = 2e-4 if dtype == torch.float32 else 3e-2
-    before = fused_edge.fused_edge2_bwd.launches
+    before = cuda_build.launches["fused_edge2_bwd"]
     got = fused_edge.fused_edge2_bwd(*args, rcv, snd, aux, 1, NODE_TILE, *cots)
-    assert fused_edge.fused_edge2_bwd.launches == before + 1
+    assert cuda_build.launches["fused_edge2_bwd"] == before + 1
     want = fused_edge.fused_edge2_bwd_reference(*args, rcv, snd, aux, 1, NODE_TILE, *cots)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
-    pair_before = scatter_csr.csr_segment_sum_pair.launches
+    pair_before = cuda_build.launches["segment_sum_csr_pair"]
     got = fused_edge.fused_edge_step2_backward(*args, rcv, snd, aux, 1, NODE_TILE, *cots)
-    assert scatter_csr.csr_segment_sum_pair.launches == pair_before + 1
-    assert fused_edge.fused_edge2_bwd.launches == before + 2
+    assert cuda_build.launches["segment_sum_csr_pair"] == pair_before + 1
+    assert cuda_build.launches["fused_edge2_bwd"] == before + 2
     want = fused_edge.fused_edge_step2_backward_reference(*args, rcv, snd, aux, 1, NODE_TILE,
                                                           *cots)
     for a, b in zip(got, want):
@@ -667,16 +666,15 @@ def test_fused2_training_step_is_deterministic_on_cuda():
     from p_div_gnn_tpu_torch.train.loop import Trainer
 
     batch = build_workload(n_graphs=2, seed=0, pair_blocks=True)[0].to("cuda")
-    counters = (fused_edge.fused_edge_step2, fused_edge.fused_edge2_bwd,
-                scatter_csr.csr_segment_sum_pair)
+    counters = ("fused_edge2_fwd", "fused_edge2_bwd", "segment_sum_csr_pair")
     grads = []
     for _ in range(2):
         model = EncodeProcessDecode(128, 2, scatter_impl="fused2", remat_steps=False,
                                     generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
-        before = [f.launches for f in counters]
+        before = [cuda_build.launches[k] for k in counters]
         _, g = trainer.loss_and_grads(batch)
-        assert [f.launches - b for f, b in zip(counters, before)] == [2, 2, 2]
+        assert [cuda_build.launches[k] - b for k, b in zip(counters, before)] == [2, 2, 2]
         grads.append(g)
     for name, g in grads[0].items():
         assert torch.isfinite(g).all(), name
@@ -700,20 +698,20 @@ def _cots(seed: int, Ep: int, Np: int, L: int, dtype):
 def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3,
                  empty_tile: int | None = None):
     """One fused kernel on the card at width L against its plain version:
-    (counter, call, plain, tolerances); ``call()`` launches the kernel
+    (kernel name, call, plain, tolerances); ``call()`` launches the kernel
     through its wrapper, ``plain()`` runs the plain version on the same
     inputs. With ``empty_tile`` (the v2 and pair-blocked steps), no real
     edge receives in that node tile."""
     if kernel.startswith("fused3"):
         args, (rcv, gid, bt) = _on_cuda(*_edge_problem(seed, n_tiles, L=L), dtype)
         if kernel == "fused3_fwd":
-            return (fused_edge3.fused_edge_step3,
+            return ("fused_edge3_fwd",
                     lambda: fused_edge3.fused_edge_step3(*args, rcv, (gid, bt), 1, NODE_TILE),
                     lambda: fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1),
                     FWD_TOLS[dtype])
         z, _, _ = fused_edge3.fused_edge_step3_reference(*args, rcv, gid, 1)
         cots = (z, *_cots(seed + 1, z.shape[0], args[0].shape[0], L, dtype))
-        return (fused_edge3.fused_edge_step3_backward,
+        return ("fused_edge3_bwd",
                 lambda: fused_edge3.fused_edge_step3_backward(*args, rcv, (gid, bt), 1,
                                                               NODE_TILE, *cots),
                 lambda: fused_edge3.fused_edge_step3_backward_reference(*args, rcv, gid, 1,
@@ -723,13 +721,13 @@ def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3,
         args, (rcv, gid, bt) = _on_cuda(*_v2_problem(seed, n_tiles, L=L,
                                                      empty_tile=empty_tile), dtype)
         if kernel == "v2_fwd":
-            return (fused_edge.fused_edge_step,
+            return ("fused_edge_fwd",
                     lambda: fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE),
                     lambda: fused_edge.fused_edge_step_reference(*args, rcv, gid, 1),
                     FWD_TOLS[dtype])
         z, _, _ = fused_edge.fused_edge_step_reference(*args, rcv, gid, 1)
         cots = (z, *_cots(seed + 1, z.shape[0], args[0].shape[0], L, dtype))
-        return (fused_edge.fused_edge_step_backward,
+        return ("fused_edge_bwd",
                 lambda: fused_edge.fused_edge_step_backward(*args, rcv, (gid, bt), 1, NODE_TILE,
                                                             *cots),
                 lambda: fused_edge.fused_edge_step_backward_reference(*args, rcv, gid, 1, *cots),
@@ -737,14 +735,14 @@ def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3,
     args, rcv, snd, aux = _pair_on_cuda(*_pair_problem(seed, n_tiles, L=L,
                                                        empty_tile=empty_tile), dtype)
     if kernel == "pair_fwd":
-        return (fused_edge.fused_edge_step2,
+        return ("fused_edge2_fwd",
                 lambda: fused_edge.fused_edge_step2(*args, rcv, snd, aux, 1, NODE_TILE),
                 lambda: fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1,
                                                               NODE_TILE),
                 FWD_TOLS[dtype])
     z, _, _ = fused_edge.fused_edge_step2_reference(*args, rcv, snd, aux, 1, NODE_TILE)
     cots = (z, *_cots(seed + 1, z.shape[0], args[0].shape[0], L, dtype))
-    return (fused_edge.fused_edge2_bwd,
+    return ("fused_edge2_bwd",
             lambda: fused_edge.fused_edge2_bwd(*args, rcv, snd, aux, 1, NODE_TILE, *cots),
             lambda: fused_edge.fused_edge2_bwd_reference(*args, rcv, snd, aux, 1, NODE_TILE,
                                                          *cots),
@@ -754,10 +752,10 @@ def _kernel_case(kernel: str, L: int, dtype, seed: int = 5, n_tiles: int = 3,
 KERNELS = ("fused3_fwd", "fused3_bwd", "v2_fwd", "v2_bwd", "pair_fwd", "pair_bwd")
 
 
-def _held(counter, call, plain, tols):
-    before = counter.launches
+def _held(kernel, call, plain, tols):
+    before = cuda_build.launches[kernel]
     got = call()
-    assert counter.launches == before + 1
+    assert cuda_build.launches[kernel] == before + 1
     want = plain()
     for a, b, tol in zip(got, want, tols, strict=True):
         assert a.shape == b.shape and a.dtype == b.dtype
@@ -799,7 +797,7 @@ def test_v2_forward_kernels_widths_and_determinism_on_cuda(dtype, kernel, L):
     if kernel == "v2_fwd":
         _, idx = _v2_problem(8, 4, L=L, empty_tile=2)
         rcv = idx["receivers"]
-        n_parts = int(fused_edge._library().lib.pdg_fused_edge_fwd_parts())
+        n_parts = int(cuda_build.library("fused_edge_fwd").lib.pdg_fused_edge_fwd_parts())
         nominal = np.arange(1, n_parts) * -(-len(rcv) // n_parts)
         nominal = nominal[nominal < len(rcv)]
         assert len(nominal) > 1, "several parts"
@@ -828,10 +826,10 @@ def test_v2_forward_kernel_refuses_split_receiver_runs_on_cuda():
             f32(L, L), f32(L))
     rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
                     for k in ("receivers", "edge_gid", "block_tile"))
-    before = fused_edge.fused_edge_step.launches
+    before = cuda_build.launches["fused_edge_fwd"]
     with pytest.raises(ValueError, match="not consecutive"):
         fused_edge.fused_edge_step(*args, rcv, (gid, bt), 1, NODE_TILE)
-    assert fused_edge.fused_edge_step.launches == before
+    assert cuda_build.launches["fused_edge_fwd"] == before
 
 
 @pytest.mark.parametrize("L", [64, 256])
@@ -935,10 +933,10 @@ def test_v2_backward_kernel_refuses_split_receiver_runs_on_cuda():
     rcv, gid, bt = (T(np.asarray(idx[k], np.int32)).cuda()
                     for k in ("receivers", "edge_gid", "block_tile"))
     cots = (torch.zeros((Ep, L), device="cuda"), f32(Ep, L), f32(Np, L), f32(8, L))
-    before = fused_edge.fused_edge_step_backward.launches
+    before = cuda_build.launches["fused_edge_bwd"]
     with pytest.raises(ValueError, match="not consecutive"):
         fused_edge.fused_edge_step_backward(*args, rcv, (gid, bt), 1, NODE_TILE, *cots)
-    assert fused_edge.fused_edge_step_backward.launches == before
+    assert cuda_build.launches["fused_edge_bwd"] == before
 
 
 @pytest.mark.parametrize("L", [320, 512])
@@ -984,11 +982,11 @@ def _fused3_training_step_matches_xla(latent: int) -> None:
         model = EncodeProcessDecode(latent, 2, scatter_impl=impl, remat_steps=False,
                                     generator=torch.Generator().manual_seed(0))
         trainer = Trainer(model, NormStats.ones(), divergence_penalty=10.0)
-        before = [fused_edge3.fused_edge_step3.launches,
-                  fused_edge3.fused_edge_step3_backward.launches]
+        before = [cuda_build.launches["fused_edge3_fwd"],
+                  cuda_build.launches["fused_edge3_bwd"]]
         terms, grads[impl] = trainer.loss_and_grads(batch)
-        after = [fused_edge3.fused_edge_step3.launches,
-                 fused_edge3.fused_edge_step3_backward.launches]
+        after = [cuda_build.launches["fused_edge3_fwd"],
+                 cuda_build.launches["fused_edge3_bwd"]]
         assert [a - b for a, b in zip(after, before)] == ([2, 2] if impl == "fused3" else [0, 0])
         assert torch.isfinite(terms["total"])
     for name, g in grads["fused3"].items():
@@ -1023,11 +1021,13 @@ def test_kernels_on_a_loader_batch_on_cuda(dtype, kernel):
     x = f32(Np, L)
     snd = b.senders.cpu().long()
     if kernel.startswith("fused3"):
+        names = ("fused_edge3_fwd", "fused_edge3_bwd")
         step, reference = fused_edge3.fused_edge_step3, fused_edge3.fused_edge_step3_reference
         bwd = fused_edge3.fused_edge_step3_backward
         bwd_reference = fused_edge3.fused_edge_step3_backward_reference
         inputs = (x, x[snd], f32(Ep, L), w(), w(), w(), f32(L), w(), f32(L))
     else:
+        names = ("fused_edge_fwd", "fused_edge_bwd")
         step, reference = fused_edge.fused_edge_step, fused_edge.fused_edge_step_reference
         bwd = fused_edge.fused_edge_step_backward
         bwd_reference = fused_edge.fused_edge_step_backward_reference
@@ -1036,12 +1036,12 @@ def test_kernels_on_a_loader_batch_on_cuda(dtype, kernel):
     args = [t.to("cuda", dtype) for t in inputs]
     rcv, gid, bt, G = b.receivers, b.edge_gid, b.edge_block_tile, b.n_graphs
     if kernel.endswith("fwd"):
-        case = (step, lambda: step(*args, rcv, (gid, bt), G, b.tile),
+        case = (names[0], lambda: step(*args, rcv, (gid, bt), G, b.tile),
                 lambda: reference(*args, rcv, gid, G), FWD_TOLS[dtype])
     else:
         z, _, _ = reference(*args, rcv, gid, G)
         cots = (z, *_cots(4, Ep, Np, L, dtype))
-        case = (bwd, lambda: bwd(*args, rcv, (gid, bt), G, b.tile, *cots),
+        case = (names[1], lambda: bwd(*args, rcv, (gid, bt), G, b.tile, *cots),
                 lambda: bwd_reference(*args, rcv, gid, G, *cots), (BWD_TOLS[dtype],) * 9)
     got, _ = _held(*case)
     for a, c in zip(got, case[1]()):
@@ -1127,13 +1127,12 @@ def _partitioned_rank(rank, world, group, plan, state):
     step = make_partitioned_train_step(model, NormStats.ones(), torch.optim.Adam(
         model.parameters(), lr=1e-3), group, divergence_penalty=10.0, optimize_divergence=True)
     stacked, send_idx = plan
-    counters = (fused_edge3.fused_edge_step3, fused_edge3.fused_edge_step3_backward,
-                scatter_csr.csr_segment_sum)
-    before = [c.launches for c in counters]
+    counters = ("fused_edge3_fwd", "fused_edge3_bwd", "segment_sum_csr")
+    before = [cuda_build.launches[k] for k in counters]
     aux = step(shard_of(stacked, rank).to(dev), Halo(torch.as_tensor(send_idx[rank]).to(dev),
                                                      group))
     return {"aux": {k: float(v) for k, v in aux.items()},
-            "launches": [c.launches - b for c, b in zip(counters, before)],
+            "launches": [cuda_build.launches[k] - b for k, b in zip(counters, before)],
             "grads": {n: p.grad.cpu() for n, p in model.named_parameters()}}
 
 
@@ -1198,9 +1197,9 @@ def test_generated_set_served_through_the_cli_on_cuda(tmp_path):
                model_weights_path=str(weights), scatter_impl="fused3")
     config = tmp_path / "infer.yml"
     config.write_text("".join(f"{k}: {v}\n" for k, v in cfg.items()))
-    fused_edge3.fused_edge_step3.launches = 0
+    before = cuda_build.launches["fused_edge3_fwd"]
     cli.infer_main(["--config_path", str(config)])
-    assert fused_edge3.fused_edge_step3.launches == cfg["message_passing_steps"]
+    assert cuda_build.launches["fused_edge3_fwd"] - before == cfg["message_passing_steps"]
     samples = MeshStressFieldDataset(read_csv(csv)).samples
     assert len(samples) == 4
     want = Predictor(weights, scatter_impl="xla").predict(samples)

@@ -367,23 +367,20 @@ def test_cuda_tensors_never_fall_back(monkeypatch, tmp_path, op):
     stub = _Stub()
     if op == "forward":
         monkeypatch.setattr(fused_edge, "fused_edge_step2_reference", _no_fallback)
-        counter, cache = fused_edge.fused_edge_step2, fused_edge._library2
+        kernel = "fused_edge2_fwd"
         call = lambda: fused_edge._fused_edge_step2_forward(  # noqa: E731
             *([stub] * 9), (stub,) * 3, 1, NODE_TILE)
     else:
         monkeypatch.setattr(fused_edge, "fused_edge2_bwd_reference", _no_fallback)
         monkeypatch.setattr(fused_edge, "fused_edge_step2_backward_reference", _no_fallback)
-        counter, cache = fused_edge.fused_edge2_bwd, fused_edge._bwd_library2
+        kernel = "fused_edge2_bwd"
         call = lambda: fused_edge.fused_edge_step2_backward(  # noqa: E731
             *([stub] * 9), (stub,) * 6, 1, NODE_TILE, *([stub] * 4))
-    cache.cache_clear()
-    before = counter.launches
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            call()
-    finally:
-        cache.cache_clear()
-    assert counter.launches == before
+    before = cuda_build.launches[kernel]
+    with cuda_build.using(cuda_build.load_cuda_library), \
+            pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+    assert cuda_build.launches[kernel] == before
 
 
 @pytest.mark.parametrize("op", ["forward", "backward", "kernel"])

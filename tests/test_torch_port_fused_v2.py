@@ -263,27 +263,24 @@ def test_cuda_tensors_never_fall_back(monkeypatch, tmp_path, op):
     stub = _Stub()
     if op == "forward":
         monkeypatch.setattr(fused_edge, "fused_edge_step_reference", _no_fallback)
-        counter, cache = fused_edge.fused_edge_step, fused_edge._library
+        kernel = "fused_edge_fwd"
         call = lambda: fused_edge._fused_edge_step_forward(  # noqa: E731
             *([stub] * 12), 1, NODE_TILE)
     elif op == "backward":
         monkeypatch.setattr(fused_edge, "fused_edge_step_backward_reference", _no_fallback)
-        counter, cache = fused_edge.fused_edge_step_backward, fused_edge._bwd_library
+        kernel = "fused_edge_bwd"
         call = lambda: fused_edge.fused_edge_step_backward(  # noqa: E731
             *([stub] * 10), (stub, stub), 1, NODE_TILE, *([stub] * 4))
     else:
         monkeypatch.setattr(scatter_csr, "csr_segment_sum_pair_reference", _no_fallback)
-        counter, cache = scatter_csr.csr_segment_sum_pair, scatter_csr._library
+        kernel = "segment_sum_csr_pair"
         call = lambda: csr_segment_sum_pair(  # noqa: E731
             stub, stub, stub, stub, NODE_TILE, NODE_TILE, stub)
-    cache.cache_clear()
-    before = counter.launches
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            call()
-    finally:
-        cache.cache_clear()
-    assert counter.launches == before
+    before = cuda_build.launches[kernel]
+    with cuda_build.using(cuda_build.load_cuda_library), \
+            pytest.raises(RuntimeError, match="nvcc not found"):
+        call()
+    assert cuda_build.launches[kernel] == before
 
 
 @pytest.mark.parametrize("op", ["forward", "backward", "pair"])

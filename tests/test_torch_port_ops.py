@@ -122,15 +122,12 @@ def test_cuda_tensors_never_fall_back(monkeypatch, tmp_path):
         raise AssertionError("CUDA tensors reached the plain version")
 
     monkeypatch.setattr(fused_edge3, "fused_edge_step3_reference", no_fallback)
-    fused_edge3._library.cache_clear()
-    before = fused_edge3.fused_edge_step3.launches
+    before = cuda_build.launches["fused_edge3_fwd"]
     stub = _CudaStub()
-    try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            fused_edge3.fused_edge_step3(*([stub] * 10), (stub, stub), 1, NODE_TILE)
-    finally:
-        fused_edge3._library.cache_clear()
-    assert fused_edge3.fused_edge_step3.launches == before
+    with cuda_build.using(cuda_build.load_cuda_library), \
+            pytest.raises(RuntimeError, match="nvcc not found"):
+        fused_edge3.fused_edge_step3(*([stub] * 10), (stub, stub), 1, NODE_TILE)
+    assert cuda_build.launches["fused_edge3_fwd"] == before
 
 
 @pytest.mark.parametrize("device", ["meta", "mixed"])
