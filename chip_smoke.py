@@ -10,7 +10,7 @@ package. Phases, in order (any failure exits nonzero and prints no result):
 1. the card's name and power limit (nvidia-smi), then the kernel builds:
    nvcc compiles ``p_div_gnn_tpu_torch/csrc/{fused_edge3_fwd,fused_edge3_bwd,
    segment_sum_csr,fused_edge_fwd,fused_edge_bwd,fused_edge2_fwd,
-   fused_edge2_bwd}.cu`` in parallel into ``build/p_div_gnn_tpu_torch/`` and
+   fused_edge2_bwd,mgn_edge_fwd}.cu`` in parallel into ``build/p_div_gnn_tpu_torch/`` and
    ctypes loads them; ptxas' registers and spills are printed;
 2. kernels: at the flagship shapes (16 RCM-ordered plate-with-hole meshes of
    the benchmark generator, drawn once and packed twice: receiver-major and
@@ -23,7 +23,9 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    bf16) on both training batches' sender views in run order, as fused and
    fused2 call it; the pair-blocked ("fused2")
    edge step's forward and backward on the pair-blocked training batch, in
-   fp32 and bf16 streams (the v2 and pair-blocked forwards and backwards
+   fp32 and bf16 streams; MeshGraphNets' edge update forward
+   (``mgn_edge_fwd``, fp32) on the training batch's live slots (the v2 and
+   pair-blocked forwards and backwards
    also print their ptxas figures at each width and dtype and the device
    time of each sub-kernel; the forwards must give two bit-equal calls
    and, in fp32, z_upd bit-equal to the plain version); the two segment
@@ -49,7 +51,11 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    step must launch exactly the kernels of its path: 10 of each of its
    three kernels per fused3, fused or fused2 step, 10 block-CSR segment
    sums per pallas step and 19 per hybrid step (the last step's edge
-   update gets no gradient), none per xla step;
+   update gets no gradient), none per xla step; then MeshGraphNets
+   (``models/meshgraphnets.py``: latent 128, 15 blocks, lr 1e-4) takes 3
+   steps on the same meshes with node fields drawn from a seed: finite
+   losses, one ``mgn_edge_fwd`` launch a block and step and no port kernel
+   but it and #3;
 5. cli: the user's path at the flagship width. An on-disk dataset of 32
    train and 16 test meshes (the benchmark's mesher parameters, a
    learnable target) is written with the port (``write_vtk``,
@@ -115,7 +121,8 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    pair segment sum's row also has its bf16 numbers under ``bfloat16`` and
    each sender view's numbers and launches under ``views``; the launches
    count every phase's runs, the parallel ranks' and the tools phase's
-   too), then the last line ``{"ok": true, "device": {...}}``.
+   too; ``mgn_edge_fwd`` replaces no TPU kernel, and its launches are the
+   MeshGraphNets steps'), then the last line ``{"ok": true, "device": {...}}``.
 
 Everything it builds goes to ``build/``.
 """
@@ -154,6 +161,13 @@ SERVE_RTOL, SERVE_ATOL = 2e-4, 2e-5
 BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # segment sum vs plain (tests/test_fused3_op.py:128-131)
 CSR_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# MeshGraphNets' edge update kernel vs plain, fp32, as rtol = atol: the
+# kernel's bf16x6 split products on the tensor cores and cuBLAS's fp32 FMA
+# chains each round a 128-term sum at fp32's ~6e-8, in their own ways,
+# through three layers and the LayerNorm's scaling by rstd: ~2e-6 apart,
+# so 1e-5 is ~5x room; a TF32 product (10 mantissa bits) would be ~1e-3
+# apart
+MGN_EDGE_TOL = 1e-5
 # the training step of bench.py:166-178
 TRAIN_STEPS, LEARNING_RATE, DIV_PENALTY = 5, 1e-3, 10.0
 LOSS_RTOL = 1e-5  # each impl vs xla step-1 loss, fp32
@@ -231,7 +245,9 @@ def cuda_ms(fn, iters: int) -> float:
 
 def bound(flops: float, n_bytes: float, sd_name: str) -> tuple[float, str]:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the peak rate of their type, in ms."""
+    memory rate and operations over the peak rate of their type, in ms (an
+    fp32 product run as six bf16 products on the tensor cores counts as
+    those six, at the bf16 rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[sd_name] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -838,6 +854,52 @@ def pair_kernel_phase(batch, view: str) -> dict:
     return results
 
 
+def mgn_edge_kernel_phase(batch) -> dict:
+    """Hold MeshGraphNets' edge update kernel (``mgn_edge_fwd``) against its
+    plain version on the card over the batch's live slots at L = 128, with
+    random rows and weights (two calls bit-equal); time both."""
+    import torch
+
+    from p_div_gnn_tpu_torch.models import meshgraphnets as mgn
+    from p_div_gnn_tpu_torch.ops import mgn_edge
+
+    dev = batch.receivers.device
+    edges = mgn.live_edges(batch)
+    n, Np, L = edges.n, batch.num_nodes_padded, mgn_edge.WIDTH
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale  # noqa: E731
+    w = lambda: rnd(L, L, scale=L**-0.5)  # noqa: E731
+    args = (rnd(Np, L), rnd(Np, L), rnd(n, L), w(), rnd(L), (w(), rnd(L), w(), rnd(L)),
+            1 + rnd(L, scale=0.1), rnd(L, scale=0.1), edges.mask.float()[:, None],
+            edges.senders, edges.receivers)
+    kern = lambda: mgn_edge._edge_update_cuda(*args, saves=True)  # noqa: E731
+    plain = lambda: mgn_edge.edge_update_reference(*args)  # noqa: E731
+    flat = lambda out: (out[0], out[1], *out[2])  # noqa: E731
+    got, again, want = flat(kern()), flat(kern()), flat(plain())
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), "mgn_edge_fwd: two calls differ")
+    names = ("e_new", "e_sum", "a0", "a1", "y", "mean", "rstd")
+    checked = {k: held(f"mgn_edge_fwd {k}", a, b, MGN_EDGE_TOL)
+               for k, a, b in zip(names, got, want)}
+    del got, again, want
+    # three L x L products a slot, each run as six bf16 products (bf16x6);
+    # read e and, once each through L2, the two projections; written a0, a1,
+    # y, e', e + e' and two row statistics
+    flops = 3 * 2 * n * L * L
+    n_bytes = 4 * (6 * n * L + 2 * Np * L + 5 * n)
+    b_ms, b_by = bound(6 * flops, n_bytes, "bfloat16")
+    res = {"max_abs_err": max(v[0] for v in checked.values()), "ms": cuda_ms(kern, 20),
+           "plain_ms": cuda_ms(plain, 10), "bound_ms": b_ms, "bound_by": b_by}
+    say(f"kernel mgn_edge_fwd float32: n={n} Np={Np} L={L} max abs err "
+        + " ".join(f"{k}={v[0]:.3e}" for k, v in checked.items())
+        + " share of the allowance " + " ".join(f"{k}={v[1]:.3f}" for k, v in checked.items())
+        + f" kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+        f"bound_ms={b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, {n_bytes / 1e9:.3f} GB), "
+        f"share of the bound {b_ms / res['ms']:.3f}; two calls bit-equal")
+    torch.cuda.empty_cache()
+    return res
+
+
 def pair_step_inputs(batch, gen, L: int = LATENT):
     """Random inputs of the fused2 edge step at the pair-blocked batch's
     shapes: node projections proj_u, proj_v ~ N(0, 1), e ~ N(0, 1), weights
@@ -1114,7 +1176,8 @@ def wide_train_step(batch) -> None:
 
 # the kernels whose launches the phases hold (cuda_build.launches' keys)
 KERNELS = ("fused_edge3_fwd", "fused_edge3_bwd", "segment_sum_csr", "fused_edge_fwd",
-           "fused_edge_bwd", "segment_sum_csr_pair", "fused_edge2_fwd", "fused_edge2_bwd")
+           "fused_edge_bwd", "segment_sum_csr_pair", "fused_edge2_fwd", "fused_edge2_bwd",
+           "mgn_edge_fwd")
 
 
 def launch_counts() -> dict:
@@ -1293,6 +1356,66 @@ def train_phase(batch, pair_batch, n_real_edges: int, card: str) -> dict:
             "step_ms": {f"{impl} {sd}": run["step_ms"] for (impl, sd), run in runs.items()},
             "peak_gb": {f"{impl} {sd}": run["peak_gb"] for (impl, sd), run in runs.items()},
             "breakdown_ms": breakdown}
+
+
+MGN_STEPS = 3
+
+
+def mgn_train_phase(samples: list, card: str) -> dict:
+    """MeshGraphNets (latent 128, 15 blocks, lr 1e-4) takes MGN_STEPS Adam
+    steps on ``samples`` with node types, velocities and targets drawn from
+    a seed: every loss finite, each step launching ``mgn_edge_fwd`` once a
+    block and no port kernel but it and #3. Returns the phase's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from p_div_gnn_tpu_torch.graphs.batching import NodeFieldSample, pack_batch
+    from p_div_gnn_tpu_torch.models import meshgraphnets as mgn
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(0)
+    fields = []
+    for s in samples:
+        types = np.eye(mgn.NODE_TYPES)[rng.integers(0, mgn.WALL_BOUNDARY + 1, s.num_nodes)]
+        velocity = rng.normal(size=(s.num_nodes, mgn.VELOCITY))
+        fields.append(NodeFieldSample(
+            **{f.name: getattr(s, f.name) for f in dataclasses.fields(s)},
+            node_inputs=np.concatenate([velocity, types], axis=1).astype(np.float32),
+            node_targets=rng.normal(size=(s.num_nodes, mgn.OUT_FEATURES)).astype(np.float32)))
+    batch = pack_batch(fields, reorder="rcm").to("cuda")
+    model = mgn.MeshGraphNets(stats=mgn.compute_mgn_stats(fields),
+                              generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model=model, learning_rate=1e-4, objective=mgn.objective, device="cuda")
+    trainer.init()
+    S = model.message_passing_steps
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for step in range(MGN_STEPS):
+        before = launch_counts()
+        start.record()
+        aux = trainer.train_step(batch)
+        stop.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(stop))
+        delta = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        check(delta.get("mgn_edge_fwd") == S
+              and set(delta) <= {"mgn_edge_fwd", "segment_sum_csr"},
+              f"train mgn step {step + 1}: kernel launches {delta}, expected {S} of "
+              "mgn_edge_fwd and none but #3 besides")
+        losses.append(float(aux["total"]))
+        check(math.isfinite(losses[-1]), f"train mgn step {step + 1}: loss {losses[-1]}")
+    launches = launch_counts()
+    say(f"train mgn fp32 on {card}: losses " + " ".join(f"{v:.6f}" for v in losses)
+        + ", step ms " + " ".join(f"{v:.1f}" for v in step_ms)
+        + f", peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches per step "
+        + ", ".join(f"{k} {v // MGN_STEPS}" for k, v in launches.items() if v))
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches}
 
 
 # --- the cli phase: the user's path, config -> dataset -> loader -> fit -> infer
@@ -2448,7 +2571,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.libraries("fused_edge3_fwd", "fused_edge3_bwd", "segment_sum_csr",
                                 "fused_edge_fwd", "fused_edge_bwd", "fused_edge2_fwd",
-                                "fused_edge2_bwd")
+                                "fused_edge2_bwd", "mgn_edge_fwd")
     say(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s wall")
     for built in libs:
         say(f"build: {built.path.relative_to(ROOT)} in {built.build_seconds:.1f} s")
@@ -2485,30 +2608,32 @@ def main() -> int:
             for view, b in (("fused", train_batch), ("fused2", pair_batch))}
     f2 = fused2_kernel_phase(pair_batch)
     f2_bwd = fused2_backward_kernel_phase(pair_batch)
+    mgn_kern = mgn_edge_kernel_phase(train_batch)
     t0 = time.perf_counter()
     wide_ms = width_phase()
     say(f"width phase: {time.perf_counter() - t0:.1f} s; fused kernels at L={max(WIDTHS)} "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in wide_ms.items()))
     serve = serve_phase(requests)
     train = train_phase(train_batch, pair_batch, n_real_edges, smi)
+    mgn_train = mgn_train_phase(samples, smi)
     t0 = time.perf_counter()
     cli = cli_phase(smi)
     say(f"cli phase: {time.perf_counter() - t0:.1f} s")
     parallel = parallel_phase(samples, host_train, train_batch, smi)
     tools = tools_phase(smi, requests[0])
 
-    def row(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
+    def row(name: str, source: str, replaces: str | None, launches: int, res: dict) -> dict:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res.get("library_ms")}
 
-    # launches: the serve paths', the train paths', the cli runs', the
-    # parallel ranks' and the tools phase's, each counted from 0 (serving
-    # launches only the forwards)
+    # launches: the serve paths', the train paths' (MeshGraphNets' too), the
+    # cli runs', the parallel ranks' and the tools phase's, each counted from
+    # 0 (serving launches only the forwards)
     launches = dict(train["launches"])
     for counts in [impl["launches"] for impl in serve["impls"].values()] + [
-            cli["launches"], parallel["launches"], tools["launches"]]:
+            mgn_train["launches"], cli["launches"], parallel["launches"], tools["launches"]]:
         for k, v in counts.items():
             launches[k] += v
     # #4 runs on two sender views: its row gives the receiver-major one's
@@ -2530,6 +2655,7 @@ def main() -> int:
         ("fused_edge2_fwd", "fused_edge2_fwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:600", f2),
         ("fused_edge2_bwd", "fused_edge2_bwd.cu", "p_div_gnn_tpu/ops/fused_edge.py:763",
          f2_bwd),
+        ("mgn_edge_fwd", "mgn_edge_fwd.cu", None, {"float32": mgn_kern}),
     )
     kernel_rows = [
         row(name, f"p_div_gnn_tpu_torch/csrc/{src}", replaces, launches[name], res["float32"])

@@ -24,13 +24,16 @@ has no counterpart in the JAX package.
 
 The edge MLP's first layer over ``[x_s, x_r, e]`` is split per slot of its
 kernel, as ``models/epd.py`` does P-DivGNN's: ``x·W_s`` and ``x·W_r`` once
-per node, then gathered, the senders' rows by ``sender_gather_one`` (its
-backward kernel #3 over the batch's sender view) and the receivers' by
-``receiver_gather`` (#3 over the receiver-major layout); ``Σ e'`` is
+per node; the rest of the edge update, the two endpoint gathers, the three
+layers, the LayerNorm, the mask and the residual ``e + e'``, is
+``ops/mgn_edge.py::edge_update`` (on the card one kernel, ``mgn_edge_fwd``;
+its backward sums the senders' rows with #3 over the batch's sender view
+and the receivers' with #3 over the receiver-major layout); ``Σ e'`` is
 ``scatter_add(impl="pallas")`` (#3 over that layout). A training step thus
 runs #3 three times a block. ``e'`` is multiplied by the edge mask, so a
 padding slot adds nothing to a sum and takes no gradient; padding nodes
-are left out of the loss.
+are left out of the loss. The card's kernel takes the published MLP
+depth, 2 hidden layers; the CPU's plain version takes any.
 
 The edge stream holds the batch's live slots only (``live_edges``): the
 slots up to its last real one, in whole edge blocks
@@ -46,7 +49,8 @@ The model runs on one device: edge partitioning (``halo``) raises. No
 block is rematerialized, as the source trains. Spans (``utils/profiling``,
 ``device=True``): ``mgn.encode``, ``mgn.edge`` and ``mgn.node`` (attribute
 ``block``) a block, ``mgn.decode``; the counter ``mgn.edge_rows`` adds the
-edge stream's rows once a block, inside ``mgn.edge``.
+edge stream's rows once a block, inside ``mgn.edge``, and
+``mgn.edge_fused_rows`` the same rows where the block's kernel ran.
 
 Importing this module applies the port's matmul precision policy
 (``utils/precision.py``: fp32 with TF32 off by default).
@@ -63,7 +67,7 @@ from torch import nn
 
 from p_div_gnn_tpu_torch.graphs.batching import NodeFieldSample
 from p_div_gnn_tpu_torch.graphs.container import GraphBatch
-from p_div_gnn_tpu_torch.ops.gather import receiver_gather, sender_gather_one
+from p_div_gnn_tpu_torch.ops import mgn_edge
 from p_div_gnn_tpu_torch.ops.scatter import scatter_add
 from p_div_gnn_tpu_torch.ops.segment import live_slots
 from p_div_gnn_tpu_torch.utils.precision import matmul_precision
@@ -234,16 +238,20 @@ class GraphNetBlock(nn.Module):
         self.node_mlp = MLP(2 * latent, latent, latent, hidden_layers, generator)
 
     def edge_update(self, x: torch.Tensor, e: torch.Tensor, edges: LiveEdges,
-                    mask: torch.Tensor) -> torch.Tensor:
-        """``MLP_e([x_s, x_r, e])`` of every live slot, times ``mask`` (n, 1):
-        zero on padding slots. Its first layer is split per slot of the
-        kernel, the node rows projected before they are gathered."""
+                    mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(e', e + e')``: ``e' = MLP_e([x_s, x_r, e])`` of every live slot,
+        times ``mask`` (n, 1), zero on padding slots. Its first layer is
+        split per slot of the kernel, the node rows projected here and
+        gathered inside ``mgn_edge.edge_update``."""
         L = x.shape[1]
-        w = self.edge_mlp.lin0.kernel
-        p_s = sender_gather_one(x @ w[:L], edges.senders, edges.view, edges.tile)
-        p_r = receiver_gather(x @ w[L:2 * L], edges.receivers, edges.block_tile, edges.tile)
-        pre = p_s + p_r + e @ w[2 * L:] + self.edge_mlp.lin0.bias
-        return self.edge_mlp.tail(pre) * mask
+        mlp = self.edge_mlp
+        w = mlp.lin0.kernel
+        layers = [t for i in range(1, mlp.n_layers) for t in (mlp.layer(i).kernel,
+                                                               mlp.layer(i).bias)]
+        return mgn_edge.edge_update(
+            x @ w[:L], x @ w[L:2 * L], e, w[2 * L:], mlp.lin0.bias, layers, mlp.ln.weight,
+            mlp.ln.bias, mask, edges.senders, edges.receivers, edges.block_tile, edges.view,
+            edges.tile)
 
     def node_update(self, x: torch.Tensor, e_new: torch.Tensor,
                     edges: LiveEdges) -> torch.Tensor:
@@ -301,8 +309,7 @@ class MeshGraphNets(nn.Module):
         for k, block in enumerate(self.blocks):
             with span("mgn.edge", device=True, block=k):
                 count("mgn.edge_rows", edges.n)
-                e_new = block.edge_update(x, e, edges, mask)
-                e = e + e_new
+                e_new, e = block.edge_update(x, e, edges, mask)
             with span("mgn.node", device=True, block=k):
                 x = x + block.node_update(x, e_new, edges)
         with span("mgn.decode", device=True):

@@ -1,4 +1,4 @@
-"""Sender gathers of the fused steps, and MeshGraphNets' receiver gather.
+"""Sender gathers of the fused steps.
 
 The sender gathers are the counterparts of
 ``p_div_gnn_tpu/ops/gather.py:113-150`` (``sender_gather_one``, fused3; with
@@ -24,15 +24,6 @@ of its inputs.
 
 Without the sender view there is no such backward: the gathers are then
 forward-only and raise when a gradient would be needed.
-
-``receiver_gather`` (MeshGraphNets, ``models/meshgraphnets.py``; no JAX
-counterpart) is the gather of the other endpoint: ``x[receivers]`` over
-the batch's receiver-major layout, whose backward adds the cotangent per
-receiver with the same block-CSR segment sum over that layout
-(``edge_block_tile``), each receiver's slots being consecutive there. Its
-padding slots point at their tile's last node, so their cotangent rows
-must be zero, as a masked edge update makes them; the plain version on
-the CPU is ``segment_sum``.
 """
 
 from __future__ import annotations
@@ -122,29 +113,3 @@ def sender_gather_pair(
         raise ValueError("sender_gather_pair: the view's node tile is required")
     return _SenderGatherPair.apply(proj_u, proj_v, senders, *view, tile)
 
-
-class _ReceiverGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, receivers, block_tile, tile):
-        ctx.save_for_backward(receivers, block_tile)
-        ctx.num_nodes, ctx.tile = x.shape[0], tile
-        return x.index_select(0, receivers)
-
-    @staticmethod
-    def backward(ctx, g):
-        receivers, block_tile = ctx.saved_tensors
-        dx = csr_segment_sum(g.contiguous(), receivers, block_tile, ctx.num_nodes, ctx.tile)
-        return dx.to(g.dtype), None, None, None
-
-
-def receiver_gather(
-    x: torch.Tensor,  # (Np, L) node rows
-    receivers: torch.Tensor,  # (Ep,) i32, the receiver-major layout
-    block_tile: torch.Tensor,  # (Ep / block,) i32 node tile per edge block
-    tile: int,  # node tile of the layout (GraphBatch.tile)
-) -> torch.Tensor:
-    """``x[receivers]``: one (Ep, L) stream in x's dtype, whose backward is
-    the block-CSR segment sum over the receiver-major layout (on the card
-    kernel #3, which needs each receiver's slots consecutive and raises
-    otherwise)."""
-    return _ReceiverGather.apply(x, receivers, block_tile, tile)

@@ -28,7 +28,10 @@ dpre1, dpre2) equal to the plain version's; the v2 (#5) and pair-blocked
 (#7) forwards at 64, 128 and 256 on the same layouts, twice, bit-equal,
 their fp32 z_upd equal to the plain version's; the segment sum on both
 callers' layouts, twice, bit-equal; then each fused kernel once (fp32) at a
-width it is not built for, through the wrappers' zero padding.
+width it is not built for, through the wrappers' zero padding; and
+MeshGraphNets' edge update forward (``mgn_edge_fwd``, L = 128) on a layout
+with a tile of only padding, over every slot and over a count that ends
+inside a tile, twice, bit-equal (``--only mgn`` runs it alone).
 Tolerances are ``chip_smoke.py``'s; the script exits 1 if one disagrees.
 The emulated card has 5 SMs (the forwards' persistent grids).
 
@@ -58,10 +61,17 @@ sys.path.insert(0, str(ROOT / "tests"))
 import chip_smoke  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.batching import build_sender_view  # noqa: E402
 from p_div_gnn_tpu_torch.graphs.container import NODE_TILE  # noqa: E402
-from p_div_gnn_tpu_torch.ops import cuda_build, fused_edge, fused_edge3, scatter_csr  # noqa: E402
+from p_div_gnn_tpu_torch.ops import (  # noqa: E402
+    cuda_build,
+    fused_edge,
+    fused_edge3,
+    mgn_edge,
+    scatter_csr,
+)
 from test_torch_port_cuda import (  # noqa: E402
     _edge_problem,
     _longest_run,
+    _mgn_edge_problem,
     _pair_problem,
     _segment_problem,
     _v2_problem,
@@ -524,13 +534,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tiles", type=int, default=2, help="node tiles of the edge problems")
     ap.add_argument("--L", type=int, default=16, help="width of the segment sums' rows")
-    ap.add_argument("--only", choices=("wide", "sums"),
-                    help="run only the wide variants (L = 320) or only the segment sums")
+    ap.add_argument("--only", choices=("wide", "sums", "mgn"),
+                    help="run only the wide variants (L = 320), only the segment sums or only "
+                         "MeshGraphNets' edge update")
     args = ap.parse_args()
     if args.only:
+        only = {"wide": wide_cases, "sums": lambda: segment_sum_cases(args.tiles, args.L),
+                "mgn": mgn_edge_cases}[args.only]
         with emulated_kernels():
-            shares = wide_cases() if args.only == "wide" else segment_sum_cases(args.tiles,
-                                                                                args.L)
+            shares = only()
         worst = max(shares)
         print(f"largest share of an allowance: {worst:.3f}", flush=True)
         return 0 if worst <= 1.0 else 1
@@ -630,6 +642,7 @@ def main() -> int:
         shares += [report(f"fused_edge2_fwd padded L=18 {n}", x, y, ftol[n])
                    for n, x, y in zip(FWD_NAMES, got, p2_fwd(a, ix))]
         shares += wide_cases()
+        shares += mgn_edge_cases()
     worst = max(shares)
     print(f"largest share of an allowance: {worst:.3f}", flush=True)
     return 0 if worst <= 1.0 else 1
@@ -664,6 +677,31 @@ def segment_sum_cases(n_tiles: int, L: int,
                     f"segment_sum_csr_pair {layout}: two calls differ"
                 shares += [report(f"segment_sum_csr_pair {sd_name} {layout} L={width} {i}",
                                   x, y, tol) for i, (x, y) in enumerate(zip(got[0], want))]
+    return shares
+
+
+MGN_EDGE_NAMES = ("e_new", "e_sum", "a0", "a1", "y", "mean", "rstd")
+
+
+def mgn_edge_cases() -> list[float]:
+    """MeshGraphNets' edge update forward (``mgn_edge_fwd``, L = 128)
+    against its plain version on a layout with a node tile of only padding,
+    over every slot and over a count that ends inside a 64-slot tile; two
+    calls bit-equal, and the call that saves nothing for the backward
+    bit-equal to the one that does."""
+    shares = []
+    tol = chip_smoke.MGN_EDGE_TOL
+    args = _mgn_edge_problem(9)
+    for n in (args[2].shape[0], args[2].shape[0] - 40):
+        a = [t[:n] if i in (2, 8, 9, 10) else t for i, t in enumerate(args)]
+        got = [mgn_edge._edge_update_cuda(*a, saves=True) for _ in range(2)]
+        got = [(new, total, *saved) for new, total, saved in got]
+        assert all(torch.equal(u, v) for u, v in zip(*got)), "mgn_edge_fwd: two calls differ"
+        new, total, saved = mgn_edge._edge_update_cuda(*a, saves=False)
+        assert saved is None and torch.equal(new, got[0][0]) and torch.equal(total, got[0][1])
+        want = mgn_edge.edge_update_reference(*a)
+        shares += [report(f"mgn_edge_fwd n={n} {name}", x, y, tol)
+                   for name, x, y in zip(MGN_EDGE_NAMES, got[0], (*want[:2], *want[2]))]
     return shares
 
 

@@ -10,7 +10,8 @@ and the split receiver layout the v2 kernels refuse; the fused3 and v2
 kernels on a batch at GraphLoader's bucketed capacities; MeshGraphNets'
 training steps on such a batch, whose edge stream stops at its last real
 slot (no host sync in a second step; the step of a batch without spare
-edge capacity, to 1e-6 relative); an edge-partitioned
+edge capacity, to 1e-6 relative) and runs its edge updates in their
+kernel, and that kernel against its plain version there; an edge-partitioned
 fused3 train step over two ranks (#1-#3 on a shard's extended layout)
 against the single-card step; a set made by the port's generator served
 through ``cli.infer_main`` on fused3 against xla. It imports neither
@@ -114,6 +115,25 @@ def _edge_problem(seed: int, n_tiles: int, L: int, edge_block: int = EDGE_BLOCK,
     idx = {"receivers": rcv_b.astype(np.int32), "edge_gid": gid_b.astype(np.int32),
            "block_tile": block_tile.astype(np.int32)}
     return arrays, idx
+
+
+def _mgn_edge_problem(seed: int, n_tiles: int = 2, empty_tile: int | None = 1) -> list:
+    """MeshGraphNets' edge update inputs at L = 128 on ``_edge_problem``'s
+    layout (with ``empty_tile``, a node tile whose block, 12 of the
+    kernel's 64-slot tiles, holds only padding), as CPU tensors in
+    ``mgn_edge.edge_update_reference``'s order: p_s, p_r, e, w_e, b0,
+    (w1, b1, w2, b2), gamma, beta, mask (the real slots), senders,
+    receivers."""
+    L = 128
+    arrays, idx = _edge_problem(seed, n_tiles, L, empty_tile=empty_tile)
+    rng = np.random.default_rng(seed + 2000)
+    Np, Ep = arrays["x"].shape[0], arrays["e"].shape[0]
+    f32 = lambda *s, scale=1.0: T((rng.normal(size=s) * scale).astype(np.float32))  # noqa: E731
+    w = lambda: f32(L, L, scale=L**-0.5)  # noqa: E731
+    mask = T((idx["edge_gid"] < 1).astype(np.float32))[:, None]
+    senders = T(rng.integers(0, Np, size=Ep).astype(np.int32))
+    return [f32(Np, L), f32(Np, L), f32(Ep, L), w(), f32(L), (w(), f32(L), w(), f32(L)),
+            1 + f32(L, scale=0.1), f32(L, scale=0.1), mask, senders, T(idx["receivers"])]
 
 
 def _v2_problem(seed: int, n_tiles: int, L: int, empty_tile: int | None = None):
@@ -1054,9 +1074,10 @@ def test_meshgraphnets_steps_on_a_loader_batch_on_cuda():
     real slot. The edge stream runs on the live slots: the second step
     reads no layout from the device (``host_sync.*`` 0; the live slots and
     #3's run checks are kept with the batch), every block's edge MLP runs
-    over the live slots, and the first step's loss and gradients match
-    those of the same meshes packed with no spare edge capacity (1e-6
-    relative, per parameter)."""
+    over the live slots in the edge update's kernel (``mgn.edge_fused_rows``
+    15 · n, one ``mgn_edge_fwd`` launch a block and step), and the first
+    step's loss and gradients match those of the same meshes packed with no
+    spare edge capacity (1e-6 relative, per parameter)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import dataclasses
@@ -1093,18 +1114,104 @@ def test_meshgraphnets_steps_on_a_loader_batch_on_cuda():
         loss = float(trainer.train_step(batch)["total"])
         return trainer, loss, {k: p.grad.clone() for k, p in model.named_parameters()}
 
+    before = cuda_build.launches["mgn_edge_fwd"]
     trainer, loss, grads = first_step(spare)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
         trainer.train_step(spare)
         torch.cuda.synchronize()
     rec = profiling.recorded()
+    S = trainer.model.message_passing_steps
     assert rec.counted("host_sync") == 0, rec.counters
-    assert rec.counters["mgn.edge_rows"] == trainer.model.message_passing_steps * n
+    assert rec.counters["mgn.edge_rows"] == S * n
+    # every block's edge update ran the kernel: one launch each
+    assert rec.counters["mgn.edge_fused_rows"] == S * n
+    assert cuda_build.launches["mgn_edge_fwd"] - before == 2 * S
     _, want_loss, want = first_step(tight)
     assert abs(loss - want_loss) <= 1e-6 * abs(want_loss)
     for name, g in want.items():
         assert torch.isfinite(grads[name]).all(), name
         assert float((grads[name] - g).norm()) <= 1e-6 * float(g.norm()), name
+
+
+def _mgn_edge_on_a_loader_batch():
+    """MeshGraphNets' edge update inputs on a GraphLoader batch of two
+    benchmark meshes (L = 128, the batch's live slots, random rows and
+    weights), on the card: (differentiable inputs p_s, p_r, e, w_e, b0, w1,
+    b1, w2, b2, gamma, beta; mask; layout)."""
+    from p_div_gnn_tpu_torch.datagen.workload import build_samples
+    from p_div_gnn_tpu_torch.models import meshgraphnets as mgn
+    from p_div_gnn_tpu_torch.train.data import GraphLoader
+
+    b = GraphLoader(build_samples(2, seed=0), 2, device="cuda")._pack(range(2)).to("cuda")
+    edges = mgn.live_edges(b)
+    assert edges.n < b.num_edges_padded
+    rng = np.random.default_rng(11)
+    L, Np = 128, b.num_nodes_padded
+    f32 = lambda *s, scale=1.0: T(  # noqa: E731
+        (rng.normal(size=s) * scale).astype(np.float32)).cuda()
+    w = lambda: f32(L, L, scale=L**-0.5)  # noqa: E731
+    floats = [f32(Np, L), f32(Np, L), f32(edges.n, L), w(), f32(L), w(), f32(L), w(), f32(L),
+              1 + f32(L, scale=0.1), f32(L, scale=0.1)]
+    layout = (edges.senders, edges.receivers, edges.block_tile, edges.view, edges.tile)
+    return floats, edges.mask.float()[:, None], layout
+
+
+def _mgn_grouped(floats) -> tuple:
+    """``mgn_edge.edge_update``'s tensors from the flat inputs: the later
+    layers' weights and biases as one sequence."""
+    return (*floats[:5], tuple(floats[5:9]), *floats[9:])
+
+
+# MeshGraphNets' edge update kernel (bf16x6 split products on the tensor
+# cores) against its plain version (cuBLAS's fp32 FMA chains): outputs to
+# chip_smoke's MGN_EDGE_TOL (1e-5, rtol = atol), whose comment gives the
+# reason; the Function's gradients, its plain backward run on the kernel's
+# saved tensors against autograd through the plain composition, each to
+# 1e-5 of its norm (the saved rows differ by ulps, which the backward's
+# sums carry at the same relative size; a ReLU gate flipped at a value
+# within an ulp of nought moves one entry).
+MGN_EDGE_TOL, MGN_EDGE_GRAD_TOL = 1e-5, 1e-5
+
+
+def test_mgn_edge_kernel_matches_plain_on_a_loader_batch_on_cuda():
+    """The edge update's kernel on a GraphLoader batch's live slots: e',
+    e + e' and what it saves (a0, a1, y, mean, rstd) against the plain
+    version; two calls bit-equal; one launch a call; the Function's
+    gradients against autograd through the plain composition."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.ops import mgn_edge
+    from p_div_gnn_tpu_torch.ops.gather import sender_gather_one
+
+    floats, mask, layout = _mgn_edge_on_a_loader_batch()
+    snd, rcv, block_tile, view, tile = layout
+    args = (*_mgn_grouped([t.detach() for t in floats]), mask, snd, rcv)
+    before = cuda_build.launches["mgn_edge_fwd"]
+    got = [mgn_edge._edge_update_cuda(*args, saves=True) for _ in range(2)]
+    assert cuda_build.launches["mgn_edge_fwd"] == before + 2
+    got = [(new, total, *saved) for new, total, saved in got]
+    want = mgn_edge.edge_update_reference(*args)
+    for a, b, c in zip(got[0], got[1], (*want[:2], *want[2])):
+        assert torch.equal(a, b)
+        assert a.shape == c.shape and a.dtype == c.dtype
+        torch.testing.assert_close(a, c, rtol=MGN_EDGE_TOL, atol=MGN_EDGE_TOL)
+
+    for t in floats:
+        t.requires_grad_(True)
+    out = mgn_edge.edge_update(*_mgn_grouped(floats), mask, *layout)
+    p_s, p_r, e, w_e, b0, w1, b1, w2, b2, gamma, beta = floats
+    pre = sender_gather_one(p_s, snd, view, tile) + p_r.index_select(0, rcv) + e @ w_e + b0
+    y = torch.relu(torch.relu(pre) @ w1 + b1) @ w2 + b2
+    e_new = torch.nn.functional.layer_norm(y, (128,), gamma, beta, mgn_edge.LN_EPS) * mask
+    plain = (e_new, e + e_new)
+    rng = np.random.default_rng(12)
+    cots = [T(rng.normal(size=t.shape).astype(np.float32)).cuda() for t in out]
+    g_got = torch.autograd.grad(out, floats, cots)
+    g_want = torch.autograd.grad(plain, floats, cots)
+    names = ("p_s", "p_r", "e", "w_e", "b0", "w1", "b1", "w2", "b2", "gamma", "beta")
+    for name, a, b in zip(names, g_got, g_want):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).norm()) <= MGN_EDGE_GRAD_TOL * float(b.norm()), name
 
 
 # --- the parallel tier: an edge-partitioned step over two ranks

@@ -4,12 +4,16 @@ against the plain reference that the benchmark holds it to
 random weights at a small size (L = 16, 3 blocks, 3 toy meshes): the
 output, the loss, every parameter's gradient and one Adam step through
 ``Trainer``; the same reference in bfloat16 fails one of those
-tolerances. Also: the receiver gather's backward against torch's
-indexing, the per-node fields through packing and unpacking, the blocks'
-own weights, the ``mgn.*`` spans, the edge stream on the batch's live
-slots (the same result bit for bit whatever the spare edge capacity, the
-rows the edge MLPs see, the one sync), and the benchmark's cell at a tiny
-size with its faults."""
+tolerances; other MLP depths against the same reference. Also: the
+receiver rows' gradient against torch's indexing, the per-node fields
+through packing and unpacking, the blocks' own weights, the ``mgn.*``
+spans, the edge stream on the batch's live slots (the same result bit for
+bit whatever the spare edge capacity, the rows the edge MLPs see, the one
+sync), the fused edge update
+(``ops/mgn_edge.py``: its plain forward and its own backward against
+autograd through the composition it replaced, its kernel route's checks
+and counter through a stub of the launch), and the benchmark's cell at a
+tiny size with its faults and the readers of its edge metrics."""
 
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from p_div_gnn_tpu_torch.graphs.batching import (
 from p_div_gnn_tpu_torch.graphs.build import MeshGraph
 from p_div_gnn_tpu_torch.graphs.container import EDGE_BLOCK
 from p_div_gnn_tpu_torch.models import meshgraphnets as mgn
-from p_div_gnn_tpu_torch.ops.gather import receiver_gather
+from p_div_gnn_tpu_torch.ops import mgn_edge
+from p_div_gnn_tpu_torch.ops.gather import sender_gather_one
+from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum
 from p_div_gnn_tpu_torch.train.loop import Trainer
 from p_div_gnn_tpu_torch.utils import profiling
 from perfbench.arch import mgn as arch
@@ -92,9 +98,9 @@ def samples() -> list[NodeFieldSample]:
     return [toy_sample(seed, nx) for seed, nx in ((0, 6), (1, 7), (2, 5))]
 
 
-def make_model(samples, seed: int = 0) -> mgn.MeshGraphNets:
+def make_model(samples, seed: int = 0, hidden_layers: int = 2) -> mgn.MeshGraphNets:
     return mgn.MeshGraphNets(latent_size=L, message_passing_steps=BLOCKS,
-                             stats=mgn.compute_mgn_stats(samples),
+                             hidden_layers=hidden_layers, stats=mgn.compute_mgn_stats(samples),
                              generator=torch.Generator().manual_seed(seed))
 
 
@@ -122,13 +128,14 @@ def ref_stats(samples) -> dict:
         [torch.as_tensor(s.node_targets) for s in samples])
 
 
-def reference_readings(samples, params: dict, dtype: torch.dtype) -> dict:
+def reference_readings(samples, params: dict, dtype: torch.dtype,
+                       hidden_layers: int = 2) -> dict:
     """The reference's output (in the meshes' order), loss, gradients and
     one Adam step, computed in ``dtype``."""
     p = {k: v.detach().to(dtype).requires_grad_(True) for k, v in params.items()}
     batch, stats = ref_batch(samples), ref_stats(samples)
-    out = ref.forward(p, batch, stats, BLOCKS)
-    loss = ref.loss(p, batch, stats, BLOCKS)
+    out = ref.forward(p, batch, stats, BLOCKS, hidden_layers)
+    loss = ref.loss(p, batch, stats, BLOCKS, hidden_layers)
     grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
     stepped = {k: v.detach().clone() for k, v in p.items()}
     adam_update(stepped, grads, {}, LR)
@@ -194,18 +201,53 @@ def test_bf16_reference_fails_a_tolerance(readings):
     assert gap["output"] > 100 * TOL["output"], gap
 
 
+@pytest.mark.parametrize("hidden_layers", [1, 3])
+def test_other_mlp_depths_match_the_plain_reference(samples, hidden_layers):
+    """A depth other than the published 2 hidden layers runs on the CPU's
+    plain path (the card's kernel refuses it), held to the same fp64
+    reference and tolerances: output, loss, gradients and one Adam step."""
+    model = make_model(samples, hidden_layers=hidden_layers)
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    assert f"blocks.0.edge_mlp.lin{hidden_layers}.kernel" in params
+    gap = gaps(port_readings(samples, model),
+               reference_readings(samples, params, torch.float64, hidden_layers))
+    assert all(gap[k] <= TOL[k] for k in TOL), gap
+
+
 @pytest.mark.parametrize("reorder", [None, "rcm"])
 def test_receiver_gather_backward_matches_indexing(samples, reorder):
+    """The receiver rows' gather of the edge update and its gradient, the
+    segment sum over the receiver-major layout, against torch's indexing:
+    that sum of any cotangent is the fp64 ``index_add_`` rounded once; and
+    in the edge update, with W_e = I, so that e's gradient is the gathered
+    rows' cotangent itself, p_r's gradient is that cotangent's correctly
+    rounded sum, bit for bit, and the forward the composition's with
+    ``p_r[receivers]``."""
     batch = packed(samples, reorder)
-    x = torch.randn(batch.num_nodes_padded, 5, dtype=torch.float32, requires_grad=True)
-    g = torch.randn(batch.num_edges_padded, 5)
-    out = receiver_gather(x, batch.receivers, batch.edge_block_tile, batch.tile)
-    (dx,) = torch.autograd.grad(out, x, g)
-    x_ref = x.detach().double().requires_grad_(True)
-    (want,) = torch.autograd.grad(x_ref[batch.receivers.long()], x_ref, g.double())
-    assert torch.equal(out, x.detach()[batch.receivers.long()])
-    # the segment sum adds in fp64 and rounds once: the correctly rounded sum
-    assert torch.equal(dx, want.float())
+    Np, Ep = batch.num_nodes_padded, batch.num_edges_padded
+    rcv = batch.receivers.long()
+
+    def rounded_sum(g):  # the segment sum adds in fp64 and rounds once
+        return torch.zeros(Np, g.shape[1], dtype=torch.float64).index_add_(
+            0, rcv, g.double()).float()
+
+    g = torch.randn(Ep, 5)
+    dx = csr_segment_sum(g, batch.receivers, batch.edge_block_tile, Np, batch.tile)
+    assert torch.equal(dx.float(), rounded_sum(g))
+    rng = np.random.default_rng(6)
+    f32 = lambda *s, scale=1.0: torch.as_tensor(  # noqa: E731
+        (rng.normal(size=s) * scale).astype(np.float32))
+    p_r, e = f32(Np, L).requires_grad_(True), f32(Ep, L).requires_grad_(True)
+    floats = [torch.zeros(Np, L), p_r, e, torch.eye(L), torch.zeros(L), f32(L, L, scale=L**-0.5),
+              f32(L), f32(L, L, scale=L**-0.5), f32(L), torch.ones(L), torch.zeros(L)]
+    mask = (batch.edge_gid < batch.n_graphs).float()[:, None]
+    view = (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
+    e_new, _ = mgn_edge.edge_update(*grouped(floats), mask, batch.senders, batch.receivers,
+                                    batch.edge_block_tile, view, batch.tile)
+    assert torch.equal(e_new, edge_update_composition(batch, *floats, mask)[0])
+    de, dp_r = torch.autograd.grad(e_new, (e, p_r), torch.randn(Ep, L))
+    assert de.abs().max() > 0
+    assert torch.equal(dp_r, rounded_sum(de))
 
 
 @pytest.mark.parametrize("field", ["node_inputs", "node_targets"])
@@ -303,16 +345,24 @@ def test_result_does_not_depend_on_spare_edge_capacity(samples, reorder):
         assert torch.equal(got[k], v), k
 
 
-def test_edge_stream_runs_on_live_slots(samples):
+def test_edge_stream_runs_on_live_slots(samples, monkeypatch):
     """On a batch with spare edge capacity, the edge MLPs see the live slots
-    only, ``mgn.edge_rows`` counts them once a block, and ``live_slots``
+    only (the encoder's first layer, and each block's fused edge update),
+    ``mgn.edge_rows`` counts them once a block, and ``live_slots``
     synchronizes once for two forwards."""
     model = make_model(samples)
     batch = packed(samples)
     rows: list[int] = []
-    layers = [model.edge_encoder.lin0] + [b.edge_mlp.lin1 for b in model.blocks]
-    hooks = [m.register_forward_hook(lambda m, args, out: rows.append(args[0].shape[0]))
-             for m in layers]
+    hooks = [model.edge_encoder.lin0.register_forward_hook(
+        lambda m, args, out: rows.append(args[0].shape[0]))]
+    plain = mgn_edge.edge_update_reference
+
+    def seen(*args):
+        rows.append(args[2].shape[0])
+        return plain(*args)
+
+    monkeypatch.setattr(mgn_edge, "edge_update_reference", seen)
+    layers = 1 + BLOCKS
     try:
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
             with torch.no_grad():
@@ -325,9 +375,178 @@ def test_edge_stream_runs_on_live_slots(samples):
     n = mgn.live_edges(batch).n
     assert 0 < n < batch.num_edges_padded
     assert rec.counters["mgn.edge_rows"] == 2 * BLOCKS * n
-    assert rows == 2 * [n] * len(layers)
+    assert rows == 2 * [n] * layers
     assert rec.counters["host_sync.live_slots"] == 1
     assert rec.counted("host_sync") == 1
+
+
+def edge_update_problem(samples, seed: int = 4) -> tuple:
+    """The edge update's inputs over every slot of a batch with spare edge
+    capacity (``spare_capacity_pair``): its last node tile's blocks hold
+    only padding, so the kernel's 64-slot tiles there do too. Returns
+    (the batch, the differentiable inputs, the mask)."""
+    _, batch = spare_capacity_pair(samples, "rcm")
+    gid = batch.edge_gid.view(-1, EDGE_BLOCK)
+    assert (gid >= batch.n_graphs).all(dim=1).any() and (gid < batch.n_graphs).any()
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s, scale=1.0: torch.as_tensor(  # noqa: E731
+        (rng.normal(size=s) * scale).astype(np.float32))
+    Np, Ep = batch.num_nodes_padded, batch.num_edges_padded
+    w = lambda: f32(L, L, scale=L**-0.5)  # noqa: E731
+    floats = (f32(Np, L), f32(Np, L), f32(Ep, L), w(), f32(L), w(), f32(L), w(), f32(L),
+              1 + f32(L, scale=0.1), f32(L, scale=0.1))
+    mask = (batch.edge_gid < batch.n_graphs).float()[:, None]
+    return batch, [t.requires_grad_(True) for t in floats], mask
+
+
+def grouped(floats) -> tuple:
+    """``edge_update``'s tensors from (p_s, p_r, e, w_e, b0, w1, b1, w2, b2,
+    gamma, beta): the later layers' weights and biases as one sequence."""
+    return (*floats[:5], tuple(floats[5:9]), *floats[9:])
+
+
+def edge_update_composition(batch, p_s, p_r, e, w_e, b0, w1, b1, w2, b2, gamma, beta, mask):
+    """The edge update as the blocks composed it before ``mgn_edge``: the
+    two endpoint gathers (the receivers' by plain indexing, whose gradient
+    is ``index_add_``'s sum), the MLP's modules' operations, the mask and
+    the residual, all under autograd."""
+    view = (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile)
+    pre = (sender_gather_one(p_s, batch.senders, view, batch.tile)
+           + p_r.index_select(0, batch.receivers) + e @ w_e + b0)
+    y = torch.relu(torch.relu(pre) @ w1 + b1) @ w2 + b2
+    e_new = torch.nn.functional.layer_norm(y, (L,), gamma, beta, mgn.LN_EPS) * mask
+    return e_new, e + e_new
+
+
+@pytest.mark.parametrize("used", ["both", "e_new"])
+def test_edge_update_matches_the_autograd_composition(samples, used):
+    """``mgn_edge.edge_update`` on CPU tensors (its plain forward, its own
+    backward) against autograd through the composition it replaced, on a
+    batch with spare edge capacity and tiles of only padding: the forward
+    bit-equal; every gradient (both projections, e, the weights, biases and
+    the LayerNorm's scale and offset) to 1e-6 of its norm, the backward
+    running the same ATen operations on the same saved tensors in
+    possibly another order of the last sums; with both outputs used, and
+    with e + e' unused (the last block's), whose gradient stays None."""
+    batch, floats, mask = edge_update_problem(samples)
+    layout = (batch.senders, batch.receivers, batch.edge_block_tile,
+              (batch.snd_run_perm, batch.snd_run_sorted, batch.snd_block_tile), batch.tile)
+    got = mgn_edge.edge_update(*grouped(floats), mask, *layout)
+    want = edge_update_composition(batch, *floats, mask)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not got[0][mask[:, 0] == 0].any()
+    rng = np.random.default_rng(5)
+    cots = [torch.as_tensor(rng.normal(size=t.shape).astype(np.float32)) for t in got]
+    k = 2 if used == "both" else 1
+    g_got = torch.autograd.grad(got[:k], floats, cots[:k])
+    g_want = torch.autograd.grad(want[:k], floats, cots[:k])
+    names = ("p_s", "p_r", "e", "w_e", "b0", "w1", "b1", "w2", "b2", "gamma", "beta")
+    for name, a, b in zip(names, g_got, g_want):
+        assert float(b.norm()) > 0, name
+        assert float((a - b).norm()) <= 1e-6 * float(b.norm()), name
+
+
+def test_edge_update_without_a_sender_view_is_forward_only(samples):
+    batch, floats, mask = edge_update_problem(samples)
+    layout = (batch.senders, batch.receivers, batch.edge_block_tile, None, batch.tile)
+    with torch.no_grad():
+        e_new, e_sum = mgn_edge.edge_update(*grouped(floats), mask, *layout)
+    assert torch.equal(e_sum, floats[2].detach() + e_new)
+    with pytest.raises(ValueError, match="sender view"):
+        mgn_edge.edge_update(*grouped(floats), mask, *layout)
+
+
+class KernelStub:
+    """The edge update's kernel route on CPU tensors: the wrapper's checks,
+    outputs and counts run as on the card, and the "launch" fills the
+    outputs with the plain version's values."""
+
+    def __init__(self, monkeypatch):
+        real = mgn_edge.cuda_build
+        self.launches = real.launches
+        lib = type("Lib", (), {"pdg_mgn_edge_fwd_parts": staticmethod(lambda: 5)})()
+        stub = type("CudaBuild", (), {
+            "device_kind": staticmethod(lambda who, *tensors: "cuda"),
+            "library": staticmethod(lambda name: type("Built", (), {"lib": lib})()),
+            "launch": staticmethod(self.launch), "launches": real.launches})
+        monkeypatch.setattr(mgn_edge, "cuda_build", stub)
+        monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+
+    def launch(self, kernel, entry, *args):
+        assert (kernel, entry) == ("mgn_edge_fwd", "pdg_mgn_edge_fwd")
+        *inputs, e_new, e_sum = args[:16]
+        saved, (wsplit, n, width, parts) = args[16:21], args[21:]
+        assert wsplit.shape == (3, mgn_edge.TERMS, mgn_edge.WIDTH, mgn_edge.WIDTH)
+        assert (n, width, parts) == (inputs[2].shape[0], mgn_edge.WIDTH, 5)
+        p_s, p_r, e, snd, rcv, mask, w_e, b0 = inputs[:8]
+        new, total, kept = mgn_edge.edge_update_reference(
+            p_s, p_r, e, w_e, b0, inputs[8:12], *inputs[12:14], mask, snd, rcv)
+        e_new.copy_(new)
+        e_sum.copy_(total)
+        for out, value in zip(saved, kept):
+            if out is not None:
+                out.copy_(value)
+        self.launches[kernel] += 1
+
+
+def test_fused_rows_are_counted_where_the_kernel_runs(samples, monkeypatch):
+    """``mgn.edge_fused_rows`` counts the live slots of every block whose
+    edge update ran the kernel: none on the CPU's plain path; with the
+    kernel route taken (a stub in place of the launch), S · n over a
+    forward, as ``mgn.edge_rows``, and one launch a block."""
+    model = mgn.MeshGraphNets(latent_size=mgn_edge.WIDTH, message_passing_steps=BLOCKS,
+                              stats=mgn.compute_mgn_stats(samples),
+                              generator=torch.Generator().manual_seed(0))
+    batch = packed(samples)
+    n = mgn.live_edges(batch).n
+
+    def forward_counters():
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with torch.no_grad():
+                out = model(batch)
+        return out, profiling.recorded().counters
+
+    want, counters = forward_counters()
+    assert counters["mgn.edge_rows"] == BLOCKS * n
+    assert "mgn.edge_fused_rows" not in counters
+    stub = KernelStub(monkeypatch)
+    before = stub.launches["mgn_edge_fwd"]
+    got, counters = forward_counters()
+    assert counters["mgn.edge_fused_rows"] == counters["mgn.edge_rows"] == BLOCKS * n
+    assert stub.launches["mgn_edge_fwd"] - before == BLOCKS
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", [None, "width", "dtype", "shape", "layout", "depth"])
+def test_kernel_route_refuses_what_it_was_not_built_for(samples, monkeypatch, case):
+    """On the kernel's route the wrapper takes L = 128 in fp32 and raises on
+    another L, a dtype other than fp32, a wrong shape, an index of another
+    type or an MLP of another depth than 2 hidden layers."""
+    batch, _, mask = edge_update_problem(samples)
+    KernelStub(monkeypatch)
+    W = mgn_edge.WIDTH if case != "width" else L
+    Np, Ep = batch.num_nodes_padded, batch.num_edges_padded
+    shapes = [(Np, W), (Np, W), (Ep, W)] + [(W, W), (W,)] * 3 + [(W,), (W,)]
+    floats = [torch.zeros(shape) for shape in shapes]
+    senders = batch.senders
+    if case == "dtype":
+        floats[2] = floats[2].double()
+    elif case == "shape":
+        floats[2] = floats[2][:-1]
+    elif case == "layout":
+        senders = senders.long()
+    args = grouped(floats)
+    if case == "depth":
+        args = (*args[:5], args[5] + args[5][2:], *args[6:])
+    layout = (senders, batch.receivers, batch.edge_block_tile, None, batch.tile)
+    with torch.no_grad():
+        if case is None:
+            e_new, _ = mgn_edge.edge_update(*args, mask, *layout)
+            assert e_new.shape == (Ep, W)
+            return
+        with pytest.raises(ValueError, match="mgn_edge_update"):
+            mgn_edge.edge_update(*args, mask, *layout)
 
 
 def test_eval_step_reads_the_objective(samples):
@@ -400,3 +619,64 @@ def test_benchmark_reads_the_edge_padding_share(monkeypatch):
     rec.counters.pop("mgn.edge_rows")
     monkeypatch.setattr(profiling, "recorded", lambda: rec)
     assert reader.read(run) is None
+
+
+def test_benchmark_reads_the_edge_fused_share(monkeypatch):
+    """``mgn.edge_fused_share`` over a traced window of the tiny cell: 100
+    where every block's edge update took the kernel's route (a stub in
+    place of the launch, as on the card); None where the program counts no
+    fused rows, as on the CPU's plain path or in a program without the
+    counter. The kernel is built for L = 128, the published width."""
+    cfg, traffic = tiny_cell()
+    cfg["latent_size"] = mgn_edge.WIDTH
+    reader = registry.metric_reader("mgn.edge_fused_share")
+
+    def traced_run():
+        out = train.run(cfg, traffic, 2**31 + 13, 0.5, True, "cpu", time.perf_counter(),
+                        workers=1)
+        return Run(cfg=cfg, unit=train.UNIT, units=out["units"], trace=out["trace"], kernels={})
+
+    assert reader.read(traced_run()) is None
+    KernelStub(monkeypatch)
+    run = traced_run()
+    rec = profiling.recorded()
+    assert rec.counters["mgn.edge_fused_rows"] == rec.counters["mgn.edge_rows"] > 0
+    assert reader.read(run) == 100.0
+    rec.counters.pop("mgn.edge_fused_rows")
+    monkeypatch.setattr(profiling, "recorded", lambda: rec)
+    assert reader.read(run) is None
+
+
+def test_benchmark_reads_the_edge_kernel_roofline():
+    """``mgn_edge_fwd_roofline`` over a hand-made trace of a step at the
+    cell's sizes: the kernel's least time, the larger of its bytes over HBM's
+    rate and its products as six bf16 products each at the bf16 peak (here
+    the bytes), over the device time of its launches and its weight split's;
+    None in a trace without its launches, as a program without the kernel
+    gives. The cell's configuration names only #3: the reader takes the
+    kernel's own file."""
+    from perfbench.harness.trace import Trace, merge
+    from perfbench.harness.yardstick import HBM_BYTES_PER_S, PEAK_FLOPS
+
+    cfg = {"latent_size": 128, "stream_dtype": "float32"}
+    E, N, L = 237_000, 42_600, 128
+    reader = registry.metric_reader("mgn_edge_fwd_roofline")
+
+    def run_of(dev):
+        trace = Trace(device=dev, host=[], start_us=0.0, end_us=2000.0)
+        trace.merged = merge([(s, s + d) for _, _, s, d in dev])
+        return Run(cfg=cfg, unit="step", units=[{"E": E, "N": N}], trace=trace,
+                   kernels=registry.kernels(["segment_sum_csr"]))
+
+    other = ("void at::native::elementwise_kernel<128, 4>()", "kernel", 1700.0, 50.0)
+    launch = [("(anonymous namespace)::mgn_split_weights_kernel(float const*)", "kernel", 0.0, 2.0),
+              ("(anonymous namespace)::mgn_edge_fwd_kernel((anonymous namespace)::EdgeArgs)",
+               "kernel", 2.0, 800.0)]
+    dev = launch + [(n, c, s + 810.0, d) for n, c, s, d in launch] + [other]
+    n_bytes = 4 * (6 * E * L + 2 * N * L + 5 * E + 3 * L * L + 5 * L)
+    t_ops = 6 * (6 * L * L * E) / PEAK_FLOPS["bfloat16"]
+    assert n_bytes / HBM_BYTES_PER_S > t_ops
+    want = 100 * 2 * (n_bytes / HBM_BYTES_PER_S) / (2 * 802e-6)
+    assert reader.read(run_of(dev)) == pytest.approx(want)
+    assert 25 < want < 35
+    assert reader.read(run_of([other])) is None
