@@ -55,7 +55,12 @@ package. Phases, in order (any failure exits nonzero and prints no result):
    (``models/meshgraphnets.py``: latent 128, 15 blocks, lr 1e-4) takes 3
    steps on the same meshes with node fields drawn from a seed: finite
    losses, one ``mgn_edge_fwd`` launch a block and step and no port kernel
-   but it and #3;
+   but it and #3; then GraphCast_small (``models/graphcast.py`` at the
+   benchmark cell's size: the 1° grid and the level 2-5 multimesh, latent
+   512, 16 steps, AdamW with clipping) takes 3 steps: the graph's counts as
+   configured, finite losses, the first within the cell's limit of the
+   reference's, 54 launches of #3 a step and no other port kernel (none of
+   ``mgn_edge_fwd``: the L = 512 SiLU edge updates take the plain route);
 5. cli: the user's path at the flagship width. An on-disk dataset of 32
    train and 16 test meshes (the benchmark's mesher parameters, a
    learnable target) is written with the port (``write_vtk``,
@@ -1418,6 +1423,102 @@ def mgn_train_phase(samples: list, card: str) -> dict:
     return {"launches": launches}
 
 
+GC_STEPS = 3
+
+
+def graphcast_train_phase(card: str) -> dict:
+    """GraphCast_small at the benchmark cell's size (``perfbench/configs/
+    graphcast-small-fp32.json``: the 1° grid, mesh levels 2-5, latent 512,
+    16 steps, AdamW with clipping) takes GC_STEPS steps on samples drawn
+    from a seed through ``FixedGraphLoader``: the built graph's counts are
+    the configuration's, every loss finite, the first one the reference's
+    (``perfbench/reference/graphcast.py`` in fp64, its own graph) within the
+    cell's ``loss1_gap`` limit, each step launching #3 3 times an
+    interaction step and no other port kernel, and no edge update taking
+    MeshGraphNets' kernel (``mgn.edge_fused_rows`` never counted). Returns
+    the phase's launches. Before the steps, #3 sums (slots, L) rows over
+    each edge set's receiver layout into its receiver set and over its
+    sender view into its sender set, the two sums of the edge update's
+    backward, held against the plain version at CSR_TOL."""
+    import torch
+
+    from p_div_gnn_tpu_torch.ops.scatter_csr import csr_segment_sum, csr_segment_sum_reference
+    from p_div_gnn_tpu_torch.utils import profiling
+    from perfbench.arch import graphcast as arch
+    from perfbench.harness import train_grid
+    from perfbench.harness.compare import limits
+
+    cfg = json.loads((ROOT / "perfbench/configs/graphcast-small-fp32.json").read_text())
+    traffic = json.loads((ROOT / "perfbench/traffic/train-grid-1deg.json").read_text())
+    traffic["samples"] = GC_STEPS
+    t0 = time.perf_counter()
+    inputs = train_grid.make_inputs(cfg, traffic, 0, "cuda")
+    t_setup = time.perf_counter() - t0
+    counts = inputs["graph"].counts()
+    check(counts == cfg["graph"], f"train graphcast: graph {counts}, configuration {cfg['graph']}")
+    graph, L = inputs["graph"].to("cuda"), cfg["latent_size"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sums = []
+    for name, e in graph.edges.items():
+        rows = torch.randn((e.slots, L), generator=gen, device="cuda")
+        n_r, n_s = graph.nodes[e.receiver_set].n_padded, graph.nodes[e.sender_set].n_padded
+        held(f"segment_sum_csr {name} receivers L={L}",
+             csr_segment_sum(rows, e.receivers, e.block_tile, n_r, e.tile),
+             csr_segment_sum_reference(rows, e.receivers, n_r), CSR_TOL["float32"])
+        held(f"segment_sum_csr {name} senders L={L}",
+             csr_segment_sum(rows, e.snd_run_sorted, e.snd_block_tile, n_s, e.tile,
+                             perm=e.snd_run_perm),
+             csr_segment_sum_reference(rows, e.snd_run_sorted, n_s, e.snd_run_perm),
+             CSR_TOL["float32"])
+        sums.append(f"{name} {e.slots} slots into {n_r} / {n_s}")
+    del graph, rows
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, loader = arch.build_program(cfg, traffic, inputs, arch.draw_weights(cfg, 0, "cuda"),
+                                         "cuda")
+    t_setup += time.perf_counter() - t0
+    per_step = 3 * (cfg["message_passing_steps"] + 2)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    reset_launch_counts()
+    losses, step_ms = [], []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for step, sample in enumerate(loader):
+            before = launch_counts()
+            start.record()
+            aux = trainer.train_step(sample)
+            stop.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(stop))
+            delta = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+            check(delta == {"segment_sum_csr": per_step},
+                  f"train graphcast step {step + 1}: kernel launches {delta}, expected "
+                  f"{per_step} of #3 and none besides")
+            losses.append(float(aux["total"]))
+            check(math.isfinite(losses[-1]), f"train graphcast step {step + 1}: loss {losses[-1]}")
+    counters = profiling.recorded().counters
+    check("mgn.edge_fused_rows" not in counters,
+          f"train graphcast: an edge update took the L = 128 kernel: {counters}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    del trainer, loader
+    torch.cuda.empty_cache()
+    ref_loss = train_grid.reference_first_steps(cfg, inputs, "cuda", n=1)["losses"][0]
+    gap = abs(losses[0] - ref_loss) / abs(ref_loss)
+    limit = limits("train.graphcast.fp32")["loss1_gap"]
+    check(gap <= limit, f"train graphcast: first loss {losses[0]} against the reference's "
+          f"{ref_loss}: gap {gap:.3g} over the cell's limit {limit}")
+    say(f"train graphcast fp32 on {card}: #3 held at L = {L} over " + ", ".join(sums))
+    say(f"train graphcast fp32 on {card}: graph {counts}, set-up {t_setup:.1f} s, losses "
+        + " ".join(f"{v:.6f}" for v in losses) + f" (reference {ref_loss:.6f}, gap {gap:.3g}), "
+        + "step ms " + " ".join(f"{v:.1f}" for v in step_ms)
+        + f", the steps' peak memory {peak:.2f} GB, launches per step "
+        + ", ".join(f"{k} {v // GC_STEPS}" for k, v in launches.items() if v))
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 # --- the cli phase: the user's path, config -> dataset -> loader -> fit -> infer
 CLI_TRAIN_MESHES, CLI_TEST_MESHES, CLI_EPOCHS = 32, 16, 3
 CLI_CONFIGS = {"float32": "config_train_div_flagship.yml",
@@ -2616,6 +2717,7 @@ def main() -> int:
     serve = serve_phase(requests)
     train = train_phase(train_batch, pair_batch, n_real_edges, smi)
     mgn_train = mgn_train_phase(samples, smi)
+    graphcast_train = graphcast_train_phase(smi)
     t0 = time.perf_counter()
     cli = cli_phase(smi)
     say(f"cli phase: {time.perf_counter() - t0:.1f} s")
@@ -2633,7 +2735,8 @@ def main() -> int:
     # 0 (serving launches only the forwards)
     launches = dict(train["launches"])
     for counts in [impl["launches"] for impl in serve["impls"].values()] + [
-            mgn_train["launches"], cli["launches"], parallel["launches"], tools["launches"]]:
+            mgn_train["launches"], graphcast_train["launches"], cli["launches"],
+            parallel["launches"], tools["launches"]]:
         for k, v in counts.items():
             launches[k] += v
     # #4 runs on two sender views: its row gives the receiver-major one's

@@ -204,13 +204,16 @@ class Dense(nn.Module):
 class MLP(nn.Module):
     """Sonnet's ``MLP([latent] * hidden_layers + [out])`` (``lin0``, ``lin1``,
     ...), with a per-row LayerNorm (``ln``) after it unless ``layer_norm``
-    is False."""
+    is False; ``activation`` names the function between the layers
+    (``mgn_edge.ACTIVATIONS``: ReLU, as MeshGraphNets, or SiLU)."""
 
     def __init__(self, in_features: int, latent: int, out: int, hidden_layers: int,
-                 generator: torch.Generator, layer_norm: bool = True):
+                 generator: torch.Generator, layer_norm: bool = True, activation: str = "relu"):
         super().__init__()
         widths = [latent] * hidden_layers + [out]
         self.n_layers = len(widths)
+        self.activation = activation
+        self.act = mgn_edge.ACTIVATIONS[activation]
         for i, (n_in, n_out) in enumerate(zip([in_features] + widths, widths)):
             self.add_module(f"lin{i}", Dense(n_in, n_out, generator))
         self.ln = nn.LayerNorm(out, eps=LN_EPS) if layer_norm else None
@@ -220,9 +223,9 @@ class MLP(nn.Module):
 
     def tail(self, h: torch.Tensor) -> torch.Tensor:
         """The MLP after its first layer's product: ``h`` is that product
-        plus its bias, before the ReLU."""
+        plus its bias, before the activation."""
         for i in range(1, self.n_layers):
-            h = self.layer(i)(torch.relu(h))
+            h = self.layer(i)(self.act(h))
         return h if self.ln is None else self.ln(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,18 @@ on ``device``: an unshuffled loader's batches after their first epoch
 ``cache_groups`` (only the batch order is reshuffled per epoch). A kept
 batch keeps its tensors, so the layout checks cached on them run once.
 Other batches are yielded on the host; ``prefetch`` moves them.
+
+``FixedGraphLoader`` feeds a model whose graph is fixed and whose samples
+are node states over it (``graphs/typed.py::TypedSample``, GraphCast's): it
+sends the graph to the device once, keeps every sample there, and yields
+them one a step in a new seeded order each epoch, the order the JAX
+loader's shuffle gives (one ``default_rng(seed)`` shuffling ``arange(n)``
+each epoch).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 from typing import Iterable, Iterator
@@ -146,6 +154,29 @@ class GraphLoader:
             yield batch
         if self.cache_device_batches:
             self._device_cache = kept
+
+
+class FixedGraphLoader:
+    def __init__(self, samples: list, shuffle: bool = True, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        if not samples:
+            raise ValueError("FixedGraphLoader needs at least one sample")
+        graph = samples[0].graph.to(device)
+        if any(s.graph is not samples[0].graph for s in samples):
+            raise ValueError("FixedGraphLoader's samples share one graph")
+        self.samples = [dataclasses.replace(s, graph=graph).to(device) for s in samples]
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __iter__(self) -> Iterator:
+        order = np.arange(len(self.samples))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for i in order:
+            yield self.samples[i]
 
 
 def prefetch(

@@ -11,6 +11,11 @@ and is ``batch_loss``: mean per-graph NMSE plus λ·mean divergence penalty
 when ``optimize_divergence``. The update is Adam
 with the reference's torch defaults, which ``optax.adam`` matches: betas
 (0.9, 0.999), eps 1e-8 added outside the square root, bias correction.
+A model trained as published with another optimiser sets ``betas``,
+``weight_decay`` (decoupled, as ``optax.adamw``: AdamW in place of Adam)
+and ``clip_norm`` (the gradients scaled to at most that global norm
+before the update, as ``optax.clip_by_global_norm``, on the device: the
+norm is never read by the host); GraphCast trains so.
 
 ``fit`` runs the JAX loop's epochs: train steps over the prefetched train
 loader, eval over the test loader, the metrics summed on the device and
@@ -121,25 +126,29 @@ class Trainer:
     group: Group | None = None  # data parallelism over this process group
     flatten_optimizer: bool = False  # optax.flatten(adam)'s checkpoint layout
     objective: Objective = pdivgnn_objective
+    betas: tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.0  # decoupled, as AdamW's
+    clip_norm: float | None = None  # the gradients' largest global norm
 
     def __post_init__(self) -> None:
         self.device = torch.device(self.device)
         self.model.to(self.device)
-        self.optimizer: torch.optim.Adam | None = None
+        self.optimizer: torch.optim.AdamW | None = None
         self.nonfinite: dict[str, torch.Tensor] | None = None
         self.steps_taken = 0  # train_step calls, the id of the step's span
 
-    def init(self) -> torch.optim.Adam:
-        """Fresh Adam state over the model's parameters (step 0, zero
-        moments, as optax's ``adam.init``) and zeroed non-finite counters.
-        With ``skip_nonfinite_updates`` on the card the step count lives on
-        the device (``capturable``), so a skipped step can keep it without
-        a sync."""
+    def init(self) -> torch.optim.AdamW:
+        """Fresh AdamW state (Adam where ``weight_decay`` is 0) over the
+        model's parameters (step 0, zero moments, as optax's ``adam.init``)
+        and zeroed non-finite counters. With ``skip_nonfinite_updates`` on
+        the card the step count lives on the device (``capturable``), so a
+        skipped step can keep it without a sync."""
         capturable = self.skip_nonfinite_updates and self.device.type == "cuda"
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-            capturable=capturable,
-        )
+        # torch's AdamW is its Adam with the decay decoupled, which it skips
+        # at a decay of 0: the defaults take Adam's update bit for bit
+        self.optimizer = torch.optim.AdamW(
+            self.model.parameters(), lr=self.learning_rate, betas=self.betas, eps=1e-8,
+            weight_decay=self.weight_decay, capturable=capturable)
         for p in self.model.parameters():
             set_adam_state(self.optimizer, p, 0, torch.zeros_like(p), torch.zeros_like(p))
         if self.skip_nonfinite_updates:
@@ -174,7 +183,8 @@ class Trainer:
         of the parameters before the update. Traced as ``step`` around
         ``step.forward`` (the model and the loss), ``step.backward``
         (autograd, remat's recompute included, and the gradients' mean
-        under ``group``) and ``step.optimizer``, each with its device time
+        under ``group``) and ``step.optimizer`` (the clipping where
+        ``clip_norm`` is set, and the update), each with its device time
         (``utils/profiling.py``)."""
         if self.optimizer is None:
             self.init()
@@ -182,6 +192,8 @@ class Trainer:
             self.steps_taken += 1
             aux, _ = self.loss_and_grads(batch)
             with span("step.optimizer", device=True):
+                if self.clip_norm is not None:
+                    clip_by_global_norm(self.model.parameters(), self.clip_norm)
                 if self.nonfinite is None:
                     self.optimizer.step()
                 else:
@@ -346,6 +358,15 @@ class Trainer:
         # trained epoch
         self.save(weights_folder / LAST_CHECKPOINT, epoch + 1)
         return train_losses, test_losses
+
+
+def clip_by_global_norm(params: Iterable[nn.Parameter], max_norm: float) -> None:
+    """``optax.clip_by_global_norm`` on the gradients in place: each scaled
+    by ``max_norm / max(norm, max_norm)``, ``norm`` the global norm of all of
+    them, computed and applied on the device without a host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
 
 
 def _safe_increment(x: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ kernels on a batch at GraphLoader's bucketed capacities; MeshGraphNets'
 training steps on such a batch, whose edge stream stops at its last real
 slot (no host sync in a second step; the step of a batch without spare
 edge capacity, to 1e-6 relative) and runs its edge updates in their
-kernel, and that kernel against its plain version there; an edge-partitioned
+kernel, and that kernel against its plain version there; GraphCast's
+training step on a small typed graph (two node sets, three edge sets, the
+edge updates on their plain route with #3's sums sized by each set)
+against the same step on the CPU; an edge-partitioned
 fused3 train step over two ranks (#1-#3 on a shard's extended layout)
 against the single-card step; a set made by the port's generator served
 through ``cli.infer_main`` on fused3 against xla. It imports neither
@@ -1316,3 +1319,44 @@ def test_generated_set_served_through_the_cli_on_cuda(tmp_path):
                        strict=True):
         np.testing.assert_allclose(z(np.load(path)["stress_field"]), z(w), rtol=2e-4,
                                    atol=2e-5)
+
+
+def test_graphcast_train_step_on_cuda():
+    """GraphCast (L = 128, SiLU, 2 processor steps) on a 10° grid and mesh
+    levels 1-2: one AdamW step with clipping on the card against the same
+    step on the CPU (the plain segment sums there): the loss to 1e-5 and
+    each gradient to 1e-4 of its norm, relative; #3 launched 3 times an
+    interaction step, MeshGraphNets' kernel never (GraphCast's edge updates
+    run ``mgn_edge.plain_edge_update``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from p_div_gnn_tpu_torch.graphs.grid_mesh import grid_mesh_graph
+    from p_div_gnn_tpu_torch.graphs.typed import TypedSample
+    from p_div_gnn_tpu_torch.models import graphcast as gc
+    from p_div_gnn_tpu_torch.train.loop import Trainer
+
+    graph = grid_mesh_graph(10.0, [1, 2], 0.6)
+    n, n_padded = graph.nodes["grid"].n, graph.nodes["grid"].n_padded
+    rng = np.random.default_rng(26)
+    x, y = np.zeros((n_padded, gc.INPUTS), np.float32), np.zeros((n_padded, gc.TARGETS),
+                                                                 np.float32)
+    x[:n], y[:n] = rng.normal(size=(n, gc.INPUTS)), rng.normal(size=(n, gc.TARGETS))
+    sample = TypedSample(graph, x, y, np.array([n], np.int32))
+    steps, readings = 2, {}
+    for device in ("cpu", "cuda"):
+        model = gc.GraphCast(latent_size=128, message_passing_steps=steps,
+                             stats=gc.compute_graphcast_stats([sample]),
+                             generator=torch.Generator().manual_seed(0))
+        trainer = Trainer(model=model, objective=gc.objective, device=device, betas=(0.9, 0.95),
+                          weight_decay=0.1, clip_norm=32.0)
+        before = dict(cuda_build.launches)
+        loss = float(trainer.train_step(sample)["total"])
+        launched = {k: v - before.get(k, 0) for k, v in cuda_build.launches.items()
+                    if v != before.get(k, 0)}
+        readings[device] = (loss, {k: p.grad.double().cpu()
+                                   for k, p in model.named_parameters()}, launched)
+    (want, g_want, _), (got, g_got, launched) = readings["cpu"], readings["cuda"]
+    assert launched == {"segment_sum_csr": 3 * (steps + 2)}
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for name, g in g_want.items():
+        assert float((g_got[name] - g).norm()) <= 1e-4 * max(float(g.norm()), 1e-30), name
